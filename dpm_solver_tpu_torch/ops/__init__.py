@@ -1,0 +1,38 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch twin.
+
+    fused_update   -- the solver update, Triton       (fused_update.py)
+    conv3x3        -- 3x3 SAME NHWC conv, CUDA C++     (conv3x3.py, csrc/conv3x3.cu)
+    token_attention -- attention forward, CUDA C++     (attention.py, csrc/attention.cu)
+
+A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+raises. Each wrapper counts its launches in `<wrapper>.launches`.
+"""
+
+from dpm_solver_tpu_torch.ops.attention import attention_plain, token_attention
+from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_plain
+from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_plain
+
+KERNELS = (conv3x3, token_attention, fused_update)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+__all__ = [
+    "Conv3x3",
+    "KERNELS",
+    "attention_plain",
+    "conv3x3",
+    "conv3x3_plain",
+    "fused_update",
+    "fused_update_plain",
+    "launch_counts",
+    "reset_launch_counts",
+    "token_attention",
+]

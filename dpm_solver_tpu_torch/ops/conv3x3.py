@@ -1,0 +1,98 @@
+"""3x3 stride-1 SAME conv in NHWC: the hand-written CUDA kernel and its plain twin.
+
+Counterpart of `dpm_solver_tpu/ops/conv3x3.py` (`conv3x3`, `Conv3x3`), forward
+only. The public function keeps the JAX entry's layout: x (B, H, W, C),
+w (3, 3, C, CO), bias (CO,). The kernel lives in `csrc/conv3x3.cu`; its header
+says what it replaces, what bounds it on the H100 and how it is built.
+
+Dispatch is by device only: a CPU tensor takes `conv3x3_plain`; a CUDA tensor
+launches the kernel or raises. `conv3x3.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dpm_solver_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same function through `F.conv2d`, in x's dtype."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                   None if bias is None else bias.to(x.dtype), padding=1)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def _check(x, w, bias):
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"conv3x3 takes x (B,H,W,C) and w (3,3,C,CO); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv3x3: w has {w.shape[2]} input channels, x has {x.shape[3]}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"conv3x3 kernel takes float32 or bfloat16 x and w of one "
+                        f"dtype; got {x.dtype} and {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("conv3x3 kernel needs contiguous x and w")
+    if w.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError("conv3x3: x, w and bias must share a device")
+    if bias is not None and (bias.shape != (w.shape[3],) or bias.dtype != torch.float32
+                             or not bias.is_contiguous()):
+        raise ValueError(f"conv3x3 kernel takes a contiguous float32 bias of shape "
+                         f"({w.shape[3]},)")
+    if x.numel() >= 2**31 or w.numel() >= 2**31:
+        raise ValueError("conv3x3 kernel takes fewer than 2**31 elements per tensor")
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 stride-1 SAME NHWC conv; x (B,H,W,C), w (3,3,C,CO), bias (CO,)."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3 runs on cpu or cuda, not {x.device}")
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    _check(x, w, bias)
+    b, h, wd, c = x.shape
+    co = w.shape[3]
+    out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
+    code = _build.library().dpm_conv3x3_fwd(
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype], _build.stream_ptr(x.device))
+    _build.check(code, "conv3x3")
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+
+
+class Conv3x3(nn.Module):
+    """`nn.Conv2d(C, CO, 3, padding=1)` on NHWC tensors, through `conv3x3`.
+
+    Stores the reference layout, weight (CO, C, 3, 3) and bias (CO,), so
+    reference state dicts load unchanged. The weight is permuted to
+    (3, 3, C, CO) and cast to the compute dtype on every call: at most
+    3*3*512*256 values, one small copy beside the conv itself.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.compute_dtype = compute_dtype
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = self.weight.permute(2, 3, 1, 0).to(dt).contiguous()
+        return conv3x3(x.to(dt).contiguous(), w, self.bias)

@@ -1,0 +1,194 @@
+"""Port executor (dpm_solver_tpu_torch/solver/sample.py) against the JAX `DPM_Solver`.
+
+(a) On the analytic toy model of tests/test_solver_parity.py, implemented in
+    both frameworks, over that file's configs (:90-105): multistep, singlestep
+    and singlestep_fixed; orders 1-3; dpmsolver and dpmsolver++; taylor;
+    denoise_to_zero. Also UniPC, dynamic thresholding, and the SDE solvers fed
+    the JAX executor's own normal draws as the port's `noise`. Both sides plan
+    the same float64 rows, so the tolerance is 1e-4 relative to max|x|
+    (`assert_traj_close`, test_solver_parity.py:70-75) for every config.
+    The wrapper's parameterizations and classifier-free guidance are held to
+    the JAX `model_wrapper` within 1e-6.
+(b) The whole slice, small: the tiny DDPM UNet with one random init carried
+    into both frameworks, batch 2 at 16x16, DPM-Solver++ 3M for 10 NFE on the
+    logSNR grid of the discrete schedule, through `model_wrapper` and
+    `DPM_Solver.sample` on both sides, within the same 1e-4 bound.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dpm_solver_tpu as J
+import dpm_solver_tpu_torch as P
+from dpm_solver_tpu.models import DDPMUNet as JaxDDPMUNet
+from dpm_solver_tpu.models import DDPMUNetConfig as JaxConfig
+from dpm_solver_tpu.utils.convert import convert_ddpm_unet
+from dpm_solver_tpu_torch.models import DDPMUNet, DDPMUNetConfig, init_random_
+from dpm_solver_tpu_torch.solver.sample import build_sampler
+
+TOL = 1e-4
+SHAPE = (3, 2, 4, 4)
+BETAS = np.linspace(1e-4, 0.02, 1000, dtype=np.float64)
+
+CONFIGS = [
+    ("discrete", "dpmsolver++", dict(steps=10, order=2, skip_type="time_uniform", method="multistep")),
+    ("discrete", "dpmsolver++", dict(steps=10, order=3, skip_type="logSNR", method="multistep")),
+    ("discrete", "dpmsolver++", dict(steps=6, order=3, skip_type="logSNR", method="multistep")),
+    ("discrete", "dpmsolver", dict(steps=12, order=2, skip_type="time_quadratic", method="multistep")),
+    ("discrete", "dpmsolver", dict(steps=10, order=3, skip_type="time_uniform", method="multistep", solver_type="taylor")),
+    ("discrete", "dpmsolver++", dict(steps=12, order=2, method="multistep", solver_type="taylor")),
+    ("linear", "dpmsolver++", dict(steps=10, order=3, skip_type="logSNR", method="singlestep", t_end=1e-3)),
+    ("linear", "dpmsolver", dict(steps=10, order=3, skip_type="logSNR", method="singlestep", t_end=1e-3)),
+    ("discrete", "dpmsolver++", dict(steps=9, order=2, skip_type="time_uniform", method="singlestep")),
+    ("discrete", "dpmsolver++", dict(steps=9, order=3, skip_type="time_quadratic", method="singlestep")),
+    ("discrete", "dpmsolver", dict(steps=9, order=3, skip_type="time_uniform", method="singlestep", solver_type="taylor")),
+    ("discrete", "dpmsolver++", dict(steps=9, order=3, method="singlestep_fixed", skip_type="time_uniform")),
+    ("discrete", "dpmsolver++", dict(steps=6, order=3, skip_type="logSNR", method="multistep", denoise_to_zero=True)),
+    ("discrete", "dpmsolver++", dict(steps=20, order=2, skip_type="time_uniform", method="multistep")),
+    ("discrete", "dpmsolver++", dict(steps=10, order=1, skip_type="logSNR", method="multistep")),
+    ("discrete", "dpmsolver++", dict(steps=10, order=3, skip_type="logSNR", method="unipc")),
+    ("linear", "dpmsolver", dict(steps=8, order=2, skip_type="time_uniform", method="unipc", t_end=1e-3)),
+]
+
+
+def assert_traj_close(got, want, tol=TOL):
+    """test_solver_parity.py:70-75: absolute error relative to max|x|."""
+    scale = max(1.0, float(np.max(np.abs(want))))
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=tol)
+
+
+def toy_jax(x, t_in):
+    t = jnp.reshape(t_in, (-1,) + (1,) * (x.ndim - 1))
+    return jnp.sin(3.0 * x) * jnp.cos(0.01 * t) + 0.1 * x * (1.0 + 0.001 * t)
+
+
+def toy_torch(x, t_in):
+    t = torch.reshape(t_in, (-1,) + (1,) * (x.dim() - 1))
+    return torch.sin(3.0 * x) * torch.cos(0.01 * t) + 0.1 * x * (1.0 + 0.001 * t)
+
+
+def _schedules(kind):
+    if kind == "discrete":
+        return J.NoiseScheduleVP.discrete(betas=BETAS), P.NoiseScheduleVP.discrete(betas=BETAS)
+    return J.NoiseScheduleVP.linear(), P.NoiseScheduleVP.linear()
+
+
+@pytest.mark.parametrize("schedule,algorithm,kwargs", CONFIGS,
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_toy_model_matches_jax(schedule, algorithm, kwargs):
+    ns_j, ns_t = _schedules(schedule)
+    x = np.random.default_rng(0).standard_normal(SHAPE).astype(np.float32)
+    solver_j = J.DPM_Solver(J.model_wrapper(toy_jax, ns_j), ns_j, algorithm_type=algorithm)
+    solver_t = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type=algorithm)
+    want = np.asarray(solver_j.sample(jnp.asarray(x), **kwargs))
+    got = solver_t.sample(torch.tensor(x), **kwargs)
+    assert got.dtype == torch.float32 and got.shape == SHAPE
+    assert_traj_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("algorithm,order", [("sde-dpmsolver++", 2), ("sde-dpmsolver", 1)])
+def test_sde_with_jax_noise_matches_jax(algorithm, order):
+    """The JAX executor draws normal(fold_in(rng, step)) for steps 1..N; the
+    port takes those draws as `noise`, so the two trajectories must agree."""
+    import jax
+
+    ns_j, ns_t = _schedules("discrete")
+    kwargs = dict(steps=8, order=order, skip_type="time_uniform", method="multistep")
+    x = np.random.default_rng(3).standard_normal(SHAPE).astype(np.float32)
+    rng = jax.random.PRNGKey(7)
+    noise = np.stack([np.asarray(jax.random.normal(jax.random.fold_in(rng, i), SHAPE))
+                      for i in range(1, kwargs["steps"] + 1)])
+    want = np.asarray(J.DPM_Solver(J.model_wrapper(toy_jax, ns_j), ns_j, algorithm_type=algorithm)
+                      .sample(jnp.asarray(x), rng=rng, **kwargs))
+    got = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type=algorithm) \
+        .sample(torch.tensor(x), noise=torch.tensor(noise), **kwargs)
+    assert_traj_close(got.numpy(), want)
+
+
+def test_dynamic_thresholding_matches_jax():
+    ns_j, ns_t = _schedules("discrete")
+    kwargs = dict(steps=10, order=2, skip_type="time_uniform", method="multistep")
+    x = (np.random.default_rng(4).standard_normal(SHAPE) * 3).astype(np.float32)
+    knobs = dict(correcting_x0_fn="dynamic_thresholding", thresholding_max_val=1.5,
+                 dynamic_thresholding_ratio=0.9)
+    want = np.asarray(J.DPM_Solver(J.model_wrapper(toy_jax, ns_j), ns_j, **knobs)
+                      .sample(jnp.asarray(x), **kwargs))
+    got = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, **knobs) \
+        .sample(torch.tensor(x), **kwargs)
+    assert_traj_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("model_type", ["noise", "x_start", "v", "score"])
+@pytest.mark.parametrize("guidance", ["uncond", "classifier-free"])
+def test_model_wrapper_matches_jax(model_type, guidance):
+    ns_j, ns_t = _schedules("discrete")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(SHAPE).astype(np.float32)
+    cond = rng.standard_normal((SHAPE[0], 1, 1, 1)).astype(np.float32)
+    t = np.asarray([0.02, 0.3, 0.9], dtype=np.float32)
+    kw = {}
+    if guidance == "classifier-free":
+        kw = dict(guidance_type=guidance, guidance_scale=3.0)
+        jkw = dict(kw, condition=jnp.asarray(cond), unconditional_condition=jnp.zeros_like(cond))
+        tkw = dict(kw, condition=torch.tensor(cond),
+                   unconditional_condition=torch.zeros(cond.shape))
+        jax_net = lambda u, s, c: toy_jax(u, s) * (1.0 + c)
+        torch_net = lambda u, s, c: toy_torch(u, s) * (1.0 + c)
+    else:
+        jkw = tkw = kw
+        jax_net, torch_net = toy_jax, toy_torch
+    want = np.asarray(J.model_wrapper(jax_net, ns_j, model_type=model_type, **jkw)(
+        jnp.asarray(x), jnp.asarray(t)))
+    got = P.model_wrapper(torch_net, ns_t, model_type=model_type, **tkw)(
+        torch.tensor(x), torch.tensor(t)).numpy()
+    scale = max(1.0, float(np.max(np.abs(want))))
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
+
+
+def test_build_sampler_and_intermediates_match_class_api():
+    _, ns_t = _schedules("discrete")
+    x = torch.tensor(np.random.default_rng(1).standard_normal(SHAPE).astype(np.float32))
+    kwargs = dict(steps=10, order=3, skip_type="logSNR", method="multistep")
+    model_fn = P.model_wrapper(toy_torch, ns_t)
+    want = P.DPM_Solver(model_fn, ns_t).sample(x, **kwargs)
+    fn = build_sampler(model_fn, ns_t, return_intermediate=True, **kwargs)
+    got, inter = fn(x)
+    assert torch.equal(got, want)
+    assert len(inter) == 11 and torch.equal(inter[0], x) and torch.equal(inter[-1], got)
+
+
+def test_unsupported_paths_raise():
+    _, ns_t = _schedules("discrete")
+    solver = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t)
+    x = torch.zeros(SHAPE)
+    with pytest.raises(NotImplementedError, match="adaptive"):
+        solver.sample(x, method="adaptive")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        solver.sample(x, mesh=object())
+    with pytest.raises(NotImplementedError, match="Slice C"):
+        P.model_wrapper(toy_torch, ns_t, guidance_type="classifier")
+    sde = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type="sde-dpmsolver++")
+    with pytest.raises(ValueError, match="noise"):
+        sde.sample(x, steps=4, order=2)
+
+
+def test_whole_slice_tiny_unet_matches_jax():
+    """Tiny UNet, batch 2, 16x16, DPM-Solver++ 3M, 10 NFE, logSNR, discrete."""
+    cfg = DDPMUNetConfig.tiny(resolution=16)
+    port = init_random_(DDPMUNet(cfg), torch.Generator().manual_seed(0)).eval()
+    params = convert_ddpm_unet({k: v.numpy() for k, v in port.state_dict().items()})
+    jax_net = JaxDDPMUNet(JaxConfig.tiny(resolution=16))
+    ns_j, ns_t = _schedules("discrete")
+    kwargs = dict(steps=10, order=3, skip_type="logSNR", method="multistep")
+    x = np.random.default_rng(2).standard_normal((2, 16, 16, 3)).astype(np.float32)
+
+    solver_j = J.DPM_Solver(J.model_wrapper(lambda u, t: jax_net.apply(params, u, t), ns_j),
+                            ns_j, algorithm_type="dpmsolver++")
+    want = np.asarray(solver_j.sample(jnp.asarray(x), **kwargs))
+    solver_t = P.DPM_Solver(P.model_wrapper(port, ns_t), ns_t, algorithm_type="dpmsolver++")
+    with torch.no_grad():
+        got = solver_t.sample(torch.tensor(x), **kwargs)
+    assert got.shape == (2, 16, 16, 3) and torch.isfinite(got).all()
+    assert_traj_close(got.numpy(), want)
