@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -9,19 +9,31 @@ and nothing of JAX. Phases, each fatal on failure:
 1. environment: torch and CUDA versions, the card's name and power limit;
    exits non-zero at once when `torch.cuda.is_available()` is false;
 2. build: nvcc compiles `dpm_solver_tpu_torch/csrc/*.cu` for sm_90a into the
-   ignored `dpm_solver_tpu_torch/_build/`;
+   ignored `dpm_solver_tpu_torch/_build/`, one nvcc per source in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the slice's shapes and at tiny and ragged ones, fp32 and bf16;
-4. the slice: the CIFAR-10 DDPM UNet at full width with seeded random weights
+   card, at both paths' shapes and at tiny and ragged ones, fp32 and bf16;
+4. path A, CIFAR-10: the DDPM UNet at full width with seeded random weights
    in bf16, sampled at batch 64 by DPM-Solver++ 3M for 10 NFE on the logSNR
    grid of the discrete schedule, through `NoiseScheduleVP`, `model_wrapper`
    and `DPM_Solver.sample`; the launch counters must rise by exactly the
    expected counts; then batch 4 in fp32 against the plain path on the CPU;
-5. timing: the batch-64 sample's median wall time, and each kernel against
-   its plain version at the slice's shapes, each beside the card's name and
-   power limit.
+5. path B, Stable Diffusion 2.1 txt2img: `ADMConfig.sd_v2_1()` (865.9M
+   parameters) and `VAEConfig.sd_v1()` at full width with seeded random
+   weights in bf16, the hermetic `constant_context_encoder(1024)`, and
+   `StableDiffusionPipeline.txt2img` for 4 prompts at 768x768 (96x96
+   latents), 20 NFE of DPM-Solver++ 2M on the time-uniform grid, CFG 7.5,
+   v-prediction; the images must be (4, 768, 768, 3), finite, in [0, 1], and
+   the launch counters must rise by exactly what `layout()` and the VAE
+   config imply; then the same networks in fp32 at 16x16 latents, batch 1,
+   CFG, 3 NFE, on the card against the plain path on the CPU;
+6. timing: each path's median wall time, the SD call's UNet and VAE-decode
+   shares, and each kernel against its plain version, the one PyTorch call
+   that computes the same function (where there is one) and its bound, at
+   the shapes and launch counts of one call of each path, each beside the
+   card's name and power limit.
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (launches and times of the
+SD call, the slice's main path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -32,25 +44,42 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from itertools import chain
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-BATCH, STEPS, ORDER = 64, 10, 3
+BATCH, STEPS, ORDER = 64, 10, 3                    # path A
+SD_PROMPTS = ["a photograph of an astronaut riding a horse", "a red teapot on a table",
+              "a lighthouse at dusk, oil painting", "a bowl of ramen, studio light"]
+SD_SIZE, SD_STEPS, SD_SCALE = 768, 20, 7.5          # path B
+SD_TIMED_RUNS = 3
 # bounds on max|kernel - plain| / max|plain| (plain in fp32 on the same inputs,
 # TF32 off): fp32 -> different summation order only; bf16 -> the kernel's one
 # rounding of its output to bf16 (unit roundoff 2^-8 = 3.9e-3) plus order
 BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
 FUSED_BOUND = {"float32": 1e-6, "bfloat16": 1e-2}
-# batch-4 fp32 trajectory, kernels on the card vs plain ops on the CPU, relative
-# to max|x|: the repo's trajectory parity bound (tests/test_solver_parity.py:70-75)
+# fp32 trajectories, kernels on the card vs plain ops on the CPU, relative to
+# max|x|: the repo's trajectory parity bound (tests/test_solver_parity.py:70-75)
 SLICE_BOUND = 1e-4
+# the least time the card could take (one H100 SXM at 700 W, dense peaks):
+# bf16 tensor-core products, fp32 elementwise work, device memory. The three
+# units work at once, so the bound is the largest of the three times.
+PEAK_BF16, PEAK_FP32, HBM = 989e12, 67e12, 3.35e12
+# cuda_ms times as many calls as fit about this many ms, 3 to TIMED_MAX
+TIMED_BUDGET_MS, TIMED_MAX = 200.0, 50
 REPLACES = {
     "conv3x3": ("cuda", "dpm_solver_tpu_torch/csrc/conv3x3.cu",
                 "dpm_solver_tpu/ops/conv3x3.py:125"),
     "token_attention": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
-                        "dpm_solver_tpu/ops/attention.py:442"),
+                        "dpm_solver_tpu/ops/attention.py:442 (_forward), :812 "
+                        "(_flash_forward), :585 (_flash_forward_T), :641 (_panel_forward_T)"),
     "fused_update": ("triton", "dpm_solver_tpu_torch/ops/fused_update.py",
                      "dpm_solver_tpu/ops/fused_update.py:92"),
+    "ln_linear": ("cuda", "dpm_solver_tpu_torch/csrc/ln_linear.cu",
+                  "dpm_solver_tpu/ops/ln_linear.py:112"),
+    "geglu_ff": ("cuda", "dpm_solver_tpu_torch/csrc/geglu.cu",
+                 "dpm_solver_tpu/ops/geglu.py:125"),
 }
 
 
@@ -72,14 +101,19 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` calls, after 3 warm calls."""
+def cuda_ms(fn) -> float:
+    """Mean device time of fn() (CUDA events), after warm calls, over as many
+    calls as fit about TIMED_BUDGET_MS (3 to TIMED_MAX)."""
     import torch
 
-    for _ in range(3):
-        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
     torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(3, min(TIMED_MAX, int(TIMED_BUDGET_MS / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(iters):
         fn()
@@ -93,8 +127,190 @@ def rel_err(got, want) -> tuple:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
+# --------------------------------------------------------------------------- #
+# one kernel call at one shape: its inputs, the three ways to compute it, and
+# the work it must do (for the bound)
+# --------------------------------------------------------------------------- #
+
+
+def make_case(name: str, spec: tuple, randn):
+    """(kernel, plain, library or None, bf16 tensor-core flops, fp32 ops,
+    bytes) for one bf16 call (fp32 for the fused update) at `spec`."""
+    import torch
+    import torch.nn.functional as F
+
+    from dpm_solver_tpu_torch import ops
+
+    bf = torch.bfloat16
+    if name == "conv3x3":
+        b, h, w, c, co = spec
+        x, wt = randn(b, h, w, c).to(bf), (randn(3, 3, c, co) * c ** -0.5).to(bf)
+        bias = randn(co) * 0.1
+        # NHWC memory is NCHW in channels_last: cuDNN reads it in place
+        xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = bias.to(bf)
+        return (lambda: ops.conv3x3(x, wt, bias), lambda: ops.conv3x3_plain(x, wt, bias),
+                lambda: F.conv2d(xc, wc, bc, padding=1),
+                18 * b * h * w * c * co, b * h * w * co,
+                2 * (b * h * w * (c + co) + 9 * c * co) + 4 * co)
+    if name == "token_attention":
+        b, t, s, heads, dh, fused = spec
+        inner = heads * dh
+        if fused:  # q, k, v as column slices of one (B, T, 3*inner) projection
+            q, k, v = randn(b, t, 3 * inner).to(bf).split(inner, dim=-1)
+        else:
+            q, k, v = randn(b, t, inner).to(bf), randn(b, s, inner).to(bf), randn(b, s, inner).to(bf)
+        qh, kh, vh = (u.unflatten(-1, (heads, dh)).transpose(1, 2) for u in (q, k, v))
+        return (lambda: ops.token_attention(q, k, v, num_heads=heads),
+                lambda: ops.attention_plain(q, k, v, num_heads=heads),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                4 * b * heads * t * s * dh, 5 * b * heads * t * s,
+                2 * 2 * b * inner * (t + s))
+    if name == "ln_linear":
+        m, d, n = spec
+        x, w = randn(m, d).to(bf), (randn(n, d) * d ** -0.5).to(bf)
+        g, be = 1 + 0.1 * randn(d), 0.1 * randn(d)
+        return (lambda: ops.ln_linear(x, g, be, w), lambda: ops.ln_linear_plain(x, g, be, w),
+                None, 2 * m * d * n, 8 * m * d, 2 * (m * d + m * n + d * n) + 8 * d)
+    if name == "geglu_ff":
+        m, d, inner = spec
+        x, w1 = randn(m, d).to(bf), (randn(2 * inner, d) * d ** -0.5).to(bf)
+        w2, b1, b2 = (randn(d, inner) * inner ** -0.5).to(bf), randn(2 * inner) * 0.1, randn(d) * 0.1
+        return (lambda: ops.geglu_ff(x, w1, b1, w2, b2), lambda: ops.geglu_plain(x, w1, b1, w2, b2),
+                None, 6 * m * d * inner, 10 * m * inner,
+                2 * (2 * m * d + 3 * d * inner) + 4 * (2 * inner + d))
+    if name == "fused_update":
+        shape, = spec
+        xs, coef = [randn(*shape) for _ in range(4)], randn(4, 8)
+        n = xs[0].numel()
+        return (lambda: ops.fused_update(coef, 1, *xs), lambda: ops.fused_update_plain(coef, 1, *xs),
+                None, 0, 7 * n, 4 * 5 * n)
+    raise ValueError(name)
+
+
+def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
+    """Kernel, plain and library device time over `calls` (spec -> launches),
+    and the bound: per launch the largest of bf16 flops / PEAK_BF16, fp32 ops
+    / PEAK_FP32 and bytes / HBM."""
+    import torch
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    ops_s = bytes_s = 0.0
+    has_library = True
+    for spec, n in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        kernel, plain, library, fl16, fl32, nbytes = make_case(name, spec, randn)
+        k, p = cuda_ms(kernel), cuda_ms(plain)
+        lib = cuda_ms(library) if library is not None else None
+        t_ops, t_bytes = max(fl16 / PEAK_BF16, fl32 / PEAK_FP32), nbytes / HBM
+        bound = max(t_ops, t_bytes) * 1e3
+        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms, plain {p:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        tot["ms"] += n * k
+        tot["plain_ms"] += n * p
+        tot["bound_ms"] += n * bound
+        ops_s, bytes_s = ops_s + n * t_ops, bytes_s + n * t_bytes
+        if lib is None:
+            has_library = False
+        else:
+            tot["library_ms"] += n * lib
+        del kernel, plain, library
+        torch.cuda.empty_cache()
+    tot["library_ms"] = tot["library_ms"] if has_library else None
+    tot["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+    tot["timed"] = what
+    lib = tot["library_ms"]
+    log(f"kernel time on {smi}: {name} {tot['ms']:.3f} ms vs plain {tot['plain_ms']:.3f} ms, "
+        f"library {'none' if lib is None else f'{lib:.3f} ms'}, bound {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_by']}); {sum(calls.values())} launches = {what}")
+    return tot
+
+
+# --------------------------------------------------------------------------- #
+# launch counts implied by the configurations
+# --------------------------------------------------------------------------- #
+
+
+def adm_unet_launches(cfg) -> Counter:
+    """Kernel launches of one ADMUNet forward, from the port's `layout()`:
+    a res block runs two 3x3 convs (its skip is 1x1), an up-resample one; a
+    SpatialTransformer of depth n runs 2n attentions, 2n LayerNorm->Linear
+    and n GEGLU; an ADM attention block one attention."""
+    from dpm_solver_tpu_torch.models import layout
+
+    plan = layout(cfg)
+    n = Counter()
+    for spec in chain(*plan["input_blocks"], plan["middle"], *plan["output_blocks"]):
+        if spec["kind"] == "res":
+            n["conv3x3"] += 2
+        elif spec["kind"] == "resample" and spec["direction"] == "up" and spec["with_conv"]:
+            n["conv3x3"] += 1
+        elif spec["kind"] == "xattn":
+            n.update({"token_attention": 2 * spec["depth"], "ln_linear": 2 * spec["depth"],
+                      "geglu_ff": spec["depth"]})
+        elif spec["kind"] == "attn":
+            n["token_attention"] += 1
+    return n
+
+
+def vae_decoder_launches(cfg) -> Counter:
+    """Kernel launches of one VAE decode, from the config: conv_in, conv_out,
+    two per res block, one per up-resample; one attention in the middle and
+    one after each res block at an attention resolution."""
+    levels = len(cfg.ch_mult)
+    blocks = 2 + levels * (cfg.num_res_blocks + 1)
+    res = [cfg.resolution // 2 ** i for i in range(levels)]
+    attn = 1 + sum(cfg.num_res_blocks + 1 for r in res if r in cfg.attn_resolutions)
+    conv = 2 + 2 * blocks + (levels - 1 if cfg.resamp_with_conv else 0)
+    return Counter({"conv3x3": conv, "token_attention": attn})
+
+
+def record_sd_calls(unet, vae, run) -> tuple:
+    """The kernel specs of one UNet forward and one VAE decode, read from the
+    modules' inputs by forward hooks while `run` makes one of each."""
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models.transformer import CrossAttention, GEGLUFeedForward
+    from dpm_solver_tpu_torch.models.vae import VAEAttnBlock
+
+    calls = {"unet": Counter(), "vae": Counter()}
+
+    def hook(where):
+        def pre(mod, args, kwargs):
+            c = calls[where]
+            x = args[0]
+            if isinstance(mod, ops.Conv3x3):
+                c["conv3x3", (*x.shape, mod.weight.shape[0])] += 1
+            elif isinstance(mod, CrossAttention):
+                b, t, d = x.shape
+                ctx = kwargs.get("context")
+                s = t if ctx is None else ctx.shape[1]
+                inner = mod.heads * mod.dim_head
+                c["token_attention", (b, t, s, mod.heads, mod.dim_head, ctx is None)] += 1
+                c["ln_linear", (b * t, d, 3 * inner if ctx is None else inner)] += 1
+            elif isinstance(mod, GEGLUFeedForward):
+                b, t, d = x.shape
+                c["geglu_ff", (b * t, d, mod.net[2].weight.shape[1])] += 1
+            elif isinstance(mod, VAEAttnBlock):
+                b, h, w, ch = x.shape
+                c["token_attention", (b, h * w, h * w, 1, ch, True)] += 1
+        return pre
+
+    kinds = (ops.Conv3x3, CrossAttention, GEGLUFeedForward, VAEAttnBlock)
+    handles = [m.register_forward_pre_hook(hook(where), with_kwargs=True)
+               for where, net in (("unet", unet), ("vae", vae.decoder))
+               for m in net.modules() if isinstance(m, kinds)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls["unet"], calls["vae"]
+
+
 def main() -> int:
     # ---- 1. environment ----------------------------------------------------
+    t_start = time.perf_counter()
     import torch
 
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -107,8 +323,11 @@ def main() -> int:
 
     import dpm_solver_tpu_torch as P
     from dpm_solver_tpu_torch import ops
-    from dpm_solver_tpu_torch.models import DDPMUNet, DDPMUNetConfig, init_random_
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
+                                             DDPMUNetConfig, VAEConfig,
+                                             constant_context_encoder, init_random_)
     from dpm_solver_tpu_torch.ops import _build
+    from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
 
     smi = card()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -140,24 +359,38 @@ def main() -> int:
         if not ok:
             fail(f"{name} {shape} {dtype} disagrees with its plain version")
 
+    t0 = time.perf_counter()
     log("kernels vs plain (plain in fp32 on the same inputs, TF32 off):")
     for b, h, w, c, co in [(64, 32, 32, 128, 128), (64, 16, 16, 512, 256),
-                           (64, 4, 4, 256, 256), (2, 8, 8, 32, 64), (3, 5, 7, 20, 9)]:
+                           (64, 4, 4, 256, 256), (2, 8, 8, 32, 64), (3, 5, 7, 20, 9),
+                           # the SD VAE's ends: 4 latent channels in, 3 image channels out
+                           (4, 96, 96, 4, 512), (2, 768, 768, 128, 3), (1, 16, 16, 4, 3)]:
         for dt in (torch.float32, torch.bfloat16):
             x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
             bias = randn(co) * 0.1
             report("conv3x3", (b, h, w, c, co), dt, ops.conv3x3(x, wt, bias),
                    ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND[str(dt)[6:]])
-    for b, t, s, heads, dh in [(64, 256, 256, 1, 256), (64, 16, 16, 1, 256), (2, 64, 64, 1, 32),
-                               (2, 77, 77, 1, 64), (2, 50, 77, 2, 64), (3, 33, 129, 4, 128)]:
+    # (b, t, s, heads, dh, q/k/v as column slices of one fused projection)
+    for b, t, s, heads, dh, fused in [
+            (64, 256, 256, 1, 256, False), (64, 16, 16, 1, 256, False), (2, 64, 64, 1, 32, False),
+            (2, 77, 77, 1, 64, False), (2, 50, 77, 2, 64, False), (3, 33, 129, 4, 128, False),
+            # SD-2.1 at 768 px: self- and cross-attention, and the VAE's 512-wide head
+            (1, 9216, 9216, 5, 64, False), (8, 9216, 77, 5, 64, False),
+            (8, 144, 77, 20, 64, False), (1, 9216, 9216, 1, 512, False),
+            (1, 9216, 9216, 5, 64, True), (1, 9216, 9216, 1, 512, True), (2, 100, 100, 1, 512, True)]:
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (randn(b, n, heads * dh).to(dt) for n in (t, s, s))
-            report("token_attention", (b, t, s, heads, dh), dt,
+            inner = heads * dh
+            if fused:
+                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+            else:
+                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+            report("token_attention", (b, t, s, heads, dh) + (("qkv",) if fused else ()), dt,
                    ops.token_attention(q, k, v, num_heads=heads),
                    ops.attention_plain(q.float(), k.float(), v.float(), num_heads=heads),
                    BOUND[str(dt)[6:]])
+            del q, k, v
     coef = randn(4, 8)
-    for shape in [(BATCH, 32, 32, 3), (1000,)]:
+    for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4)]:
         for dt in (torch.float32, torch.bfloat16):
             xs = [randn(*shape).to(dt) for _ in range(5)]
             for z in (None, xs[4]):
@@ -166,12 +399,33 @@ def main() -> int:
                        ops.fused_update_plain(coef, 2, *[u.float() for u in xs[:4]],
                                               None if z is None else z.float()),
                        FUSED_BOUND[str(dt)[6:]])
+    # SD-2.1 at 768 px, CFG batch 8: (m, d) = (8 * tokens, width) at each level
+    sd_rows = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)]
+    # tiny, and ragged (d % 8 != 0: the kernel's unvectorised loads)
+    for (m, d), bias in chain(((r, False) for r in sd_rows), [((100, 32), True), ((1000, 36), True)]):
+        for n in (3 * d, d) if d > 40 else (96 if d == 32 else 70,):
+            for dt in (torch.float32, torch.bfloat16):
+                x, w = randn(m, d).to(dt), (randn(n, d) * d ** -0.5).to(dt)
+                gam, bet = 1 + 0.1 * randn(d), 0.1 * randn(d)
+                bb = randn(n) * 0.1 if bias else None
+                report("ln_linear", (m, d, n), dt, ops.ln_linear(x, gam, bet, w, bb),
+                       ops.ln_linear_plain(x.float(), gam, bet, w.float(), bb), BOUND[str(dt)[6:]])
+    for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows] + [(100, 32, 128), (300, 36, 100)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x, w1 = randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt)
+            w2 = (randn(d, inner) * inner ** -0.5).to(dt)
+            b1, b2 = randn(2 * inner) * 0.1, randn(d) * 0.1
+            # the plain version at bf16 inputs rounds the gated tile as the kernel does
+            report("geglu_ff", (m, d, inner), dt, ops.geglu_ff(x, w1, b1, w2, b2),
+                   ops.geglu_plain(x, w1, b1, w2, b2), BOUND[str(dt)[6:]])
+    torch.cuda.empty_cache()
+    log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 4. the slice --------------------------------------------------------
+    # ---- 4. path A: CIFAR-10 -------------------------------------------------
     cfg = DDPMUNetConfig.cifar10()
-    net_cpu = init_random_(DDPMUNet(cfg), torch.Generator().manual_seed(0)).eval()
+    net_cpu = init_random_(DDPMUNet(cfg, device="cpu"), torch.Generator().manual_seed(0)).eval()
     n_params = sum(p.numel() for p in net_cpu.parameters())
-    net = DDPMUNet(cfg, compute_dtype=torch.bfloat16).to(dev).eval()
+    net = DDPMUNet(cfg, compute_dtype=torch.bfloat16, device=dev).eval()
     net.load_state_dict(net_cpu.state_dict())
     ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
     solver = P.DPM_Solver(P.model_wrapper(net, ns, model_type="noise"), ns,
@@ -181,30 +435,31 @@ def main() -> int:
                       generator=torch.Generator(device=dev).manual_seed(1))
 
     # conv3x3 shapes of one forward, for the timing phase
-    conv_calls = []
+    conv_calls = Counter()
     hooks = [m.register_forward_pre_hook(
-        lambda m, a: conv_calls.append((tuple(a[0].shape), tuple(m.weight.shape))))
+        lambda m, a: conv_calls.update([(*a[0].shape, m.weight.shape[0])]))
         for m in net.modules() if isinstance(m, ops.Conv3x3)]
     net(x_T.to(torch.bfloat16), torch.full((BATCH,), 500.0, device=dev))
     for hk in hooks:
         hk.remove()
 
-    log(f"slice: CIFAR-10 DDPM UNet ({n_params / 1e6:.2f}M params, bf16 compute), "
+    log(f"path A: CIFAR-10 DDPM UNet ({n_params / 1e6:.2f}M params, bf16 compute), "
         f"b{BATCH}, DPM-Solver++ {ORDER}M, {STEPS} NFE, logSNR, discrete betas")
     ops.reset_launch_counts()
     out = solver.sample(x_T, **sample_kw)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    expected = {"conv3x3": STEPS * 47, "token_attention": STEPS * 6, "fused_update": STEPS}
-    log(f"  launches {launches} (expected {expected})")
-    if launches != expected:
-        fail(f"launch counts {launches} != {expected}")
+    launches_a = ops.launch_counts()
+    expected = {"conv3x3": STEPS * 47, "token_attention": STEPS * 6, "fused_update": STEPS,
+                "ln_linear": 0, "geglu_ff": 0}
+    log(f"  launches {launches_a} (expected {expected})")
+    if launches_a != expected:
+        fail(f"path A launch counts {launches_a} != {expected}")
     if out.shape != x_T.shape or out.dtype != torch.float32 or not torch.isfinite(out).all():
-        fail(f"slice output {tuple(out.shape)} {out.dtype} is not finite fp32 of x_T's shape")
+        fail(f"path A output {tuple(out.shape)} {out.dtype} is not finite fp32 of x_T's shape")
     log(f"  output {tuple(out.shape)} finite, max|x| {out.abs().max().item():.4f}")
 
     # batch 4 in fp32: kernels on the card against the plain ops on the CPU
-    net32 = DDPMUNet(cfg).to(dev).eval()
+    net32 = DDPMUNet(cfg, device=dev).eval()
     net32.load_state_dict(net_cpu.state_dict())
     x4 = x_T[:4].float()
     got = P.DPM_Solver(P.model_wrapper(net32, ns), ns).sample(x4, **sample_kw)
@@ -214,9 +469,82 @@ def main() -> int:
     log(f"  b4 fp32 kernels (card) vs plain (cpu, {time.perf_counter() - t0:.1f} s): "
         f"max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g})")
     if not r <= SLICE_BOUND:
-        fail("the fp32 slice on the card disagrees with the plain path")
+        fail("the fp32 CIFAR-10 path on the card disagrees with the plain path")
+    del net32, net_cpu
 
-    # ---- 5. timing -------------------------------------------------------------
+    # ---- 5. path B: Stable Diffusion 2.1 txt2img ------------------------------
+    t0 = time.perf_counter()
+    ucfg, vcfg = ADMConfig.sd_v2_1(), VAEConfig.sd_v1()
+    gw = torch.Generator(device=dev).manual_seed(0)
+    unet = init_random_(ADMUNet(ucfg, compute_dtype=torch.bfloat16, device=dev), gw).eval()
+    vae = init_random_(AutoencoderKL(vcfg, compute_dtype=torch.bfloat16, device=dev), gw).eval()
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_vae = sum(p.numel() for p in vae.parameters())
+    encode = constant_context_encoder(ucfg.context_dim)
+    pipe = StableDiffusionPipeline(LatentDiffusion(unet, vae, text_encode=encode,
+                                                   parameterization="v"), device=dev)
+    sd_kw = dict(steps=SD_STEPS, guidance_scale=SD_SCALE, height=SD_SIZE, width=SD_SIZE)
+    torch.cuda.synchronize()
+    log(f"path B: SD-2.1 UNet ({n_unet / 1e6:.2f}M params) + KL VAE ({n_vae / 1e6:.2f}M), "
+        f"bf16 compute, seeded random weights, built in {time.perf_counter() - t0:.1f} s; "
+        f"txt2img b{len(SD_PROMPTS)} {SD_SIZE}x{SD_SIZE}, DPM-Solver++ 2M, {SD_STEPS} NFE, "
+        f"time_uniform, CFG {SD_SCALE}, v-prediction")
+
+    expected = adm_unet_launches(ucfg)
+    for key in expected:
+        expected[key] *= SD_STEPS
+    expected.update(vae_decoder_launches(vcfg))
+    expected["fused_update"] = SD_STEPS
+    expected = {name: expected[name] for name in REPLACES}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches_b = ops.launch_counts()
+    log(f"  launches {launches_b} (expected {expected}); first call {first_s:.2f} s")
+    if launches_b != expected:
+        fail(f"path B launch counts {launches_b} != {expected}")
+    shape = (len(SD_PROMPTS), SD_SIZE, SD_SIZE, 3)
+    if tuple(img.shape) != shape or not torch.isfinite(img).all() \
+            or img.min() < 0 or img.max() > 1:
+        fail(f"path B images {tuple(img.shape)} are not finite {shape} in [0, 1]")
+    log(f"  images {tuple(img.shape)} finite in [0, 1]: mean {img.mean().item():.4f}, "
+        f"std {img.std().item():.4f}")
+
+    # fp32 at 16x16 latents, b1, CFG, 3 NFE: kernels on the card vs plain on the CPU
+    t0 = time.perf_counter()
+    nets = {}
+    for where in (dev, torch.device("cpu")):
+        u = ADMUNet(ucfg, device=where).eval()
+        u.load_state_dict(unet.state_dict())
+        a = AutoencoderKL(vcfg, device=where).eval()
+        a.load_state_dict(vae.state_dict())
+        nets[where.type] = StableDiffusionPipeline(LatentDiffusion(
+            u, a, text_encode=encode, parameterization="v"), device=where)
+    z_T = torch.randn(1, 16, 16, 4, generator=torch.Generator().manual_seed(2))
+    result = {}
+    for where, p in nets.items():
+        t1 = time.perf_counter()
+        cond = p.model.get_learned_conditioning(SD_PROMPTS[:1])
+        uncond = p.model.get_learned_conditioning([""])
+        z, _ = p.sampler.sample(3, 1, (16, 16, 4), cond, unconditional_guidance_scale=SD_SCALE,
+                                unconditional_conditioning=uncond, x_T=z_T,
+                                return_intermediate=False)
+        result[where] = (z.cpu(), p.model.decode_first_stage(z).cpu())
+        log(f"  fp32 b1 16x16 latents, 3 NFE on {where}: {time.perf_counter() - t1:.1f} s")
+    for i, what in enumerate(("latents", "decoded image")):
+        d, r = rel_err(result["cuda"][i], result["cpu"][i])
+        ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"][i]).all())
+        log(f"  {what}, kernels (card) vs plain (cpu): max|d| {d:.3e}, /max|x| {r:.3e} "
+            f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the fp32 SD path on the card disagrees with the plain path ({what})")
+    del nets, result
+    torch.cuda.empty_cache()
+    log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 6. timing -------------------------------------------------------------
     solver.sample(x_T, **sample_kw)  # warm
     walls = []
     for _ in range(7):
@@ -226,44 +554,89 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    log(f"slice time on {smi}: median {wall * 1e3:.2f} ms over {len(walls)} runs "
+    log(f"path A time on {smi}: median {wall * 1e3:.2f} ms over {len(walls)} runs "
         f"(min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) -> "
         f"{BATCH / wall:.1f} samples/s")
+    del solver, net
 
-    timing = {}
-    shapes = {}
-    for xs, ws in conv_calls:
-        shapes[(xs, ws)] = shapes.get((xs, ws), 0) + 1
-    k_ms = p_ms = 0.0
-    for (xs, ws), n in sorted(shapes.items()):
-        x = randn(*xs).to(torch.bfloat16)
-        w = randn(ws[2], ws[3], ws[1], ws[0]).to(torch.bfloat16).contiguous()
-        bias = randn(ws[0])
-        k = cuda_ms(lambda: ops.conv3x3(x, w, bias), 20)
-        p = cuda_ms(lambda: ops.conv3x3_plain(x, w, bias), 20)
-        log(f"  conv3x3 x{n} {xs}->{ws[0]} bf16: kernel {k:.4f} ms, plain {p:.4f} ms")
-        k_ms, p_ms = k_ms + n * k, p_ms + n * p
-    timing["conv3x3"] = (k_ms, p_ms, f"{len(conv_calls)} launches = one UNet forward, b{BATCH} bf16")
-    k_ms = p_ms = 0.0
-    for t, n in ((256, 5), (16, 1)):
-        q, kk, v = (randn(BATCH, t, 256).to(torch.bfloat16) for _ in range(3))
-        k = cuda_ms(lambda: ops.token_attention(q, kk, v, num_heads=1), 20)
-        p = cuda_ms(lambda: ops.attention_plain(q, kk, v, num_heads=1), 20)
-        log(f"  token_attention x{n} ({BATCH}, {t}, 256) bf16: kernel {k:.4f} ms, plain {p:.4f} ms")
-        k_ms, p_ms = k_ms + n * k, p_ms + n * p
-    timing["token_attention"] = (k_ms, p_ms, f"6 launches = one UNet forward, b{BATCH} bf16")
-    xs = [randn(BATCH, 32, 32, 3) for _ in range(4)]
-    k = cuda_ms(lambda: ops.fused_update(coef, 1, *xs), 200)
-    p = cuda_ms(lambda: ops.fused_update_plain(coef, 1, *xs), 200)
-    log(f"  fused_update ({BATCH}, 32, 32, 3) fp32: kernel {k:.4f} ms, plain {p:.4f} ms")
-    timing["fused_update"] = (k, p, f"1 launch = one solver step, ({BATCH},32,32,3) fp32")
-    for name, (k, p, what) in timing.items():
-        log(f"kernel time on {smi}: {name} {k:.4f} ms vs plain {p:.4f} ms ({what})")
+    # UNet-forward and VAE-decode device spans of each call, by CUDA events
+    spans = {"unet": [], "vae": []}
+
+    def span(where):
+        def pre(mod, args):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[where].append([ev])
+
+        def post(mod, args, out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[where][-1].append(ev)
+        return pre, post
+
+    handles = []
+    for where, mod in (("unet", unet), ("vae", vae.decoder)):
+        pre, post = span(where)
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+    runs = []
+    for _ in range(SD_TIMED_RUNS):
+        for v in spans.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        runs.append((w, *(sum(a.elapsed_time(b) for a, b in spans[k]) / 1e3
+                          for k in ("unet", "vae"))))
+    for h in handles:
+        h.remove()
+    runs.sort()
+    sd_wall, unet_s, vae_s = runs[len(runs) // 2]
+    log(f"path B time on {smi}: txt2img b{len(SD_PROMPTS)} {SD_SIZE}px {SD_STEPS} NFE median "
+        f"{sd_wall * 1e3:.2f} ms over {len(runs)} runs (min {runs[0][0] * 1e3:.2f}, max "
+        f"{runs[-1][0] * 1e3:.2f}) -> {len(SD_PROMPTS) / sd_wall:.4f} images/s; in that run "
+        f"UNet forwards {unet_s * 1e3:.2f} ms ({unet_s / sd_wall:.3f} of the wall), VAE decode "
+        f"{vae_s * 1e3:.2f} ms ({vae_s / sd_wall:.3f})")
+
+    # each kernel at the shapes and counts of one call of each path
+    ctx = encode(SD_PROMPTS + [""] * len(SD_PROMPTS)).to(dev)
+    lat = SD_SIZE // 8
+    unet_calls, vae_calls = record_sd_calls(unet, vae, lambda: (
+        unet(torch.randn(2 * len(SD_PROMPTS), lat, lat, 4, device=dev),
+             torch.full((2 * len(SD_PROMPTS),), 500.0, device=dev), None, ctx),
+        vae.decode(torch.randn(len(SD_PROMPTS), lat, lat, 4, device=dev))))
+    del unet, vae, pipe
+    torch.cuda.empty_cache()
+    per_kernel_a = {"conv3x3": Counter({spec: n * STEPS for spec, n in conv_calls.items()}),
+                    "token_attention": Counter({(BATCH, 256, 256, 1, 256, False): 5 * STEPS,
+                                                (BATCH, 16, 16, 1, 256, False): STEPS}),
+                    "fused_update": Counter({((BATCH, 32, 32, 3),): STEPS})}
+    log(f"kernel times, path A (one {STEPS}-NFE sample call, b{BATCH}, bf16):")
+    for name, calls in per_kernel_a.items():
+        time_kernel(name, calls, randn, smi, f"one path-A sample call, b{BATCH}")
+    per_kernel_b = {name: Counter() for name in REPLACES}
+    for (name, spec), n in unet_calls.items():
+        per_kernel_b[name][spec] += n * SD_STEPS
+    for (name, spec), n in vae_calls.items():
+        per_kernel_b[name][spec] += n
+    per_kernel_b["fused_update"][((len(SD_PROMPTS), lat, lat, 4),)] = SD_STEPS
+    for name, calls in per_kernel_b.items():
+        if sum(calls.values()) != expected[name]:
+            fail(f"{name}: the recorded shapes cover {sum(calls.values())} launches, "
+                 f"the call makes {expected[name]}")
+    log(f"kernel times, path B (one txt2img call: {SD_STEPS} UNet forwards at b"
+        f"{2 * len(SD_PROMPTS)} and one VAE decode at b{len(SD_PROMPTS)}, bf16):")
+    timing = {name: time_kernel(name, calls, randn, smi,
+                                f"one txt2img call, SD-2.1 {SD_SIZE}px b{len(SD_PROMPTS)}")
+              for name, calls in per_kernel_b.items()}
 
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
-                    launches=launches[name], max_abs_err=max_abs[name],
-                    ms=timing[name][0], plain_ms=timing[name][1], timed=timing[name][2])
+                    launches=launches_b[name], launches_path_a=launches_a[name],
+                    max_abs_err=max_abs[name], **timing[name])
                for name, (route, src, rep) in REPLACES.items()]
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -1,38 +1,50 @@
 // Attention forward, softmax(q k^T * scale) v, streamed over key tiles, for sm_90a.
 //
-// Replaces the Pallas forward dpm_solver_tpu/ops/attention.py::_forward
-// (kernel body `_kernel`, reached through `fused_attention` and
-// `token_attention`). That kernel held one query tile against the whole K/V
-// panel in VMEM and took an exact one-pass softmax. Here one block owns one
-// (batch*head, query tile) and streams K/V in key tiles through shared
-// memory with an online fp32 row max and row sum (the math of the Pallas
-// flash variant), so shared memory stays bounded whatever S is and any S
-// works (ragged tails are masked). As in the Pallas kernels the softmax runs
-// in base 2 with scale*log2(e) folded in, and the exponentials are exp2.
+// Replaces the Pallas forwards of dpm_solver_tpu/ops/attention.py, which all
+// compute this one function and differ only in how they fill the TPU's
+// matrix unit: `_forward` (whole K/V panel in VMEM, exact one-pass softmax),
+// `_flash_forward` (streamed over key blocks with an online max and sum),
+// `_flash_forward_T` and `_panel_forward_T` (the same two with P.V taken
+// transposed). Here one block owns one (batch*head, query tile, output
+// column slice) and streams K/V in key tiles through shared memory with an
+// online fp32 row max and row sum (the flash variant's math), so shared
+// memory stays bounded whatever S is and any S works (ragged tails are
+// masked). As in the Pallas kernels the softmax runs in base 2 with
+// scale*log2(e) folded in, and the exponentials are exp2.
 //
-// Layout: q (B, T, H*D), k and v (B, S, H*D), o (B, T, H*D), all contiguous,
-// head-major channels (h*D + d) as in token_attention. The kernel indexes the
-// heads in place, so the wrapper makes no transposed copies.
+// Layout: o (B, T, H*D) contiguous, head-major channels (h*D + d) as in
+// token_attention. q, k and v are (B, T|S, H*D) with unit stride along the
+// channels and any batch and token strides, so the column slices of one
+// fused qkv projection (token stride 3*H*D) are read in place, with no copy.
 //
-// What bounds it on the H100: at the CIFAR AttnBlock (one head, D = 256,
-// T = S = 256, B = 64) the two products are 2*2*T*S*D flops per head against
-// 4*T*D*2 bytes of q/k/v/o in bf16, about 128 flop/byte: below the bf16
-// ridge (~295) once the products run on the tensor cores, so the kernel
-// should keep every intermediate (logits, probabilities, the running output)
-// on chip and read q, k, v once per query tile. Two kernels, by dtype:
+// What bounds it on the H100: the two products are 2*2*T*S*D flops per head
+// against 4*T*D*2 bytes of q/k/v/o in bf16 (T = S), i.e. about S/2
+// flop/byte: at S >= 1024 far above the bf16 ridge (~295), so it is
+// compute-bound and the products belong on the tensor cores, with every
+// intermediate (logits, probabilities, the running output) kept on chip.
+// Two kernels, by dtype:
 //
 // - bf16 (the model's compute dtype): `attention_fwd_bf16_mma`. A block owns
-//   64 queries; each of its 4 warps owns 16 rows end to end. Per 64-key tile,
+//   64 queries; each of its 4 warps owns 16 rows end to end. Per key tile,
 //   Q.K^T and P.V run as WMMA 16x16x16 bf16 products with fp32 accumulators
 //   (`mma.sync`); the logits and the online max/sum stay fp32; P is rounded
 //   to bf16 for the second product, as the JAX package's XLA path rounds it
 //   (`attention_xla`). The running output lives in fp32 shared memory (a
-//   256-wide head would not fit in registers beside the rest). `wgmma`, TMA
-//   and keeping O in registers are the later steps.
+//   wide head would not fit in registers beside the rest). Heads up to 256
+//   wide take 64-key tiles and the whole head per block (at D = 256: 190 KB
+//   of shared memory). The VAE's single 512-wide head does not fit so: its
+//   blocks each own a 256-wide slice of the output (grid.z = 2) and take
+//   32-key tiles, and each recomputes the logits over all 512 channels for
+//   its slice. That costs one extra Q.K^T product (1.5x the flops of the
+//   unsplit form) and keeps a block at 197,632 bytes of shared memory
+//   (q 64x520 and k 32x520 bf16, v 32x264 bf16, logits 64x36 fp32,
+//   probabilities 64x40 bf16, output 64x260 fp32). `wgmma`, TMA and keeping
+//   O in registers are the later steps.
 // - fp32: `attention_fwd_f32`, exact on the CUDA cores: 16 queries per block,
 //   32-key tiles, the output accumulator in registers 16 columns apart per
 //   thread (conflict-free reads of V), K rows padded by one float so the 16
-//   threads of a logits row read 16 different banks.
+//   threads of a logits row read 16 different banks. At D = 512 a block
+//   takes 166,208 bytes of shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,6 +53,11 @@
 #include <stdint.h>
 
 namespace {
+
+// element strides of q, k and v; o is contiguous (B, T, H*D)
+struct Strides {
+  long long qb, qt, kb, kt, vb, vt;
+};
 
 constexpr int BQ = 16;       // queries per block
 constexpr int BKV = 32;      // keys per streamed tile (= warp width)
@@ -66,7 +83,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  int Tq, int S, int H, float qscale) {
+                  int Tq, int S, int H, float qscale, Strides st) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                  // [BQ][D], pre-scaled by scale*log2(e)
@@ -81,16 +98,16 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
-  const long long tok = (long long)H * D;  // elements between tokens
-  const float* qb = q + (long long)b * Tq * tok + (long long)h * D;
-  const float* kb = k + (long long)b * S * tok + (long long)h * D;
-  const float* vb = v + (long long)b * S * tok + (long long)h * D;
-  float* ob = o + (long long)b * Tq * tok + (long long)h * D;
+  const long long otok = (long long)H * D;  // output elements between tokens
+  const float* qb = q + b * st.qb + (long long)h * D;
+  const float* kb = k + b * st.kb + (long long)h * D;
+  const float* vb = v + b * st.vb + (long long)h * D;
+  float* ob = o + (long long)b * Tq * otok + (long long)h * D;
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, d = idx % D;
     const int t = q0 + r;
-    qs[idx] = t < Tq ? qb[t * tok + d] * qscale : 0.f;
+    qs[idx] = t < Tq ? qb[t * st.qt + d] * qscale : 0.f;
   }
   if (tid < BQ) {
     row_m[tid] = -INFINITY;
@@ -110,8 +127,8 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int j = idx / D, d = idx % D;
       const int key = k0 + j;
       const bool valid = key < S;
-      ks[j * (D + 1) + d] = valid ? kb[key * tok + d] : 0.f;
-      vs[j * D + d] = valid ? vb[key * tok + d] : 0.f;
+      ks[j * (D + 1) + d] = valid ? kb[key * st.kt + d] : 0.f;
+      vs[j * D + d] = valid ? vb[key * st.vt + d] : 0.f;
     }
     __syncthreads();
 
@@ -159,7 +176,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (t < Tq) {
     const float inv = 1.f / row_l[row];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) ob[t * tok + col + 16 * i] = acc[i] * inv;
+    for (int i = 0; i < D / 16; ++i) ob[t * otok + col + 16 * i] = acc[i] * inv;
   }
 }
 
@@ -167,31 +184,33 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 namespace mma = nvcuda::wmma;
 constexpr int MQ = 64;            // queries per block: 4 warps x 16 rows
-constexpr int MKV = 64;           // keys per streamed tile
 constexpr int MMA_THREADS = 128;
-constexpr int LDS = MKV + 4;      // fp32 logits pitch
-constexpr int LDP = MKV + 8;      // bf16 probabilities pitch
 
-template <int D>
+// D: the q/k head width; DV: the output columns one block owns (D, or 256
+// for the 512-wide head); KV: keys per streamed tile
+template <int D, int DV, int KV>
 struct MmaSmem {                  // byte offsets into dynamic shared memory
-  static constexpr int LDX = D + 8;   // bf16 q/k/v tile pitch
-  static constexpr int LDO = D + 4;   // fp32 output pitch
+  static constexpr int LDX = D + 8;   // bf16 q/k tile pitch
+  static constexpr int LDV = DV + 8;  // bf16 v tile pitch
+  static constexpr int LDS = KV + 4;  // fp32 logits pitch
+  static constexpr int LDP = KV + 8;  // bf16 probabilities pitch
+  static constexpr int LDO = DV + 4;  // fp32 output pitch
   static constexpr size_t q = 0;
   static constexpr size_t k = q + (size_t)MQ * LDX * 2;
-  static constexpr size_t v = k + (size_t)MKV * LDX * 2;
-  static constexpr size_t s = v + (size_t)MKV * LDX * 2;
+  static constexpr size_t v = k + (size_t)KV * LDX * 2;
+  static constexpr size_t s = v + (size_t)KV * LDV * 2;
   static constexpr size_t p = s + (size_t)MQ * LDS * 4;
   static constexpr size_t o = p + (size_t)MQ * LDP * 2;
   static constexpr size_t bytes = o + (size_t)MQ * LDO * 4;
 };
 
-// rows [row0, row0 + rows) of one head, D wide, from (tokens, H*D) into a
-// bf16 smem tile of pitch ldx, 16 bytes at a time; rows past `valid` are 0
-template <int D>
+// rows [row0, row0 + rows) of one head, W wide, from rows `tok` elements apart
+// into a bf16 smem tile of pitch ldx, 16 bytes at a time; rows past `valid` are 0
+template <int W>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long tok, int row0, int rows, int valid,
                                           int ldx) {
-  constexpr int CHUNKS = D / 8;
+  constexpr int CHUNKS = W / 8;
   for (int e = threadIdx.x; e < rows * CHUNKS; e += MMA_THREADS) {
     const int r = e / CHUNKS, c = 8 * (e % CHUNKS);
     uint4 val = make_uint4(0, 0, 0, 0);
@@ -200,12 +219,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D>
+template <int D, int DV, int KV>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       int Tq, int S, int H, float qscale) {
-  using L = MmaSmem<D>;
+                       int Tq, int S, int H, float qscale, Strides st) {
+  static_assert(KV % 32 == 0 && DV % 32 == 0 && D % DV == 0, "tile shapes");
+  using L = MmaSmem<D, DV, KV>;
+  constexpr int HALF = KV / 2;    // logits of one row per lane
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::q);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::k);
@@ -217,13 +238,14 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * MQ;
-  const long long tok = (long long)H * D;
-  const __nv_bfloat16* qb = q + (long long)b * Tq * tok + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * S * tok + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * S * tok + (long long)h * D;
-  __nv_bfloat16* ob = o + (long long)b * Tq * tok + (long long)h * D;
+  const int c0 = blockIdx.z * DV;  // this block's output columns within the head
+  const long long otok = (long long)H * D;
+  const __nv_bfloat16* qb = q + b * st.qb + (long long)h * D;
+  const __nv_bfloat16* kb = k + b * st.kb + (long long)h * D;
+  const __nv_bfloat16* vb = v + b * st.vb + (long long)h * D + c0;
+  __nv_bfloat16* ob = o + (long long)b * Tq * otok + (long long)h * D + c0;
 
-  load_tile<D>(qs, qb, tok, q0, MQ, Tq, L::LDX);
+  load_tile<D>(qs, qb, st.qt, q0, MQ, Tq, L::LDX);
   for (int e = threadIdx.x; e < MQ * L::LDO; e += MMA_THREADS) os[e] = 0.f;
 
   // softmax state: lanes 2r and 2r+1 both hold row (warp*16 + r)'s running
@@ -231,22 +253,22 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int row = warp * 16 + lane / 2, half = lane % 2;
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += MKV) {
+  for (int k0 = 0; k0 < S; k0 += KV) {
     __syncthreads();  // previous tile consumed (first pass: q tile and O zeroed)
-    load_tile<D>(ks, kb, tok, k0, MKV, S, L::LDX);
-    load_tile<D>(vs, vb, tok, k0, MKV, S, L::LDX);
+    load_tile<D>(ks, kb, st.kt, k0, KV, S, L::LDX);
+    load_tile<DV>(vs, vb, st.vt, k0, KV, S, L::LDV);
     __syncthreads();
 
-    // logits of this warp's 16 rows against the 64 keys: Q_w (16 x D) . K^T
-    mma::fragment<mma::accumulator, 16, 16, 16, float> sacc[MKV / 16];
+    // logits of this warp's 16 rows against the KV keys: Q_w (16 x D) . K^T
+    mma::fragment<mma::accumulator, 16, 16, 16, float> sacc[KV / 16];
 #pragma unroll
-    for (int j = 0; j < MKV / 16; ++j) mma::fill_fragment(sacc[j], 0.f);
+    for (int j = 0; j < KV / 16; ++j) mma::fill_fragment(sacc[j], 0.f);
 #pragma unroll 4
     for (int kd = 0; kd < D; kd += 16) {
       mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major> fa;
       mma::load_matrix_sync(fa, qs + warp * 16 * L::LDX + kd, L::LDX);
 #pragma unroll
-      for (int j = 0; j < MKV / 16; ++j) {
+      for (int j = 0; j < KV / 16; ++j) {
         // K is [key][d] row-major, i.e. K^T column-major
         mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::col_major> fb;
         mma::load_matrix_sync(fb, ks + j * 16 * L::LDX + kd, L::LDX);
@@ -254,15 +276,16 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       }
     }
 #pragma unroll
-    for (int j = 0; j < MKV / 16; ++j)
-      mma::store_matrix_sync(ss + warp * 16 * LDS + j * 16, sacc[j], LDS, mma::mem_row_major);
+    for (int j = 0; j < KV / 16; ++j)
+      mma::store_matrix_sync(ss + warp * 16 * L::LDS + j * 16, sacc[j], L::LDS,
+                             mma::mem_row_major);
     __syncwarp();
 
-    // online softmax in base 2 over this lane's 32 logits of its row
-    float* srow = ss + row * LDS + half * 32;
+    // online softmax in base 2 over this lane's HALF logits of its row
+    float* srow = ss + row * L::LDS + half * HALF;
     float mx = -INFINITY;
-    for (int j = 0; j < 32; ++j) {
-      const bool valid = k0 + half * 32 + j < S;
+    for (int j = 0; j < HALF; ++j) {
+      const bool valid = k0 + half * HALF + j < S;
       const float sv = valid ? srow[j] * qscale : -INFINITY;
       srow[j] = sv;
       mx = fmaxf(mx, sv);
@@ -271,8 +294,8 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const float m_new = fmaxf(m, mx);       // finite: every tile has a valid key
     const float alpha = exp2f(m - m_new);   // first tile: exp2(-inf) = 0
     float sum = 0.f;
-    __nv_bfloat16* prow = ps + row * LDP + half * 32;
-    for (int j = 0; j < 32; ++j) {
+    __nv_bfloat16* prow = ps + row * L::LDP + half * HALF;
+    for (int j = 0; j < HALF; ++j) {
       const float pv = exp2f(srow[j] - m_new);  // masked keys: exp2(-inf) = 0
       sum += pv;
       prow[j] = __float2bfloat16(pv);
@@ -280,21 +303,23 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l = l * alpha + sum;
     m = m_new;
-    float* orow = os + row * L::LDO + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
+    if (alpha != 1.f) {  // both lanes of a row agree on alpha
+      float* orow = os + row * L::LDO + half * (DV / 2);
+      for (int c = 0; c < DV / 2; ++c) orow[c] *= alpha;
+    }
     __syncwarp();
 
-    // O_w (16 x D) += P_w (16 x 64) . V (64 x D)
-    for (int n = 0; n < D; n += 16) {
+    // O_w (16 x DV) += P_w (16 x KV) . V (KV x DV)
+    for (int n = 0; n < DV; n += 16) {
       mma::fragment<mma::accumulator, 16, 16, 16, float> oacc;
       float* otile = os + warp * 16 * L::LDO + n;
       mma::load_matrix_sync(oacc, otile, L::LDO, mma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < MKV; kk += 16) {
+      for (int kk = 0; kk < KV; kk += 16) {
         mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major> fp;
         mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::row_major> fv;
-        mma::load_matrix_sync(fp, ps + warp * 16 * LDP + kk, LDP);
-        mma::load_matrix_sync(fv, vs + kk * L::LDX + n, L::LDX);
+        mma::load_matrix_sync(fp, ps + warp * 16 * L::LDP + kk, L::LDP);
+        mma::load_matrix_sync(fv, vs + kk * L::LDV + n, L::LDV);
         mma::mma_sync(oacc, fp, fv, oacc);
       }
       mma::store_matrix_sync(otile, oacc, L::LDO, mma::mem_row_major);
@@ -305,15 +330,15 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int t = q0 + row;
   if (t < Tq) {
     const float inv = 1.f / l;
-    const float* orow = os + row * L::LDO + half * (D / 2);
-    __nv_bfloat16* dst = ob + t * tok + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) dst[c] = __float2bfloat16(orow[c] * inv);
+    const float* orow = os + row * L::LDO + half * (DV / 2);
+    __nv_bfloat16* dst = ob + t * otok + half * (DV / 2);
+    for (int c = 0; c < DV / 2; ++c) dst[c] = __float2bfloat16(orow[c] * inv);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-               int S, int H, float qscale, cudaStream_t stream) {
+               int S, int H, float qscale, Strides st, cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -322,52 +347,62 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
   attention_fwd_f32<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Tq, S, H, qscale);
+      static_cast<const float*>(v), static_cast<float*>(o), Tq, S, H, qscale, st);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV, int KV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-                int S, int H, float qscale, cudaStream_t stream) {
-  const size_t bytes = MmaSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16_mma<D>,
+                int S, int H, float qscale, Strides st, cudaStream_t stream) {
+  const size_t bytes = MmaSmem<D, DV, KV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16_mma<D, DV, KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Tq + MQ - 1) / MQ), (unsigned)(B * H));
-  attention_fwd_bf16_mma<D><<<grid, MMA_THREADS, bytes, stream>>>(
+  dim3 grid((unsigned)((Tq + MQ - 1) / MQ), (unsigned)(B * H), (unsigned)(D / DV));
+  attention_fwd_bf16_mma<D, DV, KV><<<grid, MMA_THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Tq, S, H,
-      qscale);
+      qscale, st);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, int S,
-           int H, float qscale, int dtype, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, Tq, S, H, qscale, s);
-  // the bf16 kernel moves q, k, v in 16-byte vectors
+           int H, float qscale, Strides st, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+  // the bf16 kernel moves q, k, v in 16-byte vectors: every row start aligned
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  return launch_bf16<D>(q, k, v, o, B, Tq, S, H, qscale, s);
+  const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
+  if (any % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  if constexpr (D == 512) {
+    return launch_bf16<D, 256, 32>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+  } else {
+    return launch_bf16<D, D, 64>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it; bf16 pointers
-// 16-byte aligned). qscale is scale * log2(e). Returns the cudaError_t of
-// the launch.
+// 16-byte aligned, bf16 strides multiples of 8). qscale is scale * log2(e).
+// q_bs, q_ts (and k_, v_) are the batch and token strides in elements; the
+// channel stride is 1 and o is contiguous. Returns the cudaError_t of the launch.
 extern "C" int dpm_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                  int B, int T, int S, int H, int D, float qscale,
+                                 long long q_bs, long long q_ts, long long k_bs,
+                                 long long k_ts, long long v_bs, long long v_ts,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const Strides st{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts};
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, T, S, H, qscale, dtype, s);
-    case 64: return launch<64>(q, k, v, o, B, T, S, H, qscale, dtype, s);
-    case 128: return launch<128>(q, k, v, o, B, T, S, H, qscale, dtype, s);
-    case 256: return launch<256>(q, k, v, o, B, T, S, H, qscale, dtype, s);
+    case 32: return launch<32>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
+    case 64: return launch<64>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
+    case 128: return launch<128>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
+    case 256: return launch<256>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
+    case 512: return launch<512>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,3 +1,19 @@
+from dpm_solver_tpu_torch.models.adm_unet import ADMConfig, ADMUNet, layout
 from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig, init_random_
+from dpm_solver_tpu_torch.models.text_encoder import constant_context_encoder
+from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
+from dpm_solver_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, VAEConfig
 
-__all__ = ["DDPMUNet", "DDPMUNetConfig", "init_random_"]
+__all__ = [
+    "ADMConfig",
+    "ADMUNet",
+    "AutoencoderKL",
+    "DDPMUNet",
+    "DDPMUNetConfig",
+    "DiagonalGaussian",
+    "SpatialTransformer",
+    "VAEConfig",
+    "constant_context_encoder",
+    "init_random_",
+    "layout",
+]

@@ -33,6 +33,7 @@ from torch import nn
 
 from dpm_solver_tpu_torch.ops.attention import token_attention
 from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3
+from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,10 +209,18 @@ class Upsample(nn.Module):
 
 
 class DDPMUNet(nn.Module):
-    """eps-prediction UNet; x NHWC (B, H, W, C), t of shape (B,) (continuous labels ok)."""
+    """eps-prediction UNet; x NHWC (B, H, W, C), t of shape (B,) (continuous labels ok).
 
-    def __init__(self, config: DDPMUNetConfig, compute_dtype: torch.dtype = torch.float32):
+    Built on `device`, the card by default (raises when there is none).
+    """
+
+    def __init__(self, config: DDPMUNetConfig, compute_dtype: torch.dtype = torch.float32,
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        with torch.device(resolve_device(device)):
+            self._construct(config, compute_dtype)
+
+    def _construct(self, config: DDPMUNetConfig, compute_dtype: torch.dtype):
         cfg = self.config = config
         dt = self.compute_dtype = compute_dtype
         num_res = len(cfg.ch_mult)
@@ -305,13 +314,17 @@ class DDPMUNet(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator`: weights N(0, 1/fan_in), norm
-    scales 1, biases N(0, 0.01^2). Random weights for runs without a checkpoint."""
+    scales 1, biases N(0, 0.01^2). Random weights for runs without a checkpoint;
+    no layer is left at zero (the zero-initialised output projections of the
+    reference would otherwise make half of each block compute nothing). The
+    values are drawn on the generator's device."""
+    dev = generator.device
     for name, p in model.named_parameters():
         if name.endswith("bias"):
-            vals = torch.randn(p.shape, generator=generator) * 0.01
-        elif p.dim() == 1:  # GroupNorm scale
-            vals = torch.ones(p.shape)
+            vals = torch.randn(p.shape, generator=generator, device=dev) * 0.01
+        elif p.dim() == 1:  # GroupNorm / LayerNorm scale
+            vals = torch.ones(p.shape, device=dev)
         else:
-            vals = torch.randn(p.shape, generator=generator) / math.sqrt(p[0].numel())
+            vals = torch.randn(p.shape, generator=generator, device=dev) / math.sqrt(p[0].numel())
         p.copy_(vals)
     return model

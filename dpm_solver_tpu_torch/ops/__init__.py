@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch twin.
 
-    fused_update   -- the solver update, Triton       (fused_update.py)
-    conv3x3        -- 3x3 SAME NHWC conv, CUDA C++     (conv3x3.py, csrc/conv3x3.cu)
-    token_attention -- attention forward, CUDA C++     (attention.py, csrc/attention.cu)
+    fused_update    -- the solver update, Triton             (fused_update.py)
+    conv3x3         -- 3x3 SAME NHWC conv, CUDA C++           (conv3x3.py, csrc/conv3x3.cu)
+    token_attention -- attention forward, CUDA C++            (attention.py, csrc/attention.cu)
+    ln_linear       -- LayerNorm -> Linear, CUDA C++          (ln_linear.py, csrc/ln_linear.cu)
+    geglu_ff        -- GEGLU feed-forward, CUDA C++           (geglu.py, csrc/geglu.cu)
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`.
@@ -11,8 +13,10 @@ raises. Each wrapper counts its launches in `<wrapper>.launches`.
 from dpm_solver_tpu_torch.ops.attention import attention_plain, token_attention
 from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_plain
 from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_plain
+from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, gelu_exact
+from dpm_solver_tpu_torch.ops.ln_linear import layer_norm_fp32, ln_linear, ln_linear_plain
 
-KERNELS = (conv3x3, token_attention, fused_update)
+KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff)
 
 
 def reset_launch_counts() -> None:
@@ -32,7 +36,13 @@ __all__ = [
     "conv3x3_plain",
     "fused_update",
     "fused_update_plain",
+    "geglu_ff",
+    "geglu_plain",
+    "gelu_exact",
     "launch_counts",
+    "layer_norm_fp32",
+    "ln_linear",
+    "ln_linear_plain",
     "reset_launch_counts",
     "token_attention",
 ]

@@ -3,8 +3,10 @@
 All of `dpm_solver_tpu_torch/csrc/*.cu` compile into one shared library with
 a plain C interface, at first use, into `dpm_solver_tpu_torch/_build/<hash>/`
 (listed in `.gitignore`), where the hash covers the sources and the nvcc
-command. A later call with the same sources loads the cached library. A
-missing nvcc or a failed build raises: there is no fallback.
+command. Each source compiles in its own nvcc process, all started together,
+and one more links the objects. A later call with the same sources loads the
+cached library. A missing nvcc or a failed build raises: there is no
+fallback.
 
 Every C entry returns the `cudaError_t` of its launch; `check` turns a
 non-zero code into an exception.
@@ -26,15 +28,19 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libdpm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
     "dpm_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "dpm_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dpm_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _L, _L, _L, _L, _L,
+                          _I, _P),
+    "dpm_ln_linear_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "dpm_geglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -68,17 +74,30 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    for cmd, out, code in logs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
+        if verbose:
+            print(out)
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     if verbose:
-        print(proc.stdout + proc.stderr)
         print(f"nvcc build: {time.perf_counter() - t0:.1f} s -> {lib}")
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
     return lib

@@ -3,9 +3,14 @@
 Counterpart of the forward of `dpm_solver_tpu/ops/attention.py`
 (`token_attention`, whose Pallas path is `fused_attention` -> `_forward`).
 `token_attention` keeps the JAX head-major interface: q (B, T, H*dh) and
-k, v (B, S, H*dh) in, (B, T, H*dh) out. The kernel lives in
-`csrc/attention.cu`; its header says what it replaces, what bounds it on the
-H100 and how it is built. It takes head dims 32, 64, 128 and 256.
+k, v (B, S, H*dh) in, (B, T, H*dh) out. The one kernel, in
+`csrc/attention.cu`, stands in for all four Pallas forwards (`_forward`,
+`_flash_forward`, `_flash_forward_T`, `_panel_forward_T`), which compute the
+same function; its header says what it replaces, what bounds it on the H100
+and how it is built. It takes head dims 32, 64, 128, 256 and 512 (the VAE's
+single mid-block head). q, k and v need unit stride along the channels only:
+the column slices of one fused qkv projection are read in place, not copied.
+The JAX package's v5e gate (Pallas only for S >= 1024) is not carried over.
 
 Dispatch is by device only: a CPU tensor takes `attention_plain`; a CUDA
 tensor launches the kernel or raises. `token_attention.launches` counts
@@ -23,7 +28,7 @@ import torch
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256, 512)
 _LOG2E = math.log2(math.e)
 
 
@@ -61,14 +66,15 @@ def _check(q, k, v, num_heads):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q, k, v of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention kernel needs contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("attention kernel needs 16-byte aligned bf16 q, k, v")
+    if any(u.stride(2) != 1 for u in (q, k, v)):
+        raise ValueError("attention kernel needs q, k, v with unit stride along the channels")
+    if q.dtype == torch.bfloat16 and any(u.data_ptr() % 16 or u.stride(0) % 8 or u.stride(1) % 8
+                                         for u in (q, k, v)):
+        raise ValueError("attention kernel needs 16-byte aligned bf16 q, k, v rows")
     if k.device != q.device or v.device != q.device:
         raise ValueError("token_attention: q, k, v must share a device")
-    if b * num_heads >= 65536 or max(q.numel(), k.numel()) >= 2**31:
-        raise ValueError("attention kernel takes B*H < 65536 and < 2**31 elements")
+    if b * num_heads >= 65536:
+        raise ValueError("attention kernel takes B*H < 65536")
 
 
 def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,11 +89,11 @@ def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = k.shape[1]
     dh = inner // num_heads
     scale = dh ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = torch.empty((b, t, inner), dtype=q.dtype, device=q.device)
     code = _build.library().dpm_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s,
-        num_heads, dh, float(scale * _LOG2E), _DTYPES[q.dtype],
-        _build.stream_ptr(q.device))
+        num_heads, dh, float(scale * _LOG2E), *q.stride()[:2], *k.stride()[:2],
+        *v.stride()[:2], _DTYPES[q.dtype], _build.stream_ptr(q.device))
     _build.check(code, "token_attention")
     token_attention.launches += 1
     return out

@@ -1,10 +1,19 @@
-"""Flax DDPM UNet parameters -> the port's torch state dict.
+"""Flax parameters -> the port's torch state dicts.
 
-The inverse of `dpm_solver_tpu/utils/convert.py::convert_ddpm_unet`, so
-weights made by the JAX package (random inits in tests, or converted
-checkpoints) load into `models.DDPMUNet` with a plain `load_state_dict`.
-It reads nested dicts of arrays (numpy, or anything `np.asarray` takes) and
-imports nothing of JAX. Layout rules, the converter's in reverse:
+The inverses of the JAX package's torch -> Flax converters, so weights made
+by the JAX package (random inits in tests, or converted checkpoints) load
+into the port's models with a plain `load_state_dict`:
+
+- `ddpm_unet_state_dict_from_flax`: of `dpm_solver_tpu/utils/convert.py::
+  convert_ddpm_unet`, for `models.DDPMUNet`;
+- `adm_unet_state_dict_from_flax`: of `convert_adm_unet`, for
+  `models.ADMUNet`, driven by the port's own `layout()`
+  (`spatial_transformer_state_dict_from_flax` for one SpatialTransformer);
+- `autoencoder_kl_state_dict_from_flax`: of `dpm_solver_tpu/models/vae.py::
+  convert_autoencoder_kl`, for `models.AutoencoderKL`.
+
+They read nested dicts of arrays (numpy, or anything `np.asarray` takes) and
+import nothing of JAX. The DDPM layout rules, the converter's in reverse:
 
   conv  kernel [kH, kW, I, O]   -> weight [O, I, kH, kW]
   dense kernel [I, O]           -> weight [O, I]
@@ -71,3 +80,174 @@ def ddpm_unet_state_dict_from_flax(flax_params: Mapping) -> Dict[str, torch.Tens
             raise ValueError(f"unexpected leaf {'/'.join(path)}")
         out[".".join(mods + [leaf])] = torch.tensor(arr)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# ADM / Stable Diffusion UNet and the KL autoencoder
+# --------------------------------------------------------------------------- #
+
+
+def _join(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
+class _Writer:
+    """Writes Flax leaves into a torch state dict in the reference layouts."""
+
+    def __init__(self):
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def put(self, key: str, arr) -> None:
+        self.sd[key] = torch.tensor(np.ascontiguousarray(np.asarray(arr)))
+
+    def conv(self, dst: str, node: Mapping) -> None:   # kernel [kH, kW, I, O]
+        self.put(_join(dst, "weight"), np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        self.put(_join(dst, "bias"), node["bias"])
+
+    def dense(self, dst: str, node: Mapping) -> None:  # kernel [I, O]
+        self.put(_join(dst, "weight"), np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            self.put(_join(dst, "bias"), node["bias"])
+
+    def conv1d(self, dst: str, node: Mapping) -> None:  # dense kernel -> (O, I, 1)
+        self.put(_join(dst, "weight"), np.asarray(node["kernel"]).T[:, :, None])
+        self.put(_join(dst, "bias"), node["bias"])
+
+    def conv1x1(self, dst: str, node: Mapping) -> None:  # dense kernel -> (O, I, 1, 1)
+        self.put(_join(dst, "weight"), np.asarray(node["kernel"]).T[:, :, None, None])
+        self.put(_join(dst, "bias"), node["bias"])
+
+    def affine(self, dst: str, node: Mapping) -> None:  # LayerNorm / bare GroupNorm
+        self.put(_join(dst, "weight"), node["scale"])
+        self.put(_join(dst, "bias"), node["bias"])
+
+    def gn(self, dst: str, node: Mapping) -> None:  # GroupNorm32 wraps a child 'norm'
+        self.affine(dst, node["norm"])
+
+    def proj(self, dst: str, node: Mapping) -> None:  # Linear (SD-2.x) or 1x1 conv
+        (self.dense if np.ndim(node["kernel"]) == 2 else self.conv)(dst, node)
+
+    def spatial_transformer(self, dst: str, node: Mapping) -> None:
+        self.affine(_join(dst, "norm"), node["norm"])
+        self.proj(_join(dst, "proj_in"), node["proj_in"])
+        self.proj(_join(dst, "proj_out"), node["proj_out"])
+        depth = sum(1 for name in node if name.startswith("block_"))
+        for d in range(depth):
+            blk, t = node[f"block_{d}"], _join(dst, f"transformer_blocks.{d}")
+            for norm in ("norm1", "norm2", "norm3"):
+                self.affine(f"{t}.{norm}", blk[norm])
+            for attn in ("attn1", "attn2"):
+                for leaf in ("to_q", "to_k", "to_v"):
+                    self.dense(f"{t}.{attn}.{leaf}", blk[attn][leaf])
+                self.dense(f"{t}.{attn}.to_out.0", blk[attn]["to_out"])
+            self.dense(t + ".ff.net.0.proj", blk["ff"]["proj"])
+            self.dense(t + ".ff.net.2", blk["ff"]["out"])
+
+
+def spatial_transformer_state_dict_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """SpatialTransformer flax params -> the torch state dict of
+    `models.SpatialTransformer` (reference key names)."""
+    w = _Writer()
+    w.spatial_transformer("", flax_params.get("params", flax_params))
+    return w.sd
+
+
+def adm_unet_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """ADMUNet flax params ({'params': {...}} or the inner dict) -> the torch
+    state dict of `models.ADMUNet(config)` (reference key names)."""
+    from dpm_solver_tpu_torch.models.adm_unet import layout
+
+    p = flax_params.get("params", flax_params)
+    w = _Writer()
+
+    def put_layer(src: str, spec: dict, dst: str) -> None:
+        kind = spec["kind"]
+        if kind == "resample" and not spec["with_conv"]:
+            return  # parameter-free
+        node = p[src]
+        if kind == "conv_in":
+            w.conv(dst, node)
+        elif kind == "res":
+            w.gn(dst + ".in_layers.0", node["in_norm"])
+            w.conv(dst + ".in_layers.2", node["in_conv"])
+            w.dense(dst + ".emb_layers.1", node["emb_proj"])
+            w.gn(dst + ".out_layers.0", node["out_norm"])
+            w.conv(dst + ".out_layers.3", node["out_conv"])
+            if "skip" in node:
+                w.conv(dst + ".skip_connection", node["skip"])
+        elif kind == "attn":
+            w.gn(dst + ".norm", node["norm"])
+            w.conv1d(dst + ".qkv", node["qkv"])
+            w.conv1d(dst + ".proj_out", node["proj_out"])
+        elif kind == "xattn":
+            w.spatial_transformer(dst, node)
+        elif kind == "resample":
+            w.conv(f"{dst}.{'conv' if spec['direction'] == 'up' else 'op'}", node["conv"])
+        else:
+            raise ValueError(kind)
+
+    w.dense("time_embed.0", p["time_embed_0"])
+    w.dense("time_embed.2", p["time_embed_2"])
+    if "label_emb" in p:
+        w.put("label_emb.weight", p["label_emb"]["embedding"])
+    plan = layout(config)
+    for n, layers in enumerate(plan["input_blocks"]):
+        for m, spec in enumerate(layers):
+            put_layer(f"input_blocks_{n}_{m}", spec, f"input_blocks.{n}.{m}")
+    for m, spec in enumerate(plan["middle"]):
+        put_layer(f"middle_block_{m}", spec, f"middle_block.{m}")
+    for n, layers in enumerate(plan["output_blocks"]):
+        for m, spec in enumerate(layers):
+            put_layer(f"output_blocks_{n}_{m}", spec, f"output_blocks.{n}.{m}")
+    w.gn("out.0", p["out_norm"])
+    w.conv("out.2", p["out_conv"])
+    return w.sd
+
+
+def autoencoder_kl_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """AutoencoderKL flax params -> the torch state dict of
+    `models.AutoencoderKL(config)`; the fused qkv splits back into the
+    reference's q, k and v 1x1 convs."""
+    p = flax_params.get("params", flax_params)
+    w = _Writer()
+
+    def resblock(dst: str, node: Mapping) -> None:
+        for leaf in ("norm1", "norm2"):
+            w.affine(f"{dst}.{leaf}", node[leaf])
+        for leaf in ("conv1", "conv2"):
+            w.conv(f"{dst}.{leaf}", node[leaf])
+        if "nin_shortcut" in node:
+            w.conv(dst + ".nin_shortcut", node["nin_shortcut"])
+
+    def attn(dst: str, node: Mapping) -> None:
+        w.affine(dst + ".norm", node["norm"])
+        kernel, bias = np.asarray(node["qkv"]["kernel"]), np.asarray(node["qkv"]["bias"])
+        c = kernel.shape[0]
+        for i, leaf in enumerate(("q", "k", "v")):
+            w.conv1x1(f"{dst}.{leaf}", {"kernel": kernel[:, i * c:(i + 1) * c],
+                                        "bias": bias[i * c:(i + 1) * c]})
+        w.conv1x1(dst + ".proj_out", node["proj_out"])
+
+    def half(prefix: str, node: Mapping, decoder: bool) -> None:
+        w.conv(prefix + ".conv_in", node["conv_in"])
+        resblock(prefix + ".mid.block_1", node["mid_block_1"])
+        attn(prefix + ".mid.attn_1", node["mid_attn_1"])
+        resblock(prefix + ".mid.block_2", node["mid_block_2"])
+        w.affine(prefix + ".norm_out", node["norm_out"])
+        w.conv(prefix + ".conv_out", node["conv_out"])
+        side = "up" if decoder else "down"
+        resample = "upsample" if decoder else "downsample"
+        for i in range(len(config.ch_mult)):
+            for j in range(config.num_res_blocks + (1 if decoder else 0)):
+                if f"{side}_{i}_block_{j}" in node:
+                    resblock(f"{prefix}.{side}.{i}.block.{j}", node[f"{side}_{i}_block_{j}"])
+                if f"{side}_{i}_attn_{j}" in node:
+                    attn(f"{prefix}.{side}.{i}.attn.{j}", node[f"{side}_{i}_attn_{j}"])
+            if f"{side}_{i}_{resample}" in node:
+                w.conv(f"{prefix}.{side}.{i}.{resample}.conv", node[f"{side}_{i}_{resample}"])
+
+    half("encoder", p["encoder"], decoder=False)
+    half("decoder", p["decoder"], decoder=True)
+    w.conv("quant_conv", p["quant_conv"])
+    w.conv("post_quant_conv", p["post_quant_conv"])
+    return w.sd

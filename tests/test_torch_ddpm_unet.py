@@ -39,7 +39,7 @@ def jax_tiny():
 def test_forward_matches_jax(jax_tiny):
     model, params, x, t = jax_tiny
     want = np.asarray(jax.jit(model.apply)(params, jnp.asarray(x), jnp.asarray(t)))
-    port = DDPMUNet(DDPMUNetConfig.tiny(resolution=16))
+    port = DDPMUNet(DDPMUNetConfig.tiny(resolution=16), device="cpu")
     port.load_state_dict(ddpm_unet_state_dict_from_flax(params), strict=True)
     with torch.no_grad():
         got = port(torch.tensor(x), torch.tensor(t))
@@ -49,7 +49,7 @@ def test_forward_matches_jax(jax_tiny):
 
 def test_state_dict_names_and_shapes_match_jax_params(jax_tiny):
     _, params, _, _ = jax_tiny
-    port = DDPMUNet(DDPMUNetConfig.tiny(resolution=16))
+    port = DDPMUNet(DDPMUNetConfig.tiny(resolution=16), device="cpu")
     carried = ddpm_unet_state_dict_from_flax(params)
     ours = port.state_dict()
     assert set(carried) == set(ours)
@@ -59,7 +59,8 @@ def test_state_dict_names_and_shapes_match_jax_params(jax_tiny):
 
 
 def test_round_trip_through_jax_converter_is_exact():
-    port = init_random_(DDPMUNet(DDPMUNetConfig.tiny()), torch.Generator().manual_seed(3))
+    port = init_random_(DDPMUNet(DDPMUNetConfig.tiny(), device="cpu"),
+                        torch.Generator().manual_seed(3))
     sd = port.state_dict()
     flax_params = convert_ddpm_unet({k: v.numpy() for k, v in sd.items()})
     back = ddpm_unet_state_dict_from_flax(flax_params)
@@ -73,8 +74,8 @@ def test_unconditional_avgpool_variant_matches_jax():
     (average-pool down, bare nearest up): weights from one torch init carried
     into the JAX model by its own converter; JAX runs un-jitted (no compile)."""
     kw = dict(conditional=False, resamp_with_conv=False)
-    port = init_random_(DDPMUNet(dataclasses.replace(DDPMUNetConfig.tiny(8), **kw)),
-                        torch.Generator().manual_seed(1)).eval()
+    cfg = dataclasses.replace(DDPMUNetConfig.tiny(8), **kw)
+    port = init_random_(DDPMUNet(cfg, device="cpu"), torch.Generator().manual_seed(1)).eval()
     params = convert_ddpm_unet({k: v.numpy() for k, v in port.state_dict().items()})
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
@@ -91,5 +92,5 @@ def test_cifar10_config_matches_jax():
     for f in ("ch", "out_ch", "ch_mult", "num_res_blocks", "attn_resolutions",
               "in_channels", "resolution", "resamp_with_conv", "conditional"):
         assert getattr(ours, f) == getattr(theirs, f), f
-    n = sum(p.numel() for p in DDPMUNet(ours).parameters())
+    n = sum(p.numel() for p in DDPMUNet(ours, device="cpu").parameters())
     assert 35_600_000 < n < 35_800_000  # the CIFAR-10 DDPM's 35.7M parameters

@@ -1,10 +1,13 @@
 """The port stands alone, and its kernel wrappers hide no device.
 
-- An AST scan: no file under dpm_solver_tpu_torch/ imports jax, flax or
-  dpm_solver_tpu (a `sys.modules` check cannot show it: the test process
-  imports jax anyway).
+- An AST scan: no file under dpm_solver_tpu_torch/, and not chip_smoke.py,
+  imports jax, flax or dpm_solver_tpu (a `sys.modules` check cannot show it:
+  the test process imports jax anyway).
 - On the CPU every wrapper takes its plain version and launches nothing:
-  the launch counters stay at 0 through a whole tiny sampling run.
+  the launch counters stay at 0 through a whole tiny sampling run and a
+  tiny txt2img run.
+- The models and the pipeline default to the card: with no card, a
+  constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
   kernels do not take (they run on tensors of any device).
 """
@@ -19,13 +22,20 @@ import torch
 
 import dpm_solver_tpu_torch as P
 from dpm_solver_tpu_torch import ops
-from dpm_solver_tpu_torch.models import DDPMUNet, DDPMUNetConfig, init_random_
+from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
+                                         DDPMUNetConfig, SpatialTransformer, VAEConfig,
+                                         constant_context_encoder, init_random_)
+from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
 
 # the modules themselves: `ops` re-exports functions of the same names
-attention, conv3x3, fused_update = (importlib.import_module(f"dpm_solver_tpu_torch.ops.{m}")
-                                    for m in ("attention", "conv3x3", "fused_update"))
+attention, conv3x3, fused_update, geglu, ln_linear = (
+    importlib.import_module(f"dpm_solver_tpu_torch.ops.{m}")
+    for m in ("attention", "conv3x3", "fused_update", "geglu", "ln_linear"))
 
 PKG = pathlib.Path(P.__file__).resolve().parent
+CHIP_SMOKE = PKG.parent / "chip_smoke.py"
+NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear": 0,
+               "geglu_ff": 0}
 FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu")
 
 
@@ -37,8 +47,8 @@ def _imported_roots(tree):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PKG)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [CHIP_SMOKE],
+                         ids=lambda p: str(p.relative_to(PKG.parent)))
 def test_port_never_imports_jax(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
@@ -46,7 +56,7 @@ def test_port_never_imports_jax(path):
 
 def test_cpu_run_takes_plain_path_and_launches_nothing():
     ops.reset_launch_counts()
-    net = init_random_(DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
+    net = init_random_(DDPMUNet(DDPMUNetConfig.tiny(resolution=8), device="cpu"),
                        torch.Generator().manual_seed(0)).eval()
     ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
     solver = P.DPM_Solver(P.model_wrapper(net, ns), ns, algorithm_type="dpmsolver++")
@@ -54,7 +64,40 @@ def test_cpu_run_takes_plain_path_and_launches_nothing():
         out = solver.sample(torch.randn(1, 8, 8, 3, generator=torch.Generator().manual_seed(1)),
                             steps=3, order=3, skip_type="logSNR", method="multistep")
     assert out.shape == (1, 8, 8, 3) and torch.isfinite(out).all()
-    assert ops.launch_counts() == {"conv3x3": 0, "token_attention": 0, "fused_update": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_txt2img_takes_plain_path_and_launches_nothing():
+    """The SD path runs every kernel of the port: on the CPU, none launches."""
+    ucfg = ADMConfig(image_size=8, in_channels=4, model_channels=32, out_channels=4,
+                     num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     num_heads=-1, num_head_channels=16, use_spatial_transformer=True,
+                     context_dim=24, use_linear_in_transformer=True, legacy=False)
+    g = torch.Generator().manual_seed(0)
+    unet = init_random_(ADMUNet(ucfg, device="cpu"), g).eval()
+    vae = init_random_(AutoencoderKL(VAEConfig.tiny(resolution=16), device="cpu"), g).eval()
+    pipe = StableDiffusionPipeline(
+        LatentDiffusion(unet, vae, text_encode=constant_context_encoder(24),
+                        parameterization="v"), device="cpu")
+    ops.reset_launch_counts()
+    img = pipe.txt2img(["a", "b"], steps=2, height=16, width=16,
+                       generator=torch.Generator().manual_seed(1))
+    assert img.shape == (2, 16, 16, 3) and torch.isfinite(img).all()
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("build", [
+    lambda: DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
+    lambda: ADMUNet(ADMConfig.tiny()),
+    lambda: AutoencoderKL(VAEConfig.tiny()),
+    lambda: SpatialTransformer(32, 2, 16, context_dim=24),
+    lambda: StableDiffusionPipeline(LatentDiffusion(
+        ADMUNet(ADMConfig.tiny(), device="cpu"), AutoencoderKL(VAEConfig.tiny(), device="cpu"))),
+], ids=["DDPMUNet", "ADMUNet", "AutoencoderKL", "SpatialTransformer", "StableDiffusionPipeline"])
+def test_default_device_is_the_card_and_raises_without_one(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
 
 
 def test_conv3x3_checks_refuse_what_the_kernel_does_not_take():
@@ -95,6 +138,55 @@ def test_attention_checks_refuse_what_the_kernel_does_not_take():
         attention._check(shifted, qb, qb, 1)                 # 2-byte offset
 
 
+def test_ln_linear_checks_refuse_what_the_kernel_does_not_take():
+    x, g, w, c = torch.zeros(8, 32), torch.ones(32), torch.zeros(96, 32), torch.zeros(96)
+    ln_linear._check(x, g, g, w, c)
+    ln_linear._check(x, g, g, w, None)                   # bias is optional
+    with pytest.raises(ValueError):
+        ln_linear._check(x, g, g, torch.zeros(96, 16), c)     # d mismatch
+    with pytest.raises(TypeError):
+        ln_linear._check(x, g, g, w.bfloat16(), c)            # mixed dtypes
+    with pytest.raises(TypeError):
+        ln_linear._check(x.half(), g, g, w.half(), c)
+    with pytest.raises(ValueError):
+        ln_linear._check(x, g.bfloat16(), g, w, c)            # gamma must be fp32
+    with pytest.raises(ValueError):
+        ln_linear._check(x, g, g, w, c[:48])                  # bias shape
+    with pytest.raises(ValueError):
+        ln_linear._check(x, g, g, torch.zeros(32, 96).t(), c)  # w not contiguous
+    big = torch.zeros(1, ln_linear.MAX_D + 8)
+    with pytest.raises(ValueError, match="d <="):
+        ln_linear._check(big, torch.ones(big.shape[1]), torch.ones(big.shape[1]),
+                         torch.zeros(8, big.shape[1]), None)
+
+
+def test_geglu_checks_refuse_what_the_kernel_does_not_take():
+    x, w1, b1 = torch.zeros(8, 32), torch.zeros(256, 32), torch.zeros(256)
+    w2, b2 = torch.zeros(32, 128), torch.zeros(32)
+    geglu._check(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        geglu._check(x, torch.zeros(128, 32), b1, w2, b2)     # w1 not (2 * inner, d)
+    with pytest.raises(ValueError):
+        geglu._check(x, w1, b1, torch.zeros(16, 128), b2)     # w2 not (d, inner)
+    with pytest.raises(TypeError):
+        geglu._check(x.bfloat16(), w1, b1, w2, b2)           # mixed dtypes
+    with pytest.raises(ValueError):
+        geglu._check(x, w1, b1.bfloat16(), w2, b2)           # b1 must be fp32
+    with pytest.raises(ValueError):
+        geglu._check(x, torch.zeros(32, 256).t(), b1, w2, b2)  # w1 not contiguous
+
+
+def test_attention_reads_fused_qkv_slices_in_place():
+    qkv = torch.zeros(2, 16, 3 * 512)
+    q, k, v = qkv.split(512, dim=-1)
+    attention._check(q, k, v, 1)                         # dh = 512, token stride 3C
+    qb, kb, vb = qkv.bfloat16().split(512, dim=-1)
+    attention._check(qb, kb, vb, 1)
+    odd = torch.zeros(2, 16, 3 * 512 + 1, dtype=torch.bfloat16)[:, :, :512]
+    with pytest.raises(ValueError, match="aligned"):
+        attention._check(odd, odd, odd, 1)               # token stride not a multiple of 8
+
+
 def test_fused_update_checks_refuse_what_the_kernel_does_not_take():
     coef, x = torch.zeros(3, 8), torch.zeros(2, 5)
     fused_update._check(coef, 2, x, (x, x, x), x)
@@ -118,3 +210,8 @@ def test_wrappers_refuse_other_devices():
         ops.token_attention(meta[0], meta[0], meta[0], num_heads=1)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.fused_update(torch.zeros(1, 8, device="meta"), 0, meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.ln_linear(meta[0], meta[0, 0, 0], meta[0, 0, 0], torch.zeros(8, 8, device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.geglu_ff(meta[0], torch.zeros(16, 8, device="meta"), torch.zeros(16, device="meta"),
+                     torch.zeros(8, 8, device="meta"), meta[0, 0, 0])

@@ -177,7 +177,7 @@ def test_unsupported_paths_raise():
 def test_whole_slice_tiny_unet_matches_jax():
     """Tiny UNet, batch 2, 16x16, DPM-Solver++ 3M, 10 NFE, logSNR, discrete."""
     cfg = DDPMUNetConfig.tiny(resolution=16)
-    port = init_random_(DDPMUNet(cfg), torch.Generator().manual_seed(0)).eval()
+    port = init_random_(DDPMUNet(cfg, device="cpu"), torch.Generator().manual_seed(0)).eval()
     params = convert_ddpm_unet({k: v.numpy() for k, v in port.state_dict().items()})
     jax_net = JaxDDPMUNet(JaxConfig.tiny(resolution=16))
     ns_j, ns_t = _schedules("discrete")
