@@ -11,7 +11,9 @@ and nothing of JAX. Phases, each fatal on failure:
 2. build: nvcc compiles `dpm_solver_tpu_torch/csrc/*.cu` for sm_90a into the
    ignored `dpm_solver_tpu_torch/_build/`, one nvcc per source in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at both paths' shapes and at tiny and ragged ones, fp32 and bf16;
+   card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16:
+   the forwards, and the attention forward's lse, the attention backward's
+   dq and dk/dv and conv3x3's input gradient;
 4. path A, CIFAR-10: the DDPM UNet at full width with seeded random weights
    in bf16, sampled at batch 64 by DPM-Solver++ 3M for 10 NFE on the logSNR
    grid of the discrete schedule, through `NoiseScheduleVP`, `model_wrapper`
@@ -26,20 +28,37 @@ and nothing of JAX. Phases, each fatal on failure:
    the launch counters must rise by exactly what `layout()` and the VAE
    config imply; then the same networks in fp32 at 16x16 latents, batch 1,
    CFG, 3 NFE, on the card against the plain path on the CPU;
-6. timing: each path's median wall time, the SD call's UNet and VAE-decode
+6. path C, classifier-guided ImageNet-256 (benchmarks/guided_bench.py's
+   call): `ADMConfig.imagenet256_guided()` (553.8M parameters, learned
+   sigma, the model takes out[..., :3]) and its 54.1M-parameter
+   attention-pool classifier at full width with seeded random weights in
+   bf16, the classifier frozen; batch 8 at 256x256, labels from
+   default_rng(1), `model_wrapper(guidance_type="classifier")` at scale 8,
+   DPM-Solver++ 2M for 20 NFE on the time-uniform grid with
+   `make_dynamic_thresholding(0.995, 1.0)`, through `build_sampler`; every
+   NFE differentiates the classifier, so its backward runs the dq, dk/dv and
+   conv3x3-dx kernels. The samples must be finite (8, 256, 256, 3) fp32 and
+   the launch counters must rise by exactly what `layout()` implies; then the
+   same networks in fp32 at 64x64, batch 1, 3 NFE, on the card against the
+   plain path on the CPU;
+7. timing: each path's median wall time, the SD call's UNet and VAE-decode
+   shares, the guided call's UNet-forward and classifier forward+backward
    shares, and each kernel against its plain version, the one PyTorch call
    that computes the same function (where there is one) and its bound, at
    the shapes and launch counts of one call of each path, each beside the
    card's name and power limit.
 
-The last two lines are the kernels' JSON record (launches and times of the
-SD call, the slice's main path) and
+The last two lines are the kernels' JSON record (each kernel's times on the
+newest path that runs it at the top level, every path's in `timing_by_path`,
+its launches on every path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,6 +73,8 @@ SD_PROMPTS = ["a photograph of an astronaut riding a horse", "a red teapot on a 
               "a lighthouse at dusk, oil painting", "a bowl of ramen, studio light"]
 SD_SIZE, SD_STEPS, SD_SCALE = 768, 20, 7.5          # path B
 SD_TIMED_RUNS = 3
+GUIDED_BATCH, GUIDED_SIZE, GUIDED_STEPS, GUIDED_SCALE = 8, 256, 20, 8.0   # path C
+GUIDED_TIMED_RUNS = 3
 # bounds on max|kernel - plain| / max|plain| (plain in fp32 on the same inputs,
 # TF32 off): fp32 -> different summation order only; bf16 -> the kernel's one
 # rounding of its output to bf16 (unit roundoff 2^-8 = 3.9e-3) plus order
@@ -80,6 +101,17 @@ REPLACES = {
                   "dpm_solver_tpu/ops/ln_linear.py:112"),
     "geglu_ff": ("cuda", "dpm_solver_tpu_torch/csrc/geglu.cu",
                  "dpm_solver_tpu/ops/geglu.py:125"),
+    "attention_lse": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
+                      "dpm_solver_tpu/ops/attention.py:187 (_lse, _lse_kernel :157)"),
+    "attention_dq": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
+                     "dpm_solver_tpu/ops/attention.py:375 (_mha_backward dq: _dq_kernel :226, "
+                     "_dq_kernel_T :245)"),
+    "attention_dkv": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
+                      "dpm_solver_tpu/ops/attention.py:410 (_mha_backward dk/dv: _dkv_kernel "
+                      ":301, _dkv_kernel_T :269)"),
+    "conv3x3_dx": ("cuda", "dpm_solver_tpu_torch/csrc/conv3x3.cu",
+                   "dpm_solver_tpu/ops/conv3x3.py:185 (_conv3x3_bwd: dx through "
+                   "_pallas_conv3x3 :125)"),
 }
 
 
@@ -140,6 +172,8 @@ def make_case(name: str, spec: tuple, randn):
     import torch.nn.functional as F
 
     from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.ops.attention import attention_delta
+    from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
 
     bf = torch.bfloat16
     if name == "conv3x3":
@@ -154,7 +188,17 @@ def make_case(name: str, spec: tuple, randn):
                 lambda: F.conv2d(xc, wc, bc, padding=1),
                 18 * b * h * w * c * co, b * h * w * co,
                 2 * (b * h * w * (c + co) + 9 * c * co) + 4 * co)
-    if name == "token_attention":
+    if name == "conv3x3_dx":  # spec: the forward conv's (b, h, w, c, co)
+        b, h, w, c, co = spec
+        g, wt = randn(b, h, w, co).to(bf), (randn(3, 3, c, co) * c ** -0.5).to(bf)
+        gc = g.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return (lambda: ops.conv3x3_dx(g, wt),
+                lambda: ops.conv3x3_plain(g, flip_weight(wt)),
+                lambda: torch.nn.grad.conv2d_input((b, c, h, w), wc, gc, padding=1),
+                18 * b * h * w * c * co, b * h * w * c,
+                2 * (b * h * w * (c + co) + 9 * c * co))
+    if name in ("token_attention", "attention_lse", "attention_dq", "attention_dkv"):
         b, t, s, heads, dh, fused = spec
         inner = heads * dh
         if fused:  # q, k, v as column slices of one (B, T, 3*inner) projection
@@ -162,11 +206,39 @@ def make_case(name: str, spec: tuple, randn):
         else:
             q, k, v = randn(b, t, inner).to(bf), randn(b, s, inner).to(bf), randn(b, s, inner).to(bf)
         qh, kh, vh = (u.unflatten(-1, (heads, dh)).transpose(1, 2) for u in (q, k, v))
-        return (lambda: ops.token_attention(q, k, v, num_heads=heads),
-                lambda: ops.attention_plain(q, k, v, num_heads=heads),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                4 * b * heads * t * s * dh, 5 * b * heads * t * s,
-                2 * 2 * b * inner * (t + s))
+        fwd_ops, fwd_bytes = 4 * b * heads * t * s * dh, 2 * 2 * b * inner * (t + s)
+        if name == "token_attention":
+            return (lambda: ops.token_attention(q, k, v, num_heads=heads),
+                    lambda: ops.attention_plain(q, k, v, num_heads=heads),
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                    fwd_ops, 5 * b * heads * t * s, fwd_bytes)
+        if name == "attention_lse":  # the library: flash attention, which returns
+            # the output and each row's natural-log lse (ours times ln 2)
+            return (lambda: ops.attention_lse(q, k, v, num_heads=heads),
+                    lambda: (ops.attention_plain(q, k, v, num_heads=heads),
+                             ops.attention_lse_plain(q, k, num_heads=heads)),
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh),
+                    fwd_ops, 5 * b * heads * t * s, fwd_bytes + 4 * b * heads * t)
+        # the backward: dq or dk/dv from one forward's o and lse
+        scale, g = dh ** -0.5, randn(b, t, inner).to(bf)
+        o, lse = ops.attention_lse(q, k, v, num_heads=heads)
+        delta = attention_delta(o, g, heads)
+        args = (q, k, v, g, lse, delta)
+        with torch.enable_grad():  # the library: SDPA's backward, timed alone
+            lq, lk, lv = (u.detach().requires_grad_(True) for u in (qh, kh, vh))
+            lo = F.scaled_dot_product_attention(lq, lk, lv)
+        gh = g.unflatten(-1, (heads, dh)).transpose(1, 2)
+        library = lambda: torch.autograd.grad(lo, (lq, lk, lv), gh, retain_graph=True)
+        # the plain twin computes dq, dk and dv in one pass: its time, and the
+        # library's, stand in both rows
+        plain = lambda: ops.attention_backward_plain(q, k, v, o, lse, g, heads, scale)
+        in_bytes = fwd_bytes + 8 * b * heads * t
+        if name == "attention_dq":   # z, dp and ds.K: 3 products; dq out
+            return (lambda: ops.attention_dq(*args, num_heads=heads, scale=scale), plain, library,
+                    6 * b * heads * t * s * dh, 5 * b * heads * t * s, in_bytes + 2 * b * t * inner)
+        return (lambda: ops.attention_dkv(*args, num_heads=heads, scale=scale), plain, library,
+                8 * b * heads * t * s * dh, 5 * b * heads * t * s,     # z, dp, p^T.dO, ds^T.Q
+                in_bytes + 2 * 2 * b * s * inner)
     if name == "ln_linear":
         m, d, n = spec
         x, w = randn(m, d).to(bf), (randn(n, d) * d ** -0.5).to(bf)
@@ -232,14 +304,15 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def adm_unet_launches(cfg) -> Counter:
-    """Kernel launches of one ADMUNet forward, from the port's `layout()`:
-    a res block runs two 3x3 convs (its skip is 1x1), an up-resample one; a
+def adm_unet_launches(cfg, encoder_only: bool = False) -> Counter:
+    """Kernel launches of one ADMUNet forward (or, encoder_only, of the
+    trunk of one ADMClassifier forward), from the port's `layout()`: a res
+    block runs two 3x3 convs (its skip is 1x1), an up-resample one; a
     SpatialTransformer of depth n runs 2n attentions, 2n LayerNorm->Linear
     and n GEGLU; an ADM attention block one attention."""
     from dpm_solver_tpu_torch.models import layout
 
-    plan = layout(cfg)
+    plan = layout(cfg, encoder_only=encoder_only)
     n = Counter()
     for spec in chain(*plan["input_blocks"], plan["middle"], *plan["output_blocks"]):
         if spec["kind"] == "res":
@@ -264,6 +337,61 @@ def vae_decoder_launches(cfg) -> Counter:
     attn = 1 + sum(cfg.num_res_blocks + 1 for r in res if r in cfg.attn_resolutions)
     conv = 2 + 2 * blocks + (levels - 1 if cfg.resamp_with_conv else 0)
     return Counter({"conv3x3": conv, "token_attention": attn})
+
+
+def guided_launches(ucfg, ccfg, steps: int) -> dict:
+    """Kernel launches of one guided sample call of `steps` NFE: per NFE one
+    UNet forward and one classifier forward and backward. The classifier's
+    attentions (its blocks and the attention pool) keep their lse for the
+    backward, which runs one dq and one dk/dv per attention and one conv3x3
+    dx per conv3x3; the solver makes one fused update per step."""
+    unet, clf = adm_unet_launches(ucfg), adm_unet_launches(ccfg, encoder_only=True)
+    clf_attn = clf["token_attention"] + (ccfg.pool == "attention")
+    per_nfe = {"conv3x3": unet["conv3x3"] + clf["conv3x3"], "conv3x3_dx": clf["conv3x3"],
+               "token_attention": unet["token_attention"], "attention_lse": clf_attn,
+               "attention_dq": clf_attn, "attention_dkv": clf_attn}
+    out = {name: steps * per_nfe.get(name, 0) for name in REPLACES}
+    out["fused_update"] = steps
+    return out
+
+
+def record_guided_calls(unet, clf, run) -> tuple:
+    """The kernel specs of one UNet forward and one classifier forward and
+    backward, read from the modules' inputs by forward pre-hooks while `run`
+    makes one of each. A classifier conv3x3 also runs its dx at its forward's
+    spec; a classifier attention runs lse, dq and dk/dv at its spec."""
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models.adm_unet import ADMAttention, AttentionPool2d
+
+    calls = {"unet": Counter(), "classifier": Counter()}
+
+    def hook(where):
+        def pre(mod, args):
+            c, x = calls[where], args[0]
+            specs = []
+            if isinstance(mod, ops.Conv3x3):
+                spec = (*x.shape, mod.weight.shape[0])
+                specs = [("conv3x3", spec)] + ([("conv3x3_dx", spec)] if where != "unet" else [])
+            elif isinstance(mod, (ADMAttention, AttentionPool2d)):
+                b, h, w, ch = x.shape
+                pool = isinstance(mod, AttentionPool2d)
+                spec = (b, h * w + pool, h * w + pool, mod.num_heads, ch // mod.num_heads, pool)
+                specs = ([("token_attention", spec)] if where == "unet" else
+                         [(name, spec) for name in ("attention_lse", "attention_dq",
+                                                    "attention_dkv")])
+            c.update(specs)
+        return pre
+
+    kinds = (ops.Conv3x3, ADMAttention, AttentionPool2d)
+    handles = [m.register_forward_pre_hook(hook(where))
+               for where, net in (("unet", unet), ("classifier", clf))
+               for m in net.modules() if isinstance(m, kinds)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls["unet"], calls["classifier"]
 
 
 def record_sd_calls(unet, vae, run) -> tuple:
@@ -308,6 +436,23 @@ def record_sd_calls(unet, vae, run) -> tuple:
     return calls["unet"], calls["vae"]
 
 
+def span_hooks(spans: dict, where: str) -> tuple:
+    """Forward pre- and post-hooks that record a CUDA event pair per call
+    into spans[where]."""
+    import torch
+
+    def pre(mod, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans[where].append([ev])
+
+    def post(mod, args, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans[where][-1].append(ev)
+    return pre, post
+
+
 def main() -> int:
     # ---- 1. environment ----------------------------------------------------
     t_start = time.perf_counter()
@@ -323,11 +468,16 @@ def main() -> int:
 
     import dpm_solver_tpu_torch as P
     from dpm_solver_tpu_torch import ops
-    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
-                                             DDPMUNetConfig, VAEConfig,
+    import torch.nn.functional as F
+
+    from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
+                                             DDPMUNet, DDPMUNetConfig, VAEConfig,
                                              constant_context_encoder, init_random_)
     from dpm_solver_tpu_torch.ops import _build
+    from dpm_solver_tpu_torch.ops.attention import attention_delta
+    from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
     from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
+    from dpm_solver_tpu_torch.solver.correctors import make_dynamic_thresholding
 
     smi = card()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -364,12 +514,22 @@ def main() -> int:
     for b, h, w, c, co in [(64, 32, 32, 128, 128), (64, 16, 16, 512, 256),
                            (64, 4, 4, 256, 256), (2, 8, 8, 32, 64), (3, 5, 7, 20, 9),
                            # the SD VAE's ends: 4 latent channels in, 3 image channels out
-                           (4, 96, 96, 4, 512), (2, 768, 768, 128, 3), (1, 16, 16, 4, 3)]:
+                           (4, 96, 96, 4, 512), (2, 768, 768, 128, 3), (1, 16, 16, 4, 3),
+                           # the guided UNet's and classifier's widest and deepest convs
+                           (8, 256, 256, 256, 256), (8, 256, 256, 128, 128),
+                           (8, 8, 8, 1024, 1024), (8, 16, 16, 512, 256)]:
         for dt in (torch.float32, torch.bfloat16):
             x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
             bias = randn(co) * 0.1
             report("conv3x3", (b, h, w, c, co), dt, ops.conv3x3(x, wt, bias),
                    ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND[str(dt)[6:]])
+            if b == 8 or c < 40:  # the input gradient at the guided and ragged shapes
+                g_out = randn(b, h, w, co).to(dt)
+                want = torch.nn.grad.conv2d_input((b, c, h, w), wt.float().permute(3, 2, 0, 1),
+                                                  g_out.float().permute(0, 3, 1, 2), padding=1)
+                report("conv3x3_dx", (b, h, w, c, co), dt, ops.conv3x3_dx(g_out, wt),
+                       want.permute(0, 2, 3, 1), BOUND[str(dt)[6:]])
+            del x, wt
     # (b, t, s, heads, dh, q/k/v as column slices of one fused projection)
     for b, t, s, heads, dh, fused in [
             (64, 256, 256, 1, 256, False), (64, 16, 16, 1, 256, False), (2, 64, 64, 1, 32, False),
@@ -377,7 +537,9 @@ def main() -> int:
             # SD-2.1 at 768 px: self- and cross-attention, and the VAE's 512-wide head
             (1, 9216, 9216, 5, 64, False), (8, 9216, 77, 5, 64, False),
             (8, 144, 77, 20, 64, False), (1, 9216, 9216, 1, 512, False),
-            (1, 9216, 9216, 5, 64, True), (1, 9216, 9216, 1, 512, True), (2, 100, 100, 1, 512, True)]:
+            (1, 9216, 9216, 5, 64, True), (1, 9216, 9216, 1, 512, True), (2, 100, 100, 1, 512, True),
+            # the guided UNet at 32x32, 16x16 and 8x8
+            (8, 1024, 1024, 8, 64, False), (8, 256, 256, 16, 64, False), (8, 64, 64, 16, 64, False)]:
         for dt in (torch.float32, torch.bfloat16):
             inner = heads * dh
             if fused:
@@ -389,6 +551,38 @@ def main() -> int:
                    ops.attention_plain(q.float(), k.float(), v.float(), num_heads=heads),
                    BOUND[str(dt)[6:]])
             del q, k, v
+    # the forward's lse and the backward (dh 64): the guided classifier's
+    # blocks at 32x32, 16x16 and 8x8 and its attention pool (qkv slices,
+    # T = S = 65); tiny and ragged ones. (S >= 2: with one key ds is 0 and
+    # dq, dk are rounding noise, which no relative bound can hold.)
+    for b, t, s, heads, dh, fused in [
+            (8, 1024, 1024, 4, 64, False), (8, 256, 256, 8, 64, False), (8, 64, 64, 8, 64, False),
+            (8, 65, 65, 8, 64, True), (2, 200, 77, 2, 64, False), (1, 50, 130, 1, 64, False),
+            (2, 77, 77, 1, 64, False), (1, 5, 5, 2, 64, True)]:
+        for dt in (torch.float32, torch.bfloat16):
+            inner, scale, bound = heads * dh, dh ** -0.5, BOUND[str(dt)[6:]]
+            if fused:
+                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+            else:
+                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+            g_out = randn(b, t, inner).to(dt)
+            shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
+            o, lse = ops.attention_lse(q, k, v, num_heads=heads)
+            qf, kf, vf = q.float(), k.float(), v.float()
+            report("attention_lse", shape + ("o",), dt, o,
+                   ops.attention_plain(qf, kf, vf, num_heads=heads), bound)
+            report("attention_lse", shape + ("lse",), dt, lse,
+                   ops.attention_lse_plain(qf, kf, num_heads=heads), bound)
+            # the plain backward on the kernel's o and lse (cast to fp32)
+            want = ops.attention_backward_plain(qf, kf, vf, o.float(), lse, g_out.float(),
+                                                heads, scale)
+            args = (q, k, v, g_out, lse, attention_delta(o, g_out, heads))
+            report("attention_dq", shape, dt,
+                   ops.attention_dq(*args, num_heads=heads, scale=scale), want[0], bound)
+            dk, dv = ops.attention_dkv(*args, num_heads=heads, scale=scale)
+            report("attention_dkv", shape + ("dk",), dt, dk, want[1], bound)
+            report("attention_dkv", shape + ("dv",), dt, dv, want[2], bound)
+            del q, k, v, o, lse, want, args, dk, dv
     coef = randn(4, 8)
     for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4)]:
         for dt in (torch.float32, torch.bfloat16):
@@ -449,8 +643,8 @@ def main() -> int:
     out = solver.sample(x_T, **sample_kw)
     torch.cuda.synchronize()
     launches_a = ops.launch_counts()
-    expected = {"conv3x3": STEPS * 47, "token_attention": STEPS * 6, "fused_update": STEPS,
-                "ln_linear": 0, "geglu_ff": 0}
+    expected = {name: 0 for name in REPLACES}
+    expected.update(conv3x3=STEPS * 47, token_attention=STEPS * 6, fused_update=STEPS)
     log(f"  launches {launches_a} (expected {expected})")
     if launches_a != expected:
         fail(f"path A launch counts {launches_a} != {expected}")
@@ -544,7 +738,94 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 6. timing -------------------------------------------------------------
+    # ---- 6. path C: classifier-guided ImageNet-256 -----------------------------
+    t0 = time.perf_counter()
+    gcfg = ADMConfig.imagenet256_guided()
+    ccfg = dataclasses.replace(gcfg, model_channels=128, num_res_blocks=2, out_channels=1000,
+                               pool="attention", num_classes=None, resblock_updown=True,
+                               use_scale_shift_norm=True)
+    gw = torch.Generator(device=dev).manual_seed(0)
+    gunet = init_random_(ADMUNet(gcfg, compute_dtype=torch.bfloat16, device=dev), gw).eval()
+    clf = init_random_(ADMClassifier(ccfg, compute_dtype=torch.bfloat16, device=dev), gw).eval()
+    gunet.requires_grad_(False)
+    clf.requires_grad_(False)   # guidance needs grad_x only: no dw at any conv
+    n_gunet = sum(p.numel() for p in gunet.parameters())
+    n_clf = sum(p.numel() for p in clf.parameters())
+    labels = np.random.default_rng(1).integers(0, 1000, GUIDED_BATCH)
+    gns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    guided_kw = dict(steps=GUIDED_STEPS, order=2, method="multistep", skip_type="time_uniform",
+                     correcting_x0_fn=make_dynamic_thresholding(0.995, 1.0))
+
+    def guided_sampler(unet_, clf_, y, steps=GUIDED_STEPS, on_classifier=None):
+        """`build_sampler` over the guided `model_wrapper`, as guided_bench.py
+        drives it; `on_classifier(x_in)` is called on each classifier input."""
+        def log_prob(x, t, yy):
+            if on_classifier is not None:
+                on_classifier(x)
+            return F.log_softmax(clf_(x, t), dim=-1)[torch.arange(x.shape[0], device=x.device), yy]
+
+        model_fn = P.model_wrapper(lambda x, t: unet_(x, t, y)[..., :3], gns, model_type="noise",
+                                   guidance_type="classifier", condition=y,
+                                   guidance_scale=GUIDED_SCALE, classifier_fn=log_prob)
+        return P.build_sampler(model_fn, gns, **dict(guided_kw, steps=steps))
+
+    y_dev = torch.tensor(labels, device=dev)
+    sample_c = guided_sampler(gunet, clf, y_dev)
+    gx_T = torch.tensor(np.random.default_rng(0).standard_normal(
+        (GUIDED_BATCH, GUIDED_SIZE, GUIDED_SIZE, 3)), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    log(f"path C: guided ImageNet-256, ADM UNet ({n_gunet / 1e6:.2f}M params) + classifier "
+        f"({n_clf / 1e6:.2f}M, attention pool, frozen), bf16 compute, seeded random weights, "
+        f"built in {time.perf_counter() - t0:.1f} s; b{GUIDED_BATCH} {GUIDED_SIZE}x{GUIDED_SIZE}, "
+        f"classifier scale {GUIDED_SCALE}, DPM-Solver++ 2M, {GUIDED_STEPS} NFE, time_uniform, "
+        f"dynamic thresholding (0.995, 1.0)")
+    expected_c = guided_launches(gcfg, ccfg, GUIDED_STEPS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gout = sample_c(gx_T)
+    torch.cuda.synchronize()
+    first_c = time.perf_counter() - t0
+    launches_c = ops.launch_counts()
+    log(f"  launches {launches_c} (expected {expected_c}); first call {first_c:.2f} s")
+    if launches_c != expected_c:
+        fail(f"path C launch counts {launches_c} != {expected_c}")
+    if gout.shape != gx_T.shape or gout.dtype != torch.float32 or not torch.isfinite(gout).all():
+        fail(f"path C samples {tuple(gout.shape)} {gout.dtype} are not finite fp32 of x_T's shape")
+    log(f"  samples {tuple(gout.shape)} finite: min {gout.min().item():.4f}, max "
+        f"{gout.max().item():.4f}, std {gout.std().item():.4f}")
+
+    # fp32 at 64x64, b1, 3 NFE: kernels on the card vs plain on the CPU. The
+    # same weights; the attention pool's positional embedding follows the
+    # image size ((C, 2*2 + 1) here), so it is drawn anew from a seed.
+    t0 = time.perf_counter()
+    c64 = dataclasses.replace(ccfg, image_size=64)
+    pos = torch.randn(512, 5, generator=torch.Generator().manual_seed(3)) / 5 ** 0.5
+    csd = {k: (pos if k == "out.2.positional_embedding" else v) for k, v in clf.state_dict().items()}
+    x64 = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(2))
+    result = {}
+    for where in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        u = ADMUNet(dataclasses.replace(gcfg, image_size=64), device=where).eval()
+        u.load_state_dict(gunet.state_dict())
+        c = ADMClassifier(c64, device=where).eval()
+        c.load_state_dict(csd)
+        u.requires_grad_(False)
+        c.requires_grad_(False)
+        y1 = torch.tensor(labels[:1], device=where)
+        result[where.type] = guided_sampler(u, c, y1, steps=3)(x64.to(where)).cpu()
+        log(f"  fp32 b1 64x64, 3 NFE on {where}: {time.perf_counter() - t1:.1f} s")
+        del u, c
+    d, r = rel_err(result["cuda"], result["cpu"])
+    ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"]).all())
+    log(f"  guided samples, kernels (card) vs plain (cpu): max|d| {d:.3e}, /max|x| {r:.3e} "
+        f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fp32 guided path on the card disagrees with the plain path")
+    del result
+    torch.cuda.empty_cache()
+    log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. timing -------------------------------------------------------------
     solver.sample(x_T, **sample_kw)  # warm
     walls = []
     for _ in range(7):
@@ -561,22 +842,9 @@ def main() -> int:
 
     # UNet-forward and VAE-decode device spans of each call, by CUDA events
     spans = {"unet": [], "vae": []}
-
-    def span(where):
-        def pre(mod, args):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[where].append([ev])
-
-        def post(mod, args, out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[where][-1].append(ev)
-        return pre, post
-
     handles = []
     for where, mod in (("unet", unet), ("vae", vae.decoder)):
-        pre, post = span(where)
+        pre, post = span_hooks(spans, where)
         handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
     pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
     runs = []
@@ -600,6 +868,47 @@ def main() -> int:
         f"UNet forwards {unet_s * 1e3:.2f} ms ({unet_s / sd_wall:.3f} of the wall), VAE decode "
         f"{vae_s * 1e3:.2f} ms ({vae_s / sd_wall:.3f})")
 
+    # path C: wall time, and the UNet-forward and classifier forward+backward
+    # device spans by CUDA events (the classifier's ends at the hook on its
+    # input's gradient)
+    gspans = {"unet": [], "classifier": []}
+
+    def on_classifier(x_in):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        gspans["classifier"].append([ev])
+
+        def done(grad):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            gspans["classifier"][-1].append(end)
+        x_in.register_hook(done)
+
+    upre, upost = span_hooks(gspans, "unet")
+    handles = [gunet.register_forward_pre_hook(upre), gunet.register_forward_hook(upost)]
+    timed_c = guided_sampler(gunet, clf, y_dev, on_classifier=on_classifier)
+    timed_c(gx_T)  # warm
+    runs = []
+    for _ in range(GUIDED_TIMED_RUNS):
+        for v in gspans.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed_c(gx_T)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        runs.append((w, *(sum(a.elapsed_time(b) for a, b in gspans[k]) / 1e3
+                          for k in ("unet", "classifier"))))
+    for h in handles:
+        h.remove()
+    runs.sort()
+    c_wall, c_unet_s, c_clf_s = runs[len(runs) // 2]
+    log(f"path C time on {smi}: guided b{GUIDED_BATCH} {GUIDED_SIZE}px {GUIDED_STEPS} NFE median "
+        f"{c_wall * 1e3:.2f} ms over {len(runs)} runs (min {runs[0][0] * 1e3:.2f}, max "
+        f"{runs[-1][0] * 1e3:.2f}) -> {GUIDED_BATCH / c_wall:.4f} samples/s; in that run UNet "
+        f"forwards {c_unet_s * 1e3:.2f} ms ({c_unet_s / c_wall:.3f} of the wall), classifier "
+        f"forward+backward {c_clf_s * 1e3:.2f} ms ({c_clf_s / c_wall:.3f})")
+
     # each kernel at the shapes and counts of one call of each path
     ctx = encode(SD_PROMPTS + [""] * len(SD_PROMPTS)).to(dev)
     lat = SD_SIZE // 8
@@ -613,9 +922,16 @@ def main() -> int:
                     "token_attention": Counter({(BATCH, 256, 256, 1, 256, False): 5 * STEPS,
                                                 (BATCH, 16, 16, 1, 256, False): STEPS}),
                     "fused_update": Counter({((BATCH, 32, 32, 3),): STEPS})}
+    timing = {name: {} for name in REPLACES}   # kernel -> path -> its times there
+
+    def time_path(path, per_kernel, launches, what):
+        for name, calls in per_kernel.items():
+            if calls:
+                timing[name][path] = dict(time_kernel(name, calls, randn, smi, what),
+                                          launches=launches[name])
+
     log(f"kernel times, path A (one {STEPS}-NFE sample call, b{BATCH}, bf16):")
-    for name, calls in per_kernel_a.items():
-        time_kernel(name, calls, randn, smi, f"one path-A sample call, b{BATCH}")
+    time_path("A", per_kernel_a, launches_a, f"one path-A sample call, b{BATCH}")
     per_kernel_b = {name: Counter() for name in REPLACES}
     for (name, spec), n in unet_calls.items():
         per_kernel_b[name][spec] += n * SD_STEPS
@@ -628,13 +944,62 @@ def main() -> int:
                  f"the call makes {expected[name]}")
     log(f"kernel times, path B (one txt2img call: {SD_STEPS} UNet forwards at b"
         f"{2 * len(SD_PROMPTS)} and one VAE decode at b{len(SD_PROMPTS)}, bf16):")
-    timing = {name: time_kernel(name, calls, randn, smi,
-                                f"one txt2img call, SD-2.1 {SD_SIZE}px b{len(SD_PROMPTS)}")
-              for name, calls in per_kernel_b.items()}
+    time_path("B", per_kernel_b, launches_b, f"one txt2img call, SD-2.1 {SD_SIZE}px "
+              f"b{len(SD_PROMPTS)}")
 
+    # path C: the specs of one NFE (a UNet forward, a classifier forward and
+    # backward), times the NFE count
+    t_mid = torch.full((GUIDED_BATCH,), 500.0, device=dev)
+
+    def one_nfe():
+        gunet(gx_T, t_mid, y_dev)
+        with torch.enable_grad():
+            x_in = gx_T.detach().requires_grad_(True)
+            torch.autograd.grad(clf(x_in, t_mid).sum(), x_in)
+
+    unet_c, clf_c = record_guided_calls(gunet, clf, one_nfe)
+    del gunet, clf, sample_c, timed_c
+    torch.cuda.empty_cache()
+    per_kernel_c = {name: Counter() for name in REPLACES}
+    for (name, spec), n in chain(unet_c.items(), clf_c.items()):
+        per_kernel_c[name][spec] += n * GUIDED_STEPS
+    per_kernel_c["fused_update"][((GUIDED_BATCH, GUIDED_SIZE, GUIDED_SIZE, 3),)] = GUIDED_STEPS
+    for name, calls in per_kernel_c.items():
+        if sum(calls.values()) != expected_c[name]:
+            fail(f"{name}: the recorded shapes cover {sum(calls.values())} launches, "
+                 f"the guided call makes {expected_c[name]}")
+    log(f"kernel times, path C (one guided call: {GUIDED_STEPS} UNet forwards and classifier "
+        f"forwards and backwards at b{GUIDED_BATCH}, bf16):")
+    time_path("C", per_kernel_c, launches_c, f"one guided call, ImageNet-256 b{GUIDED_BATCH}")
+    # what writing the lse costs: the forward without it, at the same shapes;
+    # and the library call's output and lse against the kernel's
+    for spec, n in sorted(per_kernel_c["attention_lse"].items(), key=lambda kv: str(kv[0])):
+        kernel, _, library = make_case("attention_lse", spec, randn)[:3]
+        lse_ms = cuda_ms(kernel)
+        fwd_ms = cuda_ms(make_case("token_attention", spec, randn)[0])
+        (o, lse), lib = kernel(), library()
+        d_o = rel_err(o, lib[0].transpose(1, 2).flatten(2))[1]
+        lib_lse = lib[1][..., :spec[1]].reshape(lse.shape)
+        d_lse = rel_err(lse, lib_lse * math.log2(math.e))[1]
+        log(f"  lse cost x{n} {spec}: forward with lse {lse_ms:.4f} ms, without {fwd_ms:.4f} ms; "
+            f"library vs kernel /max: o {d_o:.2e}, lse {d_lse:.2e}")
+    # what conv3x3_dx's flipped-weight copy costs, at the classifier's convs
+    flip_ms = 0.0
+    for (b, h, w, c, co), n in per_kernel_c["conv3x3_dx"].items():
+        wt = randn(3, 3, c, co).to(torch.bfloat16)
+        flip_ms += n * cuda_ms(lambda: flip_weight(wt))
+    dx = timing["conv3x3_dx"]["C"]
+    dx["flip_ms"] = flip_ms
+    log(f"conv3x3_dx: its {dx['launches']} weight flips take {flip_ms:.3f} ms of its "
+        f"{dx['ms']:.3f} ms per guided call")
+
+    # each kernel's times and launches ("launches") on the newest path that
+    # runs it, every path's times, and its launches on every path
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
-                    launches=launches_b[name], launches_path_a=launches_a[name],
-                    max_abs_err=max_abs[name], **timing[name])
+                    launches_path_a=launches_a[name], launches_path_b=launches_b[name],
+                    launches_path_c=launches_c[name], max_abs_err=max_abs[name],
+                    **timing[name][list(timing[name])[-1]], path=list(timing[name])[-1],
+                    timing_by_path=timing[name])
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -12,6 +12,12 @@
 // masked). As in the Pallas kernels the softmax runs in base 2 with
 // scale*log2(e) folded in, and the exponentials are exp2.
 //
+// On request the kernel also writes each row's base-2 log-sum-exp of the
+// pre-scaled logits, m + log2(l), from the running max and sum it already
+// keeps: the residual the backward (attention_bwd.cu) rebuilds P from. That
+// output replaces the Pallas side pass `_lse` (`_lse_kernel`), which ran a
+// second Q.K^T over the whole key panel; here it costs one float per row.
+//
 // Layout: o (B, T, H*D) contiguous, head-major channels (h*D + d) as in
 // token_attention. q, k and v are (B, T|S, H*D) with unit stride along the
 // channels and any batch and token strides, so the column slices of one
@@ -83,7 +89,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  int Tq, int S, int H, float qscale, Strides st) {
+                  float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                  // [BQ][D], pre-scaled by scale*log2(e)
@@ -177,6 +183,8 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / row_l[row];
 #pragma unroll
     for (int i = 0; i < D / 16; ++i) ob[t * otok + col + 16 * i] = acc[i] * inv;
+    // base-2 log-sum-exp of the pre-scaled logits, from the final max and sum
+    if (lse != nullptr && col == 0) lse[(long long)bh * Tq + t] = row_m[row] + log2f(row_l[row]);
   }
 }
 
@@ -223,7 +231,7 @@ template <int D, int DV, int KV>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       int Tq, int S, int H, float qscale, Strides st) {
+                       float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st) {
   static_assert(KV % 32 == 0 && DV % 32 == 0 && D % DV == 0, "tile shapes");
   using L = MmaSmem<D, DV, KV>;
   constexpr int HALF = KV / 2;    // logits of one row per lane
@@ -333,12 +341,15 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const float* orow = os + row * L::LDO + half * (DV / 2);
     __nv_bfloat16* dst = ob + t * otok + half * (DV / 2);
     for (int c = 0; c < DV / 2; ++c) dst[c] = __float2bfloat16(orow[c] * inv);
+    // base-2 log-sum-exp of the pre-scaled logits (both lanes of a row hold it;
+    // every output slice of a 512-wide head has it, the first writes it)
+    if (lse != nullptr && half == 0 && blockIdx.z == 0) lse[(long long)bh * Tq + t] = m + log2f(l);
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-               int S, int H, float qscale, Strides st, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int Tq, int S, int H, float qscale, Strides st, cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -347,13 +358,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
   attention_fwd_f32<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Tq, S, H, qscale, st);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, S, H, qscale, st);
   return (int)cudaGetLastError();
 }
 
 template <int D, int DV, int KV>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-                int S, int H, float qscale, Strides st, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int Tq, int S, int H, float qscale, Strides st, cudaStream_t stream) {
   const size_t bytes = MmaSmem<D, DV, KV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16_mma<D, DV, KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -362,24 +373,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   dim3 grid((unsigned)((Tq + MQ - 1) / MQ), (unsigned)(B * H), (unsigned)(D / DV));
   attention_fwd_bf16_mma<D, DV, KV><<<grid, MMA_THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Tq, S, H,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Tq, S, H,
       qscale, st);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, int S,
-           int H, float qscale, Strides st, int dtype, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Tq,
+           int S, int H, float qscale, Strides st, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
   // the bf16 kernel moves q, k, v in 16-byte vectors: every row start aligned
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
   if (any % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
   if constexpr (D == 512) {
-    return launch_bf16<D, 256, 32>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+    return launch_bf16<D, 256, 32>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
   } else {
-    return launch_bf16<D, D, 64>(q, k, v, o, B, Tq, S, H, qscale, st, s);
+    return launch_bf16<D, D, 64>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
   }
 }
 
@@ -388,21 +399,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it; bf16 pointers
 // 16-byte aligned, bf16 strides multiples of 8). qscale is scale * log2(e).
 // q_bs, q_ts (and k_, v_) are the batch and token strides in elements; the
-// channel stride is 1 and o is contiguous. Returns the cudaError_t of the launch.
+// channel stride is 1 and o is contiguous. lse is null, or a float32 (B*H, T)
+// output for the base-2 log-sum-exp of each row's pre-scaled logits, which the
+// backward (attention_bwd.cu) reads. Returns the cudaError_t of the launch.
 extern "C" int dpm_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                 int B, int T, int S, int H, int D, float qscale,
+                                 void* lse_out, int B, int T, int S, int H, int D, float qscale,
                                  long long q_bs, long long q_ts, long long k_bs,
                                  long long k_ts, long long v_bs, long long v_ts,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const Strides st{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts};
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
-    case 64: return launch<64>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
-    case 128: return launch<128>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
-    case 256: return launch<256>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
-    case 512: return launch<512>(q, k, v, o, B, T, S, H, qscale, st, dtype, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
+    case 256: return launch<256>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
+    case 512: return launch<512>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

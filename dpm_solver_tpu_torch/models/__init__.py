@@ -1,12 +1,15 @@
-from dpm_solver_tpu_torch.models.adm_unet import ADMConfig, ADMUNet, layout
+from dpm_solver_tpu_torch.models.adm_unet import (ADMClassifier, ADMConfig, ADMUNet,
+                                                  AttentionPool2d, layout, super_res_inputs)
 from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig, init_random_
 from dpm_solver_tpu_torch.models.text_encoder import constant_context_encoder
 from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
 from dpm_solver_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, VAEConfig
 
 __all__ = [
+    "ADMClassifier",
     "ADMConfig",
     "ADMUNet",
+    "AttentionPool2d",
     "AutoencoderKL",
     "DDPMUNet",
     "DDPMUNetConfig",
@@ -16,4 +19,5 @@ __all__ = [
     "constant_context_encoder",
     "init_random_",
     "layout",
+    "super_res_inputs",
 ]

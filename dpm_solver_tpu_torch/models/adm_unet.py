@@ -17,7 +17,12 @@ runs `ops.token_attention`. The convs the JAX model leaves to XLA stay
 library ops: the input conv, `out.2` and the stride-2 downsample are
 `F.conv2d`, and the 1x1 skips are matmuls.
 
-`ADMClassifier`, `AttentionPool2d` and `super_res_inputs` are not ported yet.
+`ADMClassifier` (EncoderUNetModel, unet.py:683-894) reuses the encoder half
+of the same walk (`layout(cfg, encoder_only=True)`) and adds the four pooling
+heads, `AttentionPool2d` among them; `super_res_inputs` is SuperResModel's
+low-res conditioning. Both are differentiable in x: classifier guidance takes
+the classifier's input gradient through the kernels' backwards (conv3x3 dx,
+attention dq and dk/dv).
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ class ADMConfig:
     context_dim: Optional[int] = None
     use_linear_in_transformer: bool = False  # SD-2.x variant
     legacy: bool = True
+    # EncoderUNetModel (ADMClassifier) only:
+    pool: str = "adaptive"  # adaptive | attention | spatial | spatial_v2
 
     @staticmethod
     def imagenet256_guided() -> "ADMConfig":
@@ -388,10 +395,9 @@ def layout(cfg: ADMConfig, encoder_only: bool = False) -> Dict[str, Any]:
     return dict(input_blocks=input_blocks, middle=middle, output_blocks=output_blocks)
 
 
-class ADMUNet(nn.Module):
-    """UNetModel (unet.py:396-663). x NHWC (B, H, W, C); t (B,) labels
-    (fractional ones too); y (B,) int class labels iff config.num_classes is
-    set; context (B, S, context_dim) for the SpatialTransformers. Returns fp32.
+class _ADMBase(nn.Module):
+    """Encoder machinery shared by ADMUNet and ADMClassifier: the time
+    embedding, the input blocks and the middle block of `layout(cfg)`.
 
     Built on `device`, the card by default (raises when there is none).
     Parameters are fp32 and cast to `compute_dtype` where they are used.
@@ -406,13 +412,16 @@ class ADMUNet(nn.Module):
             self._construct(dev)
 
     def _construct(self, dev: torch.device):
+        raise NotImplementedError
+
+    def _encoder(self, dev: torch.device, encoder_only: bool):
+        """Build time_embed, input_blocks and middle_block; return the layout,
+        the block builder, the input blocks' output widths and the width."""
         cfg, dt = self.config, self.compute_dtype
-        plan = layout(cfg)
+        plan = layout(cfg, encoder_only=encoder_only)
         emb_ch = cfg.model_channels * 4
         self.time_embed = nn.ModuleList([Linear(cfg.model_channels, emb_ch, dt), nn.SiLU(),
                                          Linear(emb_ch, emb_ch, dt)])
-        if cfg.num_classes is not None:
-            self.label_emb = nn.Embedding(cfg.num_classes, emb_ch)
 
         def make(spec: dict, ch: int):
             kind = spec["kind"]
@@ -446,14 +455,14 @@ class ADMUNet(nn.Module):
             self.input_blocks.append(mods)
             chans.append(ch)
         self.middle_block, ch = seq(plan["middle"], ch)
-        self.output_blocks = nn.ModuleList()
-        for layers in plan["output_blocks"]:
-            mods, ch = seq(layers, ch + chans.pop())
-            self.output_blocks.append(mods)
-        self.out = nn.ModuleList([_adm_norm(ch), nn.SiLU(), Conv2d(ch, cfg.out_channels, dt)])
+        return plan, seq, chans, ch
+
+    def _embed(self, t: torch.Tensor) -> torch.Tensor:
+        emb = self.time_embed[0](adm_timestep_embedding(t, self.config.model_channels))
+        return self.time_embed[2](F.silu(emb))
 
     @staticmethod
-    def _run(mods: nn.ModuleList, h, emb, context):
+    def _run(mods: nn.ModuleList, h, emb, context=None):
         for mod in mods:
             if isinstance(mod, ADMResBlock):
                 h = mod(h, emb)
@@ -463,13 +472,30 @@ class ADMUNet(nn.Module):
                 h = mod(h)
         return h
 
+
+class ADMUNet(_ADMBase):
+    """UNetModel (unet.py:396-663). x NHWC (B, H, W, C); t (B,) labels
+    (fractional ones too); y (B,) int class labels iff config.num_classes is
+    set; context (B, S, context_dim) for the SpatialTransformers. Returns fp32.
+    """
+
+    def _construct(self, dev: torch.device):
+        cfg, dt = self.config, self.compute_dtype
+        plan, seq, chans, ch = self._encoder(dev, encoder_only=False)
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, cfg.model_channels * 4)
+        self.output_blocks = nn.ModuleList()
+        for layers in plan["output_blocks"]:
+            mods, ch = seq(layers, ch + chans.pop())
+            self.output_blocks.append(mods)
+        self.out = nn.ModuleList([_adm_norm(ch), nn.SiLU(), Conv2d(ch, cfg.out_channels, dt)])
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         if (y is not None) != (cfg.num_classes is not None):
             raise ValueError("pass y exactly when config.num_classes is set")
-        emb = self.time_embed[0](adm_timestep_embedding(t, cfg.model_channels))
-        emb = self.time_embed[2](F.silu(emb))
+        emb = self._embed(t)
         if cfg.num_classes is not None:
             emb = emb + self.label_emb(y).to(emb.dtype)
         h = x.to(self.compute_dtype)
@@ -482,3 +508,98 @@ class ADMUNet(nn.Module):
             h = self._run(mods, torch.cat([h, hs.pop()], dim=-1), emb, context)
         h = F.silu(self.out[0](h.to(x.dtype)))
         return self.out[2](h).float()
+
+
+def super_res_inputs(x: torch.Tensor, low_res: torch.Tensor) -> torch.Tensor:
+    """SuperResModel conditioning (unet.py:666-680): bilinear-upsample the
+    NHWC low-res image to x's resolution and concatenate on channels."""
+    up = F.interpolate(low_res.permute(0, 3, 1, 2), size=x.shape[1:3], mode="bilinear",
+                       align_corners=False)
+    return torch.cat([x, up.permute(0, 2, 3, 1).to(x.dtype)], dim=-1)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling with a mean-token query (unet.py:22-51).
+
+    Reference layouts: `positional_embedding` (C, HW+1), `qkv_proj` and
+    `c_proj` Conv1d weights (O, I, 1). The attention runs over all HW+1
+    tokens with `ops.token_attention` (qkv-major order, q/k/v read in place)
+    and the pooled output is token 0.
+    """
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_head_channels: int,
+                 output_dim: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim, 1)
+        self.num_heads = embed_dim // num_head_channels
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        dt = self.compute_dtype
+        tokens = x.reshape(b, hh * ww, c)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding.t()[None].to(tokens.dtype)
+        qkv = F.linear(tokens.to(dt), self.qkv_proj.weight[:, :, 0].to(dt),
+                       self.qkv_proj.bias.to(dt))
+        h = qkv_attention(qkv, self.num_heads, new_order=True)
+        h = F.linear(h, self.c_proj.weight[:, :, 0].to(dt), self.c_proj.bias.to(dt))
+        return h[:, 0]
+
+
+POOLS = ("adaptive", "attention", "spatial", "spatial_v2")
+
+
+class ADMClassifier(_ADMBase):
+    """EncoderUNetModel (unet.py:683-894): the UNet's encoder half and one of
+    four pooling heads (`config.pool`). x NHWC; t (B,) labels. Returns fp32
+    (B, out_channels) logits. Head keys as the reference's `out` Sequential:
+    adaptive `out.0` (norm), `out.3` (1x1 conv); attention `out.0`, `out.2`
+    (AttentionPool2d); spatial `out.0`, `out.2` (Linear); spatial_v2 `out.0`
+    (Linear), `out.1` (norm), `out.3` (Linear).
+    """
+
+    def _construct(self, dev: torch.device):
+        cfg, dt = self.config, self.compute_dtype
+        _, _, chans, ch = self._encoder(dev, encoder_only=True)
+        out = cfg.out_channels
+        if cfg.pool == "adaptive":
+            self.out = nn.ModuleList([_adm_norm(ch), nn.SiLU(), nn.AdaptiveAvgPool2d((1, 1)),
+                                      Conv1x1(ch, out, dt), nn.Flatten()])
+        elif cfg.pool == "attention":
+            if cfg.num_head_channels == -1:
+                raise ValueError("the attention pool needs num_head_channels")
+            side = cfg.image_size // 2 ** (len(cfg.channel_mult) - 1)
+            self.out = nn.ModuleList([_adm_norm(ch), nn.SiLU(), AttentionPool2d(
+                side, ch, cfg.num_head_channels, out, dt)])
+        elif cfg.pool == "spatial":
+            self.out = nn.ModuleList([Linear(sum(chans) + ch, 2048, dt), nn.ReLU(),
+                                      Linear(2048, out, dt)])
+        elif cfg.pool == "spatial_v2":
+            self.out = nn.ModuleList([Linear(sum(chans) + ch, 2048, dt), _adm_norm(2048),
+                                      nn.SiLU(), Linear(2048, out, dt)])
+        else:
+            raise ValueError(f"pool must be one of {POOLS}, got {cfg.pool!r}")
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        pool = self.config.pool
+        emb = self._embed(t)
+        h = x.to(self.compute_dtype)
+        spatial = []
+        for mods in self.input_blocks:
+            h = self._run(mods, h, emb)
+            if pool.startswith("spatial"):
+                spatial.append(h.mean(dim=(1, 2)))
+        h = self._run(self.middle_block, h, emb)
+        if pool == "adaptive":
+            return self.out[3](F.silu(self.out[0](h)).mean(dim=(1, 2))).float()
+        if pool == "attention":
+            return self.out[2](F.silu(self.out[0](h))).float()
+        spatial.append(h.mean(dim=(1, 2)))
+        h = self.out[0](torch.cat(spatial, dim=-1))
+        if pool == "spatial":
+            return self.out[2](F.relu(h)).float()
+        return self.out[3](F.silu(self.out[1](h))).float()

@@ -2,21 +2,38 @@
 
     fused_update    -- the solver update, Triton             (fused_update.py)
     conv3x3         -- 3x3 SAME NHWC conv, CUDA C++           (conv3x3.py, csrc/conv3x3.cu)
+    conv3x3_dx      -- its input gradient, the same kernel    (conv3x3.py, csrc/conv3x3.cu)
     token_attention -- attention forward, CUDA C++            (attention.py, csrc/attention.cu)
+    attention_lse   -- the forward writing its base-2 lse     (attention.py, csrc/attention.cu)
+    attention_dq    -- attention backward, dq, CUDA C++       (attention.py, csrc/attention_bwd.cu)
+    attention_dkv   -- attention backward, dk/dv, CUDA C++    (attention.py, csrc/attention_bwd.cu)
     ln_linear       -- LayerNorm -> Linear, CUDA C++          (ln_linear.py, csrc/ln_linear.cu)
     geglu_ff        -- GEGLU feed-forward, CUDA C++           (geglu.py, csrc/geglu.cu)
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches in `<wrapper>.launches`.
+raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
+counts under one wrapper only. `conv3x3` and `token_attention` are
+differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
+`attention_dq` and `attention_dkv`, and a forward that keeps its residual
+for them launches as `attention_lse`.
 """
 
-from dpm_solver_tpu_torch.ops.attention import attention_plain, token_attention
-from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_plain
+from dpm_solver_tpu_torch.ops.attention import (
+    attention_backward_plain,
+    attention_dkv,
+    attention_dq,
+    attention_lse,
+    attention_lse_plain,
+    attention_plain,
+    token_attention,
+)
+from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_dx, conv3x3_plain
 from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_plain
 from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, gelu_exact
 from dpm_solver_tpu_torch.ops.ln_linear import layer_norm_fp32, ln_linear, ln_linear_plain
 
-KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff)
+KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
+           attention_dq, attention_dkv, conv3x3_dx)
 
 
 def reset_launch_counts() -> None:
@@ -31,8 +48,14 @@ def launch_counts() -> dict:
 __all__ = [
     "Conv3x3",
     "KERNELS",
+    "attention_backward_plain",
+    "attention_dkv",
+    "attention_dq",
+    "attention_lse",
+    "attention_lse_plain",
     "attention_plain",
     "conv3x3",
+    "conv3x3_dx",
     "conv3x3_plain",
     "fused_update",
     "fused_update_plain",

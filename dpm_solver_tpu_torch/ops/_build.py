@@ -37,8 +37,12 @@ _L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
     "dpm_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "dpm_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _L, _L, _L, _L, _L,
-                          _I, _P),
+    "dpm_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _L, _L, _L, _L,
+                          _L, _I, _P),
+    "dpm_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                             _L, _L, _L, _L, _L, _L, _I, _P),
+    "dpm_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                              _L, _L, _L, _L, _L, _L, _I, _P),
     "dpm_ln_linear_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "dpm_geglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -117,6 +121,13 @@ def library() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {code}")
+
+
+def device_type(t, what: str) -> str:
+    """"cpu" or "cuda", the two devices a kernel wrapper dispatches on."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return t.device.type
 
 
 def stream_ptr(device) -> int:

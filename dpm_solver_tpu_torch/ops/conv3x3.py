@@ -1,12 +1,20 @@
 """3x3 stride-1 SAME conv in NHWC: the hand-written CUDA kernel and its plain twin.
 
-Counterpart of `dpm_solver_tpu/ops/conv3x3.py` (`conv3x3`, `Conv3x3`), forward
-only. The public function keeps the JAX entry's layout: x (B, H, W, C),
-w (3, 3, C, CO), bias (CO,). The kernel lives in `csrc/conv3x3.cu`; its header
-says what it replaces, what bounds it on the H100 and how it is built.
+Counterpart of `dpm_solver_tpu/ops/conv3x3.py` (`conv3x3`, `Conv3x3`, and the
+custom VJP `_conv3x3_bwd`). The public function keeps the JAX entry's layout:
+x (B, H, W, C), w (3, 3, C, CO), bias (CO,), and is differentiable. The
+kernel lives in `csrc/conv3x3.cu`; its header says what it replaces, what
+bounds it on the H100 and how it is built.
+
+The backward mirrors `_conv3x3_bwd`: dx is the same 3x3 SAME conv of the
+cotangent with the spatially flipped, in/out-transposed weight, so it runs the
+same kernel (`conv3x3_dx`); dw is a library conv, as the JAX package leaves it
+to XLA; db is a sum. Only the gradients autograd asks for are computed: with
+frozen weights (classifier guidance) that is dx alone.
 
 Dispatch is by device only: a CPU tensor takes `conv3x3_plain`; a CUDA tensor
-launches the kernel or raises. `conv3x3.launches` counts kernel launches.
+launches the kernel or raises. `conv3x3.launches` counts forward launches,
+`conv3x3_dx.launches` the input-gradient launches.
 """
 
 from __future__ import annotations
@@ -51,13 +59,7 @@ def _check(x, w, bias):
         raise ValueError("conv3x3 kernel takes fewer than 2**31 elements per tensor")
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """3x3 stride-1 SAME NHWC conv; x (B,H,W,C), w (3,3,C,CO), bias (CO,)."""
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3 runs on cpu or cuda, not {x.device}")
+def _launch(x, w, bias, what):
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     _check(x, w, bias)
@@ -67,12 +69,70 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     code = _build.library().dpm_conv3x3_fwd(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype], _build.stream_ptr(x.device))
-    _build.check(code, "conv3x3")
+    _build.check(code, what)
+    return out
+
+
+def _forward(x, w, bias):
+    if _build.device_type(x, "conv3x3") == "cpu":
+        return conv3x3_plain(x, w, bias)
+    out = _launch(x, w, bias, "conv3x3")
     conv3x3.launches += 1
     return out
 
 
+def flip_weight(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, CO) -> the (3, 3, CO, C) weight whose SAME conv is the
+    input gradient: spatially flipped, in and out channels swapped."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of `conv3x3` at cotangent g (B, H, W, CO): the 3x3 SAME
+    conv of g with `flip_weight(w)`, through the same kernel."""
+    wf = flip_weight(w)
+    if _build.device_type(g, "conv3x3_dx") == "cpu":
+        return conv3x3_plain(g, wf)
+    out = _launch(g.contiguous(), wf, None, "conv3x3_dx")
+    conv3x3_dx.launches += 1
+    return out
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """Autograd for `conv3x3`; keeps x only when dw is asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _forward(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_dx(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2), (w.shape[3], w.shape[2], 3, 3),
+                g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = g.float().sum((0, 1, 2)).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 stride-1 SAME NHWC conv; x (B,H,W,C), w (3,3,C,CO), bias (CO,).
+    Differentiable in x, w and bias."""
+    if torch.is_grad_enabled() and any(u is not None and u.requires_grad for u in (x, w, bias)):
+        return _Conv3x3Fn.apply(x, w, bias)
+    return _forward(x, w, bias)
+
+
 conv3x3.launches = 0
+conv3x3_dx.launches = 0
 
 
 class Conv3x3(nn.Module):

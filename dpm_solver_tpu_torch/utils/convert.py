@@ -9,6 +9,8 @@ into the port's models with a plain `load_state_dict`:
 - `adm_unet_state_dict_from_flax`: of `convert_adm_unet`, for
   `models.ADMUNet`, driven by the port's own `layout()`
   (`spatial_transformer_state_dict_from_flax` for one SpatialTransformer);
+- `adm_classifier_state_dict_from_flax`: of `convert_adm_unet(...,
+  classifier=True)`, for `models.ADMClassifier` and its four pooling heads;
 - `autoencoder_kl_state_dict_from_flax`: of `dpm_solver_tpu/models/vae.py::
   convert_autoencoder_kl`, for `models.AutoencoderKL`.
 
@@ -152,9 +154,10 @@ def spatial_transformer_state_dict_from_flax(flax_params: Mapping) -> Dict[str, 
     return w.sd
 
 
-def adm_unet_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
-    """ADMUNet flax params ({'params': {...}} or the inner dict) -> the torch
-    state dict of `models.ADMUNet(config)` (reference key names)."""
+def _adm_trunk(flax_params: Mapping, config, encoder_only: bool):
+    """Write the ADM trunk shared by the UNet and the classifier (time
+    embedding, label embedding, the blocks of `layout()`); return the inner
+    params and the writer."""
     from dpm_solver_tpu_torch.models.adm_unet import layout
 
     p = flax_params.get("params", flax_params)
@@ -190,7 +193,7 @@ def adm_unet_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, tor
     w.dense("time_embed.2", p["time_embed_2"])
     if "label_emb" in p:
         w.put("label_emb.weight", p["label_emb"]["embedding"])
-    plan = layout(config)
+    plan = layout(config, encoder_only=encoder_only)
     for n, layers in enumerate(plan["input_blocks"]):
         for m, spec in enumerate(layers):
             put_layer(f"input_blocks_{n}_{m}", spec, f"input_blocks.{n}.{m}")
@@ -199,8 +202,41 @@ def adm_unet_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, tor
     for n, layers in enumerate(plan["output_blocks"]):
         for m, spec in enumerate(layers):
             put_layer(f"output_blocks_{n}_{m}", spec, f"output_blocks.{n}.{m}")
+    return p, w
+
+
+def adm_unet_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """ADMUNet flax params ({'params': {...}} or the inner dict) -> the torch
+    state dict of `models.ADMUNet(config)` (reference key names)."""
+    p, w = _adm_trunk(flax_params, config, encoder_only=False)
     w.gn("out.0", p["out_norm"])
     w.conv("out.2", p["out_conv"])
+    return w.sd
+
+
+def adm_classifier_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """ADMClassifier flax params -> the torch state dict of
+    `models.ADMClassifier(config)`, head keys as `convert_adm_unet(...,
+    classifier=True)` reads them for `config.pool`."""
+    p, w = _adm_trunk(flax_params, config, encoder_only=True)
+    if config.pool == "adaptive":
+        w.gn("out.0", p["out_norm"])
+        w.conv("out.3", p["out_conv"])
+    elif config.pool == "attention":
+        w.gn("out.0", p["out_norm"])
+        pool = p["out_pool"]
+        w.put("out.2.positional_embedding", np.asarray(pool["positional_embedding"]).T)
+        w.conv1d("out.2.qkv_proj", pool["qkv_proj"])
+        w.conv1d("out.2.c_proj", pool["c_proj"])
+    elif config.pool == "spatial":
+        w.dense("out.0", p["out_fc0"])
+        w.dense("out.2", p["out_fc1"])
+    elif config.pool == "spatial_v2":
+        w.dense("out.0", p["out_fc0"])
+        w.gn("out.1", p["out_norm"])
+        w.dense("out.3", p["out_fc1"])
+    else:
+        raise ValueError(f"unknown pool {config.pool!r}")
     return w.sd
 
 

@@ -1,15 +1,18 @@
 """Model abstraction layer: normalize any diffusion net into eps_hat(x, t), on torch.
 
 Port of `dpm_solver_tpu/wrapper.py` (ref: dpm_solver_pytorch.py:170-334).
-Four parameterizations ("noise" | "x_start" | "v" | "score") and the
-guidance modes "uncond" and "classifier-free" are normalized to one
-continuous-time noise-prediction function
+Four parameterizations ("noise" | "x_start" | "v" | "score") and three
+guidance modes ("uncond" | "classifier" | "classifier-free") are normalized
+to one continuous-time noise-prediction function
 
     model_fn(x, t_continuous) -> eps_hat        # t_continuous: scalar or (B,)
 
 Classifier-free guidance evaluates cond and uncond as one 2x-batched call.
-Classifier guidance needs the gradient of a classifier through autograd and
-is not ported yet (Slice C): it raises.
+Classifier guidance takes grad_x log p(cond | x_t) through autograd, under
+`torch.enable_grad()` so that it works inside `torch.no_grad()` (the
+reference's dpm_solver_pytorch.py:300-307); the classifier's parameters
+should be frozen (`requires_grad_(False)`), or every NFE also computes their
+gradients.
 """
 
 from __future__ import annotations
@@ -59,17 +62,18 @@ def model_wrapper(
     Args mirror the reference API (dpm_solver_pytorch.py:170-181). `model` has
     signature `model(x, t_input, **model_kwargs)` (uncond) or
     `model(x, t_input, cond, **model_kwargs)` (classifier-free).
+    `classifier_fn(x, t_input, cond, **classifier_kwargs)` returns per-example
+    log-probabilities (summed over the batch before differentiation).
     Returns `model_fn(x, t_continuous) -> eps_hat`.
     """
     if model_type not in MODEL_TYPES:
         raise ValueError(f"model_type must be one of {MODEL_TYPES}, got {model_type!r}")
     if guidance_type not in GUIDANCE_TYPES:
         raise ValueError(f"guidance_type must be one of {GUIDANCE_TYPES}, got {guidance_type!r}")
-    if guidance_type == "classifier":
-        raise NotImplementedError(
-            "classifier guidance is not ported to dpm_solver_tpu_torch yet (Slice C)")
-    del classifier_fn, classifier_kwargs
+    if guidance_type == "classifier" and classifier_fn is None:
+        raise ValueError("classifier guidance requires classifier_fn")
     model_kwargs = model_kwargs or {}
+    classifier_kwargs = classifier_kwargs or {}
     ns = noise_schedule
 
     def get_model_input_time(t_continuous):
@@ -96,10 +100,22 @@ def model_wrapper(
         sigma_t = ns.marginal_std(t_continuous)  # score
         return -bcast_right(sigma_t, x.dim()) * output
 
+    def cond_grad_fn(x, t_input):
+        """grad_x of sum(log p(cond | x_t)), the graph built under enable_grad."""
+        with torch.enable_grad():
+            x_in = x.detach().requires_grad_(True)
+            log_prob = classifier_fn(x_in, t_input, condition, **classifier_kwargs)
+            return torch.autograd.grad(log_prob.sum(), x_in)[0]
+
     def model_fn(x, t_continuous):
         t_continuous = _broadcast_t(t_continuous, x)
         if guidance_type == "uncond":
             return noise_pred_fn(x, t_continuous)
+        if guidance_type == "classifier":
+            cond_grad = cond_grad_fn(x, get_model_input_time(t_continuous))
+            sigma_t = ns.marginal_std(t_continuous)
+            noise = noise_pred_fn(x, t_continuous)
+            return noise - guidance_scale * bcast_right(sigma_t, x.dim()) * cond_grad
         if guidance_scale == 1.0 or unconditional_condition is None:
             return noise_pred_fn(x, t_continuous, cond=condition)
         # one doubled batch for cond and uncond (ref: dpm_solver_pytorch.py:322-330)

@@ -4,6 +4,9 @@ slab kernel, run in interpret mode, and the `Conv3x3` module against a Flax
 
 fp32 within 1e-4, the JAX package's own bound for this kernel
 (tests/test_conv3x3.py:41). On the CPU the wrapper takes its plain version.
+The autograd (dx through `conv3x3_dx`, dw, db) is held to `jax.grad` of the
+Pallas kernel's custom VJP within atol 2e-3, rtol 1e-3
+(tests/test_conv3x3.py:61).
 """
 
 import flax.linen as nn
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from dpm_solver_tpu.ops.conv3x3 import conv3x3 as jax_conv3x3
-from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3
+from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_dx
 
 TOL = 1e-4
 
@@ -59,3 +62,29 @@ def test_module_matches_flax_conv_with_params_carried():
     with torch.no_grad():
         got = m(torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 128, 128), (2, 8, 8, 128, 256)],
+                         ids=["square", "widening"])
+def test_autograd_matches_jax_grad_of_pallas(shape):
+    x, wt, bias = _inputs(*shape, seed=3)
+    cot = np.random.default_rng(4).standard_normal(x.shape[:3] + (shape[-1],)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jax_conv3x3(*a, True, True) * cot), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
+    args = [torch.tensor(u, requires_grad=True) for u in (x, wt, bias)]
+    got = torch.autograd.grad((conv3x3(*args) * torch.tensor(cot)).sum(), args)
+    for name, w, g in zip(("dx", "dw", "db"), want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-3, rtol=1e-3, err_msg=name)
+
+
+def test_frozen_weights_give_dx_only():
+    """With the weight and bias frozen (the guided path's classifier) only dx
+    is computed, and it is `conv3x3_dx` of the cotangent."""
+    x, wt, bias = _inputs(2, 6, 5, 20, 9, seed=5)
+    cot = torch.tensor(np.random.default_rng(6).standard_normal((2, 6, 5, 9)).astype(np.float32))
+    xt, w, b = torch.tensor(x, requires_grad=True), torch.tensor(wt), torch.tensor(bias)
+    (conv3x3(xt, w, b) * cot).sum().backward()
+    torch.testing.assert_close(xt.grad, conv3x3_dx(cot, w), rtol=0, atol=0)
+    want = torch.nn.grad.conv2d_input(xt.shape[:1] + (20, 6, 5), w.permute(3, 2, 0, 1),
+                                      cot.permute(0, 3, 1, 2), padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(xt.grad, want, rtol=1e-5, atol=1e-5)

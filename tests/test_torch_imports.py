@@ -4,8 +4,9 @@
   imports jax, flax or dpm_solver_tpu (a `sys.modules` check cannot show it:
   the test process imports jax anyway).
 - On the CPU every wrapper takes its plain version and launches nothing:
-  the launch counters stay at 0 through a whole tiny sampling run and a
-  tiny txt2img run.
+  the launch counters stay at 0 through a whole tiny sampling run, a tiny
+  txt2img run and a tiny classifier-guided run (whose backward takes the
+  plain twins of the dq, dk/dv and conv3x3-dx kernels).
 - The models and the pipeline default to the card: with no card, a
   constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
@@ -22,8 +23,8 @@ import torch
 
 import dpm_solver_tpu_torch as P
 from dpm_solver_tpu_torch import ops
-from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
-                                         DDPMUNetConfig, SpatialTransformer, VAEConfig,
+from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
+                                         DDPMUNet, DDPMUNetConfig, SpatialTransformer, VAEConfig,
                                          constant_context_encoder, init_random_)
 from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
 
@@ -35,7 +36,8 @@ attention, conv3x3, fused_update, geglu, ln_linear = (
 PKG = pathlib.Path(P.__file__).resolve().parent
 CHIP_SMOKE = PKG.parent / "chip_smoke.py"
 NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear": 0,
-               "geglu_ff": 0}
+               "geglu_ff": 0, "attention_lse": 0, "attention_dq": 0, "attention_dkv": 0,
+               "conv3x3_dx": 0}
 FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu")
 
 
@@ -86,14 +88,41 @@ def test_cpu_txt2img_takes_plain_path_and_launches_nothing():
     assert ops.launch_counts() == NO_LAUNCHES
 
 
+def test_cpu_guided_run_takes_plain_path_and_launches_nothing():
+    """Classifier guidance differentiates the classifier every NFE: on the
+    CPU its forward and backward launch nothing."""
+    g = torch.Generator().manual_seed(0)
+    kw = dict(image_size=8, model_channels=32, num_res_blocks=1, attention_resolutions=(2,),
+              channel_mult=(1, 2), num_head_channels=16, use_scale_shift_norm=True,
+              resblock_updown=True)
+    unet = init_random_(ADMUNet(ADMConfig(**kw, out_channels=6, num_classes=4), device="cpu"),
+                        g).eval()
+    clf = init_random_(ADMClassifier(ADMConfig(**kw, out_channels=4, pool="attention"),
+                                     device="cpu"), g).eval().requires_grad_(False)
+    y = torch.tensor([1, 3])
+    ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    log_prob = lambda x, t, c: torch.log_softmax(clf(x, t), -1)[torch.arange(2), c]
+    model_fn = P.model_wrapper(lambda x, t: unet(x, t, y)[..., :3], ns, condition=y,
+                               guidance_type="classifier", guidance_scale=8.0,
+                               classifier_fn=log_prob)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = P.build_sampler(model_fn, ns, steps=2, order=2, method="multistep")(
+            torch.randn(2, 8, 8, 3, generator=g))
+    assert out.shape == (2, 8, 8, 3) and torch.isfinite(out).all()
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
 @pytest.mark.parametrize("build", [
     lambda: DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
     lambda: ADMUNet(ADMConfig.tiny()),
+    lambda: ADMClassifier(ADMConfig.tiny(pool="attention", num_head_channels=16)),
     lambda: AutoencoderKL(VAEConfig.tiny()),
     lambda: SpatialTransformer(32, 2, 16, context_dim=24),
     lambda: StableDiffusionPipeline(LatentDiffusion(
         ADMUNet(ADMConfig.tiny(), device="cpu"), AutoencoderKL(VAEConfig.tiny(), device="cpu"))),
-], ids=["DDPMUNet", "ADMUNet", "AutoencoderKL", "SpatialTransformer", "StableDiffusionPipeline"])
+], ids=["DDPMUNet", "ADMUNet", "ADMClassifier", "AutoencoderKL", "SpatialTransformer",
+        "StableDiffusionPipeline"])
 def test_default_device_is_the_card_and_raises_without_one(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -136,6 +165,19 @@ def test_attention_checks_refuse_what_the_kernel_does_not_take():
     shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16)[1:].view(qb.shape)
     with pytest.raises(ValueError, match="aligned"):
         attention._check(shifted, qb, qb, 1)                 # 2-byte offset
+
+
+def test_attention_backward_checks_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(2, 16, 128)
+    attention._check_bwd(q, q, q, q, 2)                      # dh = 64
+    with pytest.raises(ValueError, match="head dims"):
+        attention._check_bwd(q, q, q, q, 4)                  # dh = 32: the forward only
+    with pytest.raises(ValueError, match="cotangent"):
+        attention._check_bwd(q, q, q, q.bfloat16(), 2)       # cotangent dtype
+    with pytest.raises(ValueError, match="cotangent"):
+        attention._check_bwd(q, q, q, q[:, :8], 2)           # cotangent shape
+    with pytest.raises(ValueError, match="cotangent"):
+        attention._check_bwd(q, q, q, q.transpose(0, 1).contiguous().transpose(0, 1), 2)
 
 
 def test_ln_linear_checks_refuse_what_the_kernel_does_not_take():
@@ -208,6 +250,14 @@ def test_wrappers_refuse_other_devices():
         ops.conv3x3(meta, torch.zeros(3, 3, 8, 8, device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.token_attention(meta[0], meta[0], meta[0], num_heads=1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.attention_lse(meta[0], meta[0], meta[0], num_heads=1)
+    row = torch.zeros(4, 4, device="meta")
+    for fn in (ops.attention_dq, ops.attention_dkv):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            fn(meta[0], meta[0], meta[0], meta[0], row, row, num_heads=1, scale=0.5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.conv3x3_dx(meta, torch.zeros(3, 3, 8, 8, device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.fused_update(torch.zeros(1, 8, device="meta"), 0, meta, meta, meta, meta)
     with pytest.raises(ValueError, match="cpu or cuda"):

@@ -7,8 +7,9 @@
     the JAX executor's own normal draws as the port's `noise`. Both sides plan
     the same float64 rows, so the tolerance is 1e-4 relative to max|x|
     (`assert_traj_close`, test_solver_parity.py:70-75) for every config.
-    The wrapper's parameterizations and classifier-free guidance are held to
-    the JAX `model_wrapper` within 1e-6.
+    The wrapper's parameterizations and its guidance modes (classifier-free,
+    and classifier guidance with an analytic classifier) are held to the JAX
+    `model_wrapper` within 1e-6.
 (b) The whole slice, small: the tiny DDPM UNet with one random init carried
     into both frameworks, batch 2 at 16x16, DPM-Solver++ 3M for 10 NFE on the
     logSNR grid of the discrete schedule, through `model_wrapper` and
@@ -120,8 +121,16 @@ def test_dynamic_thresholding_matches_jax():
     assert_traj_close(got.numpy(), want)
 
 
+def toy_log_prob_jax(x, t_in, c):
+    return -jnp.sum((x - c) ** 2, axis=(1, 2, 3)) * (1.0 + 0.001 * t_in)
+
+
+def toy_log_prob_torch(x, t_in, c):
+    return -((x - c) ** 2).sum((1, 2, 3)) * (1.0 + 0.001 * t_in)
+
+
 @pytest.mark.parametrize("model_type", ["noise", "x_start", "v", "score"])
-@pytest.mark.parametrize("guidance", ["uncond", "classifier-free"])
+@pytest.mark.parametrize("guidance", ["uncond", "classifier-free", "classifier"])
 def test_model_wrapper_matches_jax(model_type, guidance):
     ns_j, ns_t = _schedules("discrete")
     rng = np.random.default_rng(5)
@@ -136,6 +145,11 @@ def test_model_wrapper_matches_jax(model_type, guidance):
                    unconditional_condition=torch.zeros(cond.shape))
         jax_net = lambda u, s, c: toy_jax(u, s) * (1.0 + c)
         torch_net = lambda u, s, c: toy_torch(u, s) * (1.0 + c)
+    elif guidance == "classifier":
+        kw = dict(guidance_type=guidance, guidance_scale=2.0)
+        jkw = dict(kw, condition=jnp.asarray(cond), classifier_fn=toy_log_prob_jax)
+        tkw = dict(kw, condition=torch.tensor(cond), classifier_fn=toy_log_prob_torch)
+        jax_net, torch_net = toy_jax, toy_torch
     else:
         jkw = tkw = kw
         jax_net, torch_net = toy_jax, toy_torch
@@ -167,8 +181,17 @@ def test_unsupported_paths_raise():
         solver.sample(x, method="adaptive")
     with pytest.raises(NotImplementedError, match="mesh"):
         solver.sample(x, mesh=object())
-    with pytest.raises(NotImplementedError, match="Slice C"):
+    with pytest.raises(ValueError, match="classifier_fn"):
         P.model_wrapper(toy_torch, ns_t, guidance_type="classifier")
+    # classifier guidance runs (Slice C): eps - s * sigma_t * grad_x log p,
+    # here grad_x of -sum(x^2) = -2x, taken under no_grad as the sampler does
+    t = torch.full((SHAPE[0],), 0.5)
+    guided = P.model_wrapper(toy_torch, ns_t, guidance_type="classifier", guidance_scale=2.0,
+                             classifier_fn=lambda u, s, c: -(u ** 2).sum((1, 2, 3)))
+    with torch.no_grad():
+        got = guided(x + 1.0, t)
+    want = toy_torch(x + 1.0, (t - 1e-3) * 1000.0) + 2.0 * ns_t.marginal_std(t)[:, None, None, None] * 2.0 * (x + 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     sde = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type="sde-dpmsolver++")
     with pytest.raises(ValueError, match="noise"):
         sde.sample(x, steps=4, order=2)
