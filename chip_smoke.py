@@ -13,7 +13,10 @@ and nothing of JAX. Phases, each fatal on failure:
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16:
    the forwards, and the attention forward's lse, the attention backward's
-   dq and dk/dv and conv3x3's input gradient;
+   dq and dk/dv and conv3x3's input gradient; and the two kernels no path
+   launches (as in the JAX package): bias + LeakyReLU forward and backward
+   at path D's activation shapes and ragged ones, and attention with its
+   out-projection and residual fused at the SD-2.1 sites and ragged ones;
 4. path A, CIFAR-10: the DDPM UNet at full width with seeded random weights
    in bf16, sampled at batch 64 by DPM-Solver++ 3M for 10 NFE on the logSNR
    grid of the discrete schedule, through `NoiseScheduleVP`, `model_wrapper`
@@ -41,16 +44,30 @@ and nothing of JAX. Phases, each fatal on failure:
    the launch counters must rise by exactly what `layout()` implies; then the
    same networks in fp32 at 64x64, batch 1, 3 NFE, on the card against the
    plain path on the CPU;
-7. timing: each path's median wall time, the SD call's UNet and VAE-decode
+7. path D, ScoreSDE continuous VP (benchmarks/score_sde_bench.py's call,
+   BASELINE config[1]): `NCSNppConfig.cifar10_ddpmpp(deep=True)` at full
+   width with seeded random weights in bf16, `NoiseScheduleVP.linear()`,
+   labels t*999 through `score.get_noise_fn`, batch 256, singlestep order 3,
+   10 NFE, logSNR, t_end 1e-3, through `build_sampler`; the samples must be
+   finite and the launch counters must rise by exactly what the config and
+   the plan's rows imply. Then the adaptive solver (order 3) at full width,
+   batch 16, its NFE printed; the deep net in fp32 at batch 2, 3 NFE, on the
+   card against the plain path on the CPU; and the adaptive solver on a tiny
+   FIR VP NCSN++ in fp32, card against CPU: the same NFE and within 5e-3;
+8. timing: each path's median wall time, the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
-   shares, and each kernel against its plain version, the one PyTorch call
-   that computes the same function (where there is one) and its bound, at
-   the shapes and launch counts of one call of each path, each beside the
-   card's name and power limit.
+   shares, the ScoreSDE call's network-forward share, and each kernel
+   against its plain version, the one PyTorch call that computes the same
+   function (where there is one) and its bound, at the shapes and launch
+   counts of one call of each path (the kernels no path launches: one
+   launch at each shape where they would run, the fused attention output
+   beside the unfused composition), each beside the card's name and power
+   limit.
 
 The last two lines are the kernels' JSON record (each kernel's times on the
-newest path that runs it at the top level, every path's in `timing_by_path`,
-its launches on every path) and
+newest path that runs it at the top level, or under "none" for a kernel no
+path launches, every path's in `timing_by_path`, its launches on every path)
+and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -75,6 +92,11 @@ SD_SIZE, SD_STEPS, SD_SCALE = 768, 20, 7.5          # path B
 SD_TIMED_RUNS = 3
 GUIDED_BATCH, GUIDED_SIZE, GUIDED_STEPS, GUIDED_SCALE = 8, 256, 20, 8.0   # path C
 GUIDED_TIMED_RUNS = 3
+SCORE_BATCH, SCORE_STEPS, SCORE_T_END = 256, 10, 1e-3                     # path D
+SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
+# the adaptive solver's bound, card against CPU: each side accepts its steps
+# on its own fp32 error estimate (tests/test_solver_parity.py:286)
+ADAPTIVE_BOUND = 5e-3
 # bounds on max|kernel - plain| / max|plain| (plain in fp32 on the same inputs,
 # TF32 off): fp32 -> different summation order only; bf16 -> the kernel's one
 # rounding of its output to bf16 (unit roundoff 2^-8 = 3.9e-3) plus order
@@ -112,7 +134,17 @@ REPLACES = {
     "conv3x3_dx": ("cuda", "dpm_solver_tpu_torch/csrc/conv3x3.cu",
                    "dpm_solver_tpu/ops/conv3x3.py:185 (_conv3x3_bwd: dx through "
                    "_pallas_conv3x3 :125)"),
+    "fused_bias_act": ("triton", "dpm_solver_tpu_torch/ops/fused_act.py",
+                       "dpm_solver_tpu/ops/fused_act.py:51 (_row_call with _fwd_kernel :36)"),
+    "fused_bias_act_bwd": ("triton", "dpm_solver_tpu_torch/ops/fused_act.py",
+                           "dpm_solver_tpu/ops/fused_act.py:51 (_row_call with _bwd_kernel :41)"),
+    "attention_out_fused": ("cuda", "dpm_solver_tpu_torch/csrc/attention_out.cu",
+                            "dpm_solver_tpu/ops/attention.py:1190 (_attn_out_forward, "
+                            "_attn_out_kernel :1007)"),
 }
+# kernels that no path launches, as in the JAX package: timed at the shapes
+# where they would run, one launch each
+NO_PATH = ("fused_bias_act", "fused_bias_act_bwd", "attention_out_fused")
 
 
 def fail(msg: str) -> None:
@@ -258,6 +290,29 @@ def make_case(name: str, spec: tuple, randn):
         n = xs[0].numel()
         return (lambda: ops.fused_update(coef, 1, *xs), lambda: ops.fused_update_plain(coef, 1, *xs),
                 None, 0, 7 * n, 4 * 5 * n)
+    if name == "fused_bias_act":  # add, select, scale per element
+        shape, = spec
+        x, bias = randn(*shape).to(bf), randn(shape[-1]) * 0.1
+        n = x.numel()
+        return (lambda: ops.fused_bias_act(x, bias), lambda: ops.bias_act_plain(x, bias),
+                None, 0, 3 * n, 2 * 2 * n + 4 * shape[-1])
+    if name == "fused_bias_act_bwd":  # select, multiply per element
+        shape, = spec
+        g, out = randn(*shape).to(bf), randn(*shape).to(bf)
+        n = g.numel()
+        return (lambda: ops.fused_bias_act_bwd(g, out), lambda: ops.bias_act_grad_plain(g, out),
+                None, 0, 2 * n, 3 * 2 * n)
+    if name == "attention_out_fused":  # spec: (b, t, s, heads, c), dh 64
+        b, t, s, heads, c = spec
+        inner = heads * 64
+        q, k, v = randn(b, t, inner).to(bf), randn(b, s, inner).to(bf), randn(b, s, inner).to(bf)
+        w, res = (randn(inner, c) * inner ** -0.5).to(bf), randn(b, t, c).to(bf)
+        bias = randn(c) * 0.1
+        args = (q, k, v, w, bias, res)
+        return (lambda: ops.attention_out_fused(*args, heads),
+                lambda: ops.attention_out_plain(*args, num_heads=heads), None,
+                4 * b * heads * t * s * 64 + 2 * b * t * inner * c, 5 * b * heads * t * s,
+                2 * (b * t * inner + 2 * b * s * inner + inner * c + 2 * b * t * c) + 4 * c)
     raise ValueError(name)
 
 
@@ -353,6 +408,37 @@ def guided_launches(ucfg, ccfg, steps: int) -> dict:
     out = {name: steps * per_nfe.get(name, 0) for name in REPLACES}
     out["fused_update"] = steps
     return out
+
+
+def ncsnpp_launches(cfg) -> Counter:
+    """Kernel launches of one NCSNpp forward, from its config: a ResBlockpp
+    runs two 3x3 convs (its skip is 1x1; a BigGAN net also resamples with
+    one between levels, down and up), a non-FIR up-resample with a conv
+    (DDPM blocks, or the residual output pyramid) one; a SelfAttention2D one
+    attention: after each down block and once up at an attention
+    resolution, and once in the middle."""
+    levels, blocks = len(cfg.ch_mult), cfg.num_res_blocks
+    res = [cfg.image_size // 2 ** i for i in range(levels)]
+    biggan = cfg.resblock_type == "biggan"
+    resblocks = levels * blocks + 2 + levels * (blocks + 1) + (2 * (levels - 1) if biggan else 0)
+    up_convs = 0 if cfg.fir else (levels - 1) * (
+        (not biggan and cfg.resamp_with_conv) + (cfg.progressive == "residual"))
+    attn = 1 + sum(blocks + 1 for r in res if r in cfg.attn_resolutions)
+    return Counter({"conv3x3": 2 * resblocks + up_convs, "token_attention": attn})
+
+
+def plan_launches(cfg, plan) -> dict:
+    """Kernel launches of one sample call of `plan` over an NCSNpp of `cfg`:
+    per model evaluation one forward, per row of the plan one fused update."""
+    evals = plan.n_nfe + plan.denoise_final
+    rows = sum(g.n_seg * len(g.eval_after) for g in plan.seg_scans)
+    for tab in (plan.scan_rows, plan.tail_rows):
+        rows += 0 if tab is None else tab.n_ops
+    if plan.scan_rows is not None and plan.scan_rows.b_corr is not None:
+        rows += plan.scan_rows.n_ops
+    out = {name: evals * n for name, n in ncsnpp_launches(cfg).items()}
+    out["fused_update"] = rows
+    return {name: out.get(name, 0) for name in REPLACES}
 
 
 def record_guided_calls(unet, clf, run) -> tuple:
@@ -471,13 +557,18 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
-                                             DDPMUNet, DDPMUNetConfig, VAEConfig,
-                                             constant_context_encoder, init_random_)
+                                             DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
+                                             VAEConfig, constant_context_encoder, init_random_)
+    from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
     from dpm_solver_tpu_torch.ops import _build
     from dpm_solver_tpu_torch.ops.attention import attention_delta
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
     from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
+    from dpm_solver_tpu_torch.score import get_noise_fn
+    from dpm_solver_tpu_torch.sde import VPSDE
+    from dpm_solver_tpu_torch.solver.adaptive import adaptive_sample
     from dpm_solver_tpu_torch.solver.correctors import make_dynamic_thresholding
+    from dpm_solver_tpu_torch.solver.sample import make_plan
 
     smi = card()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -612,6 +703,53 @@ def main() -> int:
             # the plain version at bf16 inputs rounds the gated tile as the kernel does
             report("geglu_ff", (m, d, inner), dt, ops.geglu_ff(x, w1, b1, w2, b2),
                    ops.geglu_plain(x, w1, b1, w2, b2), BOUND[str(dt)[6:]])
+    # bias + scaled LeakyReLU, forward and backward (dx, and db summed from
+    # it), against the plain version's autograd in fp32: path D's activation
+    # shapes, ragged row counts (no block multiple), 3 to 512 channels, and
+    # non-default slopes and scales
+    for shape, slope, gain in [((SCORE_BATCH, 32, 32, 128), 0.2, math.sqrt(2.0)),
+                               ((SCORE_BATCH, 16, 16, 256), 0.2, math.sqrt(2.0)),
+                               ((1000, 3), 0.1, 1.5), ((77, 512), 0.3, 0.7),
+                               ((3, 5, 7, 20), 0.05, 2.0)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x, bias, g_out = randn(*shape).to(dt), randn(shape[-1]) * 0.1, randn(*shape).to(dt)
+            with torch.enable_grad():
+                xs, bs = x.requires_grad_(True), bias.requires_grad_(True)
+                out = ops.fused_bias_act(xs, bs, slope, gain)
+                dx, db = torch.autograd.grad(out, (xs, bs), g_out)
+                xf, bf = x.detach().float().requires_grad_(True), bias.detach().requires_grad_(True)
+                want = ops.bias_act_plain(xf, bf, slope, gain)
+                want_dx, want_db = torch.autograd.grad(want, (xf, bf), g_out.float())
+            bound = FUSED_BOUND[str(dt)[6:]]
+            report("fused_bias_act", shape, dt, out.detach(), want.detach(), bound)
+            report("fused_bias_act_bwd", shape + ("dx",), dt, dx, want_dx, bound)
+            report("fused_bias_act_bwd", shape + ("db",), dt, db, want_db, bound)
+            del x, g_out, out, dx, want, want_dx
+    # attention -> out-projection (+ bias) -> + residual, dh 64: the two SD-2.1
+    # self-attention sites (CFG batch 8), cross-attention (S = 77), ragged
+    # T and S, q/k/v as column slices of one projection, H*dh = 1024 (the
+    # widest the kernel takes), with and without bias. The plain version in
+    # fp32, one batch element at a time (its logits at 9216 tokens are 1.7 GB)
+    for b, t, s, heads, c, with_bias, fused in [
+            (8, 9216, 9216, 5, 320, True, False), (8, 2304, 2304, 10, 640, True, False),
+            (8, 9216, 77, 5, 320, False, False), (2, 100, 77, 2, 96, False, False),
+            (2, 100, 100, 2, 96, True, True), (3, 65, 200, 16, 1024, True, False),
+            (1, 5, 5, 1, 8, False, False)]:
+        for dt in (torch.float32, torch.bfloat16):
+            inner = heads * 64
+            if fused:
+                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+            else:
+                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+            w, res = (randn(inner, c) * inner ** -0.5).to(dt), randn(b, t, c).to(dt)
+            bias = randn(c) * 0.1 if with_bias else None
+            got = ops.attention_out_fused(q, k, v, w, bias, res, heads)
+            want = torch.cat([ops.attention_out_plain(
+                q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(), w.float(), bias,
+                res[i:i + 1].float(), num_heads=heads) for i in range(b)])
+            report("attention_out_fused", (b, t, s, heads, c) + (("bias",) if with_bias else ())
+                   + (("qkv",) if fused else ()), dt, got, want, BOUND[str(dt)[6:]])
+            del q, k, v, w, res, got, want
     torch.cuda.empty_cache()
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -825,7 +963,109 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 7. timing -------------------------------------------------------------
+    # ---- 7. path D: ScoreSDE continuous VP, DDPM++ (deep) ----------------------
+    t0 = time.perf_counter()
+    dcfg = NCSNppConfig.cifar10_ddpmpp(deep=True)
+    dnet = init_random_(NCSNpp(dcfg, compute_dtype=torch.bfloat16, device=dev),
+                        torch.Generator(device=dev).manual_seed(0)).eval()
+    n_dnet = sum(p.numel() for p in dnet.parameters())
+    vns = P.NoiseScheduleVP.linear()
+
+    def noise_model(net_):
+        """The continuous-VP noise model: labels t * 999 (score.get_noise_fn)."""
+        return P.model_wrapper(get_noise_fn(VPSDE(), net_), vns, model_type="noise")
+
+    score_kw = dict(steps=SCORE_STEPS, order=3, method="singlestep", skip_type="logSNR",
+                    t_end=SCORE_T_END)
+    sample_d = P.build_sampler(noise_model(dnet), vns, **score_kw)
+    side = dcfg.image_size
+    dx_T = torch.tensor(np.random.default_rng(0).standard_normal((SCORE_BATCH, side, side, 3)),
+                        dtype=torch.float32, device=dev)
+    expected_d = plan_launches(dcfg, make_plan(vns, **score_kw))
+    torch.cuda.synchronize()
+    log(f"path D: ScoreSDE continuous VP, DDPM++ deep ({n_dnet / 1e6:.2f}M params), bf16 "
+        f"compute, seeded random weights, built in {time.perf_counter() - t0:.1f} s; "
+        f"b{SCORE_BATCH} {side}x{side}, singlestep order 3, {SCORE_STEPS} NFE, logSNR, "
+        f"t_end {SCORE_T_END:g}, labels t*999")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dout = sample_d(dx_T)
+    torch.cuda.synchronize()
+    first_d = time.perf_counter() - t0
+    launches_d = ops.launch_counts()
+    log(f"  launches {launches_d} (expected {expected_d}); first call {first_d:.2f} s")
+    if launches_d != expected_d:
+        fail(f"path D launch counts {launches_d} != {expected_d}")
+    if dout.shape != dx_T.shape or dout.dtype != torch.float32 or not torch.isfinite(dout).all():
+        fail(f"path D samples {tuple(dout.shape)} {dout.dtype} are not finite fp32 of x_T's shape")
+    log(f"  samples {tuple(dout.shape)} finite: min {dout.min().item():.4f}, max "
+        f"{dout.max().item():.4f}, std {dout.std().item():.4f}")
+
+    # the adaptive solver (DPM-Solver-23) through DPM_Solver.sample, full width:
+    # a model evaluation is one network forward, counted at the network
+    evals = [0]
+
+    def counted(x, labels):
+        evals[0] += 1
+        return dnet(x, labels)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    aout = P.DPM_Solver(noise_model(counted), vns).sample(
+        dx_T[:SCORE_ADAPTIVE_BATCH], order=3, method="adaptive", t_end=SCORE_T_END)
+    torch.cuda.synchronize()
+    launches_ad = ops.launch_counts()
+    per_forward = ncsnpp_launches(dcfg)
+    log(f"  adaptive order 3, b{SCORE_ADAPTIVE_BATCH}: {evals[0]} NFE in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches_ad}")
+    if evals[0] == 0 or evals[0] % 3 or any(
+            launches_ad[k] != evals[0] * n for k, n in per_forward.items()) \
+            or launches_ad["fused_update"] == 0:
+        fail(f"adaptive path D: {evals[0]} NFE, launches {launches_ad}")
+    if aout.shape != (SCORE_ADAPTIVE_BATCH, side, side, 3) or not torch.isfinite(aout).all():
+        fail(f"adaptive path D samples {tuple(aout.shape)} are not finite")
+
+    # fp32, b2, 3 NFE singlestep: kernels on the card vs plain on the CPU
+    t0 = time.perf_counter()
+    nets = {}
+    for where in (dev, torch.device("cpu")):
+        nets[where.type] = NCSNpp(dcfg, device=where).eval()
+        nets[where.type].load_state_dict(dnet.state_dict())
+    kw3 = dict(score_kw, steps=3)
+    result = {where: P.build_sampler(noise_model(net_), vns, **kw3)(
+        dx_T[:2].to(where)).cpu() for where, net_ in nets.items()}
+    d, r = rel_err(result["cuda"], result["cpu"])
+    ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"]).all())
+    log(f"  fp32 b2 3 NFE, kernels (card) vs plain (cpu, {time.perf_counter() - t0:.1f} s): "
+        f"max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fp32 ScoreSDE path on the card disagrees with the plain path")
+    del nets, result
+
+    # the adaptive solver on the tiny twin of cifar10_ncsnpp_vp (FIR
+    # resampling, residual input pyramid), fp32, card vs CPU: equal NFE
+    tcfg = NCSNppConfig.tiny(fir=True, progressive_input="residual")
+    tnet = init_random_(NCSNpp(tcfg, device="cpu"), torch.Generator().manual_seed(4)).eval()
+    xt = torch.tensor(np.random.default_rng(5).standard_normal(
+        (2, tcfg.image_size, tcfg.image_size, 3)), dtype=torch.float32)
+    result = {}
+    for where in (dev, torch.device("cpu")):
+        net_ = NCSNpp(tcfg, device=where).eval()
+        net_.load_state_dict(tnet.state_dict())
+        xa, nfe = adaptive_sample(noise_model(net_), vns, xt.to(where), order=3,
+                                  t_end=SCORE_T_END)
+        result[where.type] = (xa.cpu(), nfe)
+    d, r = rel_err(result["cuda"][0], result["cpu"][0])
+    ok = result["cuda"][1] == result["cpu"][1] and r <= ADAPTIVE_BOUND
+    log(f"  tiny FIR VP NCSN++ adaptive fp32, kernels (card) vs plain (cpu): NFE "
+        f"{result['cuda'][1]} vs {result['cpu'][1]}, max|d| {d:.3e}, /max|x| {r:.3e} "
+        f"(bound {ADAPTIVE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the adaptive solver on the card disagrees with the plain path")
+    del result, tnet
+    torch.cuda.empty_cache()
+
+    # ---- 8. timing -------------------------------------------------------------
     solver.sample(x_T, **sample_kw)  # warm
     walls = []
     for _ in range(7):
@@ -908,6 +1148,29 @@ def main() -> int:
         f"{runs[-1][0] * 1e3:.2f}) -> {GUIDED_BATCH / c_wall:.4f} samples/s; in that run UNet "
         f"forwards {c_unet_s * 1e3:.2f} ms ({c_unet_s / c_wall:.3f} of the wall), classifier "
         f"forward+backward {c_clf_s * 1e3:.2f} ms ({c_clf_s / c_wall:.3f})")
+
+    # path D: wall time, and the network forwards' device spans by CUDA events
+    dspans = {"net": []}
+    pre, post = span_hooks(dspans, "net")
+    handles = [dnet.register_forward_pre_hook(pre), dnet.register_forward_hook(post)]
+    sample_d(dx_T)  # warm
+    runs = []
+    for _ in range(SCORE_TIMED_RUNS):
+        dspans["net"].clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_d(dx_T)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0,
+                     sum(a.elapsed_time(b) for a, b in dspans["net"]) / 1e3))
+    for h in handles:
+        h.remove()
+    runs.sort()
+    d_wall, d_net_s = runs[len(runs) // 2]
+    log(f"path D time on {smi}: ScoreSDE b{SCORE_BATCH} {SCORE_STEPS} NFE median "
+        f"{d_wall * 1e3:.2f} ms over {len(runs)} runs (min {runs[0][0] * 1e3:.2f}, max "
+        f"{runs[-1][0] * 1e3:.2f}) -> {SCORE_BATCH / d_wall:.2f} samples/s; in that run network "
+        f"forwards {d_net_s * 1e3:.2f} ms ({d_net_s / d_wall:.3f} of the wall)")
 
     # each kernel at the shapes and counts of one call of each path
     ctx = encode(SD_PROMPTS + [""] * len(SD_PROMPTS)).to(dev)
@@ -993,13 +1256,74 @@ def main() -> int:
     log(f"conv3x3_dx: its {dx['launches']} weight flips take {flip_ms:.3f} ms of its "
         f"{dx['ms']:.3f} ms per guided call")
 
+    # path D: the specs of one network forward, times the plan's evaluations
+    d_calls = Counter()
+
+    def d_hook(mod, args):
+        x = args[0]
+        if isinstance(mod, ops.Conv3x3):
+            d_calls["conv3x3", (*x.shape, mod.weight.shape[0])] += 1
+        else:
+            b, h, w, c = x.shape
+            d_calls["token_attention", (b, h * w, h * w, 1, c, True)] += 1
+
+    handles = [m.register_forward_pre_hook(d_hook) for m in dnet.modules()
+               if isinstance(m, (ops.Conv3x3, SelfAttention2D))]
+    dnet(dx_T, torch.full((SCORE_BATCH,), 500.0, device=dev))
+    for h in handles:
+        h.remove()
+    evals_d = expected_d["conv3x3"] // per_forward["conv3x3"]
+    per_kernel_d = {name: Counter() for name in REPLACES}
+    for (name, spec), n in d_calls.items():
+        per_kernel_d[name][spec] += n * evals_d
+    per_kernel_d["fused_update"][((SCORE_BATCH, side, side, 3),)] = expected_d["fused_update"]
+    for name, calls in per_kernel_d.items():
+        if sum(calls.values()) != expected_d[name]:
+            fail(f"{name}: the recorded shapes cover {sum(calls.values())} launches, "
+                 f"the ScoreSDE call makes {expected_d[name]}")
+    log(f"kernel times, path D (one {SCORE_STEPS}-NFE singlestep call, b{SCORE_BATCH}, bf16):")
+    time_path("D", per_kernel_d, launches_d, f"one ScoreSDE sample call, DDPM++ deep "
+              f"b{SCORE_BATCH}")
+
+    # the kernels no path launches, one launch at each shape where they would
+    # run: bias + LeakyReLU at path D's activations (every conv3x3 input), the
+    # fused attention output at the SD-2.1 768 px self-attention sites (CFG b8)
+    act_shapes = sorted({spec[:4] for spec in per_kernel_d["conv3x3"]})
+    cfg_b = 2 * len(SD_PROMPTS)
+    sd_sites = [(cfg_b, 9216, 9216, 5, 320), (cfg_b, 2304, 2304, 10, 640)]
+    acts = f"path D's activations, b{SCORE_BATCH}"
+    for name, specs, where in [
+            ("fused_bias_act", [(s,) for s in act_shapes], acts),
+            ("fused_bias_act_bwd", [(s,) for s in act_shapes], acts),
+            ("attention_out_fused", sd_sites, f"the SD-2.1 768 px self-attention sites, CFG b{cfg_b}")]:
+        log(f"kernel times, {name} (no path launches it; one launch at each of {where}):")
+        timing[name]["none"] = dict(time_kernel(name, Counter(specs), randn, smi,
+                                                f"one launch at each of {where}"), launches=0)
+    # beside it, the unfused composition path B runs at those sites today:
+    # the attention kernel, the out-projection (F.linear, bias) and the add
+    unfused_ms = 0.0
+    for b, t, s, heads, c in sd_sites:
+        inner = heads * 64
+        q, k, v = (randn(b, n, inner).to(torch.bfloat16) for n in (t, s, s))
+        wt = (randn(c, inner) * inner ** -0.5).to(torch.bfloat16)
+        bias, res = (randn(c) * 0.1).to(torch.bfloat16), randn(b, t, c).to(torch.bfloat16)
+        ms = cuda_ms(lambda: torch.add(F.linear(ops.token_attention(q, k, v, num_heads=heads),
+                                                wt, bias), res))
+        unfused_ms += ms
+        log(f"  unfused (token_attention + F.linear + add) {(b, t, s, heads, c)}: {ms:.4f} ms")
+        del q, k, v, wt, res
+    timing["attention_out_fused"]["none"]["unfused_ms"] = unfused_ms
+    log(f"attention_out_fused {timing['attention_out_fused']['none']['ms']:.3f} ms vs the unfused "
+        f"composition {unfused_ms:.3f} ms over the two SD sites")
+
     # each kernel's times and launches ("launches") on the newest path that
-    # runs it, every path's times, and its launches on every path
+    # runs it ("none": no path launches it), every path's times, and its
+    # launches on every path
+    paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d}
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
-                    launches_path_a=launches_a[name], launches_path_b=launches_b[name],
-                    launches_path_c=launches_c[name], max_abs_err=max_abs[name],
-                    **timing[name][list(timing[name])[-1]], path=list(timing[name])[-1],
-                    timing_by_path=timing[name])
+                    **{f"launches_path_{p}": counts[name] for p, counts in paths.items()},
+                    max_abs_err=max_abs[name], **timing[name][list(timing[name])[-1]],
+                    path=list(timing[name])[-1], timing_by_path=timing[name])
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

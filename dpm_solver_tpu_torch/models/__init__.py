@@ -1,6 +1,7 @@
 from dpm_solver_tpu_torch.models.adm_unet import (ADMClassifier, ADMConfig, ADMUNet,
                                                   AttentionPool2d, layout, super_res_inputs)
 from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig, init_random_
+from dpm_solver_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
 from dpm_solver_tpu_torch.models.text_encoder import constant_context_encoder
 from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
 from dpm_solver_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, VAEConfig
@@ -14,6 +15,8 @@ __all__ = [
     "DDPMUNet",
     "DDPMUNetConfig",
     "DiagonalGaussian",
+    "NCSNpp",
+    "NCSNppConfig",
     "SpatialTransformer",
     "VAEConfig",
     "constant_context_encoder",

@@ -314,13 +314,13 @@ class DDPMUNet(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator`: weights N(0, 1/fan_in), norm
-    scales 1, biases N(0, 0.01^2). Random weights for runs without a checkpoint;
+    scales 1, biases N(0, 0.01^2) (NIN's `b` too). Random weights for runs without a checkpoint;
     no layer is left at zero (the zero-initialised output projections of the
     reference would otherwise make half of each block compute nothing). The
     values are drawn on the generator's device."""
     dev = generator.device
     for name, p in model.named_parameters():
-        if name.endswith("bias"):
+        if name.endswith(("bias", ".b")):  # ".b": the score_sde NIN bias
             vals = torch.randn(p.shape, generator=generator, device=dev) * 0.01
         elif p.dim() == 1:  # GroupNorm / LayerNorm scale
             vals = torch.ones(p.shape, device=dev)

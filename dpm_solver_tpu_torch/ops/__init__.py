@@ -9,13 +9,20 @@
     attention_dkv   -- attention backward, dk/dv, CUDA C++    (attention.py, csrc/attention_bwd.cu)
     ln_linear       -- LayerNorm -> Linear, CUDA C++          (ln_linear.py, csrc/ln_linear.cu)
     geglu_ff        -- GEGLU feed-forward, CUDA C++           (geglu.py, csrc/geglu.cu)
+    fused_bias_act  -- bias + scaled LeakyReLU, Triton        (fused_act.py)
+    fused_bias_act_bwd -- its input gradient, Triton          (fused_act.py)
+    attention_out_fused -- attention -> out-projection -> residual, CUDA C++
+                                                              (attention.py, csrc/attention_out.cu)
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
 counts under one wrapper only. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
-for them launches as `attention_lse`.
+for them launches as `attention_lse`. `fused_bias_act` and
+`attention_out_fused` are differentiable too, and, as in the JAX package,
+no sampling path calls them. `resample` holds the FIR resampling ops:
+library convs, no kernel.
 """
 
 from dpm_solver_tpu_torch.ops.attention import (
@@ -24,16 +31,21 @@ from dpm_solver_tpu_torch.ops.attention import (
     attention_dq,
     attention_lse,
     attention_lse_plain,
+    attention_out_fused,
+    attention_out_plain,
     attention_plain,
     token_attention,
 )
 from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_dx, conv3x3_plain
+from dpm_solver_tpu_torch.ops.fused_act import (bias_act_grad_plain, bias_act_plain,
+                                                fused_bias_act, fused_bias_act_bwd)
 from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_plain
 from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, gelu_exact
 from dpm_solver_tpu_torch.ops.ln_linear import layer_norm_fp32, ln_linear, ln_linear_plain
 
 KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
-           attention_dq, attention_dkv, conv3x3_dx)
+           attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
+           attention_out_fused)
 
 
 def reset_launch_counts() -> None:
@@ -53,10 +65,16 @@ __all__ = [
     "attention_dq",
     "attention_lse",
     "attention_lse_plain",
+    "attention_out_fused",
+    "attention_out_plain",
     "attention_plain",
+    "bias_act_grad_plain",
+    "bias_act_plain",
     "conv3x3",
     "conv3x3_dx",
     "conv3x3_plain",
+    "fused_bias_act",
+    "fused_bias_act_bwd",
     "fused_update",
     "fused_update_plain",
     "geglu_ff",

@@ -20,12 +20,18 @@ and two kernels in `csrc/attention_bwd.cu` rebuild P from it:
 kernels, head dim 64 only. `delta = rowsum(dO * O)` is a torch op, as the JAX
 package leaves it outside its kernels.
 
+Attention with its out-projection and residual (`attention_out_fused`, the
+port of `_attn_out_forward`): one kernel in `csrc/attention_out.cu` keeps the
+heads' outputs in shared memory and multiplies them by w_out there, dh 64
+only; its backward is the recompute VJP of the unfused composition, as in
+the JAX package. Like there, no model calls it.
+
 Dispatch is by device only: a CPU tensor takes the plain twin
-(`attention_plain`, `attention_lse_plain`, `attention_backward_plain`); a
-CUDA tensor launches the kernel or raises. Each of `token_attention`,
-`attention_lse`, `attention_dq` and `attention_dkv` counts its own kernel
-launches in `.launches`: a forward that writes the lse counts under
-`attention_lse` only.
+(`attention_plain`, `attention_lse_plain`, `attention_backward_plain`,
+`attention_out_plain`); a CUDA tensor launches the kernel or raises. Each of
+`token_attention`, `attention_lse`, `attention_dq`, `attention_dkv` and
+`attention_out_fused` counts its own kernel launches in `.launches`: a
+forward that writes the lse counts under `attention_lse` only.
 """
 
 from __future__ import annotations
@@ -252,7 +258,121 @@ def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _attend(q, k, v, num_heads, scale, with_lse=False)[0]
 
 
+# --------------------------------------------------------------------------- #
+# attention -> out-projection -> residual, fused (csrc/attention_out.cu)
+# --------------------------------------------------------------------------- #
+
+OUT_HEAD_DIMS = (64,)
+OUT_MAX_INNER = 1024  # H*dh: the width of the kernel's shared-memory head buffer
+
+
+def _compose(attend, q, k, v, w_out, bias, residual, num_heads, scale):
+    """attend(q, k, v) -> concat heads @ w_out with fp32 sums (+ bias) -> +
+    residual, in the residual's dtype: the JAX `attention_out_ref`."""
+    o = attend(q, k, v, num_heads=num_heads, scale=scale)
+    proj = o.float() @ w_out.to(o.dtype).float()
+    if bias is not None:
+        proj = proj + bias.float()
+    return (proj + residual.float()).to(residual.dtype)
+
+
+def attention_out_plain(q, k, v, w_out, bias, residual, *, num_heads: int,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The unfused composition in plain PyTorch (`attention_plain`, then the
+    projection and the residual add), the function `attention_out_fused`
+    computes (dpm_solver_tpu/ops/attention.py:1115-1126)."""
+    return _compose(attention_plain, q, k, v, w_out, bias, residual, num_heads, scale)
+
+
+def _check_out(q, k, v, w_out, bias, residual, num_heads):
+    _check(q, k, v, num_heads)
+    b, t, inner = q.shape
+    if inner // num_heads not in OUT_HEAD_DIMS:
+        raise ValueError(f"attention_out kernel takes head dims {OUT_HEAD_DIMS}, got "
+                         f"{inner // num_heads}")
+    if inner > OUT_MAX_INNER:
+        raise ValueError(f"attention_out kernel takes H*dh <= {OUT_MAX_INNER}, got {inner}")
+    c = w_out.shape[-1]
+    if w_out.shape != (inner, c) or w_out.dtype != q.dtype or not w_out.is_contiguous():
+        raise ValueError(f"attention_out kernel takes a contiguous w_out ({inner}, C) of q's "
+                         f"dtype; got {tuple(w_out.shape)} {w_out.dtype}")
+    if residual.shape != (b, t, c) or residual.dtype != q.dtype or not residual.is_contiguous():
+        raise ValueError(f"attention_out kernel takes a contiguous residual ({b}, {t}, {c}) "
+                         f"of q's dtype; got {tuple(residual.shape)} {residual.dtype}")
+    if bias is not None and (bias.shape != (c,) or bias.dtype != torch.float32):
+        raise ValueError(f"attention_out kernel takes a float32 bias of shape ({c},)")
+    if q.dtype == torch.bfloat16 and (c % 8 or w_out.data_ptr() % 16):
+        raise ValueError("attention_out kernel needs C % 8 == 0 and a 16-byte aligned bf16 w_out")
+    if any(u.device != q.device for u in (w_out, residual) + (() if bias is None else (bias,))):
+        raise ValueError("attention_out_fused: all tensors must share a device")
+    if b >= 65536:
+        raise ValueError("attention_out kernel takes B < 65536")
+
+
+def _attention_out_forward(q, k, v, w_out, bias, residual, num_heads, scale):
+    if _build.device_type(q, "attention_out_fused") == "cpu":
+        return attention_out_plain(q, k, v, w_out, bias, residual, num_heads=num_heads,
+                                   scale=scale)
+    w_out = w_out.to(q.dtype).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    _check_out(q, k, v, w_out, bias, residual, num_heads)
+    b, t, inner = q.shape
+    out = torch.empty_like(residual)
+    code = _build.library().dpm_attention_out_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), w_out.data_ptr(),
+        None if bias is None else bias.data_ptr(), residual.data_ptr(), out.data_ptr(),
+        b, t, k.shape[1], num_heads, inner // num_heads, w_out.shape[1],
+        float(scale * _LOG2E), *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
+        _DTYPES[q.dtype], _build.stream_ptr(q.device))
+    _build.check(code, "attention_out_fused")
+    attention_out_fused.launches += 1
+    return out
+
+
+class _AttentionOut(torch.autograd.Function):
+    """Autograd for `attention_out_fused`: the backward is the recompute VJP
+    of the unfused composition (the JAX `_attn_out_bwd`, :1230-1244), whose
+    attention is `token_attention` and so, at dh 64 on the card, its
+    forward-with-lse and dq, dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w_out, bias, residual, num_heads, scale):
+        ctx.save_for_backward(q, k, v, w_out, bias, residual)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _attention_out_forward(q, k, v, w_out, bias, residual, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [None if u is None else u.detach().requires_grad_(n)
+                      for u, n in zip(ctx.saved_tensors, needs)]
+            out = _compose(token_attention, *inputs, ctx.num_heads, ctx.scale)
+            wanted = [u for u, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+        return (*(next(grads) if n else None for n in needs), None, None)
+
+
+def attention_out_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w_out: torch.Tensor, bias: Optional[torch.Tensor],
+                        residual: torch.Tensor, num_heads: int,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v -> concat heads -> @ w_out (+ bias) -> +
+    residual, with the attention output never leaving the chip.
+
+    q (B, T, H*dh); k, v (B, S, H*dh); w_out (H*dh, C); bias (C,) or None;
+    residual (B, T, C); the result in the residual's dtype. On the card dh
+    must be 64. Differentiable in every tensor input. Nothing in the port
+    calls it: the JAX package never wires it (`_ATTN_OUT_WINS = []`)."""
+    scale = _scale(q, num_heads, scale)
+    tensors = (q, k, v, w_out, bias, residual)
+    if torch.is_grad_enabled() and any(u is not None and u.requires_grad for u in tensors):
+        return _AttentionOut.apply(*tensors, num_heads, scale)
+    return _attention_out_forward(*tensors, num_heads, scale)
+
+
 token_attention.launches = 0
 attention_lse.launches = 0
 attention_dq.launches = 0
 attention_dkv.launches = 0
+attention_out_fused.launches = 0

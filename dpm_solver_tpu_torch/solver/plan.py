@@ -218,13 +218,20 @@ class SegScan:
         return self.rows.a.shape[0]
 
 
+def end_time(ns: NoiseScheduleVP, t_end: Optional[float] = None) -> float:
+    """`t_end`, or the reference's default end time: 1/N on a discrete
+    schedule, 1e-3 on a continuous one."""
+    if t_end is not None:
+        return t_end
+    return 1.0 / ns.total_N if ns.schedule == "discrete" else 1e-3
+
+
 def _grid_and_orders(ns, steps, order, *, t_start, t_end, skip_type,
                      lower_order_final, timesteps):
     """Shared multistep/UniPC planning: endpoint defaults, grid resolution,
     and the reference's warm-up + lower_order_final order schedule
     (dpm_solver_pytorch.py:1184-1201)."""
-    t_0 = (1.0 / ns.total_N if ns.schedule == "discrete" else 1e-3) \
-        if t_end is None else t_end
+    t_0 = end_time(ns, t_end)
     t_T = ns.T if t_start is None else t_start
     assert t_0 > 0 and t_T > 0
     assert steps >= order
@@ -418,7 +425,7 @@ def build_singlestep_plan(
     repeats order-`order` segments steps//order times.
     (ref: dpm_solver_pytorch.py:1214-1232)
     """
-    t_0 = (1.0 / ns.total_N if ns.schedule == "discrete" else 1e-3) if t_end is None else t_end
+    t_0 = end_time(ns, t_end)
     t_T = ns.T if t_start is None else t_start
     assert t_0 > 0 and t_T > 0
     if fixed:

@@ -23,6 +23,7 @@ import torch
 from dpm_solver_tpu_torch.ops.fused_update import fused_update
 from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
 from dpm_solver_tpu_torch.solver import updates as U
+from dpm_solver_tpu_torch.solver.adaptive import adaptive_sample
 from dpm_solver_tpu_torch.solver.correctors import make_dynamic_thresholding
 from dpm_solver_tpu_torch.solver.plan import (
     ALPHA,
@@ -32,6 +33,7 @@ from dpm_solver_tpu_torch.solver.plan import (
     build_multistep_plan,
     build_singlestep_plan,
     build_unipc_plan,
+    end_time,
 )
 from dpm_solver_tpu_torch.utils.trees import bcast_right
 
@@ -260,8 +262,9 @@ class DPM_Solver:
 
     `.sample` plans each configuration once, on the host in float64, and
     keeps the plan (and its device tables) for later calls. SDE algorithm
-    types take their noise as a tensor (`noise=` of `.sample`). The adaptive
-    solver and `mesh=` are not ported yet and raise.
+    types take their noise as a tensor (`noise=` of `.sample`).
+    `method="adaptive"` runs `solver/adaptive.py` (no plan: its step sizes
+    follow the error estimate). `mesh=` is not ported yet and raises.
     """
 
     def __init__(
@@ -336,15 +339,14 @@ class DPM_Solver:
     ):
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-        if method == "adaptive":
-            raise NotImplementedError(
-                "method='adaptive' is not ported to dpm_solver_tpu_torch yet (Slice D)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported to dpm_solver_tpu_torch yet (Slice G)")
-        del atol, rtol  # adaptive-solver knobs, kept for the reference signature
         # the older JAX API spells it 'dpm_solver' (dpm_solver_jax.py:541)
         solver_type = {"dpm_solver": "dpmsolver"}.get(solver_type, solver_type)
+        if method == "adaptive":
+            return self._sample_adaptive(x, order, t_start, t_end, denoise_to_zero,
+                                         solver_type, atol, rtol, return_intermediate)
         key = (steps, t_start, t_end, order, skip_type, method, lower_order_final,
                denoise_to_zero, solver_type, variant)
         plan = self._plans.get(key)
@@ -364,6 +366,28 @@ class DPM_Solver:
             correcting_xt_fn=self.correcting_xt_fn,
             return_intermediate=return_intermediate,
         )
+
+    def _sample_adaptive(self, x, order, t_start, t_end, denoise_to_zero, solver_type,
+                         atol, rtol, return_intermediate):
+        if return_intermediate:
+            raise ValueError("cannot save intermediates with the adaptive solver")
+        if self.correcting_xt_fn is not None:
+            raise ValueError("cannot use correcting_xt_fn with the adaptive solver")
+        x_out, _nfe = adaptive_sample(
+            self.model_fn_raw, self.noise_schedule, x, order=order, t_start=t_start,
+            t_end=t_end, algorithm_type=self.algorithm_type,
+            correcting_x0_fn=self.correcting_x0_fn, atol=atol, rtol=rtol,
+            solver_type=solver_type)
+        if denoise_to_zero:
+            # the reference applies denoise_to_zero after every method,
+            # adaptive included (dpm_solver_pytorch.py:1235-1241)
+            ns = self.noise_schedule
+            t_d = end_time(ns, t_end)
+            t_dev = torch.tensor(t_d, dtype=x_out.dtype, device=x_out.device)
+            x_out = _to_x0(x_out, self.model_fn_raw(x_out, t_dev).float(), t_dev,
+                           float(ns.marginal_alpha_np(t_d)), float(ns.marginal_std_np(t_d)),
+                           self.correcting_x0_fn)
+        return x_out
 
     def inverse(
         self,
@@ -385,8 +409,7 @@ class DPM_Solver:
         (ref: dpm_solver_pytorch.py:1032-1045)
         """
         ns = self.noise_schedule
-        t_0 = ((1.0 / ns.total_N if ns.schedule == "discrete" else 1e-3)
-               if t_start is None else t_start)
+        t_0 = end_time(ns, t_start)
         t_T = ns.T if t_end is None else t_end
         return self.sample(
             x, steps=steps, t_start=t_0, t_end=t_T, order=order, skip_type=skip_type,

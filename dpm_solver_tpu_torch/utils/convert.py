@@ -12,7 +12,9 @@ into the port's models with a plain `load_state_dict`:
 - `adm_classifier_state_dict_from_flax`: of `convert_adm_unet(...,
   classifier=True)`, for `models.ADMClassifier` and its four pooling heads;
 - `autoencoder_kl_state_dict_from_flax`: of `dpm_solver_tpu/models/vae.py::
-  convert_autoencoder_kl`, for `models.AutoencoderKL`.
+  convert_autoencoder_kl`, for `models.AutoencoderKL`;
+- `ncsnpp_state_dict_from_flax`: of `dpm_solver_tpu/models/ncsnpp_convert.py::
+  params_from_torch`, for `models.NCSNpp` (the reference score_sde layout).
 
 They read nested dicts of arrays (numpy, or anything `np.asarray` takes) and
 import nothing of JAX. The DDPM layout rules, the converter's in reverse:
@@ -28,6 +30,7 @@ import nothing of JAX. The DDPM layout rules, the converter's in reverse:
 
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Dict, Mapping
 
@@ -286,4 +289,108 @@ def autoencoder_kl_state_dict_from_flax(flax_params: Mapping, config) -> Dict[st
     half("decoder", p["decoder"], decoder=True)
     w.conv("quant_conv", p["quant_conv"])
     w.conv("post_quant_conv", p["post_quant_conv"])
+    return w.sd
+
+
+# --------------------------------------------------------------------------- #
+# NCSN++ / DDPM++ (score_sde)
+# --------------------------------------------------------------------------- #
+
+
+def ncsnpp_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """NCSNpp flax params -> the torch state dict of `models.NCSNpp(config)`:
+    the reference score_sde layout `all_modules.<i>.<submodule>.<param>`,
+    walked in the reference constructor's order. The exact inverse of
+    `dpm_solver_tpu/models/ncsnpp_convert.py::params_from_torch`: the fused
+    (C, 3C) qkv splits back into the NIN q, k, v projections, 1x1 shortcuts
+    become BigGAN `Conv_2` convs or DDPM `NIN_0` matrices, and parameter-free
+    resamples take an index but write nothing. `sigmas` is the config's
+    sigma ladder, as the reference registers it."""
+    from dpm_solver_tpu_torch.models.ncsnpp import get_sigmas
+
+    cfg, p = config, flax_params.get("params", flax_params)
+    w = _Writer()
+    index = itertools.count()
+    biggan = cfg.resblock_type == "biggan"
+    levels = len(cfg.ch_mult)
+    res_at = [cfg.image_size // (2 ** i) for i in range(levels)]
+
+    def slot() -> str:
+        return f"all_modules.{next(index)}"
+
+    def nin(dst: str, kernel, bias) -> None:
+        w.put(dst + ".W", kernel)
+        w.put(dst + ".b", bias)
+
+    def resblock(name: str) -> None:
+        node, dst = p[name], slot()
+        w.affine(dst + ".GroupNorm_0", node["norm1"])
+        w.conv(dst + ".Conv_0", node["conv1"])
+        if "temb_proj" in node:
+            w.dense(dst + ".Dense_0", node["temb_proj"])
+        w.affine(dst + ".GroupNorm_1", node["norm2"])
+        w.conv(dst + ".Conv_1", node["conv2"])
+        if "shortcut" in node:
+            if biggan:
+                w.conv(dst + ".Conv_2", node["shortcut"])
+            else:
+                nin(dst + ".NIN_0", np.asarray(node["shortcut"]["kernel"])[0, 0],
+                    node["shortcut"]["bias"])
+
+    def attn(name: str) -> None:
+        node, dst = p[name], slot()
+        w.affine(dst + ".GroupNorm_0", node["norm"])
+        kernel, bias = np.asarray(node["qkv"]["kernel"]), np.asarray(node["qkv"]["bias"])
+        c = kernel.shape[0]
+        for i in range(3):
+            nin(f"{dst}.NIN_{i}", kernel[:, i * c:(i + 1) * c], bias[i * c:(i + 1) * c])
+        nin(dst + ".NIN_3", node["proj"]["kernel"], node["proj"]["bias"])
+
+    def resample(name: str) -> None:
+        node, dst = p.get(name), slot()
+        if node is None:
+            return  # parameter-free
+        if "conv" in node:
+            w.conv(dst + ".Conv_0", node["conv"])
+        else:  # the StyleGAN2 FIR conv: kernel HWIO -> Conv2d_0.weight OIHW
+            w.conv(dst + ".Conv2d_0", node)
+
+    w.put("sigmas", get_sigmas(cfg.sigma_min, cfg.sigma_max, cfg.num_scales))
+    if cfg.embedding_type == "fourier":
+        w.put(slot() + ".W", p["fourier"]["W"])
+    if cfg.conditional:
+        w.dense(slot(), p["time_embed_0"])
+        w.dense(slot(), p["time_embed_1"])
+    w.conv(slot(), p["conv_in"])
+    for i in range(levels):
+        for j in range(cfg.num_res_blocks):
+            resblock(f"down_{i}_block_{j}")
+            if res_at[i] in cfg.attn_resolutions:
+                attn(f"down_{i}_attn_{j}")
+        if i == levels - 1:
+            continue
+        (resblock if biggan else resample)(f"down_{i}_resample")
+        if cfg.progressive_input == "input_skip":
+            w.conv(slot() + ".Conv_0", p[f"down_{i}_combine"])
+        elif cfg.progressive_input == "residual":
+            resample(f"down_{i}_pyr")
+    resblock("mid_block_1")
+    attn("mid_attn")
+    resblock("mid_block_2")
+    for i in reversed(range(levels)):
+        for j in range(cfg.num_res_blocks + 1):
+            resblock(f"up_{i}_block_{j}")
+        if res_at[i] in cfg.attn_resolutions:
+            attn(f"up_{i}_attn")
+        if cfg.progressive == "output_skip" or (cfg.progressive == "residual"
+                                                and i == levels - 1):
+            w.affine(slot(), p[f"up_{i}_pyr_norm"])
+            w.conv(slot(), p[f"up_{i}_pyr_conv"])
+        elif cfg.progressive == "residual":
+            resample(f"up_{i}_pyr_up")
+        if i != 0:
+            (resblock if biggan else resample)(f"up_{i}_resample")
+    if cfg.progressive != "output_skip":
+        w.affine(slot(), p["norm_out"])
+        w.conv(slot(), p["conv_out"])
     return w.sd

@@ -5,8 +5,9 @@
   the test process imports jax anyway).
 - On the CPU every wrapper takes its plain version and launches nothing:
   the launch counters stay at 0 through a whole tiny sampling run, a tiny
-  txt2img run and a tiny classifier-guided run (whose backward takes the
-  plain twins of the dq, dk/dv and conv3x3-dx kernels).
+  txt2img run, a tiny classifier-guided run (whose backward takes the
+  plain twins of the dq, dk/dv and conv3x3-dx kernels) and tiny NCSN++
+  runs of the singlestep and adaptive solvers.
 - The models and the pipeline default to the card: with no card, a
   constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
@@ -24,8 +25,11 @@ import torch
 import dpm_solver_tpu_torch as P
 from dpm_solver_tpu_torch import ops
 from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
-                                         DDPMUNet, DDPMUNetConfig, SpatialTransformer, VAEConfig,
-                                         constant_context_encoder, init_random_)
+                                         DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
+                                         SpatialTransformer, VAEConfig, constant_context_encoder,
+                                         init_random_)
+from dpm_solver_tpu_torch.score import get_noise_fn
+from dpm_solver_tpu_torch.sde import VPSDE
 from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
 
 # the modules themselves: `ops` re-exports functions of the same names
@@ -37,7 +41,8 @@ PKG = pathlib.Path(P.__file__).resolve().parent
 CHIP_SMOKE = PKG.parent / "chip_smoke.py"
 NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear": 0,
                "geglu_ff": 0, "attention_lse": 0, "attention_dq": 0, "attention_dkv": 0,
-               "conv3x3_dx": 0}
+               "conv3x3_dx": 0, "fused_bias_act": 0, "fused_bias_act_bwd": 0,
+               "attention_out_fused": 0}
 FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu")
 
 
@@ -113,7 +118,24 @@ def test_cpu_guided_run_takes_plain_path_and_launches_nothing():
     assert ops.launch_counts() == NO_LAUNCHES
 
 
+@pytest.mark.parametrize("method", ["singlestep", "adaptive"])
+def test_cpu_ncsnpp_run_takes_plain_path_and_launches_nothing(method):
+    """Slice D: continuous VP, labels t*999, singlestep order 3 or adaptive."""
+    cfg = NCSNppConfig.tiny(fir=True, progressive_input="residual", num_res_blocks=1,
+                            image_size=8, attn_resolutions=(4,))
+    net = init_random_(NCSNpp(cfg, device="cpu"), torch.Generator().manual_seed(0)).eval()
+    ns = VPSDE().to_noise_schedule()
+    solver = P.DPM_Solver(P.model_wrapper(get_noise_fn(VPSDE(), net), ns), ns)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = solver.sample(torch.randn(2, 8, 8, 3, generator=torch.Generator().manual_seed(1)),
+                            steps=3, order=3, method=method, skip_type="logSNR", t_end=1e-3)
+    assert out.shape == (2, 8, 8, 3) and torch.isfinite(out).all()
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
 @pytest.mark.parametrize("build", [
+    lambda: NCSNpp(NCSNppConfig.tiny()),
     lambda: DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
     lambda: ADMUNet(ADMConfig.tiny()),
     lambda: ADMClassifier(ADMConfig.tiny(pool="attention", num_head_channels=16)),
@@ -121,7 +143,7 @@ def test_cpu_guided_run_takes_plain_path_and_launches_nothing():
     lambda: SpatialTransformer(32, 2, 16, context_dim=24),
     lambda: StableDiffusionPipeline(LatentDiffusion(
         ADMUNet(ADMConfig.tiny(), device="cpu"), AutoencoderKL(VAEConfig.tiny(), device="cpu"))),
-], ids=["DDPMUNet", "ADMUNet", "ADMClassifier", "AutoencoderKL", "SpatialTransformer",
+], ids=["NCSNpp", "DDPMUNet", "ADMUNet", "ADMClassifier", "AutoencoderKL", "SpatialTransformer",
         "StableDiffusionPipeline"])
 def test_default_device_is_the_card_and_raises_without_one(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
