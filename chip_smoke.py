@@ -17,6 +17,12 @@ and nothing of JAX. Phases, each fatal on failure:
    launches (as in the JAX package): bias + LeakyReLU forward and backward
    at path D's activation shapes and ragged ones, and attention with its
    out-projection and residual fused at the SD-2.1 sites and ragged ones;
+   and SD-1's attention sites at 512 px, CFG b2 (head dims 40, 80, 160:
+   self-attention at T = 4096, 1024, 256, 64, cross-attention at S = 77,
+   ragged and fused-qkv cases, output and lse); then one full-width SD-1
+   UNet forward (`ADMConfig.sd_v1()`, bf16, 64x64 latents, b2, the hermetic
+   `constant_context_encoder(768)`): finite, with the launch counters rising
+   by exactly what `layout()` implies;
 4. path A, CIFAR-10: the DDPM UNet at full width with seeded random weights
    in bf16, sampled at batch 64 by DPM-Solver++ 3M for 10 NFE on the logSNR
    grid of the discrete schedule, through `NoiseScheduleVP`, `model_wrapper`
@@ -59,10 +65,15 @@ and nothing of JAX. Phases, each fatal on failure:
    shares, the ScoreSDE call's network-forward share, and each kernel
    against its plain version, the one PyTorch call that computes the same
    function (where there is one) and its bound, at the shapes and launch
-   counts of one call of each path (the kernels no path launches: one
-   launch at each shape where they would run, the fused attention output
-   beside the unfused composition), each beside the card's name and power
-   limit.
+   counts of one call of each path and of the SD-1 forward (the kernels no
+   path launches: one launch at each shape where they would run, the fused
+   attention output beside the unfused composition), each beside the card's
+   name and power limit, with the tensor-core rate and the bound's share.
+
+After each path's call the redesigned kernels' launches are also checked by
+route (`ops.launch_routes()`): every bf16 attention on "wgmma", every bf16
+conv with C % 8 == CO % 8 == 0 on "wgmma", the others (the SD VAE's conv_in
+and conv_out) on "wmma".
 
 The last two lines are the kernels' JSON record (each kernel's times on the
 newest path that runs it at the top level, or under "none" for a kernel no
@@ -323,7 +334,7 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
     import torch
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    ops_s = bytes_s = 0.0
+    ops_s = bytes_s = flops = 0.0
     has_library = True
     for spec, n in sorted(calls.items(), key=lambda kv: str(kv[0])):
         kernel, plain, library, fl16, fl32, nbytes = make_case(name, spec, randn)
@@ -331,9 +342,10 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
         lib = cuda_ms(library) if library is not None else None
         t_ops, t_bytes = max(fl16 / PEAK_BF16, fl32 / PEAK_FP32), nbytes / HBM
         bound = max(t_ops, t_bytes) * 1e3
-        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms, plain {p:.4f} ms, library "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms ({fl16 / k / 1e9:.1f} TFLOP/s), plain "
+            f"{p:.4f} ms, library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
+        flops += n * fl16
         tot["ms"] += n * k
         tot["plain_ms"] += n * p
         tot["bound_ms"] += n * bound
@@ -346,11 +358,14 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
         torch.cuda.empty_cache()
     tot["library_ms"] = tot["library_ms"] if has_library else None
     tot["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+    tot["tflops"] = flops / tot["ms"] / 1e9   # tensor-core work over kernel time
+    tot["bound_share"] = tot["bound_ms"] / tot["ms"]
     tot["timed"] = what
     lib = tot["library_ms"]
     log(f"kernel time on {smi}: {name} {tot['ms']:.3f} ms vs plain {tot['plain_ms']:.3f} ms, "
         f"library {'none' if lib is None else f'{lib:.3f} ms'}, bound {tot['bound_ms']:.3f} ms "
-        f"({tot['bound_by']}); {sum(calls.values())} launches = {what}")
+        f"({tot['bound_by']}; {tot['bound_share']:.3f} of the kernel's time, "
+        f"{tot['tflops']:.1f} TFLOP/s); {sum(calls.values())} launches = {what}")
     return tot
 
 
@@ -441,6 +456,20 @@ def plan_launches(cfg, plan) -> dict:
     return {name: out.get(name, 0) for name in REPLACES}
 
 
+def check_routes(what: str, launches: dict, routes: dict, wmma_convs: int = 0) -> None:
+    """`routes` (`ops.launch_routes()` read with `launches`, just after a bf16
+    run): attention all on "wgmma"; conv3x3 (and its dx) on "wgmma" but for
+    `wmma_convs` launches with C or CO not a multiple of 8."""
+    want = {"conv3x3": {"wgmma": launches["conv3x3"] - wmma_convs, "wmma": wmma_convs},
+            "conv3x3_dx": {"wgmma": launches["conv3x3_dx"]},
+            "token_attention": {"wgmma": launches["token_attention"]},
+            "attention_lse": {"wgmma": launches["attention_lse"]}}
+    want = {k: {r: n for r, n in v.items() if n} for k, v in want.items()}
+    log(f"  launches by route {routes} (expected {want})")
+    if routes != want:
+        fail(f"{what}: launches by route {routes} != {want}")
+
+
 def record_guided_calls(unet, clf, run) -> tuple:
     """The kernel specs of one UNet forward and one classifier forward and
     backward, read from the modules' inputs by forward pre-hooks while `run`
@@ -481,8 +510,9 @@ def record_guided_calls(unet, clf, run) -> tuple:
 
 
 def record_sd_calls(unet, vae, run) -> tuple:
-    """The kernel specs of one UNet forward and one VAE decode, read from the
-    modules' inputs by forward hooks while `run` makes one of each."""
+    """The kernel specs of one UNet forward and one VAE decode (vae may be
+    None), read from the modules' inputs by forward hooks while `run` makes
+    one of each."""
     from dpm_solver_tpu_torch import ops
     from dpm_solver_tpu_torch.models.transformer import CrossAttention, GEGLUFeedForward
     from dpm_solver_tpu_torch.models.vae import VAEAttnBlock
@@ -512,7 +542,8 @@ def record_sd_calls(unet, vae, run) -> tuple:
 
     kinds = (ops.Conv3x3, CrossAttention, GEGLUFeedForward, VAEAttnBlock)
     handles = [m.register_forward_pre_hook(hook(where), with_kwargs=True)
-               for where, net in (("unet", unet), ("vae", vae.decoder))
+               for where, net in (("unet", unet), ("vae", None if vae is None else vae.decoder))
+               if net is not None
                for m in net.modules() if isinstance(m, kinds)]
     try:
         run()
@@ -608,7 +639,18 @@ def main() -> int:
                            (4, 96, 96, 4, 512), (2, 768, 768, 128, 3), (1, 16, 16, 4, 3),
                            # the guided UNet's and classifier's widest and deepest convs
                            (8, 256, 256, 256, 256), (8, 256, 256, 128, 128),
-                           (8, 8, 8, 1024, 1024), (8, 16, 16, 512, 256)]:
+                           (8, 8, 8, 1024, 1024), (8, 16, 16, 512, 256),
+                           # the "wgmma" patches off the 16x8x1 one: SD-2.1's 4x4x8 at
+                           # 12x12 and 8x8x2 at 24x24 (several patches each way, 40
+                           # channel chunks), SD-1's 8x8x2 at 8x8 b2, path D at b256
+                           (8, 12, 12, 2560, 1280), (8, 24, 24, 1920, 1280),
+                           (2, 8, 8, 2560, 1280), (256, 8, 8, 512, 256),
+                           (256, 32, 32, 384, 128),
+                           # CO = 320: the second 128-channel block is half empty
+                           (8, 96, 96, 640, 320),
+                           # patches past the map on every side, C and CO not
+                           # multiples of 64: the store's masks
+                           (1, 13, 19, 200, 136), (5, 2, 33, 16, 24)]:
         for dt in (torch.float32, torch.bfloat16):
             x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
             bias = randn(co) * 0.1
@@ -750,8 +792,64 @@ def main() -> int:
             report("attention_out_fused", (b, t, s, heads, c) + (("bias",) if with_bias else ())
                    + (("qkv",) if fused else ()), dt, got, want, BOUND[str(dt)[6:]])
             del q, k, v, w, res, got, want
+    # SD-1 at 512 px, CFG b2, 8 heads: self-attention at each level (64x64,
+    # 32x32, 16x16 and the 8x8 middle), cross-attention to the 77 context
+    # tokens, a ragged case and q/k/v as column slices of one projection at
+    # each new head dim; the output, and the lse from the same kernel
+    for b, t, s, heads, dh, fused in chain(
+            [(2, 4096, 4096, 8, 40, False), (2, 1024, 1024, 8, 80, False),
+             (2, 256, 256, 8, 160, False), (2, 64, 64, 8, 160, False)],
+            [(2, t, 77, 8, dh, False) for t, dh in ((4096, 40), (1024, 80), (256, 160))],
+            [(3, 333, 77 + dh, 2, dh, False) for dh in (40, 80, 160)],
+            [(2, 300, 300, 8, dh, True) for dh in (40, 80, 160)]):
+        for dt in (torch.float32, torch.bfloat16):
+            inner = heads * dh
+            if fused:
+                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+            else:
+                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+            shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
+            qf, kf, vf = q.float(), k.float(), v.float()
+            want = ops.attention_plain(qf, kf, vf, num_heads=heads)
+            report("token_attention", shape, dt, ops.token_attention(q, k, v, num_heads=heads),
+                   want, BOUND[str(dt)[6:]])
+            o, lse = ops.attention_lse(q, k, v, num_heads=heads)
+            report("attention_lse", shape + ("o",), dt, o, want, BOUND[str(dt)[6:]])
+            report("attention_lse", shape + ("lse",), dt, lse,
+                   ops.attention_lse_plain(qf, kf, num_heads=heads), BOUND[str(dt)[6:]])
+            del q, k, v, o, lse, want
     torch.cuda.empty_cache()
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    # one full-width SD-1 UNet forward on the card: head dims 40, 80 and 160
+    t0 = time.perf_counter()
+    s1cfg = ADMConfig.sd_v1()
+    s1 = init_random_(ADMUNet(s1cfg, compute_dtype=torch.bfloat16, device=dev),
+                      torch.Generator(device=dev).manual_seed(0)).eval()
+    n_s1 = sum(p.numel() for p in s1.parameters())
+    ctx1 = constant_context_encoder(s1cfg.context_dim)(SD_PROMPTS[:1] + [""]).to(dev)
+    z1 = torch.randn(2, 64, 64, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    ops.reset_launch_counts()
+    eps1 = s1(z1, torch.full((2,), 500.0, device=dev), None, ctx1)
+    torch.cuda.synchronize()
+    launches_s1 = ops.launch_counts()
+    routes_s1 = ops.launch_routes()
+    check_routes("SD-1", launches_s1, routes_s1)
+    # its kernel specs, for the timing phase
+    s1_calls = record_sd_calls(s1, None, lambda: s1(z1, torch.full((2,), 500.0, device=dev), None,
+                                                     ctx1))[0]
+    expected = {name: 0 for name in REPLACES}
+    expected.update(adm_unet_launches(s1cfg))
+    log(f"SD-1 UNet ({n_s1 / 1e6:.2f}M params, bf16, 8 heads: dh 40/80/160), one forward at "
+        f"64x64 latents, CFG b2, {time.perf_counter() - t0:.1f} s with its set-up: launches "
+        f"{launches_s1} (expected {expected})")
+    if launches_s1 != expected:
+        fail(f"SD-1 launch counts {launches_s1} != {expected}")
+    if eps1.shape != z1.shape or not torch.isfinite(eps1).all():
+        fail(f"SD-1 output {tuple(eps1.shape)} is not finite of the latents' shape")
+    log(f"  output {tuple(eps1.shape)} finite, std {eps1.float().std().item():.4f}")
+    del s1, eps1
+    torch.cuda.empty_cache()
 
     # ---- 4. path A: CIFAR-10 -------------------------------------------------
     cfg = DDPMUNetConfig.cifar10()
@@ -780,12 +878,13 @@ def main() -> int:
     ops.reset_launch_counts()
     out = solver.sample(x_T, **sample_kw)
     torch.cuda.synchronize()
-    launches_a = ops.launch_counts()
+    launches_a, routes_a = ops.launch_counts(), ops.launch_routes()
     expected = {name: 0 for name in REPLACES}
     expected.update(conv3x3=STEPS * 47, token_attention=STEPS * 6, fused_update=STEPS)
     log(f"  launches {launches_a} (expected {expected})")
     if launches_a != expected:
         fail(f"path A launch counts {launches_a} != {expected}")
+    check_routes("path A", launches_a, routes_a)
     if out.shape != x_T.shape or out.dtype != torch.float32 or not torch.isfinite(out).all():
         fail(f"path A output {tuple(out.shape)} {out.dtype} is not finite fp32 of x_T's shape")
     log(f"  output {tuple(out.shape)} finite, max|x| {out.abs().max().item():.4f}")
@@ -833,10 +932,12 @@ def main() -> int:
     img = pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches_b = ops.launch_counts()
+    launches_b, routes_b = ops.launch_counts(), ops.launch_routes()
     log(f"  launches {launches_b} (expected {expected}); first call {first_s:.2f} s")
     if launches_b != expected:
         fail(f"path B launch counts {launches_b} != {expected}")
+    # the VAE's conv_in (C = 4) and conv_out (CO = 3) take the "wmma" route
+    check_routes("path B", launches_b, routes_b, wmma_convs=2)
     shape = (len(SD_PROMPTS), SD_SIZE, SD_SIZE, 3)
     if tuple(img.shape) != shape or not torch.isfinite(img).all() \
             or img.min() < 0 or img.max() > 1:
@@ -923,10 +1024,11 @@ def main() -> int:
     gout = sample_c(gx_T)
     torch.cuda.synchronize()
     first_c = time.perf_counter() - t0
-    launches_c = ops.launch_counts()
+    launches_c, routes_c = ops.launch_counts(), ops.launch_routes()
     log(f"  launches {launches_c} (expected {expected_c}); first call {first_c:.2f} s")
     if launches_c != expected_c:
         fail(f"path C launch counts {launches_c} != {expected_c}")
+    check_routes("path C", launches_c, routes_c)
     if gout.shape != gx_T.shape or gout.dtype != torch.float32 or not torch.isfinite(gout).all():
         fail(f"path C samples {tuple(gout.shape)} {gout.dtype} are not finite fp32 of x_T's shape")
     log(f"  samples {tuple(gout.shape)} finite: min {gout.min().item():.4f}, max "
@@ -992,10 +1094,11 @@ def main() -> int:
     dout = sample_d(dx_T)
     torch.cuda.synchronize()
     first_d = time.perf_counter() - t0
-    launches_d = ops.launch_counts()
+    launches_d, routes_d = ops.launch_counts(), ops.launch_routes()
     log(f"  launches {launches_d} (expected {expected_d}); first call {first_d:.2f} s")
     if launches_d != expected_d:
         fail(f"path D launch counts {launches_d} != {expected_d}")
+    check_routes("path D", launches_d, routes_d)
     if dout.shape != dx_T.shape or dout.dtype != torch.float32 or not torch.isfinite(dout).all():
         fail(f"path D samples {tuple(dout.shape)} {dout.dtype} are not finite fp32 of x_T's shape")
     log(f"  samples {tuple(dout.shape)} finite: min {dout.min().item():.4f}, max "
@@ -1256,6 +1359,14 @@ def main() -> int:
     log(f"conv3x3_dx: its {dx['launches']} weight flips take {flip_ms:.3f} ms of its "
         f"{dx['ms']:.3f} ms per guided call")
 
+    # SD-1: the specs of the one UNet forward of phase 3 (CFG b2, 64x64)
+    per_kernel_s1 = {name: Counter() for name in REPLACES}
+    for (name, spec), n in s1_calls.items():
+        per_kernel_s1[name][spec] += n
+    log("kernel times, SD-1 (one UNet forward at 64x64 latents, CFG b2, bf16: dh 40/80/160):")
+    time_path("SD-1", {k: v for k, v in per_kernel_s1.items() if k in ("conv3x3", "token_attention")},
+              launches_s1, "one SD-1 UNet forward, 64x64 latents, CFG b2")
+
     # path D: the specs of one network forward, times the plan's evaluations
     d_calls = Counter()
 
@@ -1319,11 +1430,19 @@ def main() -> int:
     # each kernel's times and launches ("launches") on the newest path that
     # runs it ("none": no path launches it), every path's times, and its
     # launches on every path
-    paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d}
+    paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
+             "sd1": launches_s1}
+    routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "sd1": routes_s1}
+
+    def newest(name):  # the newest path that timed the kernel ("none": no path runs it)
+        return list(timing[name])[-1]
+
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
                     **{f"launches_path_{p}": counts[name] for p, counts in paths.items()},
-                    max_abs_err=max_abs[name], **timing[name][list(timing[name])[-1]],
-                    path=list(timing[name])[-1], timing_by_path=timing[name])
+                    **({f"routes_path_{p}": r[name] for p, r in routes.items()}
+                       if name in routes["a"] else {}),
+                    max_abs_err=max_abs[name], **timing[name][newest(name)],
+                    path=newest(name), timing_by_path=timing[name])
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

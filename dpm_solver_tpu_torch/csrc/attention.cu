@@ -26,37 +26,51 @@
 // What bounds it on the H100: the two products are 2*2*T*S*D flops per head
 // against 4*T*D*2 bytes of q/k/v/o in bf16 (T = S), i.e. about S/2
 // flop/byte: at S >= 1024 far above the bf16 ridge (~295), so it is
-// compute-bound and the products belong on the tensor cores, with every
-// intermediate (logits, probabilities, the running output) kept on chip.
-// Two kernels, by dtype:
+// compute-bound, and the only way to the card's tensor-core rate is `wgmma`
+// fed by TMA (at short S, as on the CIFAR and classifier sites, the bytes
+// bound it and what matters is reading q, k and v once). Two kernels, by
+// dtype:
 //
-// - bf16 (the model's compute dtype): `attention_fwd_bf16_mma`. A block owns
-//   64 queries; each of its 4 warps owns 16 rows end to end. Per key tile,
-//   Q.K^T and P.V run as WMMA 16x16x16 bf16 products with fp32 accumulators
-//   (`mma.sync`); the logits and the online max/sum stay fp32; P is rounded
-//   to bf16 for the second product, as the JAX package's XLA path rounds it
-//   (`attention_xla`). The running output lives in fp32 shared memory (a
-//   wide head would not fit in registers beside the rest). Heads up to 256
-//   wide take 64-key tiles and the whole head per block (at D = 256: 190 KB
-//   of shared memory). The VAE's single 512-wide head does not fit so: its
-//   blocks each own a 256-wide slice of the output (grid.z = 2) and take
-//   32-key tiles, and each recomputes the logits over all 512 channels for
-//   its slice. That costs one extra Q.K^T product (1.5x the flops of the
-//   unsplit form) and keeps a block at 197,632 bytes of shared memory
-//   (q 64x520 and k 32x520 bf16, v 32x264 bf16, logits 64x36 fp32,
-//   probabilities 64x40 bf16, output 64x260 fp32). `wgmma`, TMA and keeping
-//   O in registers are the later steps.
+// - bf16 (the model's compute dtype): `attention_fwd_wgmma`, FlashAttention-3
+//   style. A block is one producer warp and NWG consumer warpgroups, each of
+//   which owns 64 query rows. The producer loads the block's q tile once and
+//   then streams K and V tiles by TMA into a ring of STAGES shared-memory
+//   stages, each guarded by a full and an empty mbarrier. A consumer computes
+//   S = Q.K^T with `wgmma` m64nKVk16 from shared memory (q and k K-major),
+//   runs the online softmax on the accumulator in registers (a row lies in
+//   the 4 threads of a quad: two shuffles for its max; the sum stays per
+//   thread until the end), rounds P to bf16 in registers (as the JAX XLA
+//   path rounds it) and feeds it as the register A operand of O += P.V, with
+//   V read MN-major through the descriptor's transpose bit. O stays in
+//   registers all the way and is rescaled there. At D <= 64 (OVERLAP), tile
+//   t's softmax runs while tile t-1's P.V product is in flight
+//   (FlashAttention-3's intra-warpgroup overlap), so the tensor cores do not
+//   wait for the exponentials. It holds a second set of P fragments, which
+//   the 168 registers a thread of a 288-thread block can spare only at the
+//   narrower heads (from D = 128 up ptxas spills them). q, k and v are
+//   read through 4-D tensor maps over (d, head, token, batch) with the token
+//   and batch strides given, so fused-qkv column slices load in place, and TMA's
+//   out-of-bounds zero fill pads ragged T and S and the head dims that are
+//   not a multiple of 64 (40, 80, 160: the map has the true extent along d,
+//   the box 64 columns, so the pad columns arrive as zeros; the products run
+//   only to the next multiple of 16 along d, and P.V only to D). Masked keys
+//   (>= S) get -inf before the max. The tile per head dim (queries a block,
+//   keys a tile, stages, output split) is chosen on the host
+//   (ops/attention.py::attention_plan) and checked here against the compiled
+//   instance. The VAE's single 512-wide head is split into two 256-wide
+//   output halves (grid.z = 2), each of which recomputes the logits over all
+//   512 channels, with one consumer warpgroup and 32-key tiles to stay
+//   inside 227 KB of shared memory.
 // - fp32: `attention_fwd_f32`, exact on the CUDA cores: 16 queries per block,
 //   32-key tiles, the output accumulator in registers 16 columns apart per
 //   thread (conflict-free reads of V), K rows padded by one float so the 16
 //   threads of a logits row read 16 different banks. At D = 512 a block
 //   takes 166,208 bytes of shared memory.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,7 +104,7 @@ __global__ void __launch_bounds__(THREADS)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int NC = (D + 15) / 16;  // output columns per thread: col + 16*i < D
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                  // [BQ][D], pre-scaled by scale*log2(e)
   float* ks = qs + BQ * D;           // [BKV][D+1]
@@ -123,9 +137,9 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int row = tid / 16;  // query row of this thread (logits and output)
   const int col = tid % 16;  // logits cols col, col+16; output cols col+16*i
   const int warp = tid / 32, lane = tid % 32;
-  float acc[D / 16];
+  float acc[NC];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < S; k0 += BKV) {
     __syncthreads();  // the previous tile is consumed; q tile and stats visible
@@ -170,11 +184,12 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     const float alpha = row_a[row];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) acc[i] *= alpha;
+    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
     for (int j = 0; j < BKV; ++j) {
       const float p = ps[row * BKV + j];
 #pragma unroll
-      for (int i = 0; i < D / 16; ++i) acc[i] = fmaf(p, vs[j * D + col + 16 * i], acc[i]);
+      for (int i = 0; i < NC; ++i)
+        if (col + 16 * i < D) acc[i] = fmaf(p, vs[j * D + col + 16 * i], acc[i]);
     }
   }
 
@@ -182,168 +197,271 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (t < Tq) {
     const float inv = 1.f / row_l[row];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) ob[t * otok + col + 16 * i] = acc[i] * inv;
+    for (int i = 0; i < NC; ++i)
+      if (col + 16 * i < D) ob[t * otok + col + 16 * i] = acc[i] * inv;
     // base-2 log-sum-exp of the pre-scaled logits, from the final max and sum
     if (lse != nullptr && col == 0) lse[(long long)bh * Tq + t] = row_m[row] + log2f(row_l[row]);
   }
 }
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16: TMA + wgmma -------------------------------------------------------
 
-namespace mma = nvcuda::wmma;
-constexpr int MQ = 64;            // queries per block: 4 warps x 16 rows
-constexpr int MMA_THREADS = 128;
-
-// D: the q/k head width; DV: the output columns one block owns (D, or 256
-// for the 512-wide head); KV: keys per streamed tile
-template <int D, int DV, int KV>
-struct MmaSmem {                  // byte offsets into dynamic shared memory
-  static constexpr int LDX = D + 8;   // bf16 q/k tile pitch
-  static constexpr int LDV = DV + 8;  // bf16 v tile pitch
-  static constexpr int LDS = KV + 4;  // fp32 logits pitch
-  static constexpr int LDP = KV + 8;  // bf16 probabilities pitch
-  static constexpr int LDO = DV + 4;  // fp32 output pitch
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + (size_t)MQ * LDX * 2;
-  static constexpr size_t v = k + (size_t)KV * LDX * 2;
-  static constexpr size_t s = v + (size_t)KV * LDV * 2;
-  static constexpr size_t p = s + (size_t)MQ * LDS * 4;
-  static constexpr size_t o = p + (size_t)MQ * LDP * 2;
-  static constexpr size_t bytes = o + (size_t)MQ * LDO * 4;
-};
-
-// rows [row0, row0 + rows) of one head, W wide, from rows `tok` elements apart
-// into a bf16 smem tile of pitch ldx, 16 bytes at a time; rows past `valid` are 0
-template <int W>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long tok, int row0, int rows, int valid,
-                                          int ldx) {
-  constexpr int CHUNKS = W / 8;
-  for (int e = threadIdx.x; e < rows * CHUNKS; e += MMA_THREADS) {
-    const int r = e / CHUNKS, c = 8 * (e % CHUNKS);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * tok + c);
-    *reinterpret_cast<uint4*>(dst + r * ldx + c) = val;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D, int DV, int KV>
-__global__ void __launch_bounds__(MMA_THREADS)
-attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st) {
-  static_assert(KV % 32 == 0 && DV % 32 == 0 && D % DV == 0, "tile shapes");
-  using L = MmaSmem<D, DV, KV>;
-  constexpr int HALF = KV / 2;    // logits of one row per lane
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::q);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::k);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::v);
-  float* ss = reinterpret_cast<float*>(smem_raw + L::s);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::p);
-  float* os = reinterpret_cast<float*>(smem_raw + L::o);
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// D: the q/k head width; DV: the output columns one block owns (D, or 256
+// for the 512-wide head); KV: keys per tile; NWG: consumer warpgroups (64
+// queries each); STAGES: K/V ring depth
+template <int D, int DV_, int KV_, int NWG, int STAGES>
+struct AttnTile {
+  static constexpr int KV = KV_, DV = DV_;
+  static constexpr int BM = 64 * NWG;         // queries per block
+  static constexpr int DCH = (D + 63) / 64;   // 64-column tiles of q and k
+  static constexpr int DCHV = (DV_ + 63) / 64; // 64-column tiles of v
+  static constexpr int KSTEPS = (D + 15) / 16;
+  static constexpr uint32_t Q_BYTES = DCH * BM * 128;
+  static constexpr uint32_t K_BYTES = DCH * KV_ * 128;
+  static constexpr uint32_t V_BYTES = DCHV * KV_ * 128;
+  static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
+  // + 1024 to align the base to a swizzle atom, + the barriers
+  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int THREADS = 128 * NWG + 32;
+  static_assert(DV_ % 8 == 0 && KV_ % 16 == 0 && SMEM <= 232448, "tile");
+};
+
+// the softmax of one key tile, in base 2, on its logits S (the wgmma
+// accumulator): scale, mask keys >= S, the row max over the quad, the new
+// running max m and sum l, the factor alpha the running output must take,
+// and P rounded to bf16 as register A fragments (k-step j takes accumulator
+// columns [16j, 16j + 16), i.e. sacc[8j .. 8j + 8) in pairs)
+template <int KV>
+__device__ __forceinline__ void online_softmax(float (&sacc)[KV / 2], uint32_t (&pa)[KV / 16][4],
+                                               float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                               int key0, int S, float qscale, int quad) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  const bool ragged = key0 + KV > S;
+#pragma unroll
+  for (int i = 0; i < KV / 2; ++i) {
+    const int key = key0 + 8 * (i / 4) + 2 * quad + (i % 2);
+    const float sv = (ragged && key >= S) ? -INFINITY : sacc[i] * qscale;
+    sacc[i] = sv;
+    mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sv);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));  // finite: a tile has a valid key
+    alpha[r] = ex2(m[r] - m_new);                      // first tile: exp2(-inf) = 0
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < KV / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float p0 = ex2(sacc[8 * j + 2 * r] - m[r % 2]);  // masked keys: exp2(-inf) = 0
+      const float p1 = ex2(sacc[8 * j + 2 * r + 1] - m[r % 2]);
+      l[r % 2] += p0 + p1;
+      pa[j][r] = hopper::pack_bf16(p0, p1);
+    }
+}
+
+template <int KV>
+__device__ __forceinline__ void fence_frags(uint32_t (&pa)[KV / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < KV / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[j][r])::"memory");
+}
+
+// S = Q . K^T of one tile: 64 x KV per warpgroup, reduced over D in steps
+// of 16 (the first step overwrites the accumulator); one commit group
+template <typename L>
+__device__ __forceinline__ void qk_product(float (&sacc)[L::KV / 2], uint32_t q_addr,
+                                        uint32_t k_addr) {
+#pragma unroll
+  for (int ks = 0; ks < L::KSTEPS; ++ks) {
+    const int c = ks / 4, kk = ks % 4;
+    hopper::Wgmma<L::KV>::template ss<0>(
+        sacc, hopper::desc(q_addr + c * L::BM * 128 + kk * 32, 16, 1024),
+        hopper::desc(k_addr + c * L::KV * 128 + kk * 32, 16, 1024), ks > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P . V of one tile: V is [key][d], MN-major, its 64-column tiles
+// KV*128 bytes apart; one commit group
+template <typename L>
+__device__ __forceinline__ void pv_product(float (&oacc)[L::DV / 2],
+                                         const uint32_t (&pa)[L::KV / 16][4], uint32_t v_addr) {
+#pragma unroll
+  for (int j = 0; j < L::KV / 16; ++j)
+    hopper::Wgmma<L::DV>::template rs<1>(oacc, pa[j],
+                                         hopper::desc(v_addr + j * 2048, L::KV * 128, 1024), 1);
+  hopper::wgmma_commit();
+}
+
+template <int D, int DV, int KV, int NWG, int STAGES>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+attention_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int Tq, int S, int H, float qscale) {
+  using L = AttnTile<D, DV, KV, NWG, STAGES>;
+  using namespace hopper;
+  constexpr bool OVERLAP = D <= 64;  // the softmax / P.V overlap (header)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* ring = smem + L::Q_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * MQ;
-  const int c0 = blockIdx.z * DV;  // this block's output columns within the head
-  const long long otok = (long long)H * D;
-  const __nv_bfloat16* qb = q + b * st.qb + (long long)h * D;
-  const __nv_bfloat16* kb = k + b * st.kb + (long long)h * D;
-  const __nv_bfloat16* vb = v + b * st.vb + (long long)h * D + c0;
-  __nv_bfloat16* ob = o + (long long)b * Tq * otok + (long long)h * D + c0;
+  const int q0 = blockIdx.x * L::BM;
+  const int ntiles = (S + KV - 1) / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<D>(qs, qb, st.qt, q0, MQ, Tq, L::LDX);
-  for (int e = threadIdx.x; e < MQ * L::LDO; e += MMA_THREADS) os[e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  // softmax state: lanes 2r and 2r+1 both hold row (warp*16 + r)'s running
-  // max and sum, and each owns half of that row's logits
-  const int row = warp * 16 + lane / 2, half = lane % 2;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += KV) {
-    __syncthreads();  // previous tile consumed (first pass: q tile and O zeroed)
-    load_tile<D>(ks, kb, st.kt, k0, KV, S, L::LDX);
-    load_tile<DV>(vs, vb, st.vt, k0, KV, S, L::LDV);
-    __syncthreads();
-
-    // logits of this warp's 16 rows against the KV keys: Q_w (16 x D) . K^T
-    mma::fragment<mma::accumulator, 16, 16, 16, float> sacc[KV / 16];
-#pragma unroll
-    for (int j = 0; j < KV / 16; ++j) mma::fill_fragment(sacc[j], 0.f);
-#pragma unroll 4
-    for (int kd = 0; kd < D; kd += 16) {
-      mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major> fa;
-      mma::load_matrix_sync(fa, qs + warp * 16 * L::LDX + kd, L::LDX);
-#pragma unroll
-      for (int j = 0; j < KV / 16; ++j) {
-        // K is [key][d] row-major, i.e. K^T column-major
-        mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::col_major> fb;
-        mma::load_matrix_sync(fb, ks + j * 16 * L::LDX + kd, L::LDX);
-        mma::mma_sync(sacc[j], fa, fb, sacc[j]);
+  if (warp == 4 * NWG) {  // the producer warp: one lane starts every load
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int c = 0; c < L::DCH; ++c) tma_load_4d(qs + c * L::BM * 128, &qmap, qbar, 64 * c, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        uint8_t* ks = ring + s * L::STAGE_BYTES;
+        uint8_t* vs = ks + L::K_BYTES;
+        for (int c = 0; c < L::DCH; ++c)
+          tma_load_4d(ks + c * KV * 128, &kmap, &full[s], 64 * c, h, t * KV, b);
+        for (int c = 0; c < L::DCHV; ++c)
+          tma_load_4d(vs + c * KV * 128, &vmap, &full[s], blockIdx.z * DV + 64 * c, h, t * KV, b);
       }
     }
+    return;
+  }
+  // consumers: warpgroup wg owns queries [64 wg, 64 wg + 64) of the tile;
+  // this thread holds rows r and r + 8 of its warp's 16, columns 2(lane%4)
+  // (+1) of every 8
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  float oacc[DV / 2];
 #pragma unroll
-    for (int j = 0; j < KV / 16; ++j)
-      mma::store_matrix_sync(ss + warp * 16 * L::LDS + j * 16, sacc[j], L::LDS,
-                             mma::mem_row_major);
-    __syncwarp();
+  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float sacc[KV / 2];
+  uint32_t pa[KV / 16][4];
 
-    // online softmax in base 2 over this lane's HALF logits of its row
-    float* srow = ss + row * L::LDS + half * HALF;
-    float mx = -INFINITY;
-    for (int j = 0; j < HALF; ++j) {
-      const bool valid = k0 + half * HALF + j < S;
-      const float sv = valid ? srow[j] * qscale : -INFINITY;
-      srow[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);       // finite: every tile has a valid key
-    const float alpha = exp2f(m - m_new);   // first tile: exp2(-inf) = 0
-    float sum = 0.f;
-    __nv_bfloat16* prow = ps + row * L::LDP + half * HALF;
-    for (int j = 0; j < HALF; ++j) {
-      const float pv = exp2f(srow[j] - m_new);  // masked keys: exp2(-inf) = 0
-      sum += pv;
-      prow[j] = __float2bfloat16(pv);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    if (alpha != 1.f) {  // both lanes of a row agree on alpha
-      float* orow = os + row * L::LDO + half * (DV / 2);
-      for (int c = 0; c < DV / 2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    // O_w (16 x DV) += P_w (16 x KV) . V (KV x DV)
-    for (int n = 0; n < DV; n += 16) {
-      mma::fragment<mma::accumulator, 16, 16, 16, float> oacc;
-      float* otile = os + warp * 16 * L::LDO + n;
-      mma::load_matrix_sync(oacc, otile, L::LDO, mma::mem_row_major);
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+  const uint32_t ring_addr = smem_u32(ring);
+  auto k_addr = [&](int s) { return ring_addr + s * L::STAGE_BYTES; };
+  auto v_addr = [&](int s) { return ring_addr + s * L::STAGE_BYTES + L::K_BYTES; };
+  auto rescale = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < KV; kk += 16) {
-        mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major> fp;
-        mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::row_major> fv;
-        mma::load_matrix_sync(fp, ps + warp * 16 * L::LDP + kk, L::LDP);
-        mma::load_matrix_sync(fv, vs + kk * L::LDV + n, L::LDV);
-        mma::mma_sync(oacc, fp, fv, oacc);
-      }
-      mma::store_matrix_sync(otile, oacc, L::LDO, mma::mem_row_major);
+    for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i % 4) / 2];
+  };
+  mbar_wait(qbar, 0);
+
+  if constexpr (!OVERLAP) {
+    // per tile: S = Q.K^T, its softmax, rescale O, O += P.V, release
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      wgmma_fence();
+      qk_product<L>(sacc, q_addr, k_addr(s));
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      online_softmax<KV>(sacc, pa, m, l, alpha, t * KV, S, qscale, quad);
+      rescale();
+      fence_frags<KV>(pa);
+      fence_regs(oacc);
+      wgmma_fence();
+      pv_product<L>(oacc, pa, v_addr(s));
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncwarp();
+  } else {
+    // tile t's softmax runs while tile t-1's P.V product is in flight on
+    // the tensor cores (FlashAttention-3's intra-warpgroup overlap): per
+    // tile, start S_t = Q.K_t^T and O += P_{t-1}.V_{t-1}, wait for S_t
+    // only, run its softmax into the next fragments, then wait for the
+    // product, release stage t-1 and rescale O by tile t's alpha
+    uint32_t pn[KV / 16][4];
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    qk_product<L>(sacc, q_addr, k_addr(0));
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    online_softmax<KV>(sacc, pa, m, l, alpha, 0, S, qscale, quad);  // O is 0: no rescale
+    for (int t = 1; t < ntiles; ++t) {
+      const int s = t % STAGES, prev = (t - 1) % STAGES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      fence_frags<KV>(pa);
+      fence_regs(oacc);
+      wgmma_fence();
+      qk_product<L>(sacc, q_addr, k_addr(s));
+      pv_product<L>(oacc, pa, v_addr(prev));
+      wgmma_wait<1>();  // S_t is done; the product may still run
+      fence_regs(sacc);
+      online_softmax<KV>(sacc, pn, m, l, alpha, t * KV, S, qscale, quad);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_frags<KV>(pa);  // pa is read by the product until here
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      rescale();
+#pragma unroll
+      for (int j = 0; j < KV / 16; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[j][r] = pn[j][r];
+    }
+    fence_frags<KV>(pa);
+    fence_regs(oacc);
+    wgmma_fence();
+    pv_product<L>(oacc, pa, v_addr((ntiles - 1) % STAGES));
+    wgmma_wait<0>();
+    fence_regs(oacc);
   }
 
-  const int t = q0 + row;
-  if (t < Tq) {
-    const float inv = 1.f / l;
-    const float* orow = os + row * L::LDO + half * (DV / 2);
-    __nv_bfloat16* dst = ob + t * otok + half * (DV / 2);
-    for (int c = 0; c < DV / 2; ++c) dst[c] = __float2bfloat16(orow[c] * inv);
-    // base-2 log-sum-exp of the pre-scaled logits (both lanes of a row hold it;
-    // every output slice of a 512-wide head has it, the first writes it)
-    if (lse != nullptr && half == 0 && blockIdx.z == 0) lse[(long long)bh * Tq + t] = m + log2f(l);
+  const long long otok = (long long)H * D;
+  __nv_bfloat16* ob = o + (long long)b * Tq * otok + (long long)h * D + blockIdx.z * DV;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    const int t = q0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * r;
+    if (t < Tq) {
+      const float inv = 1.f / lsum;
+      __nv_bfloat16* dst = ob + t * otok + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+      // base-2 log-sum-exp of the pre-scaled logits (every output slice of
+      // a 512-wide head has it; the first writes it)
+      if (lse != nullptr && quad == 0 && blockIdx.z == 0) lse[(long long)bh * Tq + t] = m[r] + log2f(lsum);
+    }
   }
 }
 
@@ -362,35 +480,58 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-template <int D, int DV, int KV>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int Tq, int S, int H, float qscale, Strides st, cudaStream_t stream) {
-  const size_t bytes = MmaSmem<D, DV, KV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16_mma<D, DV, KV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+// the host's tile (ops/attention.py::attention_plan) for the bf16 kernel
+struct Plan {
+  int block_q, block_kv, d_pad, dv, stages;
+};
+
+template <int D, int DV, int KV, int NWG, int STAGES>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int Tq, int S, int H, float qscale, Strides st, Plan plan,
+                 cudaStream_t stream) {
+  using L = AttnTile<D, DV, KV, NWG, STAGES>;
+  if (plan.block_q != L::BM || plan.block_kv != KV || plan.d_pad != 64 * L::DCH ||
+      plan.dv != DV || plan.stages != STAGES)
+    return (int)cudaErrorInvalidValue;  // the host's plan is not the compiled one
+  // TMA: 16-byte aligned bases and byte strides
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
+  if (any % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  // 4-D maps over (d, head, token, batch); the box is 64 columns of one head
+  CUtensorMap qm, km, vm;
+  const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Tq, (uint64_t)B};
+  const uint64_t kdims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t qstr[3] = {2ull * D, 2ull * st.qt, 2ull * st.qb};
+  const uint64_t kstr[3] = {2ull * D, 2ull * st.kt, 2ull * st.kb};
+  const uint64_t vstr[3] = {2ull * D, 2ull * st.vt, 2ull * st.vb};
+  const uint32_t qbox[4] = {64, 1, (uint32_t)L::BM, 1};
+  const uint32_t kbox[4] = {64, 1, (uint32_t)KV, 1};
+  int code = hopper::make_map(&qm, q, 4, qdims, qstr, qbox);
+  if (code == 0) code = hopper::make_map(&km, k, 4, kdims, kstr, kbox);
+  if (code == 0) code = hopper::make_map(&vm, v, 4, kdims, vstr, kbox);
+  if (code != 0) return code;
+  cudaError_t err =
+      hopper::set_smem_once<attention_fwd_wgmma<D, DV, KV, NWG, STAGES>>(L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Tq + MQ - 1) / MQ), (unsigned)(B * H), (unsigned)(D / DV));
-  attention_fwd_bf16_mma<D, DV, KV><<<grid, MMA_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Tq, S, H,
-      qscale, st);
+  dim3 grid((unsigned)((Tq + L::BM - 1) / L::BM), (unsigned)(B * H), (unsigned)(D / DV));
+  attention_fwd_wgmma<D, DV, KV, NWG, STAGES><<<grid, L::THREADS, L::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Tq, S, H, qscale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Tq,
-           int S, int H, float qscale, Strides st, int dtype, cudaStream_t s) {
+           int S, int H, float qscale, Strides st, int dtype, Plan p, cudaStream_t s) {
   if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
-  // the bf16 kernel moves q, k, v in 16-byte vectors: every row start aligned
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
-  if (any % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
   if constexpr (D == 512) {
-    return launch_bf16<D, 256, 32>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
+    return launch_wgmma<512, 256, 32, 1, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
+  } else if constexpr (D >= 160) {
+    return launch_wgmma<D, D, 64, 2, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
+  } else if constexpr (D >= 80) {
+    return launch_wgmma<D, D, 128, 2, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   } else {
-    return launch_bf16<D, D, 64>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
+    return launch_wgmma<D, D, 128, 2, 3>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   }
 }
 
@@ -401,22 +542,30 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // q_bs, q_ts (and k_, v_) are the batch and token strides in elements; the
 // channel stride is 1 and o is contiguous. lse is null, or a float32 (B*H, T)
 // output for the base-2 log-sum-exp of each row's pre-scaled logits, which the
-// backward (attention_bwd.cu) reads. Returns the cudaError_t of the launch.
+// backward (attention_bwd.cu) reads. block_q, block_kv, d_pad, dv and stages
+// are the host's bf16 tile (ops/attention.py::attention_plan; ignored for
+// float32); a tile other than a compiled one is refused. Returns the
+// cudaError_t of the launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                  void* lse_out, int B, int T, int S, int H, int D, float qscale,
                                  long long q_bs, long long q_ts, long long k_bs,
                                  long long k_ts, long long v_bs, long long v_ts,
-                                 int dtype, void* stream) {
+                                 int dtype, int block_q, int block_kv, int d_pad, int dv,
+                                 int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const Strides st{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts};
+  const Plan p{block_q, block_kv, d_pad, dv, stages};
   float* lse = static_cast<float*>(lse_out);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
-    case 256: return launch<256>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
-    case 512: return launch<512>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 40: return launch<40>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 80: return launch<80>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 160: return launch<160>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 256: return launch<256>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 512: return launch<512>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,10 @@
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
-counts under one wrapper only. `conv3x3` and `token_attention` are
+counts under one wrapper only. The wrappers of the kernels with more than
+one route (`ROUTED`: conv3x3 and its dx, "wgmma" / "wmma" / "f32"; the
+attention forward, "wgmma" / "f32") also count them by route, in
+`<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
 for them launches as `attention_lse`. `fused_bias_act` and
@@ -36,6 +39,8 @@ from dpm_solver_tpu_torch.ops.attention import (
     attention_plain,
     token_attention,
 )
+from collections import Counter
+
 from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_dx, conv3x3_plain
 from dpm_solver_tpu_torch.ops.fused_act import (bias_act_grad_plain, bias_act_plain,
                                                 fused_bias_act, fused_bias_act_bwd)
@@ -46,20 +51,29 @@ from dpm_solver_tpu_torch.ops.ln_linear import layer_norm_fp32, ln_linear, ln_li
 KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
            attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
            attention_out_fused)
+ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in ROUTED:
+        fn.launches_by_route = Counter()
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def launch_routes() -> dict:
+    """{wrapper: {route: launches}} of the wrappers in ROUTED."""
+    return {fn.__name__: dict(fn.launches_by_route) for fn in ROUTED}
+
+
 __all__ = [
     "Conv3x3",
     "KERNELS",
+    "ROUTED",
     "attention_backward_plain",
     "attention_dkv",
     "attention_dq",
@@ -81,6 +95,7 @@ __all__ = [
     "geglu_plain",
     "gelu_exact",
     "launch_counts",
+    "launch_routes",
     "layer_norm_fp32",
     "ln_linear",
     "ln_linear_plain",

@@ -2,11 +2,13 @@
 
 All of `dpm_solver_tpu_torch/csrc/*.cu` compile into one shared library with
 a plain C interface, at first use, into `dpm_solver_tpu_torch/_build/<hash>/`
-(listed in `.gitignore`), where the hash covers the sources and the nvcc
-command. Each source compiles in its own nvcc process, all started together,
-and one more links the objects. A later call with the same sources loads the
-cached library. A missing nvcc or a failed build raises: there is no
-fallback.
+(listed in `.gitignore`), where the hash covers the sources, the headers they
+share (`csrc/*.cuh`) and the nvcc command. Each source compiles in its own
+nvcc process, all started together, and one more links the objects. The TMA
+kernels find `cuTensorMapEncodeTiled` in libcuda with `dlopen` at run time,
+so the library links against nothing but the CUDA runtime and `-ldl`.
+A later call with the same sources loads the cached library. A missing nvcc
+or a failed build raises: there is no fallback.
 
 Every C entry returns the `cudaError_t` of its launch; `check` turns a
 non-zero code into an exception.
@@ -36,9 +38,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
-    "dpm_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dpm_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "dpm_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _L, _L, _L, _L,
-                          _L, _I, _P),
+                          _L, _I, _I, _I, _I, _I, _I, _P),
     "dpm_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                              _L, _L, _L, _L, _L, _L, _I, _P),
     "dpm_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
@@ -66,7 +68,7 @@ def _sources():
 def source_hash(nvcc: str) -> str:
     h = hashlib.sha256()
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -96,7 +98,7 @@ def build(verbose: bool = False) -> Path:
         if verbose:
             print(out)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
-    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs), "-ldl"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"

@@ -7,11 +7,16 @@ k, v (B, S, H*dh) in, (B, T, H*dh) out, and is differentiable.
 
 Forward: one kernel, in `csrc/attention.cu`, stands in for all four Pallas
 forwards (`_forward`, `_flash_forward`, `_flash_forward_T`,
-`_panel_forward_T`), which compute the same function. It takes head dims 32,
-64, 128, 256 and 512 (the VAE's single mid-block head). q, k and v need unit
-stride along the channels only: the column slices of one fused qkv projection
-are read in place, not copied. The JAX package's v5e gate (Pallas only for
-S >= 1024) is not carried over.
+`_panel_forward_T`), which compute the same function: in bf16 a TMA + `wgmma`
+kernel (route "wgmma"), in fp32 an exact CUDA-core one (route "f32"). It
+takes head dims 32, 40, 64, 80, 128, 160, 256 and 512 (40/80/160: SD-1's
+heads; 512: the VAE's single mid-block head). The tile each head dim runs
+(queries a block, keys a tile, the reduction padded to whole 64-column
+swizzle tiles, output columns a block, ring stages) is chosen here,
+`attention_plan`, and handed to the kernel, which refuses any other. q, k
+and v need unit stride along the channels only: the column slices of one
+fused qkv projection are read in place, not copied. The JAX package's v5e
+gate (Pallas only for S >= 1024) is not carried over.
 
 Backward (when autograd asks for it): the forward also writes each row's
 base-2 log-sum-exp (`attention_lse`, the port of the Pallas side pass `_lse`),
@@ -32,11 +37,15 @@ Dispatch is by device only: a CPU tensor takes the plain twin
 `token_attention`, `attention_lse`, `attention_dq`, `attention_dkv` and
 `attention_out_fused` counts its own kernel launches in `.launches`: a
 forward that writes the lse counts under `attention_lse` only.
+`token_attention` and `attention_lse` also count them by route, in
+`.launches_by_route`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -44,9 +53,61 @@ import torch
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256, 512)
+HEAD_DIMS = (32, 40, 64, 80, 128, 160, 256, 512)
 BWD_HEAD_DIMS = (64,)
 _LOG2E = math.log2(math.e)
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionTile:
+    """The tile the forward kernel runs at one head dim and dtype.
+
+    route: "wgmma" (bf16: TMA-fed `wgmma`, one producer warp and
+    block_q / 64 consumer warpgroups) or "f32" (exact, CUDA cores).
+    block_q: queries a block; block_kv: keys a tile; d_pad: the q/k width
+    as staged in shared memory (64-column swizzle tiles: TMA fills columns
+    past dh with zeros); dv: output columns one block owns (dh, or 256 of
+    the 512-wide head: grid.z = dh / dv); stages: K/V ring depth. The
+    kernel overlaps each key tile's softmax with the previous tile's P.V
+    product at dh <= 64 (csrc/attention.cu's header says why only there)."""
+
+    route: str
+    block_q: int
+    block_kv: int
+    d_pad: int
+    dv: int
+    stages: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block (csrc/attention.cu's layout)."""
+        if self.route == "f32":  # q, k (rows + 1 float), v, logits, 3 row stats
+            return 4 * (self.block_q * self.d_pad + self.block_kv * (2 * self.d_pad + 1)
+                        + self.block_q * (self.block_kv + 3))
+        dv_pad = -(-self.dv // 64) * 64
+        stage = 128 * self.block_kv * (self.d_pad + dv_pad) // 64
+        # + 1024 to align to a swizzle atom, + the q, full and empty barriers
+        return 1024 + 128 * self.block_q * self.d_pad // 64 + self.stages * stage \
+            + 8 * (1 + 2 * self.stages)
+
+
+def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTile:
+    """The forward's tile for head dim `dh`: 128 queries (two consumer
+    warpgroups) and 128-key tiles up to dh 128, 64-key tiles at 160 and 256
+    (whose q and K/V stages would not fit 227 KB otherwise), and for the
+    512-wide head one warpgroup, 32-key tiles and two 256-wide output
+    halves. fp32 takes the exact kernel's fixed 16 x 32 tile."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {dh}")
+    if dtype == torch.float32:
+        return AttentionTile("f32", 16, 32, dh, dh, 1)
+    d_pad = -(-dh // 64) * 64
+    if dh == 512:
+        return AttentionTile("wgmma", 64, 32, d_pad, 256, 2)
+    if dh >= 160:
+        return AttentionTile("wgmma", 128, 64, d_pad, dh, 2)
+    return AttentionTile("wgmma", 128, 128, d_pad, dh, 2 if dh >= 80 else 3)
 
 
 def _heads(u: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -153,13 +214,16 @@ def _attend(q, k, v, num_heads, scale, with_lse):
     lse = (torch.empty((b * num_heads, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     counter = attention_lse if with_lse else token_attention
+    tile = attention_plan(inner // num_heads, q.dtype)
     code = _build.library().dpm_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, t, s, num_heads, inner // num_heads,
         float(scale * _LOG2E), *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        _DTYPES[q.dtype], _build.stream_ptr(q.device))
+        _DTYPES[q.dtype], tile.block_q, tile.block_kv, tile.d_pad, tile.dv, tile.stages,
+        _build.stream_ptr(q.device))
     _build.check(code, counter.__name__)
     counter.launches += 1
+    counter.launches_by_route[tile.route] += 1
     return out, lse
 
 
@@ -372,7 +436,9 @@ def attention_out_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 token_attention.launches = 0
+token_attention.launches_by_route = Counter()
 attention_lse.launches = 0
+attention_lse.launches_by_route = Counter()
 attention_dq.launches = 0
 attention_dkv.launches = 0
 attention_out_fused.launches = 0

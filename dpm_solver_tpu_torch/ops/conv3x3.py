@@ -3,8 +3,16 @@
 Counterpart of `dpm_solver_tpu/ops/conv3x3.py` (`conv3x3`, `Conv3x3`, and the
 custom VJP `_conv3x3_bwd`). The public function keeps the JAX entry's layout:
 x (B, H, W, C), w (3, 3, C, CO), bias (CO,), and is differentiable. The
-kernel lives in `csrc/conv3x3.cu`; its header says what it replaces, what
-bounds it on the H100 and how it is built.
+kernels live in `csrc/conv3x3.cu`; its header says what they replace, what
+bounds them on the H100 and how they are built.
+
+Routes (`conv3x3_plan`, decided here and handed to the kernel): bf16 with C
+and CO multiples of 8 (every conv of the sampling paths but the SD VAE's
+conv_in, C = 4, and conv_out, CO = 3) takes "wgmma", the TMA-fed `wgmma`
+kernel, whose block owns a 128-pixel output patch (w_t, h_t, b_t) chosen per
+map size by `conv3x3_patch`; other bf16 shapes take "wmma", the `mma.sync`
+kernel (TMA cannot stride rows that are not a multiple of 16 bytes); fp32
+takes "f32", the exact CUDA-core kernel.
 
 The backward mirrors `_conv3x3_bwd`: dx is the same 3x3 SAME conv of the
 cotangent with the spatially flipped, in/out-transposed weight, so it runs the
@@ -14,12 +22,15 @@ frozen weights (classifier guidance) that is dx alone.
 
 Dispatch is by device only: a CPU tensor takes `conv3x3_plain`; a CUDA tensor
 launches the kernel or raises. `conv3x3.launches` counts forward launches,
-`conv3x3_dx.launches` the input-gradient launches.
+`conv3x3_dx.launches` the input-gradient launches; `.launches_by_route`
+counts each by route.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +39,53 @@ from torch import nn
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"f32": 0, "wmma": 1, "wgmma": 2}   # the C entry's route codes
+PATCH_PIXELS = 128   # output pixels of one "wgmma" block: two warpgroups of 64
+WGMMA_BLOCK_N = 128  # output channels of one "wgmma" block
+WGMMA_STAGES = 3     # its ring of (128 x 64 input, 64 x 128 weight) bf16 tiles
+# shared memory of one "wgmma" block (csrc/conv3x3.cu): the ring, 1024 bytes
+# to align it to a swizzle atom, a full and an empty barrier per stage
+WGMMA_SMEM = 1024 + WGMMA_STAGES * 2 * (PATCH_PIXELS * 64 + 64 * WGMMA_BLOCK_N) \
+    + 16 * WGMMA_STAGES
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """route: "wgmma", "wmma" or "f32"; patch: the "wgmma" route's output
+    patch (w_t, h_t, b_t), PATCH_PIXELS pixels, else (0, 0, 0)."""
+
+    route: str
+    patch: Tuple[int, int, int] = (0, 0, 0)
+
+
+def conv3x3_patch(b: int, h: int, w: int) -> Tuple[int, int, int]:
+    """The 128-pixel output patch (w_t, h_t, b_t) of a (b, h, w) map: of the
+    power-of-two boxes up to 16 columns wide, the one that tiles the map in
+    the fewest patches, i.e. computes the fewest pixels past its edges (a
+    tie goes to the wider, then the taller box: longer contiguous rows).
+    16x8x1 at W = 32, 96 or 768, 8x8x2 at 8x8 and 24x24, 4x4x8 at 4x4 and
+    12x12. The part of a patch past the map reads zeros and is not stored."""
+    best = None
+    for pw in (16, 8, 4, 2, 1):
+        for ph in (128, 64, 32, 16, 8, 4, 2, 1):
+            if pw * ph > PATCH_PIXELS:
+                continue
+            pb = PATCH_PIXELS // (pw * ph)
+            tiles = -(-w // pw) * -(-h // ph) * -(-b // pb)
+            if best is None or tiles < best[0]:
+                best = (tiles, (pw, ph, pb))
+    return best[1]
+
+
+def conv3x3_plan(x_shape, co: int, dtype: torch.dtype, aligned: bool = True) -> ConvPlan:
+    """The route and patch for x (B, H, W, C) -> CO channels in `dtype`;
+    `aligned`: x and w start on 16-byte boundaries (TMA needs it)."""
+    b, h, w, c = x_shape
+    if dtype == torch.float32:
+        return ConvPlan("f32")
+    if c % 8 == 0 and co % 8 == 0 and aligned:
+        return ConvPlan("wgmma", conv3x3_patch(b, h, w))
+    return ConvPlan("wmma")
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -59,26 +117,29 @@ def _check(x, w, bias):
         raise ValueError("conv3x3 kernel takes fewer than 2**31 elements per tensor")
 
 
-def _launch(x, w, bias, what):
+def _launch(x, w, bias, counter):
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     _check(x, w, bias)
     b, h, wd, c = x.shape
     co = w.shape[3]
+    plan = conv3x3_plan(x.shape, co, x.dtype, aligned=x.data_ptr() % 16 == 0
+                        and w.data_ptr() % 16 == 0)
     out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
     code = _build.library().dpm_conv3x3_fwd(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype], _build.stream_ptr(x.device))
-    _build.check(code, what)
+        out.data_ptr(), b, h, wd, c, co, ROUTES[plan.route], *plan.patch,
+        _build.stream_ptr(x.device))
+    _build.check(code, counter.__name__)
+    counter.launches += 1
+    counter.launches_by_route[plan.route] += 1
     return out
 
 
 def _forward(x, w, bias):
     if _build.device_type(x, "conv3x3") == "cpu":
         return conv3x3_plain(x, w, bias)
-    out = _launch(x, w, bias, "conv3x3")
-    conv3x3.launches += 1
-    return out
+    return _launch(x, w, bias, conv3x3)
 
 
 def flip_weight(w: torch.Tensor) -> torch.Tensor:
@@ -93,9 +154,7 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wf = flip_weight(w)
     if _build.device_type(g, "conv3x3_dx") == "cpu":
         return conv3x3_plain(g, wf)
-    out = _launch(g.contiguous(), wf, None, "conv3x3_dx")
-    conv3x3_dx.launches += 1
-    return out
+    return _launch(g.contiguous(), wf, None, conv3x3_dx)
 
 
 class _Conv3x3Fn(torch.autograd.Function):
@@ -132,7 +191,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3.launches = 0
+conv3x3.launches_by_route = Counter()
 conv3x3_dx.launches = 0
+conv3x3_dx.launches_by_route = Counter()
 
 
 class Conv3x3(nn.Module):

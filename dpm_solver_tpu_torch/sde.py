@@ -3,7 +3,9 @@
 Port of `dpm_solver_tpu/sde.py` (ref score_sde sde_lib.py:9-256). The SDEs
 are frozen dataclasses; every method takes torch tensors and computes in
 their dtype and on their device. `prior_sampling` draws from an explicit
-`torch.Generator`, since torch and `jax.random` never give the same stream.
+`torch.Generator`, since torch and `jax.random` never give the same stream,
+on `device`, else on the generator's device, else on the card (raising when
+there is none, as the model constructors do).
 The reverse process is a function factory returning pure (drift, diffusion)
 and discretize closures, as in the JAX package.
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
+from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dpm_solver_tpu_torch.utils.trees import bcast_right
 
 
@@ -38,8 +41,9 @@ def _prior_logp(z: torch.Tensor, var: float) -> torch.Tensor:
 
 
 def _normal(shape, generator: Optional[torch.Generator], dtype, device) -> torch.Tensor:
-    device = generator.device if device is None and generator is not None else device
-    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    if device is None:
+        device = generator.device if generator is not None else DEFAULT_DEVICE
+    return torch.randn(shape, generator=generator, dtype=dtype, device=resolve_device(device))
 
 
 def _grid_index(t: torch.Tensor, n: int, big_t: float) -> torch.Tensor:

@@ -25,7 +25,10 @@ TOL = 3e-6
     (2, 64, 64, 1, 32),     # tiny DDPM AttnBlock at 8x8
     (2, 16, 16, 1, 256),    # CIFAR mid AttnBlock at 4x4
     (2, 50, 77, 4, 32),     # multi-head, ragged cross-attention length
-], ids=["tiny", "cifar-mid", "multihead-ragged"])
+    (2, 64, 64, 2, 40),     # SD-1's head dims: self-attention at dh 40,
+    (2, 40, 77, 2, 80),     # cross-attention to 77 tokens at dh 80,
+    (1, 33, 33, 2, 160),    # and a ragged length at dh 160
+], ids=["tiny", "cifar-mid", "multihead-ragged", "sd1-dh40", "sd1-cross-dh80", "sd1-dh160"])
 def test_plain_matches_pallas_interpret(b, t, s, heads, dh):
     rng = np.random.default_rng(0)
     q = rng.standard_normal((b, t, heads * dh)).astype(np.float32)
@@ -66,7 +69,11 @@ _STREAMED = {
     ("flash", 1, 40, 40, 1, 512),    # the VAE's single 512-wide head
     ("flash_t", 1, 96, 96, 2, 64),   # SD self-attention, dh = 64
     ("panel_t", 1, 96, 96, 2, 64),
-], ids=["flash-cross-s77", "flash-vae-dh512", "flash_t-self-dh64", "panel_t-self-dh64"])
+    ("flash", 2, 50, 77, 2, 40),     # SD-1: cross-attention at dh 40,
+    ("flash_t", 1, 96, 96, 2, 80),   # self-attention at dh 80 and 160
+    ("panel_t", 1, 64, 64, 2, 160),
+], ids=["flash-cross-s77", "flash-vae-dh512", "flash_t-self-dh64", "panel_t-self-dh64",
+        "flash-cross-dh40", "flash_t-self-dh80", "panel_t-self-dh160"])
 def test_plain_matches_streamed_pallas_interpret(kernel, b, t, s, heads, dh):
     rng = np.random.default_rng(2)
     q = rng.standard_normal((b, t, heads * dh)).astype(np.float32)

@@ -174,8 +174,10 @@ def test_attention_checks_refuse_what_the_kernel_does_not_take():
     attention._check(q, q, q, 8)                         # dh = 32
     attention._check(q, q, q, 2)                         # dh = 128
     u = torch.zeros(2, 16, 80)
-    with pytest.raises(ValueError):
-        attention._check(u, u, u, 2)                     # dh = 40: not yet
+    attention._check(u, u, u, 2)                         # dh = 40 (SD-1)
+    attention._check(u, u, u, 1)                         # dh = 80
+    with pytest.raises(ValueError, match="head dims"):
+        attention._check(u, u, u, 5)                     # dh = 16: no tile for it
     with pytest.raises(TypeError):
         attention._check(q.half(), q.half(), q.half(), 1)
     with pytest.raises(ValueError):

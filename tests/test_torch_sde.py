@@ -52,6 +52,20 @@ def test_prior_logp_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(SDES))
+def test_prior_sampling_defaults_to_the_card(name):
+    """With neither a generator nor a device the prior is drawn on the card,
+    so without one it raises; device="cpu" draws on the CPU."""
+    _, t = SDES[name]
+    if torch.cuda.is_available():
+        assert t.prior_sampling((2, 3)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t.prior_sampling((2, 3))
+    a = t.prior_sampling((2, 3), device="cpu")
+    assert a.shape == (2, 3) and a.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", sorted(SDES))
 def test_prior_sampling_takes_a_generator(name):
     _, t = SDES[name]
     a = t.prior_sampling((4000, 3), torch.Generator().manual_seed(1))
