@@ -19,7 +19,13 @@ and nothing of JAX. Phases, each fatal on failure:
    out-projection and residual fused at the SD-2.1 sites and ragged ones;
    and SD-1's attention sites at 512 px, CFG b2 (head dims 40, 80, 160:
    self-attention at T = 4096, 1024, 256, 64, cross-attention at S = 77,
-   ragged and fused-qkv cases, output and lse); then one full-width SD-1
+   ragged and fused-qkv cases, output and lse); LayerNorm->Linear and GEGLU
+   at every SD-2.1 and SD-1 transformer site, at row counts off the row
+   tiles, and at tiny and ragged widths, each on its plan's route ("wgmma"
+   for bf16 but at d % 8 != 0, "wmma" there, "f32" for fp32) and the bf16
+   "wgmma" shapes on the fused WMMA kernels ("wmma") too; their gradients through the
+   autograd Functions against autograd of the plain twins at two SD sites,
+   bf16 and fp32; then one full-width SD-1
    UNet forward (`ADMConfig.sd_v1()`, bf16, 64x64 latents, b2, the hermetic
    `constant_context_encoder(768)`): finite, with the launch counters rising
    by exactly what `layout()` implies;
@@ -64,20 +70,27 @@ and nothing of JAX. Phases, each fatal on failure:
    shares, the guided call's UNet-forward and classifier forward+backward
    shares, the ScoreSDE call's network-forward share, and each kernel
    against its plain version, the one PyTorch call that computes the same
-   function (where there is one) and its bound, at the shapes and launch
-   counts of one call of each path and of the SD-1 forward (the kernels no
+   function (where there is one; for LayerNorm->Linear and GEGLU, which no
+   one call computes, the bf16 composition of library calls, labelled
+   "composition", and their "wmma" route, the fused WMMA kernels) and its bound, at
+   the shapes and launch counts of one call of each path and of the SD-1
+   forward (the kernels no
    path launches: one launch at each shape where they would run, the fused
    attention output beside the unfused composition), each beside the card's
    name and power limit, with the tensor-core rate and the bound's share.
 
 After each path's call the redesigned kernels' launches are also checked by
-route (`ops.launch_routes()`): every bf16 attention on "wgmma", every bf16
-conv with C % 8 == CO % 8 == 0 on "wgmma", the others (the SD VAE's conv_in
-and conv_out) on "wmma".
+route (`ops.launch_routes()`): every bf16 attention, LayerNorm->Linear and
+GEGLU on "wgmma", every bf16 conv with C % 8 == CO % 8 == 0 on "wgmma", the
+others (the SD VAE's conv_in and conv_out) on "wmma". A GEGLU call counts one
+launch of `geglu_ff`, whichever of its route's kernels it runs (on "wgmma"
+the gate and the down-projection, and at a split reduction the sum of the
+partials), so `adm_unet_launches` counts one per feed-forward.
 
 The last two lines are the kernels' JSON record (each kernel's times on the
 newest path that runs it at the top level, or under "none" for a kernel no
-path launches, every path's in `timing_by_path`, its launches on every path)
+path launches, every path's and the SD-1 forward's in `timing_by_path`, its
+launches on every path)
 and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -85,6 +98,7 @@ and
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -156,6 +170,9 @@ REPLACES = {
 # kernels that no path launches, as in the JAX package: timed at the shapes
 # where they would run, one launch each
 NO_PATH = ("fused_bias_act", "fused_bias_act_bwd", "attention_out_fused")
+# kernels that no one library call computes: timed beside the bf16
+# composition of library calls, and beside their "wmma" route (the fused WMMA kernel)
+COMPOSED = ("ln_linear", "geglu_ff")
 
 
 def fail(msg: str) -> None:
@@ -197,6 +214,13 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_modules() -> tuple:
+    """The modules ops/geglu.py and ops/ln_linear.py (the package's
+    `ops.ln_linear` is the function)."""
+    return (importlib.import_module("dpm_solver_tpu_torch.ops.geglu"),
+            importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear"))
+
+
 def rel_err(got, want) -> tuple:
     d = (got.float() - want.float()).abs().max().item()
     return d, d / max(want.float().abs().max().item(), 1e-30)
@@ -208,9 +232,12 @@ def rel_err(got, want) -> tuple:
 # --------------------------------------------------------------------------- #
 
 
-def make_case(name: str, spec: tuple, randn):
+def make_case(name: str, spec: tuple, randn, route: str = None):
     """(kernel, plain, library or None, bf16 tensor-core flops, fp32 ops,
-    bytes) for one bf16 call (fp32 for the fused update) at `spec`."""
+    bytes) for one bf16 call (fp32 for the fused update) at `spec`. For the
+    kernels in COMPOSED the library slot holds the bf16 composition of
+    library calls instead, and `route` forces their kernel's route ("wmma":
+    the fused WMMA kernel) in place of the plan's."""
     import torch
     import torch.nn.functional as F
 
@@ -218,6 +245,7 @@ def make_case(name: str, spec: tuple, randn):
     from dpm_solver_tpu_torch.ops.attention import attention_delta
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
 
+    GE, LN = kernel_modules()
     bf = torch.bfloat16
     if name == "conv3x3":
         b, h, w, c, co = spec
@@ -286,14 +314,29 @@ def make_case(name: str, spec: tuple, randn):
         m, d, n = spec
         x, w = randn(m, d).to(bf), (randn(n, d) * d ** -0.5).to(bf)
         g, be = 1 + 0.1 * randn(d), 0.1 * randn(d)
-        return (lambda: ops.ln_linear(x, g, be, w), lambda: ops.ln_linear_plain(x, g, be, w),
-                None, 2 * m * d * n, 8 * m * d, 2 * (m * d + m * n + d * n) + 8 * d)
+        kernel = lambda: ops.ln_linear(x, g, be, w)
+        if route is not None:
+            plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, bf), route=route)
+            kernel = lambda: LN.ln_linear_launch(x, g, be, w, None, 1e-5, plan)
+        gb, beb = g.to(bf), be.to(bf)   # the composition: F.layer_norm, F.linear
+        return (kernel, lambda: ops.ln_linear_plain(x, g, be, w),
+                lambda: F.linear(F.layer_norm(x, (d,), gb, beb), w),
+                2 * m * d * n, 8 * m * d, 2 * (m * d + m * n + d * n) + 8 * d)
     if name == "geglu_ff":
         m, d, inner = spec
         x, w1 = randn(m, d).to(bf), (randn(2 * inner, d) * d ** -0.5).to(bf)
         w2, b1, b2 = (randn(d, inner) * inner ** -0.5).to(bf), randn(2 * inner) * 0.1, randn(d) * 0.1
-        return (lambda: ops.geglu_ff(x, w1, b1, w2, b2), lambda: ops.geglu_plain(x, w1, b1, w2, b2),
-                None, 6 * m * d * inner, 10 * m * inner,
+        kernel = lambda: ops.geglu_ff(x, w1, b1, w2, b2)
+        if route is not None:
+            plan = dataclasses.replace(GE.geglu_plan(m, d, inner, bf), route=route)
+            kernel = lambda: GE.geglu_launch(x, w1, b1, w2, b2, plan)
+        b1b, b2b = b1.to(bf), b2.to(bf)
+
+        def composition():  # F.linear, gelu * h, F.linear, all bf16
+            h, gate = F.linear(x, w1, b1b).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), w2, b2b)
+        return (kernel, lambda: ops.geglu_plain(x, w1, b1, w2, b2), composition,
+                6 * m * d * inner, 10 * m * inner,
                 2 * (2 * m * d + 3 * d * inner) + 4 * (2 * inner + d))
     if name == "fused_update":
         shape, = spec
@@ -330,20 +373,32 @@ def make_case(name: str, spec: tuple, randn):
 def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
     """Kernel, plain and library device time over `calls` (spec -> launches),
     and the bound: per launch the largest of bf16 flops / PEAK_BF16, fp32 ops
-    / PEAK_FP32 and bytes / HBM."""
+    / PEAK_FP32 and bytes / HBM. For the kernels in COMPOSED the library
+    slot's time is the composition's ("composition_ms"; "library_ms" is null:
+    no one library call computes the function), and their "wmma" route (the
+    fused WMMA kernel) is timed beside the plan's at the same shapes ("wmma_ms")."""
     import torch
 
+    composed = name in COMPOSED
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    if composed:
+        tot.update(wmma_ms=0.0)
     ops_s = bytes_s = flops = 0.0
     has_library = True
+    lib_label = "composition" if composed else "library"
     for spec, n in sorted(calls.items(), key=lambda kv: str(kv[0])):
         kernel, plain, library, fl16, fl32, nbytes = make_case(name, spec, randn)
         k, p = cuda_ms(kernel), cuda_ms(plain)
         lib = cuda_ms(library) if library is not None else None
         t_ops, t_bytes = max(fl16 / PEAK_BF16, fl32 / PEAK_FP32), nbytes / HBM
         bound = max(t_ops, t_bytes) * 1e3
-        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms ({fl16 / k / 1e9:.1f} TFLOP/s), plain "
-            f"{p:.4f} ms, library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+        wmma_note = ""
+        if composed:
+            wmma = cuda_ms(make_case(name, spec, randn, route="wmma")[0])
+            tot["wmma_ms"] += n * wmma
+            wmma_note = f", wmma route {wmma:.4f} ms ({fl16 / wmma / 1e9:.1f} TFLOP/s)"
+        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms ({fl16 / k / 1e9:.1f} TFLOP/s){wmma_note}, "
+            f"plain {p:.4f} ms, {lib_label} {'none' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
         flops += n * fl16
         tot["ms"] += n * k
@@ -357,13 +412,17 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
         del kernel, plain, library
         torch.cuda.empty_cache()
     tot["library_ms"] = tot["library_ms"] if has_library else None
+    if composed:
+        tot["composition_ms"], tot["library_ms"] = tot["library_ms"], None
     tot["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
     tot["tflops"] = flops / tot["ms"] / 1e9   # tensor-core work over kernel time
     tot["bound_share"] = tot["bound_ms"] / tot["ms"]
     tot["timed"] = what
-    lib = tot["library_ms"]
-    log(f"kernel time on {smi}: {name} {tot['ms']:.3f} ms vs plain {tot['plain_ms']:.3f} ms, "
-        f"library {'none' if lib is None else f'{lib:.3f} ms'}, bound {tot['bound_ms']:.3f} ms "
+    lib = tot["composition_ms"] if composed else tot["library_ms"]
+    wmma_note = (f", wmma route {tot['wmma_ms']:.3f} ms ({flops / tot['wmma_ms'] / 1e9:.1f} "
+                 f"TFLOP/s)" if composed else "")
+    log(f"kernel time on {smi}: {name} {tot['ms']:.3f} ms{wmma_note} vs plain {tot['plain_ms']:.3f} ms, "
+        f"{lib_label} {'none' if lib is None else f'{lib:.3f} ms'}, bound {tot['bound_ms']:.3f} ms "
         f"({tot['bound_by']}; {tot['bound_share']:.3f} of the kernel's time, "
         f"{tot['tflops']:.1f} TFLOP/s); {sum(calls.values())} launches = {what}")
     return tot
@@ -458,12 +517,15 @@ def plan_launches(cfg, plan) -> dict:
 
 def check_routes(what: str, launches: dict, routes: dict, wmma_convs: int = 0) -> None:
     """`routes` (`ops.launch_routes()` read with `launches`, just after a bf16
-    run): attention all on "wgmma"; conv3x3 (and its dx) on "wgmma" but for
-    `wmma_convs` launches with C or CO not a multiple of 8."""
+    run): attention, LayerNorm->Linear and GEGLU all on "wgmma"; conv3x3
+    (and its dx) on "wgmma" but for `wmma_convs` launches with C or CO not a
+    multiple of 8."""
     want = {"conv3x3": {"wgmma": launches["conv3x3"] - wmma_convs, "wmma": wmma_convs},
             "conv3x3_dx": {"wgmma": launches["conv3x3_dx"]},
             "token_attention": {"wgmma": launches["token_attention"]},
-            "attention_lse": {"wgmma": launches["attention_lse"]}}
+            "attention_lse": {"wgmma": launches["attention_lse"]},
+            "ln_linear": {"wgmma": launches["ln_linear"]},
+            "geglu_ff": {"wgmma": launches["geglu_ff"]}}
     want = {k: {r: n for r, n in v.items() if n} for k, v in want.items()}
     log(f"  launches by route {routes} (expected {want})")
     if routes != want:
@@ -619,7 +681,7 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, device=dev, generator=g)
-    max_abs = {name: 0.0 for name in REPLACES}
+    max_abs = {name: 0.0 for name in chain(REPLACES, ("ln_linear_grad", "geglu_ff_grad"))}
 
     def report(name, shape, dtype, got, want, bound):
         torch.cuda.synchronize()
@@ -726,25 +788,101 @@ def main() -> int:
                        ops.fused_update_plain(coef, 2, *[u.float() for u in xs[:4]],
                                               None if z is None else z.float()),
                        FUSED_BOUND[str(dt)[6:]])
-    # SD-2.1 at 768 px, CFG batch 8: (m, d) = (8 * tokens, width) at each level
+    # LayerNorm -> Linear and GEGLU at every transformer site of SD-2.1 at
+    # 768 px (CFG b8) and SD-1 at 512 px (CFG b2): (m, d) = (batch * tokens,
+    # width); M not a multiple of the row tiles; tiny, and ragged (d % 8 != 0:
+    # TMA cannot stride, the fused WMMA "wmma" kernels). A bf16 shape runs its plan's
+    # route, which must be "wgmma" but for the ragged ones, and where it is,
+    # "wmma" too; fp32 runs "f32". The plain version in fp32 on the same
+    # inputs (GEGLU's at bf16 inputs rounds the gated tile as the kernels do).
+    GE, LN = kernel_modules()
     sd_rows = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)]
-    # tiny, and ragged (d % 8 != 0: the kernel's unvectorised loads)
-    for (m, d), bias in chain(((r, False) for r in sd_rows), [((100, 32), True), ((1000, 36), True)]):
+    sd1_rows = [(8192, 320), (2048, 640), (512, 1280), (128, 1280)]
+    odd_rows = [(1000, 320), (100, 640), (1000, 1280)]
+    ragged_d = 36
+
+    def routed(fn, call):
+        """call(); the route `fn` counted it under."""
+        before = Counter(fn.launches_by_route)
+        out = call()
+        taken = [r for r, k in (Counter(fn.launches_by_route) - before).items() if k]
+        if len(taken) != 1:
+            fail(f"{fn.__name__}: one call counted under routes {taken}")
+        return out, taken[0]
+
+    def expected_route(d, dt):
+        return "f32" if dt == torch.float32 else "wmma" if d == ragged_d else "wgmma"
+
+    for (m, d), bias in chain(((r, False) for r in sd_rows + sd1_rows),
+                              ((r, True) for r in odd_rows + [(100, 32), (1000, ragged_d)])):
         for n in (3 * d, d) if d > 40 else (96 if d == 32 else 70,):
             for dt in (torch.float32, torch.bfloat16):
                 x, w = randn(m, d).to(dt), (randn(n, d) * d ** -0.5).to(dt)
                 gam, bet = 1 + 0.1 * randn(d), 0.1 * randn(d)
                 bb = randn(n) * 0.1 if bias else None
-                report("ln_linear", (m, d, n), dt, ops.ln_linear(x, gam, bet, w, bb),
-                       ops.ln_linear_plain(x.float(), gam, bet, w.float(), bb), BOUND[str(dt)[6:]])
-    for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows] + [(100, 32, 128), (300, 36, 100)]:
+                want = ops.ln_linear_plain(x.float(), gam, bet, w.float(), bb)
+                got, route = routed(ops.ln_linear, lambda: ops.ln_linear(x, gam, bet, w, bb))
+                if route != expected_route(d, dt):
+                    fail(f"ln_linear {(m, d, n)} {dt} took {route!r}")
+                report("ln_linear", (m, d, n, route), dt, got, want, BOUND[str(dt)[6:]])
+                if route == "wgmma":
+                    plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, dt), route="wmma")
+                    report("ln_linear", (m, d, n, "wmma"), dt,
+                           LN.ln_linear_launch(x, gam, bet, w, bb, 1e-5, plan), want,
+                           BOUND[str(dt)[6:]])
+                del x, w, got, want
+    for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows + sd1_rows + odd_rows] \
+            + [(100, 32, 128), (300, ragged_d, 100)]:
         for dt in (torch.float32, torch.bfloat16):
             x, w1 = randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt)
             w2 = (randn(d, inner) * inner ** -0.5).to(dt)
             b1, b2 = randn(2 * inner) * 0.1, randn(d) * 0.1
-            # the plain version at bf16 inputs rounds the gated tile as the kernel does
-            report("geglu_ff", (m, d, inner), dt, ops.geglu_ff(x, w1, b1, w2, b2),
-                   ops.geglu_plain(x, w1, b1, w2, b2), BOUND[str(dt)[6:]])
+            want = ops.geglu_plain(x, w1, b1, w2, b2)
+            got, route = routed(ops.geglu_ff, lambda: ops.geglu_ff(x, w1, b1, w2, b2))
+            if route != expected_route(d, dt):
+                fail(f"geglu_ff {(m, d, inner)} {dt} took {route!r}")
+            plan = GE.geglu_plan(m, d, inner, dt)
+            tiles = (f"rows {plan.gate_rows}/{plan.down_rows} split {plan.splits}",) \
+                if route == "wgmma" else ()
+            report("geglu_ff", (m, d, inner, route) + tiles, dt, got, want, BOUND[str(dt)[6:]])
+            if route == "wgmma":
+                report("geglu_ff", (m, d, inner, "wmma"), dt,
+                       GE.geglu_launch(x, w1, b1, w2, b2, dataclasses.replace(plan, route="wmma")),
+                       want, BOUND[str(dt)[6:]])
+            del x, w1, w2, got, want
+    # gradients on the card: the autograd Functions of ln_linear and geglu_ff
+    # (their forward on the kernels, their backward the recompute VJP of the
+    # plain twin) against autograd of the plain twin on the same inputs, at
+    # path B's middle site and SD-1's first, bf16 and fp32
+    for m, d in [(1152, 1280), (8192, 320)]:
+        for dt in (torch.float32, torch.bfloat16):
+            bound = BOUND[str(dt)[6:]]
+            n, inner = 3 * d, 4 * d
+            cases = {
+                "ln_linear": (ops.ln_linear, ops.ln_linear_plain,
+                              (randn(m, d).to(dt), 1 + 0.1 * randn(d), 0.1 * randn(d),
+                               (randn(n, d) * d ** -0.5).to(dt), 0.1 * randn(n)),
+                              ("dx", "dgamma", "dbeta", "dw", "dbias"), (m, n)),
+                "geglu_ff": (ops.geglu_ff, ops.geglu_plain,
+                             (randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt),
+                              0.1 * randn(2 * inner), (randn(d, inner) * inner ** -0.5).to(dt),
+                              0.1 * randn(d)),
+                             ("dx", "dw1", "db1", "dw2", "db2"), (m, d))}
+            for name, (fn, plain, args, names, out_shape) in cases.items():
+                cot = randn(*out_shape).to(dt)
+                with torch.enable_grad():
+                    ins = [a.clone().requires_grad_(True) for a in args]
+                    before = fn.launches
+                    out = fn(*ins)
+                    if out.grad_fn is None or fn.launches != before + 1:
+                        fail(f"{name} on the card: no gradient, or no kernel launch")
+                    got = torch.autograd.grad(out, ins, cot)
+                    ref = [a.clone().requires_grad_(True) for a in args]
+                    want = torch.autograd.grad(plain(*ref), ref, cot)
+                for what, a, b in zip(names, got, want):
+                    report(f"{name}_grad", (m, d, what), dt, a, b, bound)
+                del args, ins, out, got, ref, want
+    torch.cuda.empty_cache()
     # bias + scaled LeakyReLU, forward and backward (dx, and db summed from
     # it), against the plain version's autograd in fp32: path D's activation
     # shapes, ragged row counts (no block multiple), 3 to 512 channels, and
@@ -1364,7 +1502,8 @@ def main() -> int:
     for (name, spec), n in s1_calls.items():
         per_kernel_s1[name][spec] += n
     log("kernel times, SD-1 (one UNet forward at 64x64 latents, CFG b2, bf16: dh 40/80/160):")
-    time_path("SD-1", {k: v for k, v in per_kernel_s1.items() if k in ("conv3x3", "token_attention")},
+    time_path("SD-1", {k: v for k, v in per_kernel_s1.items()
+                       if k in ("conv3x3", "token_attention", "ln_linear", "geglu_ff")},
               launches_s1, "one SD-1 UNet forward, 64x64 latents, CFG b2")
 
     # path D: the specs of one network forward, times the plan's evaluations
@@ -1434,8 +1573,10 @@ def main() -> int:
              "sd1": launches_s1}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "sd1": routes_s1}
 
-    def newest(name):  # the newest path that timed the kernel ("none": no path runs it)
-        return list(timing[name])[-1]
+    def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
+        # SD-1's forward only where no path does)
+        timed = list(timing[name])
+        return ([p for p in timed if p != "SD-1"] or timed)[-1]
 
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
                     **{f"launches_path_{p}": counts[name] for p, counts in paths.items()},

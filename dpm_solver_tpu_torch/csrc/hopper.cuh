@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (attention.cu,
-// conv3x3.cu), for sm_90a: shared-memory mbarriers, TMA tile loads, the
+// conv3x3.cu, geglu.cu, ln_linear.cu), for sm_90a: shared-memory mbarriers, TMA tile loads, the
 // wgmma shared-memory descriptor and the wgmma instructions themselves, and
 // the host-side encoding of a TMA tensor map.
 //
@@ -79,7 +79,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (TMA, wgmma) once a barrier orders them before its reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {

@@ -1,4 +1,4 @@
-// LayerNorm -> Linear, out = LN(x; gamma, beta) . W (+ bias), for sm_90a.
+// LayerNorm -> Linear, out = LN(x; gamma, beta) . W^T (+ bias), for sm_90a.
 //
 // Replaces the Pallas kernel dpm_solver_tpu/ops/ln_linear.py::_fused_call
 // (bodies `_kernel_core`, `_kernel_bias`, `_kernel_nobias`). That kernel
@@ -13,42 +13,64 @@
 //   out[m, n] = sum_k xn[m, k] * W[n, k] (+ bias[n])    (fp32 accumulator)
 //
 // W is in torch's Linear layout, (n, d) row-major, so a module passes its
-// weight as it holds it, with no transpose.
+// weight as it holds it, with no transpose. This is the rounding of
+// ln_linear_reference exactly; the normalised tile never reaches device
+// memory.
 //
-// This is the rounding of ln_linear_reference exactly: the normalised tile
-// is rounded once to the weight dtype, and never reaches device memory.
+// What bounds it on the H100: the product does 2 d n flops a row against
+// 2 (d + n) bytes of x and out. At the SD-2.1 qkv site with d = 320
+// (n = 960) that is 240 flops a byte, under the card's ~295 bf16 ridge:
+// byte-bound, so x must be read once and the output written once, at
+// HBM rate; at d = 640 and 1,280 (n = d or 3d) it is compute-bound, so the
+// products belong on the tensor cores at their full rate, which only `wgmma`
+// fed by TMA reaches. Three kernels, by route (ops/ln_linear.py::ln_linear_plan):
 //
-// What bounds it on the H100: at the SD-2.1 sites (M = 1,152 .. 73,728 rows,
-// d = 320 .. 1,280, n = d or 3d) the product does 2*d*n flops per row
-// against (d + n) * 2 bytes, a few hundred flops per byte: near the bf16
-// ridge (~295), so both the tensor cores and the bytes matter. The design
-// reads x once per column run and writes the output once; the normalised
-// tile stays in shared memory. Two kernels, by dtype:
-//
-// - bf16: `ln_linear_bf16_mma`. A block owns 64 rows. It stages the raw rows
-//   in shared memory (16-byte loads where d % 8 == 0), each warp computes
-//   the mean and the two-pass variance of 16 rows in fp32 and overwrites
-//   them in place with the normalised bf16 values. The row tile is
-//   64 x (d rounded up to 32, + 8) bf16: 164,864 bytes at d = 1,280, so
-//   the whole tile stays resident and is read from shared memory for every
-//   column tile. The block then walks 64-wide column tiles: 4 warps each own
-//   32x32 of the 64x64 output tile as 2x2 WMMA 16x16x16 fragments with fp32
-//   accumulators (`mma.sync`). The weight is staged as 64 rows of W (output
-//   columns) by 32 along d, and read as column-major B fragments. The epilogue
-//   adds the fp32 bias and rounds once to bf16; the ragged edges of m and n
-//   (n = 960 at the 320-wide qkv site is no multiple of 128) are masked,
-//   and rows or columns past d are zero-filled. To fill the card at small m,
-//   the column tiles are split across blockIdx.y, each block re-normalising
-//   its rows (x is read once per split, not once per tile). `wgmma`, TMA
-//   and a multi-stage weight pipeline are the later steps.
-// - fp32: `ln_linear_f32`, the exact form on the CUDA cores: 16 rows per
+// - "wgmma" (bf16, d % 8 == 0, n % 8 == 0, the row tile within the
+//   resident budget, 16-byte aligned tensors): `ln_linear_wgmma`. A block
+//   owns BM rows (64 at d <= 320, two blocks an SM; 128 at d <= 640; 64
+//   above, or where 128-row tiles leave the card short of blocks) and a run
+//   of 128-column output tiles.
+//   1. TMA brings the raw bf16 rows in as ceil(d/64) 128-byte-swizzled
+//      64-column tiles, the layout `wgmma` reads, and stays resident:
+//      BM x d x 2 bytes, 160 KB at d = 640 (BM 128) and 1,280 (BM 64). At
+//      d = 320 the plan takes BM = 64 (40 KB): two blocks share an SM, so
+//      one's statistics and stores run under the other's products.
+//   2. The consumer warps take each row's fp32 mean and two-pass variance
+//      from shared memory and overwrite the tile in place with the
+//      normalised bf16 values, eight lanes a row and four rows a warp at
+//      once. The swizzle permutes the 16-byte chunks of a row (chunk q of
+//      row r sits at q ^ (r % 8)), so a lane takes one logical chunk of
+//      every 64-column tile, reads it where the swizzle put it, and keeps
+//      its gamma and beta columns from row to row; columns past d are
+//      written as 0. Eight lanes a row keep four rows' reductions in
+//      flight a warp, and float4 loads of gamma and beta serve every row.
+//   3. Those are generic-proxy writes that `wgmma` (the async proxy) reads:
+//      each writer runs `fence.proxy.async.shared::cta` and a named barrier
+//      over the consumers orders them before the first product. Without the
+//      fence the products may read the raw rows.
+//   4. Meanwhile the producer warp has started streaming W (n, d) tiles,
+//      128 rows by 64 along d, through a ring of stages guarded by full and
+//      empty mbarriers; the ring runs on across the block's column tiles,
+//      so the next tile's loads overlap this tile's epilogue. Two consumer
+//      warpgroups split the block's rows (m64n128k16 each) or, at BM = 64,
+//      its columns (m64n64k16), against the resident A.
+//   5. The epilogue adds the fp32 bias and writes bf16 pairs straight from
+//      the accumulators, masking the ragged n (960 = 7.5 tiles) and M.
+//   Where the row tiles alone leave the card short of blocks, the column
+//   tiles split into runs across blockIdx.y, each block renormalising its
+//   rows (x is read once per run, mostly from L2).
+// - "wmma" (bf16 with widths TMA cannot stride, or a row tile past the
+//   resident budget): `ln_linear_bf16_mma`, the first kernel: a 64-row tile
+//   normalised in padded shared memory, 64x64 output tiles from 4 warps of
+//   WMMA 16x16x16 fragments (`mma.sync`), W staged 32 deep, synchronously.
+// - "f32": `ln_linear_f32`, the exact form on the CUDA cores: 16 rows per
 //   block, normalised in fp32 shared memory, each thread four rows of one
 //   column.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,6 +80,13 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the sum over each aligned group of eight lanes
+__device__ __forceinline__ float row8_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -274,7 +303,213 @@ ln_linear_f32(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-int launch_bf16(const void* x, const void* gamma, const void* beta, const void* w,
+// ---- bf16 on the tensor cores: TMA + wgmma ---------------------------------
+
+constexpr int LN_THREADS = 2 * 128 + 32;        // two consumer warpgroups + the producer warp
+constexpr int LN_BN = 128;                      // output columns of one tile
+constexpr uint32_t LN_STAGE = LN_BN * 128;      // 128 W rows x 64 along d
+constexpr size_t LN_SMEM_MAX = 232448;          // what a block may use on the H100
+
+__host__ __device__ inline size_t ln_smem(int bm, int d, int stages) {
+  return 1024 + (size_t)bm * 128 * ((d + 63) / 64) + (size_t)stages * LN_STAGE + 8 + 16 * stages;
+}
+
+// WM = 2: 128 rows, the warpgroups split them (m64n128k16 each); WM = 1: 64
+// rows, they split the 128 columns (m64n64k16 each), and two blocks may
+// share an SM where their shared memory fits (d <= 320)
+template <int WM>
+__global__ void __launch_bounds__(LN_THREADS, WM == 1 ? 2 : 1)
+ln_linear_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ gamma, const float* __restrict__ beta,
+                const float* __restrict__ bias, bf16* __restrict__ out, int M, int d, int n,
+                int run, int stages, float eps) {
+  using namespace hopper;
+  constexpr int BM = 64 * WM, WN = 2 / WM, N = LN_BN / WN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* A = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int kch = (d + 63) / 64;
+  const uint32_t a_bytes = (uint32_t)BM * 128 * kch;
+  uint8_t* ring = A + a_bytes;
+  uint64_t* abar = reinterpret_cast<uint64_t*>(ring + (size_t)stages * LN_STAGE);
+  uint64_t* full = abar + 1;
+  uint64_t* empty = full + stages;
+
+  const int m0 = blockIdx.x * BM;
+  const int tiles = (n + LN_BN - 1) / LN_BN;
+  const int t0 = blockIdx.y * run, t1 = min(tiles, t0 + run);
+  const int niter = (t1 - t0) * kch;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(abar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer warp: the row tile once, then the W ring
+    if (lane == 0) {
+      mbar_expect_tx(abar, a_bytes);
+      for (int c = 0; c < kch; ++c) tma_load_2d(A + c * BM * 128, &xmap, abar, 64 * c, m0);
+      for (int it = 0; it < niter; ++it) {
+        const int s = it % stages;
+        mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], LN_STAGE);
+        tma_load_2d(ring + s * LN_STAGE, &wmap, &full[s], 64 * (it % kch),
+                    (t0 + it / kch) * LN_BN);
+      }
+    }
+    return;
+  }
+
+  // statistics and normalisation in place. Eight lanes take a row, four
+  // rows a warp at once: lane l of the eight the 16-byte chunk l of every
+  // 64-column tile (columns 64 i + 8 l ..), which the swizzle stores at
+  // chunk l ^ (r % 8) of the row, so a lane's columns, and its gamma and
+  // beta, are the same on every row, and the eight lanes read the eight
+  // chunks of a row: no bank conflict.
+  mbar_wait(abar, 0);
+  const int sub = lane % 8;
+  for (int r = warp * 4 + lane / 8; r < BM; r += 32) {
+    uint8_t* row = A + r * 128 + ((sub ^ (r % 8)) * 16);
+    float s = 0.f;
+    for (int i = 0; i < kch && 64 * i + 8 * sub < d; ++i) {  // d % 8 == 0
+      const uint4 v = *reinterpret_cast<const uint4*>(row + i * BM * 128);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        s += f.x + f.y;
+      }
+    }
+    const float mean = row8_sum(s) / d;
+    float var = 0.f;
+    for (int i = 0; i < kch && 64 * i + 8 * sub < d; ++i) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + i * BM * 128);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        var += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+      }
+    }
+    const float rstd = rsqrtf(row8_sum(var) / d + eps);
+    for (int i = 0; i < kch; ++i) {
+      const int col = 64 * i + 8 * sub;
+      uint4* dst = reinterpret_cast<uint4*>(row + i * BM * 128);
+      uint4 v = make_uint4(0, 0, 0, 0);  // columns past d: zero, for the padded K
+      if (col < d) {
+        v = *dst;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+        const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
+        const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
+        const float4 c0 = *reinterpret_cast<const float4*>(beta + col);
+        const float4 c1 = *reinterpret_cast<const float4*>(beta + col + 4);
+        const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float bs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          h[e] = __floats2bfloat162_rn((f.x - mean) * rstd * gs[2 * e] + bs[2 * e],
+                                       (f.y - mean) * rstd * gs[2 * e + 1] + bs[2 * e + 1]);
+        }
+      }
+      *dst = v;
+    }
+  }
+  // the normalised tile, written through the generic proxy, is read by wgmma
+  fence_proxy_async();
+  named_sync(1, 256);
+
+  const int wg = warp / 4, wm = wg % WM, wn = wg / WM;
+  const int quad = lane % 4;
+  float acc[N / 2];
+  int it = 0;
+  for (int t = t0; t < t1; ++t) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int kc = 0; kc < kch; ++kc, ++it) {
+      const int s = it % stages;
+      mbar_wait(&full[s], (it / stages) & 1);
+      const uint32_t a = smem_u32(A + kc * BM * 128) + wm * 64 * 128;
+      const uint32_t bt = smem_u32(ring + s * LN_STAGE) + wn * N * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<N>::template ss<0>(acc, desc(a + kk * 32, 16, 1024), desc(bt + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      // the previous stage's products are done: hand its buffer back
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kc > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % stages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % stages]);
+
+    // epilogue: rows r and r + 8 of this warp's 16, columns 2(lane%4) (+1) of every 8
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm * 64 + (warp % 4) * 16 + lane / 4 + 8 * r;
+      if (m >= M) continue;
+      bf16* dst = out + (long long)m * n;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = t * LN_BN + wn * N + 8 * j + 2 * quad;
+        if (c >= n) continue;  // n % 8 == 0: a pair is in or out as a whole
+        const float b0 = bias != nullptr ? bias[c] : 0.f;
+        const float b1 = bias != nullptr ? bias[c + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1);
+      }
+    }
+  }
+}
+
+template <int WM>
+int launch_wgmma_rows(const void* x, const void* gamma, const void* beta, const void* w,
+                      const void* bias, void* out, int M, int d, int n, int run, int stages,
+                      float eps, cudaStream_t stream) {
+  constexpr int BM = 64 * WM;
+  const size_t smem = ln_smem(BM, d, stages);
+  if (stages < 2 || smem > LN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, wm;
+  const uint64_t xdims[2] = {(uint64_t)d, (uint64_t)M}, xstr[1] = {2ull * d};
+  const uint64_t wdims[2] = {(uint64_t)d, (uint64_t)n}, wstr[1] = {2ull * d};
+  const uint32_t xbox[2] = {64, (uint32_t)BM}, wbox[2] = {64, (uint32_t)LN_BN};
+  int code = hopper::make_map(&xm, x, 2, xdims, xstr, xbox);
+  if (code == 0) code = hopper::make_map(&wm, w, 2, wdims, wstr, wbox);
+  if (code != 0) return code;
+  cudaError_t err = hopper::set_smem_once<ln_linear_wgmma<WM>>(LN_SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (n + LN_BN - 1) / LN_BN;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((tiles + run - 1) / run));
+  ln_linear_wgmma<WM><<<grid, LN_THREADS, smem, stream>>>(
+      xm, wm, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), M, d, n, run, stages, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* x, const void* gamma, const void* beta, const void* w,
+                 const void* bias, void* out, int M, int d, int n, int rows, int run,
+                 int stages, float eps, cudaStream_t s) {
+  // TMA: 16-byte aligned bases and byte strides; bf16 pairs stored whole;
+  // gamma and beta read as float4
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(gamma) |
+                        reinterpret_cast<uintptr_t>(beta);
+  if (d % 8 != 0 || n % 8 != 0 || any % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (run < 1) return (int)cudaErrorInvalidValue;
+  if (rows == 128) return launch_wgmma_rows<2>(x, gamma, beta, w, bias, out, M, d, n, run, stages, eps, s);
+  if (rows == 64) return launch_wgmma_rows<1>(x, gamma, beta, w, bias, out, M, d, n, run, stages, eps, s);
+  return (int)cudaErrorInvalidValue;  // the host's tile is not a compiled one
+}
+
+int launch_wmma(const void* x, const void* gamma, const void* beta, const void* w,
                 const void* bias, void* out, int M, int d, int n, float eps,
                 cudaStream_t stream) {
   const Layout L = layout(d);
@@ -317,15 +552,23 @@ int launch_f32(const void* x, const void* gamma, const void* beta, const void* w
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it); gamma, beta and
-// bias are float32 (bias may be null). All contiguous: x (M, d), w (n, d)
-// (torch's Linear layout), out (M, n). Returns the cudaError_t of the launch.
+// route (ops/ln_linear.py::ln_linear_plan): 0 = "f32" (x, w, out float32),
+// 1 = "wmma" and 2 = "wgmma" (bfloat16). gamma, beta and bias are float32
+// (bias may be null). All contiguous: x (M, d), w (n, d) (torch's Linear
+// layout), out (M, n). "wgmma" needs d % 8 == 0, n % 8 == 0 and 16-byte
+// aligned x, w, out, gamma and beta, and takes the host's tile: rows (128 or 64) a block,
+// run (128-column output tiles a block), stages (of the W ring); the other
+// routes ignore them. Returns the cudaError_t of the launch, or a
+// TMA-encoding error code (>= 10000).
 extern "C" int dpm_ln_linear_fwd(const void* x, const void* gamma, const void* beta,
                                  const void* w, const void* bias, void* out, int M, int d,
-                                 int n, float eps, int dtype, void* stream) {
+                                 int n, float eps, int route, int rows, int run, int stages,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || d <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_f32(x, gamma, beta, w, bias, out, M, d, n, eps, s);
-  if (dtype == 1) return launch_bf16(x, gamma, beta, w, bias, out, M, d, n, eps, s);
+  if (route == 0) return launch_f32(x, gamma, beta, w, bias, out, M, d, n, eps, s);
+  if (route == 1) return launch_wmma(x, gamma, beta, w, bias, out, M, d, n, eps, s);
+  if (route == 2)
+    return launch_wgmma(x, gamma, beta, w, bias, out, M, d, n, rows, run, stages, eps, s);
   return (int)cudaErrorInvalidValue;
 }

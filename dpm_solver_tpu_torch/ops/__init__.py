@@ -16,13 +16,16 @@
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
-counts under one wrapper only. The wrappers of the kernels with more than
-one route (`ROUTED`: conv3x3 and its dx, "wgmma" / "wmma" / "f32"; the
-attention forward, "wgmma" / "f32") also count them by route, in
-`<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
+counts under one wrapper only (a `geglu_ff` call counts one, whichever of
+its route's kernels it runs). The wrappers of the kernels with more than
+one route (`ROUTED`: conv3x3 and its dx, ln_linear and geglu_ff, "wgmma" /
+"wmma" / "f32"; the attention forward, "wgmma" / "f32") also count them by
+route, in `<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
-for them launches as `attention_lse`. `fused_bias_act` and
+for them launches as `attention_lse`. `ln_linear` and `geglu_ff` are
+differentiable too; their backwards are recompute VJPs of their plain
+twins (`ln_linear_vjp`, `geglu_vjp`), as in the JAX package. `fused_bias_act` and
 `attention_out_fused` are differentiable too, and, as in the JAX package,
 no sampling path calls them. `resample` holds the FIR resampling ops:
 library convs, no kernel.
@@ -45,13 +48,14 @@ from dpm_solver_tpu_torch.ops.conv3x3 import Conv3x3, conv3x3, conv3x3_dx, conv3
 from dpm_solver_tpu_torch.ops.fused_act import (bias_act_grad_plain, bias_act_plain,
                                                 fused_bias_act, fused_bias_act_bwd)
 from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_plain
-from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, gelu_exact
-from dpm_solver_tpu_torch.ops.ln_linear import layer_norm_fp32, ln_linear, ln_linear_plain
+from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, geglu_vjp, gelu_exact
+from dpm_solver_tpu_torch.ops.ln_linear import (layer_norm_fp32, ln_linear, ln_linear_plain,
+                                               ln_linear_vjp)
 
 KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
            attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
            attention_out_fused)
-ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse)
+ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse, ln_linear, geglu_ff)
 
 
 def reset_launch_counts() -> None:
@@ -93,12 +97,14 @@ __all__ = [
     "fused_update_plain",
     "geglu_ff",
     "geglu_plain",
+    "geglu_vjp",
     "gelu_exact",
     "launch_counts",
     "launch_routes",
     "layer_norm_fp32",
     "ln_linear",
     "ln_linear_plain",
+    "ln_linear_vjp",
     "reset_launch_counts",
     "token_attention",
 ]

@@ -336,7 +336,10 @@ class DPM_Solver:
         noise: Optional[torch.Tensor] = None,
         variant: str = "bh2",
         mesh=None,
+        denoise: Optional[bool] = None,
     ):
+        if denoise is not None:  # older JAX kwarg (dpm_solver_jax.py:966-968)
+            denoise_to_zero = bool(denoise)
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got {method!r}")
         if mesh is not None:
@@ -401,6 +404,8 @@ class DPM_Solver:
         lower_order_final: bool = True,
         denoise_to_zero: bool = False,
         solver_type: str = "dpmsolver",
+        atol: float = 0.0078,
+        rtol: float = 0.05,
         return_intermediate: bool = False,
         noise: Optional[torch.Tensor] = None,
     ):
@@ -414,6 +419,6 @@ class DPM_Solver:
         return self.sample(
             x, steps=steps, t_start=t_0, t_end=t_T, order=order, skip_type=skip_type,
             method=method, lower_order_final=lower_order_final,
-            denoise_to_zero=denoise_to_zero, solver_type=solver_type,
+            denoise_to_zero=denoise_to_zero, solver_type=solver_type, atol=atol, rtol=rtol,
             return_intermediate=return_intermediate, noise=noise,
         )

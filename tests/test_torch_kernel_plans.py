@@ -1,10 +1,13 @@
-"""The host-side plans of the two TMA + wgmma kernels, held on the CPU.
+"""The host-side plans of the TMA + wgmma kernels, held on the CPU.
 
-Every shape decision of `csrc/conv3x3.cu` and `csrc/attention.cu` is made in
-Python and handed to the kernel: the conv route and its 128-pixel output
-patch (`ops/conv3x3.py::conv3x3_plan`), and the attention tile per head dim
-(`ops/attention.py::attention_plan`). The kernels run on the card only, so
-these tests hold, on the CPU, what the plans promise:
+Every shape decision of `csrc/conv3x3.cu`, `csrc/attention.cu`,
+`csrc/geglu.cu` and `csrc/ln_linear.cu` is made in Python and handed to the
+kernel: the conv route and its 128-pixel output patch
+(`ops/conv3x3.py::conv3x3_plan`), the attention tile per head dim
+(`ops/attention.py::attention_plan`), GEGLU's route, row tiles and split
+(`ops/geglu.py::geglu_plan`) and LayerNorm->Linear's route, rows, ring and
+column runs (`ops/ln_linear.py::ln_linear_plan`). The kernels run on the card
+only, so these tests hold, on the CPU, what the plans promise:
 
 - every conv shape of paths A-D, the SD VAE decoder and SD-1 (listed below,
   and checked against the configs by tracing them on the meta device), and
@@ -14,10 +17,19 @@ these tests hold, on the CPU, what the plans promise:
   decode of a patch, and its masks on a ragged edge, are held on the card
   by `chip_smoke.py`);
 - every head dim: the tile fits the 227 KB a block may use, and its shapes
-  are what `wgmma` and the 128-byte swizzle take.
+  are what `wgmma` and the 128-byte swizzle take;
+- every GEGLU and LayerNorm->Linear site of the SD-2.1 and SD-1 UNets
+  (listed below, and checked against the configs on the meta device) takes
+  "wgmma", its tiles cover M, N and K, its blocks fit their shared memory,
+  and its grid covers the card's 132 SMs (GEGLU's down-projection by a
+  split of its reduction where 64-row blocks fall short; LayerNorm->Linear
+  wherever its 128-column tiles allow); ragged widths take "wmma";
+- the tiles the plans name are the ones the C sources compile.
 """
 
 import dataclasses
+import importlib
+import re
 from collections import Counter
 from itertools import chain
 
@@ -33,6 +45,11 @@ from dpm_solver_tpu_torch.ops.attention import (HEAD_DIMS, SMEM_PER_BLOCK, Atten
                                                 attention_plan)
 from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA_SMEM,
                                               conv3x3_patch, conv3x3_plan)
+from dpm_solver_tpu_torch.ops import geglu as geglu_mod
+from dpm_solver_tpu_torch.ops.geglu import geglu_plan
+from dpm_solver_tpu_torch.ops.ln_linear import ln_linear_plan
+
+ln_linear_mod = importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear")
 
 # (B, H, W, C, CO) of every Conv3x3 call of one network forward at each
 # path's batch: A CIFAR-10 DDPM b64; D DDPM++ deep b256; B SD-2.1 UNet at
@@ -83,6 +100,7 @@ RAGGED = [(2, 8, 8, 32, 64), (3, 5, 7, 20, 9), (3, 5, 7, 24, 16), (1, 13, 19, 20
           (5, 2, 33, 16, 24)]
 GROUPS = {**CONV_SHAPES, "ragged": RAGGED}
 SHARED_MEMORY_PER_SM = 233472  # 228 KB on the H100, of which 1 KB a block is reserved
+SMEM_PER_BLOCK = 232448        # what one block may use (227 KB)
 
 
 def _meta_forward(path: str):
@@ -207,3 +225,120 @@ def test_attention_head_dims_of_the_sd_unets_are_taken(cfg, want):
                                                *plan["output_blocks"])
             if spec["kind"] == "xattn"}
     assert dims == want and dims <= set(HEAD_DIMS)
+
+
+# (M, d) of every transformer site of one UNet forward: M = batch x tokens
+# (SD-2.1 at 96x96 latents, CFG b8; SD-1 at 64x64, CFG b2), d the width. A
+# site runs LayerNorm->Linear at n = 3d (norm1 -> qkv) and n = d (norm2 ->
+# to_q), and GEGLU at inner = 4d.
+SD_SITES = {"B": [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)],
+            "SD-1": [(8192, 320), (2048, 640), (512, 1280), (128, 1280)]}
+SITES = [(path, m, d) for path, sites in SD_SITES.items() for m, d in sites]
+SMS = 132
+RAGGED_FF = [(1000, 36, 144), (300, 36, 100), (77, 40, 100), (64, 12, 48)]
+
+
+@pytest.mark.parametrize("path", sorted(SD_SITES))
+def test_sd_sites_are_the_configs(path, monkeypatch):
+    """The listed sites are exactly the UNets' ln_linear and geglu_ff calls:
+    each network's forward traced on the meta device through the plain twins."""
+    seen = Counter()
+
+    def ln(x, gamma, beta, w, bias=None, *, eps=1e-5):
+        seen["ln_linear", x.shape[0] * x.shape[1], x.shape[-1], w.shape[0]] += 1
+        return ops.ln_linear_plain(x, gamma, beta, w, bias, eps=eps)
+
+    def ff(x, w1, b1, w2, b2):
+        seen["geglu_ff", x.shape[0] * x.shape[1], x.shape[-1], w2.shape[1]] += 1
+        return ops.geglu_plain(x, w1, b1, w2, b2)
+
+    monkeypatch.setattr(_build, "device_type", lambda t, what: "cpu")
+    monkeypatch.setattr(transformer, "ln_linear", ln)
+    monkeypatch.setattr(transformer, "geglu_ff", ff)
+    net, args = _meta_forward(path)
+    with torch.no_grad():
+        net(*args)
+    want = set()
+    for m, d in SD_SITES[path]:
+        want |= {("ln_linear", m, d, 3 * d), ("ln_linear", m, d, d), ("geglu_ff", m, d, 4 * d)}
+    assert set(seen) == want
+
+
+@pytest.mark.parametrize("path,m,d", SITES, ids=[f"{p}-{m}x{d}" for p, m, d in SITES])
+def test_geglu_plan_at_the_sd_sites(path, m, d):
+    inner = 4 * d
+    plan = geglu_plan(m, d, inner, torch.bfloat16)
+    assert plan.route == "wgmma" and plan.gate_rows in (64, 128) and plan.down_rows in (64, 128)
+    # tiles cover M and the columns; the split covers K, no split empty
+    assert plan.gate_blocks(m, inner) * plan.gate_rows * geglu_mod.GATE_COLS >= m * inner
+    chunks = -(-inner // 64)
+    per = -(-chunks // plan.splits)
+    assert plan.splits * per >= chunks and (plan.splits - 1) * per < chunks
+    assert plan.splits == 1 or chunks // plan.splits >= 4
+    # shared memory: the gate block fits twice on an SM, the down block once
+    assert 2 * (geglu_mod.gate_smem(plan.gate_rows) + 1024) <= SHARED_MEMORY_PER_SM
+    assert geglu_mod.down_smem(plan.down_rows) <= SMEM_PER_BLOCK
+    # the grid covers the card: the gate kernel runs two blocks an SM
+    assert plan.gate_blocks(m, inner) >= 2 * SMS or plan.gate_rows == 64
+    assert plan.gate_blocks(m, inner) >= SMS
+    assert plan.down_blocks(m, d) >= SMS
+    small = -(-m // 128) * -(-d // geglu_mod.DOWN_COLS) < SMS
+    assert (plan.down_rows == 64 or plan.splits > 1) == small
+
+
+@pytest.mark.parametrize("n_of_d", [3, 1], ids=["qkv", "to_q"])
+@pytest.mark.parametrize("path,m,d", SITES, ids=[f"{p}-{m}x{d}" for p, m, d in SITES])
+def test_ln_linear_plan_at_the_sd_sites(path, m, d, n_of_d):
+    n = n_of_d * d
+    plan = ln_linear_plan(m, d, n, torch.bfloat16)
+    assert plan.route == "wgmma" and plan.rows in (64, 128) and plan.stages >= 2
+    assert plan.rows == 64 or d <= 640
+    smem = ln_linear_mod.wgmma_smem(plan.rows, d, plan.stages)
+    assert smem <= SMEM_PER_BLOCK
+    # the resident row tile covers d; the runs cover the column tiles
+    col_tiles = -(-n // ln_linear_mod.BLOCK_N)
+    runs = -(-col_tiles // plan.run)
+    assert 1 <= plan.run <= col_tiles and runs * plan.run >= col_tiles
+    assert (runs - 1) * plan.run < col_tiles
+    assert plan.blocks(m, n) == -(-m // plan.rows) * runs
+    # the grid covers the card wherever 64-row blocks of one column tile can
+    assert plan.blocks(m, n) >= min(SMS, -(-m // 64) * col_tiles)
+
+
+@pytest.mark.parametrize("m,d,inner", RAGGED_FF, ids=str)
+def test_ragged_widths_take_wmma(m, d, inner):
+    """TMA strides rows in 16-byte steps: d, inner or n not a multiple of 8,
+    or a tensor off a 16-byte boundary, takes the WMMA ("wmma") kernels; fp32
+    takes "f32"."""
+    tma = d % 8 == 0 and inner % 8 == 0
+    assert geglu_plan(m, d, inner, torch.bfloat16).route == ("wgmma" if tma else "wmma")
+    assert ln_linear_plan(m, d, inner, torch.bfloat16).route == ("wgmma" if tma else "wmma")
+    assert geglu_plan(m, d, inner, torch.float32).route == "f32"
+    assert ln_linear_plan(m, d, inner, torch.float32).route == "f32"
+    assert geglu_plan(m, 320, 1280, torch.bfloat16, aligned=False).route == "wmma"
+    assert ln_linear_plan(m, 320, 960, torch.bfloat16, aligned=False).route == "wmma"
+
+
+def test_ln_linear_row_tile_past_the_budget_takes_wmma():
+    """64 rows of width d must fit beside two W stages; past that, "wmma"."""
+    assert ln_linear_plan(4096, 1536, 1536, torch.bfloat16).route == "wgmma"
+    assert ln_linear_plan(4096, 1600, 1600, torch.bfloat16).route == "wmma"
+
+
+def _cu_constant(source: str, name: str) -> int:
+    text = (_build.CSRC / source).read_text()
+    found = re.search(rf"constexpr (?:int|uint32_t|size_t) {name} = ([0-9]+);", text)
+    assert found, f"{name} in {source}"
+    return int(found.group(1))
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("geglu.cu", "GATE_COLS", geglu_mod.GATE_COLS),
+    ("geglu.cu", "GATE_STAGES", geglu_mod.GATE_STAGES),
+    ("geglu.cu", "DOWN_COLS", geglu_mod.DOWN_COLS),
+    ("geglu.cu", "DOWN_STAGES", geglu_mod.DOWN_STAGES),
+    ("ln_linear.cu", "LN_BN", ln_linear_mod.BLOCK_N),
+    ("ln_linear.cu", "LN_SMEM_MAX", ln_linear_mod.SMEM_PER_BLOCK)], ids=lambda v: str(v))
+def test_plans_name_the_compiled_tiles(source, name, value):
+    """The plans' tile constants are the C sources' (the entries refuse others)."""
+    assert _cu_constant(source, name) == value

@@ -10,6 +10,9 @@
     The wrapper's parameterizations and its guidance modes (classifier-free,
     and classifier guidance with an analytic classifier) are held to the JAX
     `model_wrapper` within 1e-6.
+    `inverse` passes the adaptive solver's atol and rtol through, and
+    `sample(denoise=)` is the older spelling of denoise_to_zero, as in the
+    JAX `DPM_Solver`.
 (b) The whole slice, small: the tiny DDPM UNet with one random init carried
     into both frameworks, batch 2 at 16x16, DPM-Solver++ 3M for 10 NFE on the
     logSNR grid of the discrete schedule, through `model_wrapper` and
@@ -216,3 +219,34 @@ def test_whole_slice_tiny_unet_matches_jax():
         got = solver_t.sample(torch.tensor(x), **kwargs)
     assert got.shape == (2, 16, 16, 3) and torch.isfinite(got).all()
     assert_traj_close(got.numpy(), want)
+
+
+def test_inverse_passes_atol_rtol_to_the_adaptive_solver():
+    """inverse(method="adaptive", atol=, rtol=) against the JAX inverse, within
+    1e-4 of max|x|, and unlike the defaults' result. The adaptive controller
+    steps toward t = 0 only, in both packages (its step is clamped by
+    minimum(., lambda_0 - lambda_s): dpm_solver_tpu/solver/adaptive.py:124),
+    so an adaptive inverse from t_0 up to T does not end in either; the
+    inverse is taken over the direction the controller runs."""
+    ns_j, ns_t = _schedules("discrete")
+    x = np.random.default_rng(6).standard_normal(SHAPE).astype(np.float32)
+    solver_j = J.DPM_Solver(J.model_wrapper(toy_jax, ns_j), ns_j)
+    solver_t = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t)
+    kw = dict(method="adaptive", order=3, t_start=1.0, t_end=1e-3)
+    want = np.asarray(solver_j.inverse(jnp.asarray(x), atol=0.02, rtol=0.1, **kw))
+    got = solver_t.inverse(torch.tensor(x), atol=0.02, rtol=0.1, **kw).numpy()
+    assert_traj_close(got, want)
+    default = solver_t.inverse(torch.tensor(x), **kw).numpy()
+    assert np.abs(default - got).max() > 1e-2 * np.abs(want).max()
+
+
+def test_sample_denoise_is_denoise_to_zero():
+    _, ns_t = _schedules("discrete")
+    x = torch.tensor(np.random.default_rng(7).standard_normal(SHAPE).astype(np.float32))
+    solver = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t)
+    kwargs = dict(steps=6, order=3, skip_type="logSNR", method="multistep")
+    denoised = solver.sample(x, denoise_to_zero=True, **kwargs)
+    assert torch.equal(solver.sample(x, denoise=True, **kwargs), denoised)
+    assert not torch.equal(solver.sample(x, **kwargs), denoised)
+    assert torch.equal(solver.sample(x, denoise=False, denoise_to_zero=True, **kwargs),
+                       solver.sample(x, **kwargs))
