@@ -13,7 +13,10 @@ and nothing of JAX. Phases, each fatal on failure:
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16:
    the forwards, and the attention forward's lse, the attention backward's
-   dq and dk/dv and conv3x3's input gradient; and the two kernels no path
+   dq and dk/dv (at dh 64, and at every other head dim and dtype they take:
+   dh 256 at 16x16, SD-1's 40/80/160, 32, 128, fp32 512 at T = S = 1024;
+   at each, the forward's o and lse are checked first on the same inputs)
+   and conv3x3's input gradient; and the two kernels no path
    launches (as in the JAX package): bias + LeakyReLU forward and backward
    at path D's activation shapes and ragged ones, and attention with its
    out-projection and residual fused at the SD-2.1 sites and ragged ones;
@@ -66,9 +69,32 @@ and nothing of JAX. Phases, each fatal on failure:
    batch 16, its NFE printed; the deep net in fp32 at batch 2, 3 NFE, on the
    card against the plain path on the CPU; and the adaptive solver on a tiny
    FIR VP NCSN++ in fp32, card against CPU: the same NFE and within 5e-3;
+7b. path E, ScoreSDE bits/dim: `likelihood.get_likelihood_fn` on path D's
+   DDPM++ deep at full width in fp32 (the dtype score_sde reports bits/dim
+   in), frozen, continuous VP, labels t*999, batch LIK_BATCH of seeded
+   8-bit images uniformly dequantised to [-1, 1], a Rademacher probe. First
+   each conv3x3 and its dx, and the attention's lse form (o and lse) and its
+   dq and dk/dv, at every spec of the path's network forward, in fp32
+   against the plain versions. Then the likelihood call, RK45
+   at rtol = atol = LIK_TOL (the JAX default 1e-5 loosened for time, PERF.md
+   section 4) and eps LIK_EPS (the JAX default). Every stage
+   differentiates the network once (one vector-Jacobian product), so its
+   backward runs the attention dq and dk/dv kernels at dh 256 and the
+   conv3x3 dx: the launch counters must rise by exactly the config's counts
+   per stage times the call's NFE, and no conv3x3 weight gradient may run
+   (`torch.nn.grad.conv2d_weight` counted by a wrapper here). Then one
+   stage of the same network at b2, card against CPU within 1e-4 of each
+   value's max: the network's vector-Jacobian product with the probe, the
+   probability-flow drift and its divergence estimate. Then the tiny
+   FIR VP NCSN++ (unconditional: random weights on the t*999 embedding make
+   RK45 take thousands of NFE) in fp32, card against CPU, bits/dim and the
+   black-box `ode_sampler` (with its denoising step): the same NFE, bits/dim
+   within 1e-3, z and the samples within 5e-3 of their max;
 8. timing: each path's median wall time, the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
-   shares, the ScoreSDE call's network-forward share, and each kernel
+   shares, the ScoreSDE call's network-forward share, the bits/dim call's
+   wall (median of LIK_TIMED_RUNS after the counted one), NFE, ms per NFE
+   and its network forward and backward shares, and each kernel
    against its plain version, the one PyTorch call that computes the same
    function (where there is one; for LayerNorm->Linear and GEGLU, which no
    one call computes, the bf16 composition of library calls, labelled
@@ -77,7 +103,11 @@ and nothing of JAX. Phases, each fatal on failure:
    forward (the kernels no
    path launches: one launch at each shape where they would run, the fused
    attention output beside the unfused composition), each beside the card's
-   name and power limit, with the tensor-core rate and the bound's share.
+   name and power limit, with the tensor-core rate and the bound's share;
+   path E's kernels in fp32 (their bound counts fp32 operations at the CUDA
+   cores' peak); and the dq and dk/dv kernels at each head dim and dtype,
+   one launch at each site, beside the plain twin, SDPA's backward and the
+   bound.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention, LayerNorm->Linear and
@@ -90,7 +120,8 @@ partials), so `adm_unet_launches` counts one per feed-forward.
 The last two lines are the kernels' JSON record (each kernel's times on the
 newest path that runs it at the top level, or under "none" for a kernel no
 path launches, every path's and the SD-1 forward's in `timing_by_path`, its
-launches on every path)
+launches on every path; the attention kernels' head dims by dtype, and the
+backward's times by head dim under `by_head_dim`)
 and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -108,6 +139,7 @@ import time
 from collections import Counter
 from itertools import chain
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 BATCH, STEPS, ORDER = 64, 10, 3                    # path A
@@ -119,14 +151,39 @@ GUIDED_BATCH, GUIDED_SIZE, GUIDED_STEPS, GUIDED_SCALE = 8, 256, 20, 8.0   # path
 GUIDED_TIMED_RUNS = 3
 SCORE_BATCH, SCORE_STEPS, SCORE_T_END = 256, 10, 1e-3                     # path D
 SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
+# path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
+# loosened to 1e-4 to keep the phase near its time budget (PERF.md section 4:
+# the call is host-bound, so a smaller batch would not be faster)
+LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 3
 # the adaptive solver's bound, card against CPU: each side accepts its steps
 # on its own fp32 error estimate (tests/test_solver_parity.py:286)
 ADAPTIVE_BOUND = 5e-3
+# bits/dim, card against CPU, absolute (tests/test_torch_likelihood.py)
+BPD_BOUND = 1e-3
 # bounds on max|kernel - plain| / max|plain| (plain in fp32 on the same inputs,
 # TF32 off): fp32 -> different summation order only; bf16 -> the kernel's one
 # rounding of its output to bf16 (unit roundoff 2^-8 = 3.9e-3) plus order
 BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
 FUSED_BOUND = {"float32": 1e-6, "bfloat16": 1e-2}
+# the attention backward at the head dims past 64, relative to max|plain|:
+# tests/test_torch_attention_bwd.py's bounds (:29-30)
+BWD_BOUND = {"float32": 2e-5, "bfloat16": 0.05}
+# (b, t, s, heads, dh, q/k/v as column slices of one projection): dh 256 at
+# 16x16 (NCSN++/DDPM's single head; path E's b8, its qkv slices), SD-1's
+# sites at 512 px CFG b2 (dh 40/80/160, self- and cross-attention), dh 32
+# and 128 at one site each, fp32 dh 512 at T = S = 1024 (the VAE's
+# mid-block at 256 px), and ragged T, S (S >= 2: ROADMAP's S = 1 note;
+# T % 64 != 0 marks a ragged check shape, not timed)
+BWD_SHAPES = [(8, 256, 256, 1, 256, True), (8, 256, 256, 1, 256, False),
+              (1, 77, 50, 2, 256, False), (2, 4096, 4096, 8, 40, False),
+              (2, 4096, 77, 8, 40, False), (2, 1024, 1024, 8, 80, False),
+              (2, 1024, 77, 8, 80, False), (2, 256, 256, 8, 160, False),
+              (2, 256, 77, 8, 160, False), (2, 64, 64, 8, 160, False),
+              (3, 333, 117, 2, 40, False), (3, 333, 333, 2, 80, True),
+              (3, 333, 237, 2, 160, False), (2, 64, 64, 8, 32, False),
+              (3, 33, 129, 4, 128, False), (2, 256, 256, 4, 128, False),
+              (1, 1024, 1024, 1, 512, False),
+              (1, 77, 77, 1, 512, True)]
 # fp32 trajectories, kernels on the card vs plain ops on the CPU, relative to
 # max|x|: the repo's trajectory parity bound (tests/test_solver_parity.py:70-75)
 SLICE_BOUND = 1e-4
@@ -150,6 +207,8 @@ REPLACES = {
                  "dpm_solver_tpu/ops/geglu.py:125"),
     "attention_lse": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
                       "dpm_solver_tpu/ops/attention.py:187 (_lse, _lse_kernel :157)"),
+    # rows 8-9 take every head dim of the forward, bf16 but 512: the JSON
+    # record's "head_dims" (from ops/attention.py::BWD_HEAD_DIMS)
     "attention_dq": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
                      "dpm_solver_tpu/ops/attention.py:375 (_mha_backward dq: _dq_kernel :226, "
                      "_dq_kernel_T :245)"),
@@ -232,12 +291,38 @@ def rel_err(got, want) -> tuple:
 # --------------------------------------------------------------------------- #
 
 
-def make_case(name: str, spec: tuple, randn, route: str = None):
-    """(kernel, plain, library or None, bf16 tensor-core flops, fp32 ops,
-    bytes) for one bf16 call (fp32 for the fused update) at `spec`. For the
-    kernels in COMPOSED the library slot holds the bf16 composition of
-    library calls instead, and `route` forces their kernel's route ("wmma":
-    the fused WMMA kernel) in place of the plan's."""
+class Case(NamedTuple):
+    """One kernel call at one shape: the kernel, its plain version, the
+    library call (for COMPOSED, the bf16 composition of library calls) or
+    None, and the work its bound counts: tensor-core flops (bf16 products),
+    fp32 operations (on the CUDA cores: elementwise work, and the products
+    of an fp32 call) and bytes (each input read once, each output written
+    once)."""
+    kernel: Callable
+    plain: Callable
+    library: Optional[Callable]
+    tc_flops: float
+    fp32_ops: float
+    nbytes: float
+
+    @property
+    def work(self) -> float:
+        """What the rate ("TFLOP/s", the JSON's "tflops") counts: the
+        tensor-core flops, or the fp32 operations of a call that has none
+        (an fp32 call, an elementwise kernel)."""
+        return self.tc_flops or self.fp32_ops
+
+    def bound(self) -> tuple:
+        """(seconds the operations take at the peaks, seconds the bytes take)."""
+        return max(self.tc_flops / PEAK_BF16, self.fp32_ops / PEAK_FP32), self.nbytes / HBM
+
+
+def make_case(name: str, spec: tuple, randn, route: str = None, dtype=None) -> Case:
+    """The Case of one bf16 call (fp32 for the fused update) at `spec`.
+    `route` forces the kernel's route ("wmma": the fused WMMA kernel) of the
+    kernels in COMPOSED in place of the plan's. `dtype` float32 (conv3x3,
+    its dx and the attention kernels) makes the call fp32: its products then
+    count as fp32 operations, and its bytes are 4 a value."""
     import torch
     import torch.nn.functional as F
 
@@ -246,7 +331,12 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
 
     GE, LN = kernel_modules()
-    bf = torch.bfloat16
+    bf = torch.bfloat16 if dtype is None else dtype
+    es = bf.itemsize   # bytes a value of the conv and attention calls
+
+    def work(products, elementwise):  # -> (tensor-core flops, fp32 operations)
+        return (products, elementwise) if bf == torch.bfloat16 else (0, products + elementwise)
+
     if name == "conv3x3":
         b, h, w, c, co = spec
         x, wt = randn(b, h, w, c).to(bf), (randn(3, 3, c, co) * c ** -0.5).to(bf)
@@ -255,20 +345,20 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
         xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = bias.to(bf)
-        return (lambda: ops.conv3x3(x, wt, bias), lambda: ops.conv3x3_plain(x, wt, bias),
-                lambda: F.conv2d(xc, wc, bc, padding=1),
-                18 * b * h * w * c * co, b * h * w * co,
-                2 * (b * h * w * (c + co) + 9 * c * co) + 4 * co)
+        return Case(lambda: ops.conv3x3(x, wt, bias), lambda: ops.conv3x3_plain(x, wt, bias),
+                    lambda: F.conv2d(xc, wc, bc, padding=1),
+                    *work(18 * b * h * w * c * co, b * h * w * co),
+                    es * (b * h * w * (c + co) + 9 * c * co) + 4 * co)
     if name == "conv3x3_dx":  # spec: the forward conv's (b, h, w, c, co)
         b, h, w, c, co = spec
         g, wt = randn(b, h, w, co).to(bf), (randn(3, 3, c, co) * c ** -0.5).to(bf)
         gc = g.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        return (lambda: ops.conv3x3_dx(g, wt),
-                lambda: ops.conv3x3_plain(g, flip_weight(wt)),
-                lambda: torch.nn.grad.conv2d_input((b, c, h, w), wc, gc, padding=1),
-                18 * b * h * w * c * co, b * h * w * c,
-                2 * (b * h * w * (c + co) + 9 * c * co))
+        return Case(lambda: ops.conv3x3_dx(g, wt),
+                    lambda: ops.conv3x3_plain(g, flip_weight(wt)),
+                    lambda: torch.nn.grad.conv2d_input((b, c, h, w), wc, gc, padding=1),
+                    *work(18 * b * h * w * c * co, b * h * w * c),
+                    es * (b * h * w * (c + co) + 9 * c * co))
     if name in ("token_attention", "attention_lse", "attention_dq", "attention_dkv"):
         b, t, s, heads, dh, fused = spec
         inner = heads * dh
@@ -277,19 +367,25 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
         else:
             q, k, v = randn(b, t, inner).to(bf), randn(b, s, inner).to(bf), randn(b, s, inner).to(bf)
         qh, kh, vh = (u.unflatten(-1, (heads, dh)).transpose(1, 2) for u in (q, k, v))
-        fwd_ops, fwd_bytes = 4 * b * heads * t * s * dh, 2 * 2 * b * inner * (t + s)
+        fwd_ops, fwd_bytes = 4 * b * heads * t * s * dh, es * 2 * b * inner * (t + s)
         if name == "token_attention":
-            return (lambda: ops.token_attention(q, k, v, num_heads=heads),
-                    lambda: ops.attention_plain(q, k, v, num_heads=heads),
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                    fwd_ops, 5 * b * heads * t * s, fwd_bytes)
-        if name == "attention_lse":  # the library: flash attention, which returns
-            # the output and each row's natural-log lse (ours times ln 2)
-            return (lambda: ops.attention_lse(q, k, v, num_heads=heads),
-                    lambda: (ops.attention_plain(q, k, v, num_heads=heads),
-                             ops.attention_lse_plain(q, k, num_heads=heads)),
-                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh),
-                    fwd_ops, 5 * b * heads * t * s, fwd_bytes + 4 * b * heads * t)
+            return Case(lambda: ops.token_attention(q, k, v, num_heads=heads),
+                        lambda: ops.attention_plain(q, k, v, num_heads=heads),
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                        *work(fwd_ops, 5 * b * heads * t * s), fwd_bytes)
+        if name == "attention_lse":  # the library: flash attention (bf16) or
+            # memory-efficient attention (fp32), which return the output and
+            # each row's natural-log lse (ours times ln 2)
+            aten = torch.ops.aten
+            library = ((lambda: aten._scaled_dot_product_flash_attention(qh, kh, vh))
+                       if bf == torch.bfloat16 else
+                       (lambda: aten._scaled_dot_product_efficient_attention(qh, kh, vh, None,
+                                                                             True)))
+            return Case(lambda: ops.attention_lse(q, k, v, num_heads=heads),
+                        lambda: (ops.attention_plain(q, k, v, num_heads=heads),
+                                 ops.attention_lse_plain(q, k, num_heads=heads)),
+                        library, *work(fwd_ops, 5 * b * heads * t * s),
+                        fwd_bytes + 4 * b * heads * t)
         # the backward: dq or dk/dv from one forward's o and lse
         scale, g = dh ** -0.5, randn(b, t, inner).to(bf)
         o, lse = ops.attention_lse(q, k, v, num_heads=heads)
@@ -305,11 +401,12 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
         plain = lambda: ops.attention_backward_plain(q, k, v, o, lse, g, heads, scale)
         in_bytes = fwd_bytes + 8 * b * heads * t
         if name == "attention_dq":   # z, dp and ds.K: 3 products; dq out
-            return (lambda: ops.attention_dq(*args, num_heads=heads, scale=scale), plain, library,
-                    6 * b * heads * t * s * dh, 5 * b * heads * t * s, in_bytes + 2 * b * t * inner)
-        return (lambda: ops.attention_dkv(*args, num_heads=heads, scale=scale), plain, library,
-                8 * b * heads * t * s * dh, 5 * b * heads * t * s,     # z, dp, p^T.dO, ds^T.Q
-                in_bytes + 2 * 2 * b * s * inner)
+            return Case(lambda: ops.attention_dq(*args, num_heads=heads, scale=scale), plain,
+                        library, *work(6 * b * heads * t * s * dh, 5 * b * heads * t * s),
+                        in_bytes + es * b * t * inner)
+        return Case(lambda: ops.attention_dkv(*args, num_heads=heads, scale=scale), plain, library,
+                    *work(8 * b * heads * t * s * dh,      # z, dp, p^T.dO, ds^T.Q
+                          5 * b * heads * t * s), in_bytes + es * 2 * b * s * inner)
     if name == "ln_linear":
         m, d, n = spec
         x, w = randn(m, d).to(bf), (randn(n, d) * d ** -0.5).to(bf)
@@ -319,9 +416,9 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
             plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, bf), route=route)
             kernel = lambda: LN.ln_linear_launch(x, g, be, w, None, 1e-5, plan)
         gb, beb = g.to(bf), be.to(bf)   # the composition: F.layer_norm, F.linear
-        return (kernel, lambda: ops.ln_linear_plain(x, g, be, w),
-                lambda: F.linear(F.layer_norm(x, (d,), gb, beb), w),
-                2 * m * d * n, 8 * m * d, 2 * (m * d + m * n + d * n) + 8 * d)
+        return Case(kernel, lambda: ops.ln_linear_plain(x, g, be, w),
+                    lambda: F.linear(F.layer_norm(x, (d,), gb, beb), w),
+                    2 * m * d * n, 8 * m * d, 2 * (m * d + m * n + d * n) + 8 * d)
     if name == "geglu_ff":
         m, d, inner = spec
         x, w1 = randn(m, d).to(bf), (randn(2 * inner, d) * d ** -0.5).to(bf)
@@ -335,27 +432,27 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
         def composition():  # F.linear, gelu * h, F.linear, all bf16
             h, gate = F.linear(x, w1, b1b).chunk(2, dim=-1)
             return F.linear(h * F.gelu(gate), w2, b2b)
-        return (kernel, lambda: ops.geglu_plain(x, w1, b1, w2, b2), composition,
-                6 * m * d * inner, 10 * m * inner,
-                2 * (2 * m * d + 3 * d * inner) + 4 * (2 * inner + d))
+        return Case(kernel, lambda: ops.geglu_plain(x, w1, b1, w2, b2), composition,
+                    6 * m * d * inner, 10 * m * inner,
+                    2 * (2 * m * d + 3 * d * inner) + 4 * (2 * inner + d))
     if name == "fused_update":
         shape, = spec
         xs, coef = [randn(*shape) for _ in range(4)], randn(4, 8)
         n = xs[0].numel()
-        return (lambda: ops.fused_update(coef, 1, *xs), lambda: ops.fused_update_plain(coef, 1, *xs),
-                None, 0, 7 * n, 4 * 5 * n)
+        return Case(lambda: ops.fused_update(coef, 1, *xs),
+                    lambda: ops.fused_update_plain(coef, 1, *xs), None, 0, 7 * n, 4 * 5 * n)
     if name == "fused_bias_act":  # add, select, scale per element
         shape, = spec
         x, bias = randn(*shape).to(bf), randn(shape[-1]) * 0.1
         n = x.numel()
-        return (lambda: ops.fused_bias_act(x, bias), lambda: ops.bias_act_plain(x, bias),
-                None, 0, 3 * n, 2 * 2 * n + 4 * shape[-1])
+        return Case(lambda: ops.fused_bias_act(x, bias), lambda: ops.bias_act_plain(x, bias),
+                    None, 0, 3 * n, 2 * 2 * n + 4 * shape[-1])
     if name == "fused_bias_act_bwd":  # select, multiply per element
         shape, = spec
         g, out = randn(*shape).to(bf), randn(*shape).to(bf)
         n = g.numel()
-        return (lambda: ops.fused_bias_act_bwd(g, out), lambda: ops.bias_act_grad_plain(g, out),
-                None, 0, 2 * n, 3 * 2 * n)
+        return Case(lambda: ops.fused_bias_act_bwd(g, out),
+                    lambda: ops.bias_act_grad_plain(g, out), None, 0, 2 * n, 3 * 2 * n)
     if name == "attention_out_fused":  # spec: (b, t, s, heads, c), dh 64
         b, t, s, heads, c = spec
         inner = heads * 64
@@ -363,20 +460,21 @@ def make_case(name: str, spec: tuple, randn, route: str = None):
         w, res = (randn(inner, c) * inner ** -0.5).to(bf), randn(b, t, c).to(bf)
         bias = randn(c) * 0.1
         args = (q, k, v, w, bias, res)
-        return (lambda: ops.attention_out_fused(*args, heads),
-                lambda: ops.attention_out_plain(*args, num_heads=heads), None,
-                4 * b * heads * t * s * 64 + 2 * b * t * inner * c, 5 * b * heads * t * s,
-                2 * (b * t * inner + 2 * b * s * inner + inner * c + 2 * b * t * c) + 4 * c)
+        return Case(lambda: ops.attention_out_fused(*args, heads),
+                    lambda: ops.attention_out_plain(*args, num_heads=heads), None,
+                    4 * b * heads * t * s * 64 + 2 * b * t * inner * c, 5 * b * heads * t * s,
+                    2 * (b * t * inner + 2 * b * s * inner + inner * c + 2 * b * t * c) + 4 * c)
     raise ValueError(name)
 
 
-def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
+def time_kernel(name: str, calls: Counter, randn, smi: str, what: str, dtype=None) -> dict:
     """Kernel, plain and library device time over `calls` (spec -> launches),
-    and the bound: per launch the largest of bf16 flops / PEAK_BF16, fp32 ops
-    / PEAK_FP32 and bytes / HBM. For the kernels in COMPOSED the library
-    slot's time is the composition's ("composition_ms"; "library_ms" is null:
-    no one library call computes the function), and their "wmma" route (the
-    fused WMMA kernel) is timed beside the plan's at the same shapes ("wmma_ms")."""
+    and the bound (Case.bound), with the rate of Case.work ("tflops"). For
+    the kernels in COMPOSED the library slot's time is the composition's
+    ("composition_ms"; "library_ms" is null: no one library call computes
+    the function), and their "wmma" route (the fused WMMA kernel) is timed
+    beside the plan's at the same shapes ("wmma_ms"). `dtype` float32 times
+    the fp32 calls (make_case)."""
     import torch
 
     composed = name in COMPOSED
@@ -387,20 +485,21 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
     has_library = True
     lib_label = "composition" if composed else "library"
     for spec, n in sorted(calls.items(), key=lambda kv: str(kv[0])):
-        kernel, plain, library, fl16, fl32, nbytes = make_case(name, spec, randn)
-        k, p = cuda_ms(kernel), cuda_ms(plain)
-        lib = cuda_ms(library) if library is not None else None
-        t_ops, t_bytes = max(fl16 / PEAK_BF16, fl32 / PEAK_FP32), nbytes / HBM
+        case = make_case(name, spec, randn, dtype=dtype)
+        k, p = cuda_ms(case.kernel), cuda_ms(case.plain)
+        lib = cuda_ms(case.library) if case.library is not None else None
+        t_ops, t_bytes = case.bound()
         bound = max(t_ops, t_bytes) * 1e3
         wmma_note = ""
         if composed:
-            wmma = cuda_ms(make_case(name, spec, randn, route="wmma")[0])
+            wmma = cuda_ms(make_case(name, spec, randn, route="wmma").kernel)
             tot["wmma_ms"] += n * wmma
-            wmma_note = f", wmma route {wmma:.4f} ms ({fl16 / wmma / 1e9:.1f} TFLOP/s)"
-        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms ({fl16 / k / 1e9:.1f} TFLOP/s){wmma_note}, "
-            f"plain {p:.4f} ms, {lib_label} {'none' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
-        flops += n * fl16
+            wmma_note = f", wmma route {wmma:.4f} ms ({case.work / wmma / 1e9:.1f} TFLOP/s)"
+        log(f"  {name} x{n} {spec}: kernel {k:.4f} ms ({case.work / k / 1e9:.1f} TFLOP/s)"
+            f"{wmma_note}, plain {p:.4f} ms, {lib_label} "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        flops += n * case.work
         tot["ms"] += n * k
         tot["plain_ms"] += n * p
         tot["bound_ms"] += n * bound
@@ -409,13 +508,13 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str) -> dict:
             has_library = False
         else:
             tot["library_ms"] += n * lib
-        del kernel, plain, library
+        del case
         torch.cuda.empty_cache()
     tot["library_ms"] = tot["library_ms"] if has_library else None
     if composed:
         tot["composition_ms"], tot["library_ms"] = tot["library_ms"], None
     tot["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
-    tot["tflops"] = flops / tot["ms"] / 1e9   # tensor-core work over kernel time
+    tot["tflops"] = flops / tot["ms"] / 1e9   # Case.work over kernel time
     tot["bound_share"] = tot["bound_ms"] / tot["ms"]
     tot["timed"] = what
     lib = tot["composition_ms"] if composed else tot["library_ms"]
@@ -654,11 +753,13 @@ def main() -> int:
                                              VAEConfig, constant_context_encoder, init_random_)
     from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
     from dpm_solver_tpu_torch.ops import _build
-    from dpm_solver_tpu_torch.ops.attention import attention_delta
+    from dpm_solver_tpu_torch.ops.attention import BWD_HEAD_DIMS, HEAD_DIMS, attention_delta
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
     from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
-    from dpm_solver_tpu_torch.score import get_noise_fn
-    from dpm_solver_tpu_torch.sde import VPSDE
+    from dpm_solver_tpu_torch.likelihood import (get_likelihood_fn, hutchinson_divergence,
+                                                 ode_sampler, sample_hutchinson)
+    from dpm_solver_tpu_torch.score import get_noise_fn, get_score_fn
+    from dpm_solver_tpu_torch.sde import VPSDE, reverse_sde
     from dpm_solver_tpu_torch.solver.adaptive import adaptive_sample
     from dpm_solver_tpu_torch.solver.correctors import make_dynamic_thresholding
     from dpm_solver_tpu_torch.solver.sample import make_plan
@@ -693,6 +794,48 @@ def main() -> int:
         if not ok:
             fail(f"{name} {shape} {dtype} disagrees with its plain version")
 
+    def check_conv(spec, dt, dx):
+        """conv3x3 at `spec` (b, h, w, c, co) and, if `dx`, its input
+        gradient, against the plain versions within BOUND."""
+        b, h, w, c, co = spec
+        x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
+        bias = randn(co) * 0.1
+        report("conv3x3", spec, dt, ops.conv3x3(x, wt, bias),
+               ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND[str(dt)[6:]])
+        if dx:
+            g_out = randn(b, h, w, co).to(dt)
+            want = torch.nn.grad.conv2d_input((b, c, h, w), wt.float().permute(3, 2, 0, 1),
+                                              g_out.float().permute(0, 3, 1, 2), padding=1)
+            report("conv3x3_dx", spec, dt, ops.conv3x3_dx(g_out, wt), want.permute(0, 2, 3, 1),
+                   BOUND[str(dt)[6:]])
+
+    def check_attention_bwd(spec, dt, bound):
+        """attention_lse at `spec` (b, t, s, heads, dh, qkv slices): its o and
+        lse against the plain forward within BOUND; then dq, dk and dv against
+        the plain backward on the kernel's o and lse (cast to fp32) within
+        `bound`."""
+        b, t, s, heads, dh, fused = spec
+        inner, scale = heads * dh, dh ** -0.5
+        if fused:
+            q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+        else:
+            q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+        g_out = randn(b, t, inner).to(dt)
+        shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
+        o, lse = ops.attention_lse(q, k, v, num_heads=heads)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        report("attention_lse", shape + ("o",), dt, o,
+               ops.attention_plain(qf, kf, vf, num_heads=heads), BOUND[str(dt)[6:]])
+        report("attention_lse", shape + ("lse",), dt, lse,
+               ops.attention_lse_plain(qf, kf, num_heads=heads), BOUND[str(dt)[6:]])
+        want = ops.attention_backward_plain(qf, kf, vf, o.float(), lse, g_out.float(), heads, scale)
+        args = (q, k, v, g_out, lse, attention_delta(o, g_out, heads))
+        report("attention_dq", shape, dt, ops.attention_dq(*args, num_heads=heads, scale=scale),
+               want[0], bound)
+        dk, dv = ops.attention_dkv(*args, num_heads=heads, scale=scale)
+        report("attention_dkv", shape + ("dk",), dt, dk, want[1], bound)
+        report("attention_dkv", shape + ("dv",), dt, dv, want[2], bound)
+
     t0 = time.perf_counter()
     log("kernels vs plain (plain in fp32 on the same inputs, TF32 off):")
     for b, h, w, c, co in [(64, 32, 32, 128, 128), (64, 16, 16, 512, 256),
@@ -714,17 +857,8 @@ def main() -> int:
                            # multiples of 64: the store's masks
                            (1, 13, 19, 200, 136), (5, 2, 33, 16, 24)]:
         for dt in (torch.float32, torch.bfloat16):
-            x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
-            bias = randn(co) * 0.1
-            report("conv3x3", (b, h, w, c, co), dt, ops.conv3x3(x, wt, bias),
-                   ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND[str(dt)[6:]])
-            if b == 8 or c < 40:  # the input gradient at the guided and ragged shapes
-                g_out = randn(b, h, w, co).to(dt)
-                want = torch.nn.grad.conv2d_input((b, c, h, w), wt.float().permute(3, 2, 0, 1),
-                                                  g_out.float().permute(0, 3, 1, 2), padding=1)
-                report("conv3x3_dx", (b, h, w, c, co), dt, ops.conv3x3_dx(g_out, wt),
-                       want.permute(0, 2, 3, 1), BOUND[str(dt)[6:]])
-            del x, wt
+            # the input gradient at the guided and ragged shapes (path E's: 7b)
+            check_conv((b, h, w, c, co), dt, dx=b == 8 or c < 40)
     # (b, t, s, heads, dh, q/k/v as column slices of one fused projection)
     for b, t, s, heads, dh, fused in [
             (64, 256, 256, 1, 256, False), (64, 16, 16, 1, 256, False), (2, 64, 64, 1, 32, False),
@@ -750,34 +884,21 @@ def main() -> int:
     # blocks at 32x32, 16x16 and 8x8 and its attention pool (qkv slices,
     # T = S = 65); tiny and ragged ones. (S >= 2: with one key ds is 0 and
     # dq, dk are rounding noise, which no relative bound can hold.)
-    for b, t, s, heads, dh, fused in [
+    for spec in [
             (8, 1024, 1024, 4, 64, False), (8, 256, 256, 8, 64, False), (8, 64, 64, 8, 64, False),
             (8, 65, 65, 8, 64, True), (2, 200, 77, 2, 64, False), (1, 50, 130, 1, 64, False),
             (2, 77, 77, 1, 64, False), (1, 5, 5, 2, 64, True)]:
         for dt in (torch.float32, torch.bfloat16):
-            inner, scale, bound = heads * dh, dh ** -0.5, BOUND[str(dt)[6:]]
-            if fused:
-                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
-            else:
-                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
-            g_out = randn(b, t, inner).to(dt)
-            shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
-            o, lse = ops.attention_lse(q, k, v, num_heads=heads)
-            qf, kf, vf = q.float(), k.float(), v.float()
-            report("attention_lse", shape + ("o",), dt, o,
-                   ops.attention_plain(qf, kf, vf, num_heads=heads), bound)
-            report("attention_lse", shape + ("lse",), dt, lse,
-                   ops.attention_lse_plain(qf, kf, num_heads=heads), bound)
-            # the plain backward on the kernel's o and lse (cast to fp32)
-            want = ops.attention_backward_plain(qf, kf, vf, o.float(), lse, g_out.float(),
-                                                heads, scale)
-            args = (q, k, v, g_out, lse, attention_delta(o, g_out, heads))
-            report("attention_dq", shape, dt,
-                   ops.attention_dq(*args, num_heads=heads, scale=scale), want[0], bound)
-            dk, dv = ops.attention_dkv(*args, num_heads=heads, scale=scale)
-            report("attention_dkv", shape + ("dk",), dt, dk, want[1], bound)
-            report("attention_dkv", shape + ("dv",), dt, dv, want[2], bound)
-            del q, k, v, o, lse, want, args, dk, dv
+            check_attention_bwd(spec, dt, BOUND[str(dt)[6:]])
+    # the forward's lse and the backward at every other head dim the
+    # backward takes (BWD_HEAD_DIMS: all of the forward's in fp32, all but
+    # 512 in bf16), the backward within tests/test_torch_attention_bwd.py's
+    # bounds
+    for spec in BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            if spec[4] in BWD_HEAD_DIMS[dt]:
+                check_attention_bwd(spec, dt, BWD_BOUND[str(dt)[6:]])
+    torch.cuda.empty_cache()
     coef = randn(4, 8)
     for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4)]:
         for dt in (torch.float32, torch.bfloat16):
@@ -1306,6 +1427,193 @@ def main() -> int:
     del result, tnet
     torch.cuda.empty_cache()
 
+    # ---- 7b. path E: ScoreSDE bits/dim on DDPM++ deep --------------------------
+    t0 = time.perf_counter()
+    enet = NCSNpp(dcfg, device=dev).eval()   # fp32 compute, path D's weights
+    enet.load_state_dict(dnet.state_dict())
+    enet.requires_grad_(False)  # the divergence needs grad_x only: no dw at any conv
+    espans = {"forward": [], "backward": []}
+
+    def timed_net(x, labels):
+        """The network, with CUDA events around its forward and, when x
+        requires grad, around its backward (from the cotangent of its output
+        reaching it to the gradient of its input)."""
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = enet(x, labels)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        espans["forward"].append((ev0, ev1))
+        if x.requires_grad:
+            pair = []
+
+            def started(grad):
+                pair.append(torch.cuda.Event(enable_timing=True))
+                pair[-1].record()
+
+            def ended(grad):
+                started(grad)
+                espans["backward"].append(tuple(pair))
+            out.register_hook(started)
+            x.register_hook(ended)
+        return out
+
+    lik_e = get_likelihood_fn(VPSDE(), get_score_fn(VPSDE(), timed_net), rtol=LIK_TOL,
+                              atol=LIK_TOL, eps=LIK_EPS, inverse_scaler_grad=0.5)
+    # seeded 8-bit images, uniformly dequantised, centred to [-1, 1]
+    rng_e = np.random.default_rng(7)
+    pixels = rng_e.integers(0, 256, (LIK_BATCH, side, side, 3)) + rng_e.uniform(size=(
+        LIK_BATCH, side, side, 3))
+    e_data = torch.tensor(pixels / 256.0 * 2.0 - 1.0, dtype=torch.float32, device=dev)
+    e_probe = sample_hutchinson(e_data.shape, "Rademacher", device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(8))
+    per_stage = ncsnpp_launches(dcfg)
+    log(f"path E: ScoreSDE bits/dim, DDPM++ deep ({n_dnet / 1e6:.2f}M params, frozen), fp32, "
+        f"seeded random weights, built in {time.perf_counter() - t0:.1f} s; b{LIK_BATCH} "
+        f"{side}x{side} dequantised images, continuous VP, labels t*999, Rademacher probe, "
+        f"RK45 rtol = atol = {LIK_TOL:g}, eps {LIK_EPS:g}")
+    # the specs of one network forward at the path's batch: each conv3x3
+    # also runs its dx, each attention its lse form, dq and dk/dv
+    e_calls = Counter()
+
+    def e_hook(mod, args):
+        x = args[0]
+        if isinstance(mod, ops.Conv3x3):
+            e_calls[("conv3x3", "conv3x3_dx"), (*x.shape, mod.weight.shape[0])] += 1
+        else:
+            b, h, w, c = x.shape
+            e_calls[("attention_lse", "attention_dq", "attention_dkv"),
+                    (b, h * w, h * w, 1, c, True)] += 1
+
+    handles = [m.register_forward_pre_hook(e_hook) for m in enet.modules()
+               if isinstance(m, (ops.Conv3x3, SelfAttention2D))]
+    enet(e_data, torch.full((LIK_BATCH,), 500.0, device=dev))
+    for h in handles:
+        h.remove()
+    # each of those kernels at each of those specs, in fp32, against its
+    # plain version (as in phase 3)
+    log(f"  path E's kernels at its {len(e_calls)} specs, fp32, vs plain:")
+    for names, spec in sorted(e_calls, key=str):
+        if names[0] == "conv3x3":
+            check_conv(spec, torch.float32, dx=True)
+        else:
+            check_attention_bwd(spec, torch.float32, BWD_BOUND["float32"])
+    torch.cuda.empty_cache()
+    # every conv3x3 weight gradient goes through torch.nn.grad.conv2d_weight
+    # (ops/conv3x3.py::_Conv3x3Fn.backward): count its calls
+    weight_grads = [0]
+    conv2d_weight = torch.nn.grad.conv2d_weight
+
+    def counted_weight_grad(*args, **kwargs):
+        weight_grads[0] += 1
+        return conv2d_weight(*args, **kwargs)
+
+    torch.nn.grad.conv2d_weight = counted_weight_grad
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        bpd_e, z_e, nfe_e = lik_e(e_data, epsilon=e_probe)
+        torch.cuda.synchronize()
+        first_e = time.perf_counter() - t0
+        launches_e = ops.launch_counts()
+    finally:
+        torch.nn.grad.conv2d_weight = conv2d_weight
+    attn_stage = per_stage["token_attention"]
+    expected_e = {name: 0 for name in REPLACES}
+    expected_e.update(conv3x3=nfe_e * per_stage["conv3x3"], conv3x3_dx=nfe_e * per_stage["conv3x3"],
+                      attention_lse=nfe_e * attn_stage, attention_dq=nfe_e * attn_stage,
+                      attention_dkv=nfe_e * attn_stage)
+    log(f"  {nfe_e} NFE; launches {launches_e} (expected {expected_e}); conv3x3 weight "
+        f"gradients {weight_grads[0]} (expected 0); first call {first_e:.2f} s")
+    if launches_e != expected_e or weight_grads[0] != 0:
+        fail(f"path E launch counts {launches_e} != {expected_e}, or {weight_grads[0]} weight "
+             f"gradients")
+    routes_e = ops.launch_routes()
+    want_routes = {"conv3x3": {"f32": expected_e["conv3x3"]},
+                   "conv3x3_dx": {"f32": expected_e["conv3x3_dx"]},
+                   "token_attention": {}, "attention_lse": {"f32": expected_e["attention_lse"]},
+                   "ln_linear": {}, "geglu_ff": {}}
+    log(f"  launches by route {routes_e} (expected {want_routes})")
+    if routes_e != want_routes:
+        fail(f"path E launches by route {routes_e} != {want_routes}")
+    if bpd_e.shape != (LIK_BATCH,) or not torch.isfinite(bpd_e).all() \
+            or z_e.shape != e_data.shape or not torch.isfinite(z_e).all():
+        fail(f"path E: bits/dim {tuple(bpd_e.shape)} or z {tuple(z_e.shape)} not finite")
+    log(f"  bits/dim {[round(v, 4) for v in bpd_e.tolist()]}, mean {bpd_e.mean().item():.4f}; "
+        f"z finite, std {z_e.std().item():.4f}")
+
+    # one full-width stage, kernels on the card against plain ops on the CPU
+    # (fp32, b2, t = 0.5), relative to each value's max within SLICE_BOUND:
+    # the network's vector-Jacobian product with the probe (the backward
+    # that runs the dq, dk/dv and dx kernels), then the probability-flow
+    # drift and its divergence estimate through hutchinson_divergence
+    t0 = time.perf_counter()
+    stage = {}
+    for where in (dev, torch.device("cpu")):
+        net_ = NCSNpp(dcfg, device=where).eval()
+        net_.load_state_dict(enet.state_dict())
+        net_.requires_grad_(False)
+        x2, eps2 = e_data[:2].to(where), e_probe[:2].to(where)
+        t2 = torch.full((2,), 0.5, device=where)
+        with torch.enable_grad():
+            xi = x2.clone().requires_grad_(True)
+            vjp, = torch.autograd.grad((net_(xi, t2 * 999.0) * eps2).sum(), xi)
+        drift = reverse_sde(VPSDE(), get_score_fn(VPSDE(), net_), probability_flow=True).sde
+        out, div = hutchinson_divergence(lambda xs_, ts_: drift(xs_, ts_)[0], x2, t2, eps2)
+        stage[where.type] = [u.cpu() for u in (vjp, out, div)]
+        del net_, vjp, out, div
+    for what, got, want in zip(("network vjp", "drift", "divergence"), stage["cuda"],
+                               stage["cpu"]):
+        d, r = rel_err(got, want)
+        ok = r <= SLICE_BOUND and bool(torch.isfinite(got).all())
+        log(f"  full-width stage b2 t 0.5, {what}, kernels (card) vs plain (cpu): max|d| "
+            f"{d:.3e}, /max {r:.3e} (bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"path E's stage ({what}) on the card disagrees with the plain path")
+    log(f"  divergence estimates {[round(v, 3) for v in stage['cuda'][2].tolist()]} (card), "
+        f"{[round(v, 3) for v in stage['cpu'][2].tolist()]} (cpu); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del stage
+    torch.cuda.empty_cache()
+
+    # the tiny FIR VP NCSN++ (unconditional: module docstring), fp32, the
+    # likelihood and the black-box ODE sampler, kernels on the card against
+    # plain ops on the CPU: the same NFE, z within ADAPTIVE_BOUND of max|z|,
+    # bits/dim within BPD_BOUND
+    tkw = dict(fir=True, progressive_input="residual", num_res_blocks=1, conditional=False)
+    tcfg_e = NCSNppConfig.tiny(**tkw)
+    tnet_e = init_random_(NCSNpp(tcfg_e, device="cpu"), torch.Generator().manual_seed(4)).eval()
+    rng_t = np.random.default_rng(9)
+    t_data = torch.tensor(rng_t.uniform(-1.0, 1.0, (2, 16, 16, 3)), dtype=torch.float32)
+    t_probe = torch.tensor(rng_t.integers(0, 2, (2, 16, 16, 3)) * 2.0 - 1.0, dtype=torch.float32)
+    t_init = torch.tensor(rng_t.standard_normal((2, 16, 16, 3)), dtype=torch.float32)
+    result = {}
+    for where in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        net_ = NCSNpp(tcfg_e, device=where).eval()
+        net_.load_state_dict(tnet_e.state_dict())
+        score_t = get_score_fn(VPSDE(), net_.requires_grad_(False))
+        bpd, z, nfe = get_likelihood_fn(VPSDE(), score_t, inverse_scaler_grad=0.5)(
+            t_data.to(where), epsilon=t_probe.to(where))
+        xs, nfe_s = ode_sampler(VPSDE(), score_t, t_init.shape, x_init=t_init.to(where),
+                                denoise=True)
+        result[where.type] = (bpd.cpu(), z.cpu(), nfe, xs.cpu(), nfe_s)
+        log(f"  tiny VP NCSN++ bits/dim and ODE sampler, fp32 on {where}: "
+            f"{time.perf_counter() - t1:.1f} s")
+    (bc, zc, nc, xc, sc), (bp, zp, ncpu, xp, scpu) = result["cuda"], result["cpu"]
+    d_bpd = (bc - bp).abs().max().item()
+    d_z, r_z = rel_err(zc, zp)
+    d_x, r_x = rel_err(xc, xp)
+    ok = (nc == ncpu and sc == scpu and d_bpd <= BPD_BOUND and r_z <= ADAPTIVE_BOUND
+          and r_x <= ADAPTIVE_BOUND and bool(torch.isfinite(zc).all() and torch.isfinite(xc).all()))
+    log(f"  tiny likelihood, kernels (card) vs plain (cpu): NFE {nc} vs {ncpu}, bits/dim "
+        f"max|d| {d_bpd:.3e} (bound {BPD_BOUND:g}), z /max|z| {r_z:.3e}; ODE sampler: NFE "
+        f"{sc} vs {scpu}, /max|x| {r_x:.3e} (bound {ADAPTIVE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("bits/dim or the ODE sampler on the card disagrees with the plain path")
+    del result, tnet_e
+    torch.cuda.empty_cache()
+
     # ---- 8. timing -------------------------------------------------------------
     solver.sample(x_T, **sample_kw)  # warm
     walls = []
@@ -1413,6 +1721,46 @@ def main() -> int:
         f"{runs[-1][0] * 1e3:.2f}) -> {SCORE_BATCH / d_wall:.2f} samples/s; in that run network "
         f"forwards {d_net_s * 1e3:.2f} ms ({d_net_s / d_wall:.3f} of the wall)")
 
+    # path E: the wall of one bits/dim call after the warm (counted) one, and
+    # the network's forward and backward device spans by CUDA events
+    runs = []
+    for _ in range(LIK_TIMED_RUNS):
+        for v in espans.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, nfe = lik_e(e_data, epsilon=e_probe)
+        torch.cuda.synchronize()
+        if nfe != nfe_e:
+            fail(f"path E: {nfe} NFE on a repeated call, {nfe_e} on the first")
+        runs.append((time.perf_counter() - t0,
+                     *(sum(a.elapsed_time(b) for a, b in espans[k]) / 1e3
+                       for k in ("forward", "backward"))))
+    runs.sort()
+    e_wall, e_fwd_s, e_bwd_s = runs[len(runs) // 2]
+    log(f"path E time on {smi}: bits/dim b{LIK_BATCH} {nfe_e} NFE median {e_wall * 1e3:.2f} ms "
+        f"over {len(runs)} runs (min {runs[0][0] * 1e3:.2f}, max {runs[-1][0] * 1e3:.2f}) -> "
+        f"{e_wall / nfe_e * 1e3:.3f} ms per NFE, {LIK_BATCH / e_wall:.3f} images/s, bits/dim "
+        f"{bpd_e.mean().item():.4f}; in that run network forwards {e_fwd_s * 1e3:.2f} ms "
+        f"({e_fwd_s / e_wall:.3f} of the wall), backwards {e_bwd_s * 1e3:.2f} ms "
+        f"({e_bwd_s / e_wall:.3f})")
+    # one stage (forward + vector-Jacobian product) at b1 and at the path's
+    # batch: where they take the same time, the stage is host-bound
+    drift_e = reverse_sde(VPSDE(), get_score_fn(VPSDE(), enet), probability_flow=True).sde
+    stage_ms = {}
+    for b in (1, LIK_BATCH):
+        x1, p1, t1 = e_data[:b], e_probe[:b], torch.full((b,), 0.5, device=dev)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hutchinson_divergence(lambda xi, ti: drift_e(xi, ti)[0], x1, t1, p1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        stage_ms[b] = statistics.median(walls[1:]) * 1e3
+    log(f"  one stage (forward + vjp) on {smi}: b1 {stage_ms[1]:.2f} ms, b{LIK_BATCH} "
+        f"{stage_ms[LIK_BATCH]:.2f} ms (median of 3 after a warm one)")
+
     # each kernel at the shapes and counts of one call of each path
     ctx = encode(SD_PROMPTS + [""] * len(SD_PROMPTS)).to(dev)
     lat = SD_SIZE // 8
@@ -1428,10 +1776,10 @@ def main() -> int:
                     "fused_update": Counter({((BATCH, 32, 32, 3),): STEPS})}
     timing = {name: {} for name in REPLACES}   # kernel -> path -> its times there
 
-    def time_path(path, per_kernel, launches, what):
+    def time_path(path, per_kernel, launches, what, dtype=None):
         for name, calls in per_kernel.items():
             if calls:
-                timing[name][path] = dict(time_kernel(name, calls, randn, smi, what),
+                timing[name][path] = dict(time_kernel(name, calls, randn, smi, what, dtype),
                                           launches=launches[name])
 
     log(f"kernel times, path A (one {STEPS}-NFE sample call, b{BATCH}, bf16):")
@@ -1480,7 +1828,7 @@ def main() -> int:
     for spec, n in sorted(per_kernel_c["attention_lse"].items(), key=lambda kv: str(kv[0])):
         kernel, _, library = make_case("attention_lse", spec, randn)[:3]
         lse_ms = cuda_ms(kernel)
-        fwd_ms = cuda_ms(make_case("token_attention", spec, randn)[0])
+        fwd_ms = cuda_ms(make_case("token_attention", spec, randn).kernel)
         (o, lse), lib = kernel(), library()
         d_o = rel_err(o, lib[0].transpose(1, 2).flatten(2))[1]
         lib_lse = lib[1][..., :spec[1]].reshape(lse.shape)
@@ -1535,6 +1883,50 @@ def main() -> int:
     time_path("D", per_kernel_d, launches_d, f"one ScoreSDE sample call, DDPM++ deep "
               f"b{SCORE_BATCH}")
 
+    # path E: the specs of one network forward (e_calls, 7b), times the NFE
+    per_kernel_e = {name: Counter() for name in REPLACES}
+    for (names, spec), n in e_calls.items():
+        for name in names:
+            per_kernel_e[name][spec] += n * nfe_e
+    for name, calls in per_kernel_e.items():
+        if sum(calls.values()) != expected_e[name]:
+            fail(f"{name}: the recorded shapes cover {sum(calls.values())} launches, "
+                 f"the bits/dim call makes {expected_e[name]}")
+    log(f"kernel times, path E (one {nfe_e}-NFE bits/dim call, b{LIK_BATCH}, fp32):")
+    time_path("E", per_kernel_e, launches_e, f"one bits/dim call, DDPM++ deep b{LIK_BATCH}, "
+              f"{nfe_e} NFE", torch.float32)
+
+    # the dq and dk/dv kernels at each head dim and dtype they take, one
+    # launch at each of BWD_SHAPES' sites (the ragged ones aside), beside the
+    # plain twin (dq, dk and dv in one pass), SDPA's backward and their bound
+    bwd_by_dh = []
+    for b, t, s, heads, dh, fused in BWD_SHAPES:
+        if t % 64:   # a ragged check shape, not a site
+            continue
+        for dt in (torch.float32, torch.bfloat16):
+            if dh not in BWD_HEAD_DIMS[dt]:
+                continue
+            spec, ms, bound, work = (b, t, s, heads, dh, fused), {}, 0.0, 0.0
+            for name in ("attention_dq", "attention_dkv"):
+                case = make_case(name, spec, randn, dtype=dt)
+                ms[name] = cuda_ms(case.kernel)
+                bound += max(case.bound()) * 1e3
+                work += case.work
+            # the plain twin and SDPA's backward each compute dq, dk and dv
+            plain_ms, lib_ms = cuda_ms(case.plain), cuda_ms(case.library)
+            del case
+            torch.cuda.empty_cache()
+            total = ms["attention_dq"] + ms["attention_dkv"]
+            rate = work / total / 1e9
+            log(f"  backward {spec} {str(dt)[6:]} on {smi}: dq {ms['attention_dq']:.4f} + dk/dv "
+                f"{ms['attention_dkv']:.4f} = {total:.4f} ms ({rate:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({bound / total:.3f} of the kernels' time)")
+            bwd_by_dh.append(dict(spec=list(spec), dtype=str(dt)[6:], dq_ms=ms["attention_dq"],
+                                  dkv_ms=ms["attention_dkv"], plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=bound, tflops=rate,
+                                  bound_share=bound / total))
+
     # the kernels no path launches, one launch at each shape where they would
     # run: bias + LeakyReLU at path D's activations (every conv3x3 input), the
     # fused attention output at the SD-2.1 768 px self-attention sites (CFG b8)
@@ -1570,8 +1962,15 @@ def main() -> int:
     # runs it ("none": no path launches it), every path's times, and its
     # launches on every path
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
-             "sd1": launches_s1}
-    routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "sd1": routes_s1}
+             "e": launches_e, "sd1": launches_s1}
+    routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
+              "sd1": routes_s1}
+
+    # the head dims each attention kernel takes, by dtype
+    forward_dims = {str(dt)[6:]: list(HEAD_DIMS) for dt in BWD_HEAD_DIMS}
+    head_dims = {"token_attention": forward_dims, "attention_lse": forward_dims,
+                 **{n: {str(dt)[6:]: list(d) for dt, d in BWD_HEAD_DIMS.items()}
+                    for n in ("attention_dq", "attention_dkv")}}
 
     def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
         # SD-1's forward only where no path does)
@@ -1583,7 +1982,10 @@ def main() -> int:
                     **({f"routes_path_{p}": r[name] for p, r in routes.items()}
                        if name in routes["a"] else {}),
                     max_abs_err=max_abs[name], **timing[name][newest(name)],
-                    path=newest(name), timing_by_path=timing[name])
+                    path=newest(name), timing_by_path=timing[name],
+                    **({"head_dims": head_dims[name]} if name in head_dims else {}),
+                    **({"by_head_dim": bwd_by_dh} if name in ("attention_dq", "attention_dkv")
+                       else {}))
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -22,8 +22,10 @@ Backward (when autograd asks for it): the forward also writes each row's
 base-2 log-sum-exp (`attention_lse`, the port of the Pallas side pass `_lse`),
 and two kernels in `csrc/attention_bwd.cu` rebuild P from it:
 `attention_dq` and `attention_dkv`, the port of `_mha_backward`'s dq and dk/dv
-kernels, head dim 64 only. `delta = rowsum(dO * O)` is a torch op, as the JAX
-package leaves it outside its kernels.
+kernels, at every head dim the forward takes but bf16 at 512
+(`BWD_HEAD_DIMS`; its tile per head dim and dtype is `attention_bwd_plan`).
+`delta = rowsum(dO * O)` is a torch op, as the JAX package leaves it outside
+its kernels.
 
 Attention with its out-projection and residual (`attention_out_fused`, the
 port of `_attn_out_forward`): one kernel in `csrc/attention_out.cu` keeps the
@@ -54,7 +56,8 @@ from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 40, 64, 80, 128, 160, 256, 512)
-BWD_HEAD_DIMS = (64,)
+# the backward's head dims by dtype: bf16 at 512 does not fit a block
+BWD_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: HEAD_DIMS[:-1]}
 _LOG2E = math.log2(math.e)
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on the H100
 
@@ -108,6 +111,57 @@ def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTil
     if dh >= 160:
         return AttentionTile("wgmma", 128, 64, d_pad, dh, 2)
     return AttentionTile("wgmma", 128, 128, d_pad, dh, 2 if dh >= 80 else 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionBwdTile:
+    """The tile the dq and dk/dv kernels run at one head dim and dtype
+    (csrc/attention_bwd.cu).
+
+    route: "wmma" (bf16: WMMA 16x16x16 on the tensor cores) or "f32" (exact,
+    CUDA cores). rows: the output rows a block owns (queries for dq, keys for
+    dk/dv); tile: the rows of the other side a streamed tile holds; d_pad:
+    the head dim as staged in shared memory ("wmma": rounded up to whole
+    k16 steps, zero-filled); split: the warps that share one 16-row group's
+    output columns ("wmma" at d_pad >= 160, where one warp's fp32 dk and dv
+    sums would spill); smem_bytes: the block's dynamic shared memory."""
+
+    route: str
+    rows: int
+    tile: int
+    d_pad: int
+    split: int
+
+    @property
+    def smem_bytes(self) -> int:
+        if self.route == "f32":  # owned rows x2, streamed (+1 float) x2, p/ds, lse/delta
+            return 4 * (2 * self.rows * self.d_pad + 2 * self.tile * (self.d_pad + 1)
+                        + 2 * self.rows * self.tile + 2 * self.tile)
+        # q/k/v/dO tiles (pitch d_pad + 8), z and dp fp32 (pitch tile + 4),
+        # p and ds bf16 (pitch tile + 8), lse and delta
+        return (2 * (self.rows + self.tile) * (self.d_pad + 8) * 2
+                + 2 * self.rows * (self.tile + 4) * 4 + 2 * self.rows * (self.tile + 8) * 2
+                + 2 * self.tile * 4)
+
+
+def attention_bwd_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionBwdTile:
+    """The dq and dk/dv kernels' tile for head dim `dh`: fp32 the exact
+    kernels' 16 owned rows x 32-row tiles at every head dim; bf16 64 x 64,
+    the head dim padded to 16, two warps a row group from d_pad 160 on.
+    bf16 at dh 512 is refused: its tiles need more shared memory than a
+    block may have."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"attention backward kernels take head dims {HEAD_DIMS}, got {dh}")
+    if dtype == torch.float32:
+        return AttentionBwdTile("f32", 16, 32, dh, 1)
+    d_pad = -(-dh // 16) * 16
+    tile = AttentionBwdTile("wmma", 64, 64, d_pad, 2 if d_pad >= 160 else 1)
+    if tile.smem_bytes > SMEM_PER_BLOCK:
+        raise ValueError(f"the bf16 attention backward at head dim {dh} needs "
+                         f"{tile.smem_bytes} bytes of shared memory a block, over the "
+                         f"{SMEM_PER_BLOCK} one block may use on the H100; bf16 head dims "
+                         f"{BWD_HEAD_DIMS[torch.bfloat16]} are taken")
+    return tile
 
 
 def _heads(u: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -233,23 +287,24 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_head
     return _attend(q, k, v, num_heads, _scale(q, num_heads, scale), with_lse=True)
 
 
-def _check_bwd(q, k, v, g, num_heads):
+def _check_bwd(q, k, v, g, num_heads) -> AttentionBwdTile:
+    """The checks of the forward and of the cotangent; the backward's tile."""
     _check(q, k, v, num_heads)
-    dh = q.shape[2] // num_heads
-    if dh not in BWD_HEAD_DIMS:
-        raise ValueError(f"attention backward kernels take head dims {BWD_HEAD_DIMS}, got {dh}")
+    tile = attention_bwd_plan(q.shape[2] // num_heads, q.dtype)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError(f"attention backward takes a contiguous cotangent of q's shape and "
                          f"dtype; got {tuple(g.shape)} {g.dtype}")
+    return tile
 
 
-def _bwd_args(q, k, v, g, lse, delta, num_heads, scale):
+def _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile):
     b, t, inner = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr()), (b, t, k.shape[1], num_heads, inner // num_heads,
                                 float(scale * _LOG2E), float(scale), *q.stride()[:2],
                                 *k.stride()[:2], *v.stride()[:2], _DTYPES[q.dtype],
-                                _build.stream_ptr(q.device))
+                                tile.rows, tile.tile, tile.d_pad, tile.split,
+                                tile.smem_bytes, _build.stream_ptr(q.device))
 
 
 def attention_dq(q, k, v, g, lse, delta, *, num_heads: int, scale: float) -> torch.Tensor:
@@ -257,9 +312,9 @@ def attention_dq(q, k, v, g, lse, delta, *, num_heads: int, scale: float) -> tor
     lse and delta (both fp32 (B*H, T))."""
     if _build.device_type(q, "attention_dq") == "cpu":
         return _backward_plain(q, k, v, g, lse, delta, num_heads, scale)[0]
-    _check_bwd(q, k, v, g, num_heads)
+    tile = _check_bwd(q, k, v, g, num_heads)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale)
+    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile)
     _build.check(_build.library().dpm_attention_bwd_dq(*ins, dq.data_ptr(), *rest),
                  "attention_dq")
     attention_dq.launches += 1
@@ -271,10 +326,10 @@ def attention_dkv(q, k, v, g, lse, delta, *, num_heads: int,
     """(dk, dv), each (B, S, H*dh), from the same inputs as `attention_dq`."""
     if _build.device_type(q, "attention_dkv") == "cpu":
         return _backward_plain(q, k, v, g, lse, delta, num_heads, scale)[1:]
-    _check_bwd(q, k, v, g, num_heads)
+    tile = _check_bwd(q, k, v, g, num_heads)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale)
+    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile)
     _build.check(_build.library().dpm_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
                                                         *rest), "attention_dkv")
     attention_dkv.launches += 1

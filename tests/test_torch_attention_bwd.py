@@ -5,12 +5,15 @@ JAX package's Pallas backward, run in interpret mode.
   against `_mha_backward` (both of its kernel pairs: the normal and the
   transposed-output form), fed the same q, k, v, o, lse and cotangent, at
   tests/test_attention_bwd.py's shapes plus T = S = 65 (the classifier's
-  attention pool at 8x8). fp32 within 2e-5 and bf16 within 0.05, that file's
-  tolerances.
+  attention pool at 8x8), and at every other head dim the forward takes
+  (32, 40, 80, 128, 160, 256, 512: the dq and dk/dv kernels take them all).
+  fp32 within 2e-5 and bf16 within 0.05, that file's tolerances.
 - `token_attention` autograd (the port's torch.autograd.Function, whose
   backward takes the plain twins on the CPU) against `jax.grad` of the Pallas
   `fused_attention`, `fused_attention_t` and `flash_attention`, in interpret
-  mode, on the head-major (B, T, H*dh) layout; and on q, k, v that are
+  mode, on the head-major (B, T, H*dh) layout, at dh 64 and at the dh 256
+  of the DDPM / NCSN++ single head that bits/dim differentiates; and on q,
+  k, v that are
   strided column slices of one qkv projection, as the attention pool passes
   them.
 """
@@ -72,6 +75,30 @@ def test_plain_matches_pallas_lse_and_backward(b, t, s, heads, dh, t_out):
                                    atol=TOL, err_msg=name)
 
 
+# one shape per head dim: T and S off the Pallas blocks of 128, S >= 2 (with
+# one key ds is 0: ROADMAP's S = 1 note); SD-1's 40/80/160 with 8 heads
+@pytest.mark.parametrize("b,t,s,heads,dh", [
+    (1, 70, 50, 2, 32), (2, 77, 40, 8, 40), (1, 64, 77, 8, 80), (1, 33, 129, 2, 128),
+    (1, 65, 65, 2, 160), (2, 64, 64, 1, 256), (1, 40, 24, 1, 512),
+], ids=lambda v: str(v))
+def test_plain_matches_pallas_backward_at_each_head_dim(b, t, s, heads, dh):
+    q, k, v, g = _inputs(b, t, s, heads, dh, seed=dh)
+    scale = dh ** -0.5
+    qh, kh, vh, gh = (jnp.asarray(_bh(u, heads)) for u in (q, k, v, g))
+    o = attention_xla(qh, kh, vh, scale=scale)
+    lse = _lse(qh, kh, scale, 128, True)
+    want = _mha_backward(qh, kh, vh, o, lse, gh, scale, 128, 128, True)
+
+    tq, tk, tv, tg = (torch.tensor(u) for u in (q, k, v, g))
+    got_lse = attention_lse_plain(tq, tk, num_heads=heads, scale=scale)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), rtol=0, atol=TOL)
+    to = torch.tensor(_unbh(np.asarray(o), b, heads))
+    got = attention_backward_plain(tq, tk, tv, to, got_lse, tg, heads, scale)
+    for name, w, gg in zip(("dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(gg.numpy(), _unbh(np.asarray(w), b, heads), rtol=0,
+                                   atol=TOL, err_msg=name)
+
+
 def test_plain_matches_pallas_backward_bf16():
     b, t, s, heads, dh = 2, 256, 256, 1, 64
     q, k, v, g = (u.astype(jnp.bfloat16) for u in _inputs(b, t, s, heads, dh, seed=1))
@@ -106,7 +133,8 @@ _PALLAS = {
     ("panel_t", 1, 128, 128, 2, 64),  # the JAX dispatch at dh 64, T == S
     ("flash", 1, 100, 77, 2, 64),     # ragged, T != S
     ("panel", 1, 65, 65, 4, 64),      # the attention pool
-], ids=["panel-t64", "panel_t-t128", "flash-ragged", "panel-pool-t65"])
+    ("panel", 2, 64, 64, 1, 256),     # NCSN++ / DDPM's single head at 8x8
+], ids=["panel-t64", "panel_t-t128", "flash-ragged", "panel-pool-t65", "panel-dh256"])
 def test_autograd_matches_jax_grad(kernel, b, t, s, heads, dh):
     q, k, v, g = _inputs(b, t, s, heads, dh, seed=2)
     scale = dh ** -0.5

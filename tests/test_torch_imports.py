@@ -6,8 +6,9 @@
 - On the CPU every wrapper takes its plain version and launches nothing:
   the launch counters stay at 0 through a whole tiny sampling run, a tiny
   txt2img run, a tiny classifier-guided run (whose backward takes the
-  plain twins of the dq, dk/dv and conv3x3-dx kernels) and tiny NCSN++
-  runs of the singlestep and adaptive solvers.
+  plain twins of the dq, dk/dv and conv3x3-dx kernels), tiny NCSN++
+  runs of the singlestep and adaptive solvers, and a tiny bits/dim and
+  black-box ODE sampler run.
 - The models and the pipeline default to the card: with no card, a
   constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
@@ -134,6 +135,28 @@ def test_cpu_ncsnpp_run_takes_plain_path_and_launches_nothing(method):
     assert ops.launch_counts() == NO_LAUNCHES
 
 
+def test_cpu_likelihood_and_ode_sampler_launch_nothing():
+    """Bits/dim differentiates the network at every stage (its backward takes
+    the plain twins of the dq, dk/dv and conv3x3-dx kernels on the CPU), and
+    the black-box ODE sampler runs it forward: on the CPU neither launches."""
+    from dpm_solver_tpu_torch.likelihood import get_likelihood_fn, ode_sampler
+    from dpm_solver_tpu_torch.score import get_score_fn
+
+    cfg = NCSNppConfig.tiny(conditional=False, num_res_blocks=1, image_size=8,
+                            attn_resolutions=(4,))
+    net = init_random_(NCSNpp(cfg, device="cpu"), torch.Generator().manual_seed(0)).eval()
+    score = get_score_fn(VPSDE(), net.requires_grad_(False))
+    x = torch.rand(1, 8, 8, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    ops.reset_launch_counts()
+    bpd, z, nfe = get_likelihood_fn(VPSDE(), score, rtol=1e-3, atol=1e-3)(
+        x, generator=torch.Generator().manual_seed(2))
+    xs, nfe_s = ode_sampler(VPSDE(), score, (1, 8, 8, 3), rtol=1e-3, atol=1e-3,
+                            generator=torch.Generator().manual_seed(3), device="cpu")
+    assert bpd.shape == (1,) and torch.isfinite(bpd).all() and z.shape == x.shape
+    assert xs.shape == x.shape and torch.isfinite(xs).all() and nfe > 6 and nfe_s > 6
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
 @pytest.mark.parametrize("build", [
     lambda: NCSNpp(NCSNppConfig.tiny()),
     lambda: DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
@@ -194,8 +217,15 @@ def test_attention_checks_refuse_what_the_kernel_does_not_take():
 def test_attention_backward_checks_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(2, 16, 128)
     attention._check_bwd(q, q, q, q, 2)                      # dh = 64
+    attention._check_bwd(q, q, q, q, 4)                      # dh = 32
+    w = torch.zeros(2, 16, 512)
+    attention._check_bwd(w, w, w, w, 1)                      # dh = 512, fp32
+    with pytest.raises(ValueError, match="shared memory"):
+        wb = w.bfloat16()
+        attention._check_bwd(wb, wb, wb, wb, 1)              # dh = 512, bf16: no tile fits
+    u = torch.zeros(2, 16, 96)
     with pytest.raises(ValueError, match="head dims"):
-        attention._check_bwd(q, q, q, q, 4)                  # dh = 32: the forward only
+        attention._check_bwd(u, u, u, u, 2)                  # dh = 48: no kernel takes it
     with pytest.raises(ValueError, match="cotangent"):
         attention._check_bwd(q, q, q, q.bfloat16(), 2)       # cotangent dtype
     with pytest.raises(ValueError, match="cotangent"):

@@ -17,7 +17,9 @@ only, so these tests hold, on the CPU, what the plans promise:
   decode of a patch, and its masks on a ragged edge, are held on the card
   by `chip_smoke.py`);
 - every head dim: the tile fits the 227 KB a block may use, and its shapes
-  are what `wgmma` and the 128-byte swizzle take;
+  are what `wgmma` and the 128-byte swizzle take; the attention backward's
+  tile (`ops/attention.py::attention_bwd_plan`) at every head dim and
+  dtype it takes fits too, and bf16 at dh 512, which cannot, is refused;
 - every GEGLU and LayerNorm->Linear site of the SD-2.1 and SD-1 UNets
   (listed below, and checked against the configs on the meta device) takes
   "wgmma", its tiles cover M, N and K, its blocks fit their shared memory,
@@ -41,8 +43,9 @@ from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, Auto
                                          DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
                                          VAEConfig, layout, transformer)
 from dpm_solver_tpu_torch.ops import _build
-from dpm_solver_tpu_torch.ops.attention import (HEAD_DIMS, SMEM_PER_BLOCK, AttentionTile,
-                                                attention_plan)
+from dpm_solver_tpu_torch.ops.attention import (BWD_HEAD_DIMS, HEAD_DIMS, SMEM_PER_BLOCK,
+                                                AttentionBwdTile, AttentionTile,
+                                                attention_bwd_plan, attention_plan)
 from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA_SMEM,
                                               conv3x3_patch, conv3x3_plan)
 from dpm_solver_tpu_torch.ops import geglu as geglu_mod
@@ -217,6 +220,42 @@ def test_attention_plan_refuses_other_head_dims():
             attention_plan(dh)
 
 
+BWD_CASES = [(dh, dt) for dt, dims in BWD_HEAD_DIMS.items() for dh in dims]
+
+
+@pytest.mark.parametrize("dh,dtype", BWD_CASES, ids=[f"{dh}-{str(dt)[6:]}" for dh, dt in BWD_CASES])
+def test_attention_bwd_tile_fits(dh, dtype):
+    """fp32 takes every head dim of the forward, bf16 all but 512; each tile
+    fits a block, its k16 steps cover dh with less than one step of zero
+    padding, and from d_pad 160 on two warps share a row group's columns,
+    each owning whole 16-wide fragments."""
+    assert set(BWD_HEAD_DIMS[torch.float32]) == set(HEAD_DIMS)
+    assert set(HEAD_DIMS) - set(BWD_HEAD_DIMS[torch.bfloat16]) == {512}
+    tile = attention_bwd_plan(dh, dtype)
+    assert isinstance(tile, AttentionBwdTile) and tile.smem_bytes <= SMEM_PER_BLOCK
+    if dtype == torch.float32:
+        assert tile == AttentionBwdTile("f32", 16, 32, dh, 1)
+        return
+    assert (tile.route, tile.rows, tile.tile) == ("wmma", 64, 64)
+    assert tile.d_pad % 16 == 0 and 0 <= tile.d_pad - dh < 16
+    assert tile.split == (2 if tile.d_pad >= 160 else 1)
+    assert (tile.d_pad // tile.split) % 16 == 0
+    # one warp's fp32 dk and dv sums: 8 registers a thread per 16-wide fragment
+    assert 2 * 8 * tile.d_pad // tile.split // 16 <= 128
+
+
+def test_attention_bwd_plan_refuses_bf16_512_and_other_head_dims():
+    """bf16 dh 512 would need 320,000 bytes a block: a ValueError naming the
+    shared-memory limit; a head dim no kernel takes is refused by name."""
+    with pytest.raises(ValueError, match="shared memory") as err:
+        attention_bwd_plan(512, torch.bfloat16)
+    assert "320000" in str(err.value) and str(SMEM_PER_BLOCK) in str(err.value)
+    assert attention_bwd_plan(512, torch.float32).smem_bytes == 201216
+    for dh in (16, 48, 96, 1024):
+        with pytest.raises(ValueError, match="head dims"):
+            attention_bwd_plan(dh, torch.float32)
+
+
 @pytest.mark.parametrize("cfg,want", [("sd_v1", {40, 80, 160}), ("sd_v2_1", {64})])
 def test_attention_head_dims_of_the_sd_unets_are_taken(cfg, want):
     """Every transformer site of the SD UNets has a head dim the kernel takes."""
@@ -338,7 +377,12 @@ def _cu_constant(source: str, name: str) -> int:
     ("geglu.cu", "DOWN_COLS", geglu_mod.DOWN_COLS),
     ("geglu.cu", "DOWN_STAGES", geglu_mod.DOWN_STAGES),
     ("ln_linear.cu", "LN_BN", ln_linear_mod.BLOCK_N),
-    ("ln_linear.cu", "LN_SMEM_MAX", ln_linear_mod.SMEM_PER_BLOCK)], ids=lambda v: str(v))
+    ("ln_linear.cu", "LN_SMEM_MAX", ln_linear_mod.SMEM_PER_BLOCK),
+    ("attention_bwd.cu", "MR", attention_bwd_plan(64).rows),
+    ("attention_bwd.cu", "MT", attention_bwd_plan(64).tile),
+    ("attention_bwd.cu", "FB", attention_bwd_plan(64, torch.float32).rows),
+    ("attention_bwd.cu", "FS", attention_bwd_plan(64, torch.float32).tile)],
+    ids=lambda v: str(v))
 def test_plans_name_the_compiled_tiles(source, name, value):
     """The plans' tile constants are the C sources' (the entries refuse others)."""
     assert _cu_constant(source, name) == value
