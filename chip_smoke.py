@@ -9,13 +9,16 @@ and nothing of JAX. Phases, each fatal on failure:
 1. environment: torch and CUDA versions, the card's name and power limit;
    exits non-zero at once when `torch.cuda.is_available()` is false;
 2. build: nvcc compiles `dpm_solver_tpu_torch/csrc/*.cu` for sm_90a into the
-   ignored `dpm_solver_tpu_torch/_build/`, one nvcc per source in parallel;
+   ignored `dpm_solver_tpu_torch/_build/`, one nvcc per source in parallel,
+   with `-Xptxas -v`; each instance of the attention backward's kernels
+   is logged with its registers and spilled bytes;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16:
    the forwards, and the attention forward's lse, the attention backward's
-   dq and dk/dv (at dh 64, and at every other head dim and dtype they take:
-   dh 256 at 16x16, SD-1's 40/80/160, 32, 128, fp32 512 at T = S = 1024;
-   at each, the forward's o and lse are checked first on the same inputs)
+   dq and dk/dv (at dh 64, and at every other head dim in both dtypes: dh
+   256 at 16x16, SD-1's 40/80/160, 32, 128, 512 at T = S = 1024 and ragged
+   on qkv slices; at each, the forward's o and lse are checked first on the
+   same inputs)
    and conv3x3's input gradient; and the two kernels no path
    launches (as in the JAX package): bias + LeakyReLU forward and backward
    at path D's activation shapes and ragged ones, and attention with its
@@ -55,7 +58,9 @@ and nothing of JAX. Phases, each fatal on failure:
    DPM-Solver++ 2M for 20 NFE on the time-uniform grid with
    `make_dynamic_thresholding(0.995, 1.0)`, through `build_sampler`; every
    NFE differentiates the classifier, so its backward runs the dq, dk/dv and
-   conv3x3-dx kernels. The samples must be finite (8, 256, 256, 3) fp32 and
+   conv3x3-dx kernels (dq and dk/dv are also checked at the classifier's
+   own attention sites, recorded from the call, in phase 8). The samples
+   must be finite (8, 256, 256, 3) fp32 and
    the launch counters must rise by exactly what `layout()` implies; then the
    same networks in fp32 at 64x64, batch 1, 3 NFE, on the card against the
    plain path on the CPU;
@@ -110,9 +115,10 @@ and nothing of JAX. Phases, each fatal on failure:
    bound.
 
 After each path's call the redesigned kernels' launches are also checked by
-route (`ops.launch_routes()`): every bf16 attention, LayerNorm->Linear and
-GEGLU on "wgmma", every bf16 conv with C % 8 == CO % 8 == 0 on "wgmma", the
-others (the SD VAE's conv_in and conv_out) on "wmma". A GEGLU call counts one
+route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
+dk/dv), LayerNorm->Linear and GEGLU on "wgmma", every bf16 conv with C % 8
+== CO % 8 == 0 on "wgmma", the others (the SD VAE's conv_in and conv_out)
+on "wmma"; path E's fp32 ones on "f32". A GEGLU call counts one
 launch of `geglu_ff`, whichever of its route's kernels it runs (on "wgmma"
 the gate and the down-projection, and at a split reduction the sum of the
 partials), so `adm_unet_launches` counts one per feed-forward.
@@ -128,9 +134,12 @@ and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
+import re
 import math
 import statistics
 import subprocess
@@ -171,9 +180,9 @@ BWD_BOUND = {"float32": 2e-5, "bfloat16": 0.05}
 # (b, t, s, heads, dh, q/k/v as column slices of one projection): dh 256 at
 # 16x16 (NCSN++/DDPM's single head; path E's b8, its qkv slices), SD-1's
 # sites at 512 px CFG b2 (dh 40/80/160, self- and cross-attention), dh 32
-# and 128 at one site each, fp32 dh 512 at T = S = 1024 (the VAE's
-# mid-block at 256 px), and ragged T, S (S >= 2: ROADMAP's S = 1 note;
-# T % 64 != 0 marks a ragged check shape, not timed)
+# and 128 at one site each, dh 512 at T = S = 1024 (the VAE's mid-block at
+# 256 px), and ragged T, S (S >= 2: ROADMAP's S = 1 note; T % 64 != 0
+# marks a ragged check shape, not timed), all in fp32 and bf16
 BWD_SHAPES = [(8, 256, 256, 1, 256, True), (8, 256, 256, 1, 256, False),
               (1, 77, 50, 2, 256, False), (2, 4096, 4096, 8, 40, False),
               (2, 4096, 77, 8, 40, False), (2, 1024, 1024, 8, 80, False),
@@ -207,8 +216,8 @@ REPLACES = {
                  "dpm_solver_tpu/ops/geglu.py:125"),
     "attention_lse": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
                       "dpm_solver_tpu/ops/attention.py:187 (_lse, _lse_kernel :157)"),
-    # rows 8-9 take every head dim of the forward, bf16 but 512: the JSON
-    # record's "head_dims" (from ops/attention.py::BWD_HEAD_DIMS)
+    # rows 8-9 take every head dim of the forward in both dtypes: the JSON
+    # record's "head_dims" (ops/attention.py::HEAD_DIMS)
     "attention_dq": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
                      "dpm_solver_tpu/ops/attention.py:375 (_mha_backward dq: _dq_kernel :226, "
                      "_dq_kernel_T :245)"),
@@ -278,6 +287,32 @@ def kernel_modules() -> tuple:
     `ops.ln_linear` is the function)."""
     return (importlib.import_module("dpm_solver_tpu_torch.ops.geglu"),
             importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear"))
+
+
+def ptxas_usage(build_log: str, pattern: str) -> dict:
+    """{kernel instance: (registers, spilled bytes)} from nvcc's `-Xptxas -v`
+    output, for the entry functions whose mangled name matches `pattern`;
+    an instance reads as its name and template arguments ("attn_dq_wgmma
+    dh 64", "attn_bwd_f32 dh 256 dkv")."""
+    usage, name, spill = {}, None, 0
+    for line in build_log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name, spill = found.group(1), 0
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = int(found.group(1))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name and re.search(pattern, name):
+            kernel = re.search(pattern, name).group(0)
+            args = re.findall(r"L([ib])(\d+)E", name[name.index(kernel):])
+            dh = [v for t, v in args if t == "i"]
+            tag = f"{kernel} dh {dh[0]}" if dh else kernel
+            flags = [v for t, v in args if t == "b"]
+            if flags:
+                tag += " dkv" if flags[0] == "1" else " dq"
+            usage[tag] = (int(found.group(1)), spill)
+    return usage
 
 
 def rel_err(got, want) -> tuple:
@@ -616,13 +651,15 @@ def plan_launches(cfg, plan) -> dict:
 
 def check_routes(what: str, launches: dict, routes: dict, wmma_convs: int = 0) -> None:
     """`routes` (`ops.launch_routes()` read with `launches`, just after a bf16
-    run): attention, LayerNorm->Linear and GEGLU all on "wgmma"; conv3x3
-    (and its dx) on "wgmma" but for `wmma_convs` launches with C or CO not a
-    multiple of 8."""
+    run): attention (forward, lse, dq, dk/dv), LayerNorm->Linear and GEGLU
+    all on "wgmma"; conv3x3 (and its dx) on "wgmma" but for `wmma_convs`
+    launches with C or CO not a multiple of 8."""
     want = {"conv3x3": {"wgmma": launches["conv3x3"] - wmma_convs, "wmma": wmma_convs},
             "conv3x3_dx": {"wgmma": launches["conv3x3_dx"]},
             "token_attention": {"wgmma": launches["token_attention"]},
             "attention_lse": {"wgmma": launches["attention_lse"]},
+            "attention_dq": {"wgmma": launches["attention_dq"]},
+            "attention_dkv": {"wgmma": launches["attention_dkv"]},
             "ln_linear": {"wgmma": launches["ln_linear"]},
             "geglu_ff": {"wgmma": launches["geglu_ff"]}}
     want = {k: {r: n for r, n in v.items() if n} for k, v in want.items()}
@@ -753,7 +790,7 @@ def main() -> int:
                                              VAEConfig, constant_context_encoder, init_random_)
     from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
     from dpm_solver_tpu_torch.ops import _build
-    from dpm_solver_tpu_torch.ops.attention import BWD_HEAD_DIMS, HEAD_DIMS, attention_delta
+    from dpm_solver_tpu_torch.ops.attention import HEAD_DIMS, attention_delta
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
     from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
     from dpm_solver_tpu_torch.likelihood import (get_likelihood_fn, hutchinson_divergence,
@@ -775,9 +812,16 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
+    build_log = io.StringIO()
+    with contextlib.redirect_stdout(build_log):
+        lib = _build.build(verbose=True)
+    log(build_log.getvalue())
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(ROOT)}")
+    # (a library built by an earlier run of the same sources prints nothing)
+    bwd_ptxas = ptxas_usage(build_log.getvalue(), r"attn_(dq_wgmma|dkv_wgmma|bwd_f32)")
+    for kernel, (regs, spill) in bwd_ptxas.items():
+        log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
     # ---- 3. kernels against their plain versions ---------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -810,18 +854,20 @@ def main() -> int:
                    BOUND[str(dt)[6:]])
 
     def check_attention_bwd(spec, dt, bound):
-        """attention_lse at `spec` (b, t, s, heads, dh, qkv slices): its o and
-        lse against the plain forward within BOUND; then dq, dk and dv against
-        the plain backward on the kernel's o and lse (cast to fp32) within
-        `bound`."""
+        """attention_lse at `spec` (b, t, s, heads, dh, qkv slices; "odd": q,
+        k, v each one element into a wider row): its o and lse against the
+        plain forward within BOUND; then dq, dk and dv against the plain
+        backward on the kernel's o and lse (cast to fp32) within `bound`."""
         b, t, s, heads, dh, fused = spec
         inner, scale = heads * dh, dh ** -0.5
-        if fused:
+        if fused == "odd":
+            q, k, v = (randn(b, n, inner + 1).to(dt)[..., 1:] for n in (t, s, s))
+        elif fused:
             q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
         else:
             q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
         g_out = randn(b, t, inner).to(dt)
-        shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
+        shape = (b, t, s, heads, dh) + ((fused if fused == "odd" else "qkv",) if fused else ())
         o, lse = ops.attention_lse(q, k, v, num_heads=heads)
         qf, kf, vf = q.float(), k.float(), v.float()
         report("attention_lse", shape + ("o",), dt, o,
@@ -890,14 +936,14 @@ def main() -> int:
             (2, 77, 77, 1, 64, False), (1, 5, 5, 2, 64, True)]:
         for dt in (torch.float32, torch.bfloat16):
             check_attention_bwd(spec, dt, BOUND[str(dt)[6:]])
-    # the forward's lse and the backward at every other head dim the
-    # backward takes (BWD_HEAD_DIMS: all of the forward's in fp32, all but
-    # 512 in bf16), the backward within tests/test_torch_attention_bwd.py's
-    # bounds
+    # the forward's lse and the backward at every other head dim, both
+    # dtypes, the backward within tests/test_torch_attention_bwd.py's bounds
     for spec in BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
-            if spec[4] in BWD_HEAD_DIMS[dt]:
-                check_attention_bwd(spec, dt, BWD_BOUND[str(dt)[6:]])
+            check_attention_bwd(spec, dt, BWD_BOUND[str(dt)[6:]])
+    # fp32 rows 4 bytes off an 8-byte boundary: the fp32 kernel's 4-byte
+    # copies (every other check takes its 8-byte ones)
+    check_attention_bwd((3, 33, 129, 4, 128, "odd"), torch.float32, BWD_BOUND["float32"])
     torch.cuda.empty_cache()
     coef = randn(4, 8)
     for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4)]:
@@ -1532,6 +1578,8 @@ def main() -> int:
     want_routes = {"conv3x3": {"f32": expected_e["conv3x3"]},
                    "conv3x3_dx": {"f32": expected_e["conv3x3_dx"]},
                    "token_attention": {}, "attention_lse": {"f32": expected_e["attention_lse"]},
+                   "attention_dq": {"f32": expected_e["attention_dq"]},
+                   "attention_dkv": {"f32": expected_e["attention_dkv"]},
                    "ln_linear": {}, "geglu_ff": {}}
     log(f"  launches by route {routes_e} (expected {want_routes})")
     if routes_e != want_routes:
@@ -1812,6 +1860,10 @@ def main() -> int:
     unet_c, clf_c = record_guided_calls(gunet, clf, one_nfe)
     del gunet, clf, sample_c, timed_c
     torch.cuda.empty_cache()
+    # dq and dk/dv at the classifier's own attention sites, as the call
+    # recorded them (its blocks at 32x32, 16x16, 8x8 and the attention pool)
+    for spec in sorted({spec for name, spec in clf_c if name == "attention_dq"}, key=str):
+        check_attention_bwd(spec, torch.bfloat16, BWD_BOUND["bfloat16"])
     per_kernel_c = {name: Counter() for name in REPLACES}
     for (name, spec), n in chain(unet_c.items(), clf_c.items()):
         per_kernel_c[name][spec] += n * GUIDED_STEPS
@@ -1904,8 +1956,6 @@ def main() -> int:
         if t % 64:   # a ragged check shape, not a site
             continue
         for dt in (torch.float32, torch.bfloat16):
-            if dh not in BWD_HEAD_DIMS[dt]:
-                continue
             spec, ms, bound, work = (b, t, s, heads, dh, fused), {}, 0.0, 0.0
             for name in ("attention_dq", "attention_dkv"):
                 case = make_case(name, spec, randn, dtype=dt)
@@ -1967,10 +2017,13 @@ def main() -> int:
               "sd1": routes_s1}
 
     # the head dims each attention kernel takes, by dtype
-    forward_dims = {str(dt)[6:]: list(HEAD_DIMS) for dt in BWD_HEAD_DIMS}
-    head_dims = {"token_attention": forward_dims, "attention_lse": forward_dims,
-                 **{n: {str(dt)[6:]: list(d) for dt, d in BWD_HEAD_DIMS.items()}
-                    for n in ("attention_dq", "attention_dkv")}}
+    head_dims = {name: {"float32": list(HEAD_DIMS), "bfloat16": list(HEAD_DIMS)}
+                 for name in ("token_attention", "attention_lse", "attention_dq",
+                              "attention_dkv")}
+    ptxas_of = {"attention_dq": {k: v for k, v in bwd_ptxas.items() if "attn_dq" in k
+                                 or "attn_bwd_f32" in k and k.endswith("dq")},
+                "attention_dkv": {k: v for k, v in bwd_ptxas.items() if "attn_dkv" in k
+                                  or "attn_bwd_f32" in k and k.endswith("dkv")}}
 
     def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
         # SD-1's forward only where no path does)
@@ -1984,8 +2037,10 @@ def main() -> int:
                     max_abs_err=max_abs[name], **timing[name][newest(name)],
                     path=newest(name), timing_by_path=timing[name],
                     **({"head_dims": head_dims[name]} if name in head_dims else {}),
-                    **({"by_head_dim": bwd_by_dh} if name in ("attention_dq", "attention_dkv")
-                       else {}))
+                    **({"by_head_dim": bwd_by_dh,
+                        "ptxas": {k: dict(registers=r, spilled_bytes=b)
+                                  for k, (r, b) in ptxas_of[name].items()}}
+                       if name in ("attention_dq", "attention_dkv") else {}))
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

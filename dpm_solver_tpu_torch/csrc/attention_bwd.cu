@@ -15,62 +15,81 @@
 // Pallas kernel carries its accumulator across the streamed axis in VMEM
 // scratch. Here blocks run in parallel and in no order, so each block owns
 // its output rows and streams the other side itself, and two kernels split
-// the work the same way the Pallas pair does, with no atomics anywhere:
+// the work the way the Pallas pair does, with no atomics anywhere:
 //
-// - dq: a block owns one (batch*head, query tile) and streams K/V tiles;
-// - dk/dv: a block owns one (batch*head, key tile) and streams Q/dO tiles.
+// - dq: a block owns one (batch*head, 64-query tile) and streams K/V tiles;
+// - dk/dv: a block owns one (batch*head, 64-key tile) and streams Q/dO tiles.
 //
-// Each kernel recomputes z and dp for its tile pair, so the pair does 7
-// products of T*S*D (the forward does 2): about 14*T*S*D flops per head
-// against 2 bytes * D * (4*T + 4*S) of bf16 inputs and outputs, hundreds of
-// flops per byte once T = S >= 64. Compute-bound: the products belong on the
-// tensor cores, the exponentials in fp32.
+// The pair does 7 products of T*S*D (the forward does 2): about 14*T*S*D
+// flops per head against 2 bytes * D * (4*T + 4*S) of bf16 inputs and
+// outputs, hundreds of flops per byte once T = S >= 64, so the products
+// bound it and belong on the tensor cores. Two forms by dtype, at every head
+// dim the forward takes (32, 40, 64, 80, 128, 160, 256, 512):
 //
-// Two forms by dtype, as the forward has, at every head dim the forward
-// takes (32, 40, 64, 80, 128, 160, 256, 512), but bf16 at 512:
-// - bf16: 64 owned rows a block in four 16-row groups; all products are
-//   WMMA 16x16x16 bf16 with fp32 accumulators (`mma.sync`); z and dp go
-//   through fp32 shared memory for the elementwise step (a WMMA fragment's
-//   element order is opaque), p and ds are rounded to bf16 for the second
-//   products, as the Pallas kernels round them; the dq, dk and dv sums stay
-//   in fp32 fragments across the whole stream and are rounded once.
-//   * The reduction over the head dim runs in k16 steps, so the q, k, v and
-//     dO tiles are staged d_pad = dh rounded up to 16 columns wide, the
-//     columns past dh zero-filled in shared memory (dh 40 -> 48; the
-//     forward's 64-column TMA tiles pad the same way, with zeros).
-//   * Registers. A warp's fp32 sums are 16 x d_pad: 8 registers a thread a
-//     16-wide fragment, two sums (dk and dv) in the dk/dv kernel, i.e. 256
-//     registers a thread at dh 256, which would spill. From d_pad 160 on,
-//     two warps share each 16-row group ("split" 2, 8 warps a block): each
-//     owns half of the group's output columns, one computes the group's z
-//     and the other its dp into shared memory, where both read them. z and
-//     dp are built one 16x16 fragment at a time, so their accumulators cost
-//     8 registers, not 32.
-//   * Shared memory: four [64][d_pad + 8] bf16 tiles, z and dp [64][68] fp32,
-//     p and ds [64][72] bf16: 188,928 bytes at dh 256. bf16 dh 512 would need
-//     320,000, over the 232,448 (227 KB) a block may have, and the fp32 dk/dv
-//     sums of a 64-key block alone are 256 KB: it is refused; only VAE
-//     training needs it.
-//   `wgmma`, TMA-fed stages and keeping z in registers are the later steps.
-// - fp32: exact on the CUDA cores, 16 owned rows per block, 32-row streamed
-//   tiles, 16 threads per owned row, each owning the columns col + 16 i
-//   (masked past dh, so dh 40 and 80 need no padding); streamed rows padded
-//   by one float so the 16 threads of a row read 16 different banks.
-//   201,216 bytes of shared memory at dh 512.
+// - bf16: `attn_dq_wgmma` and `attn_dkv_wgmma`, FlashAttention-3's backward
+//   in shape. A block is one producer warp and one consumer warpgroup that
+//   owns the block's 64 rows. The producer loads the owned operands once by
+//   TMA (q and dO for dq; k and v for dk/dv) and streams the other side's
+//   tiles through a ring of STAGES shared-memory stages, each guarded by a
+//   full and an empty mbarrier; for dk/dv its 32 lanes also copy each
+//   tile's lse and delta rows into the stage. The consumer computes the
+//   logits and dp with `wgmma` from shared memory into registers (dq: S =
+//   Q.K^T and dP = dO.V^T; dk/dv: S^T = K.Q^T and dP^T = V.dO^T, all
+//   K-major), forms p and ds on the accumulators in registers (their layout
+//   is known: a thread holds rows r, r + 8 of its warp's 16 and columns
+//   2(lane%4) (+1) of every 8), rounds them to bf16 in registers, as the
+//   Pallas kernels round them (`ds.astype(k_ref.dtype)`), and feeds them as
+//   the register A operand of the second products: dq += dS.K, dv += P^T.dO,
+//   dk += dS^T.Q, with K, dO and Q read MN-major through the transpose bit.
+//   Nothing of z, dp, p or ds touches shared memory. The sums stay in fp32
+//   registers across the whole stream and are rounded once. q, k, v and dO
+//   arrive through 4-D tensor maps over (d, head, token, batch) with the
+//   caller's strides (fused-qkv column slices load in place); TMA's zero
+//   fill pads ragged T and S and the head dims that are not a multiple of
+//   64, as in attention.cu. Keys >= S and queries >= T get p = 0, so they
+//   add nothing, and their rows are never written.
+//   * Registers. A thread holds outs * cols / 2 fp32 sums (outs: dk and dv,
+//     or one of them; cols: the output columns of the block), the logits and
+//     dp of one tile (tile / 2 each) and the bf16 fragments of p and ds
+//     (tile / 4 each): kept within BF16_REG_BUDGET. So the streamed tile is
+//     64 rows where that fits, else 32 (dh 256; dk/dv at dh 128), else 16
+//     (dh 512, where shared memory decides); dk/dv accumulates both outputs
+//     in one block up to dh 128, and from dh 160 on one output a block, the
+//     other in a second block of the grid (grid.z), which recomputes the
+//     logits (dv's block skips dp): 1.25x the flops of one pass. The
+//     512-wide head splits its output columns into two 256-wide slices
+//     (grid.z), each block recomputing the logits over all 512 channels:
+//     dq 1.67x and dk/dv 2x the flops of one pass.
+//   * Shared memory: the owned 64-row operands (2 x 64 KB at dh 512) and the
+//     ring; at dh 512 the streamed tiles are 16 rows, three stages.
+// - fp32: `attn_bwd_f32`, exact on the CUDA cores (no TF32), one kernel for
+//   both outputs (its operand roles swap): a block of 256 threads owns 16
+//   rows and streams tiles of 256 / PARTS rows (128 up to dh 80, 64 at 128
+//   and 160, 32 at 256, 16 at 512), double-buffered with cp.async, so the
+//   next tile's load overlaps this tile's math. Each tile goes in three
+//   register-tiled phases. (1) z and dp: each thread computes a 4x4 patch of
+//   both over one of PARTS interleaved slices of the head dim (at most
+//   F32_SLICE columns), so 16 shared-memory reads feed 32 FMAs; a butterfly
+//   over the PARTS lanes of a patch sums the slices and leaves each lane a
+//   share of the patch. (2) p and ds from it, into shared memory. (3) The
+//   sums: a thread owns 4 rows x ceil(dh/64) columns of dq (or of dk and of
+//   dv), so 4 (+4) broadcast reads and ceil(dh/64) (x2) row reads feed 4x
+//   as many FMAs. The pitches (dh + 2, or + 4 at 16 slices) keep phase 1's
+//   reads on distinct banks. 16 rows a block keep path E's site (b8, T = S
+//   = 256, one head) at 128 blocks on the 132 SMs.
 //
-// The tile of each head dim and dtype is chosen on the host
-// (ops/attention.py::attention_bwd_plan) and handed to the C entries, which
-// refuse any other. Ragged T and S are masked: keys >= S and queries >= T get
-// p = 0, so they add nothing to any sum, and their rows are never written.
-// Layout: q, k, v (B, T|S, H*D) with unit channel stride and any batch and
-// token strides (the forward's); dO, dq, dk, dv contiguous (B, T|S, H*D);
-// lse and delta float32 (B*H, T).
+// The tile of each head dim and dtype is fixed here at compile time
+// (Bf16Tile, F32Tile); ops/attention.py::attention_bwd_plan states the same
+// rule with the same constants, for the shared-memory figure and the grid,
+// and tests/test_torch_kernel_plans.py holds the two together. Layout: q, k,
+// v (B, T|S, H*D) with unit channel stride and any batch and token strides
+// (the forward's); dO, dq, dk, dv contiguous (B, T|S, H*D); lse and delta
+// float32 (B*H, T).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,605 +97,730 @@ struct Strides {  // element strides of q, k and v
   long long qb, qt, kb, kt, vb, vt;
 };
 
-// the host's tile (ops/attention.py::AttentionBwdTile)
-struct Plan {
-  int rows, tile, d_pad, split;
-  long long smem;
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
+
+// ---- bf16: TMA + wgmma ------------------------------------------------------
+
+constexpr int BF16_ROWS = 64;          // owned rows a block: one consumer warpgroup
+constexpr int BF16_THREADS = 160;      // the warpgroup and one producer warp
+constexpr int BF16_MAX_COLS = 256;     // output columns a block: dh 512 in two slices
+constexpr int BF16_REG_BUDGET = 176;   // sums + logits + fragments, registers a thread
+constexpr int BF16_MAX_STAGES = 3;     // ring depth, where it costs no block an SM
+constexpr int BF16_BLOCKS_PER_SM = 2;  // what the register budget lets share an SM
+constexpr int SM_SMEM = 233472;       // shared memory of one SM (1 KB of it kept a block)
+
+constexpr int pad64(int d) { return (d + 63) / 64 * 64; }
+constexpr int bf16_cols(int d) { return d < BF16_MAX_COLS ? d : BF16_MAX_COLS; }
+// fp32 registers a thread: the sums, the logits and dp, the p and ds fragments
+constexpr int bf16_regs(int outs, int cols, int tile) { return outs * cols / 2 + 3 * tile / 2; }
+constexpr long long bf16_smem(int d, int tile, int stages, bool dkv) {
+  // + 1024 to align to a swizzle atom; the owned operands, the ring, (dk/dv)
+  // the stages' lse and delta rows, the owned, full and empty barriers
+  return 1024 + 2LL * BF16_ROWS * pad64(d) * 2 + (long long)stages * 2 * tile * pad64(d) * 2 +
+         (dkv ? (long long)stages * 2 * tile * 4 : 0) + 8LL * (1 + 2 * stages);
+}
+// dk/dv takes both outputs in one block where their sums fit beside a 32-row tile
+constexpr int bf16_outs(int d, bool dkv) {
+  return dkv && bf16_regs(2, d, 32) <= BF16_REG_BUDGET ? 2 : 1;
+}
+// the widest streamed tile within the register budget whose two stages fit
+constexpr int bf16_tile(int d, bool dkv) {
+  for (int t = 64; t >= 16; t /= 2)
+    if (bf16_regs(bf16_outs(d, dkv), bf16_cols(d), t) <= BF16_REG_BUDGET &&
+        bf16_smem(d, t, 2, dkv) <= SMEM_LIMIT)
+      return t;
+  return 0;
+}
+constexpr long long bf16_blocks(long long smem) {
+  return SM_SMEM / (smem + 1024) < BF16_BLOCKS_PER_SM ? SM_SMEM / (smem + 1024)
+                                                      : BF16_BLOCKS_PER_SM;
+}
+// the deeper ring where it fits and keeps as many blocks an SM as two stages
+constexpr int bf16_stages(int d, bool dkv) {
+  const int t = bf16_tile(d, dkv);
+  const long long deep = bf16_smem(d, t, BF16_MAX_STAGES, dkv);
+  return deep <= SMEM_LIMIT && bf16_blocks(deep) >= bf16_blocks(bf16_smem(d, t, 2, dkv))
+             ? BF16_MAX_STAGES
+             : 2;
+}
+
+template <int D, bool DKV>
+struct Bf16Tile {
+  static constexpr int OUTS = bf16_outs(D, DKV), COLS = bf16_cols(D);
+  static constexpr int TILE = bf16_tile(D, DKV), STAGES = bf16_stages(D, DKV);
+  static constexpr int SLICES = D / COLS;              // grid.z: output column slices
+  static constexpr int PASSES = DKV ? 2 / OUTS : 1;    // x grid.z: dv's block, dk's block
+  static constexpr int DCH = pad64(D) / 64;            // 64-column tiles of a row
+  static constexpr int KSTEPS = (D + 15) / 16;         // k16 steps over the head dim
+  static constexpr uint32_t OWN_BYTES = DCH * BF16_ROWS * 128;  // one owned operand
+  static constexpr uint32_t TILE_BYTES = DCH * TILE * 128;      // one streamed operand
+  static constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr size_t ROWS_OFF = 2 * (size_t)OWN_BYTES + (size_t)STAGES * STAGE_BYTES;
+  static constexpr size_t BAR_OFF = ROWS_OFF + (DKV ? (size_t)STAGES * 2 * TILE * 4 : 0);
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+  static_assert(TILE >= 16 && SMEM == (size_t)bf16_smem(D, TILE, STAGES, DKV) &&
+                    (long long)SMEM <= SMEM_LIMIT,
+                "tile");
+  static_assert(COLS % 8 == 0 && D % COLS == 0 && (SLICES == 1 || COLS % 64 == 0), "slices");
 };
 
-// ---- fp32, exact, on the CUDA cores ----------------------------------------
-
-constexpr int FB = 16;         // owned rows per block
-constexpr int FS = 32;         // streamed rows per tile
-constexpr int FTHREADS = 256;  // 16 threads per owned row
-
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  // owned [FB][D] x2, streamed [FS][D+1] x2, two [FB][FS] tiles, two [FS] rows
-  return 4 * ((size_t)2 * FB * D + (size_t)2 * FS * (D + 1) + 2 * FB * FS + 2 * FS);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(FTHREADS)
-attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dq, int Tq, int S, int H, float qscale, float scale,
-            Strides st) {
-  constexpr int NC = (D + 15) / 16;  // the columns col + 16 i a thread owns
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [FB][D]
-  float* gs = qs + FB * D;         // [FB][D] dO
-  float* ks = gs + FB * D;         // [FS][D+1]
-  float* vs = ks + FS * (D + 1);   // [FS][D+1]
-  float* dss = vs + FS * (D + 1);  // [FB][FS] ds
-  float* rl = dss + FB * FS;       // [FB] lse
-  float* rd = rl + FB;             // [FB] delta
+template <int J>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[j][r])::"memory");
+}
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * FB;
-  const long long tok = (long long)H * D;
-  const float* qb = q + b * st.qb + (long long)h * D;
-  const float* kb = k + b * st.kb + (long long)h * D;
-  const float* vb = v + b * st.vb + (long long)h * D;
-  const float* gb = dout + (long long)b * Tq * tok + (long long)h * D;
-  float* dqb = dq + (long long)b * Tq * tok + (long long)h * D;
-
-  for (int idx = tid; idx < FB * D; idx += FTHREADS) {
-    const int r = idx / D, d = idx % D, t = q0 + r;
-    qs[idx] = t < Tq ? qb[t * st.qt + d] : 0.f;
-    gs[idx] = t < Tq ? gb[t * tok + d] : 0.f;
+// acc (64 x N) = A (64 owned rows at `a`) . B^T (N streamed rows at `b`),
+// reduced over the head dim in k16 steps, both K-major; the first step
+// overwrites acc. No commit.
+template <typename L, int N>
+__device__ __forceinline__ void logits(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < L::KSTEPS; ++ks) {
+    const int c = ks / 4, kk = ks % 4;
+    hopper::Wgmma<N>::template ss<0>(acc, hopper::desc(a + c * BF16_ROWS * 128 + kk * 32, 16, 1024),
+                                     hopper::desc(b + c * N * 128 + kk * 32, 16, 1024), ks > 0);
   }
-  if (tid < FB) {
-    const int t = q0 + tid;
-    rl[tid] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-    rd[tid] = t < Tq ? delta[(long long)bh * Tq + t] : 0.f;
-  }
+}
 
-  const int row = tid / 16, col = tid % 16;
-  const bool row_ok = q0 + row < Tq;
-  float acc[NC];
+// acc (64 x COLS) += F (64 x TILE, register fragments) . X (TILE streamed
+// rows at `x`, columns [col0, col0 + COLS), MN-major). No commit.
+template <typename L>
+__device__ __forceinline__ void accumulate(float (&acc)[L::COLS / 2],
+                                           const uint32_t (&f)[L::TILE / 16][4], uint32_t x,
+                                           int col0) {
+  const uint32_t base = x + (col0 / 64) * L::TILE * 128;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
+  for (int j = 0; j < L::TILE / 16; ++j)
+    hopper::Wgmma<L::COLS>::template rs<1>(acc, f[j],
+                                           hopper::desc(base + j * 2048, L::TILE * 128, 1024), 1);
+}
 
-  for (int k0 = 0; k0 < S; k0 += FS) {
-    __syncthreads();  // previous tile consumed; owned rows visible
-    for (int idx = tid; idx < FS * D; idx += FTHREADS) {
-      const int j = idx / D, d = idx % D, key = k0 + j;
-      const bool valid = key < S;
-      ks[j * (D + 1) + d] = valid ? kb[key * st.kt + d] : 0.f;
-      vs[j * (D + 1) + d] = valid ? vb[key * st.vt + d] : 0.f;
-    }
-    __syncthreads();
+// rows r and r + 8 of this thread (row0, row0 + 8) of a 64 x COLS fp32 sum,
+// times `mul`, rounded to bf16 into dst (rows `tok` apart, column col0 +
+// 2(lane%4) at dst); rows >= valid are not written
+template <int COLS>
+__device__ __forceinline__ void store_rows(const float (&acc)[COLS / 2], float mul,
+                                           __nv_bfloat16* dst, long long tok, int row0,
+                                           int valid) {
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = col + 16 * jj;
-      float z = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        z = fmaf(qs[row * D + d], ks[j * (D + 1) + d], z);
-        dp = fmaf(gs[row * D + d], vs[j * (D + 1) + d], dp);
-      }
-      const float p = (row_ok && k0 + j < S) ? exp2f(z * qscale - rl[row]) : 0.f;
-      dss[row * FS + j] = p * (dp - rd[row]);
-    }
-    __syncthreads();
-    for (int j = 0; j < FS; ++j) {
-      const float ds = dss[row * FS + j];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < valid) {
+      __nv_bfloat16* d = dst + row * tok;
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int c = col + 16 * i;
-        if (D % 16 == 0 || c < D) acc[i] = fmaf(ds, ks[j * (D + 1) + c], acc[i]);
-      }
-    }
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = col + 16 * i;
-      if (D % 16 == 0 || c < D) dqb[(q0 + row) * tok + c] = acc[i] * scale;
+      for (int j = 0; j < COLS / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(d + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
-attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, int Tq, int S, int H,
-             float qscale, float scale, Strides st) {
-  constexpr int NC = (D + 15) / 16;  // the columns col + 16 i a thread owns
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                // [FB][D] owned keys
-  float* vs = ks + FB * D;         // [FB][D]
-  float* qs = vs + FB * D;         // [FS][D+1] streamed queries
-  float* gs = qs + FS * (D + 1);   // [FS][D+1] dO
-  float* ps = gs + FS * (D + 1);   // [FB][FS] p
-  float* dss = ps + FB * FS;       // [FB][FS] ds
-  float* rl = dss + FB * FS;       // [FS] lse
-  float* rd = rl + FS;             // [FS] delta
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+attn_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, float qscale, float scale) {
+  using L = Bf16Tile<D, false>;
+  using namespace hopper;
+  constexpr int TILE = L::TILE, COLS = L::COLS, STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                  // owned q, then dO
+  uint8_t* gs = qs + L::OWN_BYTES;
+  uint8_t* ring = gs + L::OWN_BYTES;   // stages of (k, v)
+  uint64_t* obar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = obar + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * FB;
-  const long long tok = (long long)H * D;
-  const float* qb = q + b * st.qb + (long long)h * D;
-  const float* kb = k + b * st.kb + (long long)h * D;
-  const float* vb = v + b * st.vb + (long long)h * D;
-  const float* gb = dout + (long long)b * Tq * tok + (long long)h * D;
-  float* dkb = dk + (long long)b * S * tok + (long long)h * D;
-  float* dvb = dv + (long long)b * S * tok + (long long)h * D;
+  const int q0 = blockIdx.x * BF16_ROWS, col0 = blockIdx.z * COLS;
+  const int ntiles = (S + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int idx = tid; idx < FB * D; idx += FTHREADS) {
-    const int r = idx / D, d = idx % D, key = k0 + r;
-    ks[idx] = key < S ? kb[key * st.kt + d] : 0.f;
-    vs[idx] = key < S ? vb[key * st.vt + d] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(obar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const int row = tid / 16, col = tid % 16;
-  const bool key_ok = k0 + row < S;
-  float dk_acc[NC], dv_acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  for (int t0 = 0; t0 < Tq; t0 += FS) {
-    __syncthreads();  // previous tile consumed; owned rows visible
-    for (int idx = tid; idx < FS * D; idx += FTHREADS) {
-      const int i = idx / D, d = idx % D, t = t0 + i;
-      const bool valid = t < Tq;
-      qs[i * (D + 1) + d] = valid ? qb[t * st.qt + d] : 0.f;
-      gs[i * (D + 1) + d] = valid ? gb[t * tok + d] : 0.f;
-    }
-    if (tid < FS) {
-      const int t = t0 + tid;
-      rl[tid] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-      rd[tid] = t < Tq ? delta[(long long)bh * Tq + t] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int i = col + 16 * ii;
-      float z = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        z = fmaf(ks[row * D + d], qs[i * (D + 1) + d], z);
-        dp = fmaf(vs[row * D + d], gs[i * (D + 1) + d], dp);
+  if (warp == 4) {  // the producer warp: one lane starts every load
+    if (lane == 0) {
+      mbar_expect_tx(obar, 2 * L::OWN_BYTES);
+      for (int c = 0; c < L::DCH; ++c) {
+        tma_load_4d(qs + c * BF16_ROWS * 128, &qmap, obar, 64 * c, h, q0, b);
+        tma_load_4d(gs + c * BF16_ROWS * 128, &gmap, obar, 64 * c, h, q0, b);
       }
-      const float p = (key_ok && t0 + i < Tq) ? exp2f(z * qscale - rl[i]) : 0.f;
-      ps[row * FS + i] = p;
-      dss[row * FS + i] = p * (dp - rd[i]);
-    }
-    __syncthreads();
-    for (int i = 0; i < FS; ++i) {
-      const float p = ps[row * FS + i], ds = dss[row * FS + i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int cc = col + 16 * c;
-        if (D % 16 == 0 || cc < D) {
-          dv_acc[c] = fmaf(p, gs[i * (D + 1) + cc], dv_acc[c]);
-          dk_acc[c] = fmaf(ds, qs[i * (D + 1) + cc], dk_acc[c]);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        uint8_t* ks = ring + s * L::STAGE_BYTES;
+        for (int c = 0; c < L::DCH; ++c) {
+          tma_load_4d(ks + c * TILE * 128, &kmap, &full[s], 64 * c, h, t * TILE, b);
+          tma_load_4d(ks + L::TILE_BYTES + c * TILE * 128, &vmap, &full[s], 64 * c, h, t * TILE, b);
         }
       }
     }
+    return;
   }
-  if (key_ok) {
+
+  // the consumer warpgroup: this thread's query rows row0 and row0 + 8
+  const int quad = lane % 4;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  float lr[2], dr[2];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int cc = col + 16 * c;
-      if (D % 16 == 0 || cc < D) {
-        dkb[(k0 + row) * tok + cc] = dk_acc[c] * scale;
-        dvb[(k0 + row) * tok + cc] = dv_acc[c];
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    lr[r] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
+    dr[r] = t < Tq ? delta[(long long)bh * Tq + t] : 0.f;
+  }
+  float acc[COLS / 2];
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float sacc[TILE / 2], pacc[TILE / 2];
+  uint32_t dsa[TILE / 16][4];
+  const uint32_t q_addr = smem_u32(qs), g_addr = smem_u32(gs), ring_addr = smem_u32(ring);
+  mbar_wait(obar, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const uint32_t k_addr = ring_addr + s * L::STAGE_BYTES, v_addr = k_addr + L::TILE_BYTES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    wgmma_fence();
+    logits<L, TILE>(sacc, q_addr, k_addr);   // S = Q.K^T
+    logits<L, TILE>(pacc, g_addr, v_addr);   // dP = dO.V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(pacc);
+    // p and ds in registers; k-step j of dS.K takes accumulator columns
+    // [16j, 16j + 16): sacc[8j .. 8j + 8) in pairs
+    const int key0 = t * TILE + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < TILE / 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * j + 2 * r, key = key0 + 8 * (2 * j + r / 2), hr = r % 2;
+        const float p0 = key < S ? ex2(sacc[i] * qscale - lr[hr]) : 0.f;
+        const float p1 = key + 1 < S ? ex2(sacc[i + 1] * qscale - lr[hr]) : 0.f;
+        dsa[j][r] = pack_bf16(p0 * (pacc[i] - dr[hr]), p1 * (pacc[i + 1] - dr[hr]));
+      }
+    fence_frags(dsa);
+    fence_regs(acc);
+    wgmma_fence();
+    accumulate<L>(acc, dsa, k_addr, col0);   // dQ += dS.K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const long long tok = (long long)H * D;
+  store_rows<COLS>(acc, scale, dq + (long long)b * Tq * tok + (long long)h * D + col0 + 2 * quad,
+                   tok, row0, Tq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq, int S,
+               int H, float qscale, float scale) {
+  using L = Bf16Tile<D, true>;
+  using namespace hopper;
+  constexpr int TILE = L::TILE, COLS = L::COLS, STAGES = L::STAGES, OUTS = L::OUTS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;                  // owned k, then v
+  uint8_t* vs = ks + L::OWN_BYTES;
+  uint8_t* ring = vs + L::OWN_BYTES;   // stages of (q, dO)
+  float* rows = reinterpret_cast<float*>(smem + L::ROWS_OFF);  // [STAGES][lse, delta][TILE]
+  uint64_t* obar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = obar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * BF16_ROWS;
+  // grid.z: the column slice, and (one output a block) which output: 0 dv, 1 dk
+  const int pass = OUTS == 2 ? 2 : blockIdx.z % 2;
+  const int col0 = (OUTS == 2 ? blockIdx.z : blockIdx.z / 2) * COLS;
+  const bool want_dk = pass != 0;   // dv alone needs neither v nor dp
+  const int ntiles = (Tq + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(obar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane, after its lse and delta rows
+      mbar_init(&empty[s], 4);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: lane 0 starts the loads, all copy the rows
+    if (lane == 0) {
+      mbar_expect_tx(obar, (want_dk ? 2 : 1) * L::OWN_BYTES);
+      for (int c = 0; c < L::DCH; ++c) {
+        tma_load_4d(ks + c * BF16_ROWS * 128, &kmap, obar, 64 * c, h, k0, b);
+        if (want_dk) tma_load_4d(vs + c * BF16_ROWS * 128, &vmap, obar, 64 * c, h, k0, b);
+      }
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+      float* rs = rows + s * 2 * TILE;
+      for (int i = lane; i < TILE; i += 32) {
+        const int q = t * TILE + i;
+        rs[i] = q < Tq ? lse[(long long)bh * Tq + q] : 0.f;
+        rs[TILE + i] = q < Tq ? delta[(long long)bh * Tq + q] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        uint8_t* qt = ring + s * L::STAGE_BYTES;
+        for (int c = 0; c < L::DCH; ++c) {
+          tma_load_4d(qt + c * TILE * 128, &qmap, &full[s], 64 * c, h, t * TILE, b);
+          tma_load_4d(qt + L::TILE_BYTES + c * TILE * 128, &gmap, &full[s], 64 * c, h, t * TILE, b);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread's key rows row0 and row0 + 8
+  const int quad = lane % 4;
+  const int row0 = k0 + warp * 16 + lane / 4;
+  float acc0[COLS / 2];                       // dv, or the block's one output
+  float acc1[OUTS == 2 ? COLS / 2 : 2];       // dk, when the block takes both
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (OUTS == 2 ? COLS / 2 : 2); ++i) acc1[i] = 0.f;
+  float sacc[TILE / 2], pacc[TILE / 2];
+  // dsa: dS^T, or P^T in a block that takes dv alone; pa: P^T beside dS^T
+  uint32_t pa[OUTS == 2 ? TILE / 16 : 1][4], dsa[TILE / 16][4];
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs), ring_addr = smem_u32(ring);
+  mbar_wait(obar, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const uint32_t q_addr = ring_addr + s * L::STAGE_BYTES, g_addr = q_addr + L::TILE_BYTES;
+    const float* rl = rows + s * 2 * TILE;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    wgmma_fence();
+    logits<L, TILE>(sacc, k_addr, q_addr);                // S^T = K.Q^T
+    if (want_dk) logits<L, TILE>(pacc, v_addr, g_addr);   // dP^T = V.dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(pacc);
+    // P^T and dS^T in registers: accumulator column c is query t*TILE + c
+#pragma unroll
+    for (int j = 0; j < TILE / 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * j + 2 * r, c = 8 * (2 * j + r / 2) + 2 * quad, q = t * TILE + c;
+        const float2 l2 = *reinterpret_cast<const float2*>(rl + c);
+        const float p0 = q < Tq ? ex2(sacc[i] * qscale - l2.x) : 0.f;
+        const float p1 = q + 1 < Tq ? ex2(sacc[i + 1] * qscale - l2.y) : 0.f;
+        const uint32_t pp = pack_bf16(p0, p1);
+        if constexpr (OUTS == 2) pa[j][r] = pp;
+        if (want_dk) {
+          const float2 d2 = *reinterpret_cast<const float2*>(rl + TILE + c);
+          dsa[j][r] = pack_bf16(p0 * (pacc[i] - d2.x), p1 * (pacc[i + 1] - d2.y));
+        } else {
+          dsa[j][r] = pp;
+        }
+      }
+    fence_frags(pa);
+    fence_frags(dsa);
+    fence_regs(acc0);
+    fence_regs(acc1);
+    wgmma_fence();
+    if constexpr (OUTS == 2) {
+      accumulate<L>(acc0, pa, g_addr, col0);    // dV += P^T.dO
+      accumulate<L>(acc1, dsa, q_addr, col0);   // dK += dS^T.Q
+    } else {   // dK += dS^T.Q, or dV += P^T.dO
+      accumulate<L>(acc0, dsa, want_dk ? q_addr : g_addr, col0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const long long tok = (long long)H * D;
+  const long long out0 = (long long)b * S * tok + (long long)h * D + col0 + 2 * quad;
+  if constexpr (OUTS == 2) {
+    store_rows<COLS>(acc0, 1.f, dv + out0, tok, row0, S);
+    store_rows<COLS>(acc1, scale, dk + out0, tok, row0, S);
+  } else {
+    store_rows<COLS>(acc0, want_dk ? scale : 1.f, (want_dk ? dk : dv) + out0, tok, row0, S);
+  }
+}
+
+// ---- fp32, exact, on the CUDA cores -------------------------------------------
+
+constexpr int F32_ROWS = 16;       // owned rows a block
+constexpr int F32_THREADS = 256;
+constexpr int F32_SLICE = 40;      // head-dim columns a phase-1 lane sums, at most
+
+// head-dim slices a phase-1 patch is split into: enough that a lane sums at
+// most F32_SLICE columns, at least 2
+constexpr int f32_parts(int d) {
+  int p = 2;
+  while (p * F32_SLICE < d) p *= 2;
+  return p;
+}
+
+template <int D>
+struct F32Tile {
+  static constexpr int PARTS = f32_parts(D);
+  static constexpr int TILE = F32_THREADS / PARTS;           // streamed rows: one 4x4 patch
+  static constexpr int PATCHES = (F32_ROWS / 4) * (TILE / 4);  // of z and dp per PARTS lanes
+  static constexpr int VALS = 32 / PARTS;                    // sums a lane keeps
+  static constexpr int PO = D + (PARTS == 16 ? 4 : 2);       // owned pitch (banks)
+  static constexpr int PS = D + 2;                           // streamed pitch (banks, 8-byte rows)
+  static constexpr int PT = TILE + 1;                        // p and ds pitch
+  static constexpr int NC = (D + 63) / 64;                   // phase 3: columns a thread
+  static constexpr int OWN = 2 * F32_ROWS * PO;              // floats: the owned rows
+  static constexpr int BUF = 2 * TILE * PS + 2 * TILE;       // a buffer: 2 tiles, lse, delta
+  static constexpr int PDS = 2 * F32_ROWS * PT;              // p and ds
+  static constexpr int OROWS = 2 * F32_ROWS;                 // the owned rows' lse and delta
+  static constexpr size_t SMEM = 4 * (size_t)(OWN + 2 * BUF + PDS + OROWS);
+  static_assert(D % PARTS == 0 && D % 2 == 0 && PARTS * PATCHES == F32_THREADS, "parts");
+  static_assert((long long)SMEM <= SMEM_LIMIT, "227 KB of shared memory a block");
+};
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(hopper::smem_u32(dst)),
+                 "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// start copying streamed rows [r0, r0 + TILE) of x and y (rows sx, sy apart;
+// rows >= n read as 0) into a buffer, 8 bytes a copy when `vec`; with `lse`,
+// their lse and delta too
+template <int D>
+__device__ __forceinline__ void load_tile(float* buf, const float* x, long long sx,
+                                          const float* y, long long sy, int r0, int n, bool vec,
+                                          const float* lse, const float* delta) {
+  using L = F32Tile<D>;
+  const int w = vec ? 2 : 1;
+  for (int e = threadIdx.x; e < L::TILE * D / w; e += F32_THREADS) {
+    const int j = e / (D / w), c = w * (e % (D / w));
+    const bool ok = r0 + j < n;
+    const long long o = ok ? (long long)(r0 + j) : 0;
+    cp_async(buf + j * L::PS + c, x + o * sx + c, 4 * w, ok);
+    cp_async(buf + (L::TILE + j) * L::PS + c, y + o * sy + c, 4 * w, ok);
+  }
+  if (lse != nullptr)
+    for (int i = threadIdx.x; i < L::TILE; i += F32_THREADS) {
+      const bool ok = r0 + i < n;
+      cp_async(buf + 2 * L::TILE * L::PS + i, lse + (ok ? r0 + i : 0), 4, ok);
+      cp_async(buf + 2 * L::TILE * L::PS + L::TILE + i, delta + (ok ? r0 + i : 0), 4, ok);
+    }
+}
+
+// one butterfly round over the lanes `w` = P / 2 apart, then the next: each
+// lane keeps the half of its N live sums its bit of `part` names (the upper
+// half where it is set) and adds its partner's copy of that half; after
+// log2(P) rounds lane `part` holds the full sums of values [part * 32 / P,
+// + 32 / P) in acc[0 ..). All indices are constants, so acc stays in registers.
+template <int P, int N>
+__device__ __forceinline__ void fold(float (&acc)[32], int part) {
+  if constexpr (P > 1) {
+    constexpr int w = P / 2, n = N / 2;
+    const bool up = (part & w) != 0;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float lo = acc[i], hi = acc[i + n];
+      acc[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, w);
+    }
+    fold<w, n>(acc, part);
+  }
+}
+
+// DKV false: dq (o1). DKV true: dk (o1) and dv (o2). The block owns rows
+// [r0, r0 + 16) of q and dO (dq) or of k and v (dk/dv) and streams the others.
+template <int D, bool DKV>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ o1, float* __restrict__ o2, int Tq, int S, int H, float qscale,
+             float scale, Strides st, int vec) {
+  using L = F32Tile<D>;
+  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
+  extern __shared__ __align__(16) float smem[];
+  float* own = smem;                  // [2][16][PO]: q, dO (dq) or k, v (dk/dv)
+  float* bufs = own + L::OWN;         // [2][BUF]: streamed k, v (dq) or q, dO, lse, delta
+  float* pds = bufs + 2 * L::BUF;     // [2][16][PT]: p (dk/dv), ds
+  float* orow = pds + L::PDS;         // [2][16]: lse, delta of the owned rows (dq)
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int r0 = blockIdx.x * F32_ROWS;
+  const long long tok = (long long)H * D;
+  const float* qb = q + b * st.qb + (long long)h * D;
+  const float* kb = k + b * st.kb + (long long)h * D;
+  const float* vb = v + b * st.vb + (long long)h * D;
+  const float* gb = dout + (long long)b * Tq * tok + (long long)h * D;
+  // owned (a0, a1) and streamed (x0, x1) operands, their row strides and counts
+  const float* a0 = DKV ? kb : qb;
+  const float* a1 = DKV ? vb : gb;
+  const float* x0 = DKV ? qb : kb;
+  const float* x1 = DKV ? gb : vb;
+  const long long sa0 = DKV ? st.kt : st.qt, sa1 = DKV ? st.vt : tok;
+  const long long sx0 = DKV ? st.qt : st.kt, sx1 = DKV ? tok : st.vt;
+  const int n_own = DKV ? S : Tq, n_str = DKV ? Tq : S;
+  const float* lse_bh = lse + (long long)bh * Tq;
+  const float* delta_bh = delta + (long long)bh * Tq;
+  const int ntiles = (n_str + TILE - 1) / TILE;
+
+  load_tile<D>(bufs, x0, sx0, x1, sx1, 0, n_str, vec != 0, DKV ? lse_bh : nullptr, delta_bh);
+  cp_async_commit();
+  for (int e = tid; e < F32_ROWS * D; e += F32_THREADS) {
+    const int r = e / D, d = e % D, row = r0 + r;
+    own[r * L::PO + d] = row < n_own ? a0[row * sa0 + d] : 0.f;
+    own[(F32_ROWS + r) * L::PO + d] = row < n_own ? a1[row * sa1 + d] : 0.f;
+  }
+  if (!DKV && tid < F32_ROWS) {
+    orow[tid] = r0 + tid < n_own ? lse_bh[r0 + tid] : 0.f;
+    orow[F32_ROWS + tid] = r0 + tid < n_own ? delta_bh[r0 + tid] : 0.f;
+  }
+
+  // phase 1: patch (rb, cb) = owned rows [4rb, 4rb + 4) x streamed rows
+  // [4cb, 4cb + 4), head-dim slice d = part (mod PARTS); a warp's patches
+  // share cb, so its streamed reads broadcast and its owned reads spread
+  const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
+  // phase 3: owned rows [4rg, 4rg + 4), columns ct + 64 i
+  const int rg = tid / 64, ct = tid % 64;
+  float out0[4][NC], out1[4][NC];   // dq, or dv and dk
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) out0[r][i] = out1[r][i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile<D>(bufs + ((t + 1) & 1) * L::BUF, x0, sx0, x1, sx1, (t + 1) * TILE, n_str,
+                   vec != 0, DKV ? lse_bh : nullptr, delta_bh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t and the owned rows visible
+    const float* xs = bufs + (t & 1) * L::BUF;   // [2][TILE][PS], lse, delta
+
+    // (1) z = A0.X0^T and dp = A1.X1^T on the patch, over this lane's slice
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < D / PARTS; ++k) {
+      const int d = part + PARTS * k;
+      float a[4], g[4], x[4], y[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[r] = own[(4 * rb + r) * L::PO + d];
+        g[r] = own[(F32_ROWS + 4 * rb + r) * L::PO + d];
+        x[r] = xs[(4 * cb + r) * L::PS + d];
+        y[r] = xs[(TILE + 4 * cb + r) * L::PS + d];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[2 * (4 * r + c)] = fmaf(a[r], x[c], acc[2 * (4 * r + c)]);
+          acc[2 * (4 * r + c) + 1] = fmaf(g[r], y[c], acc[2 * (4 * r + c) + 1]);
+        }
+    }
+    // sum the PARTS slices: lane `part` ends with acc[0 .. VALS) = values
+    // [part * VALS, + VALS)
+    fold<PARTS, 32>(acc, part);
+    // (2) p and ds of this lane's elements (value pairs: z, dp)
+#pragma unroll
+    for (int m = 0; m < L::VALS / 2; ++m) {
+      const int e = part * (L::VALS / 2) + m, row = 4 * rb + e / 4, col = 4 * cb + e % 4;
+      const bool ok = r0 + row < n_own && t * TILE + col < n_str;
+      const float l = DKV ? xs[2 * TILE * L::PS + col] : orow[row];
+      const float dl = DKV ? xs[2 * TILE * L::PS + TILE + col] : orow[F32_ROWS + row];
+      const float p = ok ? exp2f(acc[2 * m] * qscale - l) : 0.f;
+      pds[(F32_ROWS + row) * L::PT + col] = p * (acc[2 * m + 1] - dl);
+      if (DKV) pds[row * L::PT + col] = p;
+    }
+    __syncthreads();
+    // (3) dq += ds.K, or dv += p.dO and dk += ds.Q
+#pragma unroll 4
+    for (int j = 0; j < TILE; ++j) {
+      float ds[4], p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        ds[r] = pds[(F32_ROWS + 4 * rg + r) * L::PT + j];
+        if (DKV) p[r] = pds[(4 * rg + r) * L::PT + j];
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = ct + 64 * i;
+        if (D % 64 == 0 || c < D) {
+          const float x = xs[j * L::PS + c];
+          const float y = DKV ? xs[(TILE + j) * L::PS + c] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if constexpr (DKV) {
+              out0[r][i] = fmaf(p[r], y, out0[r][i]);
+              out1[r][i] = fmaf(ds[r], x, out1[r][i]);
+            } else {
+              out0[r][i] = fmaf(ds[r], x, out0[r][i]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's load reuses this buffer
+  }
+
+  float* ob = o1 + (long long)b * n_own * tok + (long long)h * D;
+  float* vb_out = DKV ? o2 + (long long)b * n_own * tok + (long long)h * D : nullptr;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + 4 * rg + r;
+    if (row >= n_own) continue;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = ct + 64 * i;
+      if (D % 64 != 0 && c >= D) continue;
+      if constexpr (DKV) {
+        ob[row * tok + c] = out1[r][i] * scale;   // dk
+        vb_out[row * tok + c] = out0[r][i];       // dv
+      } else {
+        ob[row * tok + c] = out0[r][i] * scale;   // dq
       }
     }
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
-
-namespace mma = nvcuda::wmma;
-using FragA = mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major>;
-using FragBRow = mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::row_major>;
-using FragBCol = mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::col_major>;
-using FragC = mma::fragment<mma::accumulator, 16, 16, 16, float>;
-
-constexpr int MR = 64;  // owned rows per block: four 16-row groups
-constexpr int MT = 64;  // streamed rows per tile
+// ---- host --------------------------------------------------------------------
 
 template <int D>
-struct MmaTile {
-  static constexpr int DP = (D + 15) / 16 * 16;     // the reduction, in k16 steps
-  static constexpr int SPLIT = DP >= 160 ? 2 : 1;   // warps sharing a row group
-  static constexpr int WARPS = 4 * SPLIT;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int DW = DP / SPLIT;             // output columns a warp owns
-  static constexpr int NF = DW / 16;                // its 16-wide fp32 fragments
-  static constexpr int LDX = DP + 8;  // bf16 pitch of the q, k, v, dO tiles
-  static constexpr int LDS = MT + 4;  // fp32 pitch of z and dp
-  static constexpr int LDP = MT + 8;  // bf16 pitch of p and ds
-  static constexpr size_t own0 = 0;                                 // [MR][LDX]
-  static constexpr size_t own1 = own0 + (size_t)MR * LDX * 2;       // [MR][LDX]
-  static constexpr size_t str0 = own1 + (size_t)MR * LDX * 2;       // [MT][LDX]
-  static constexpr size_t str1 = str0 + (size_t)MT * LDX * 2;       // [MT][LDX]
-  static constexpr size_t z = str1 + (size_t)MT * LDX * 2;          // [MR][LDS]
-  static constexpr size_t dp = z + (size_t)MR * LDS * 4;            // [MR][LDS]
-  static constexpr size_t p = dp + (size_t)MR * LDS * 4;            // [MR][LDP]
-  static constexpr size_t ds = p + (size_t)MR * LDP * 2;            // [MR][LDP]
-  static constexpr size_t rows = ds + (size_t)MR * LDP * 2;         // lse, delta
-  static constexpr size_t bytes = rows + (size_t)2 * MT * 4;
-  // the output staging: one 16x16 fp32 fragment a warp, in the z tile
-  static_assert(WARPS * 256 <= MR * LDS, "output staging must fit the z tile");
-  static_assert(DW % 16 == 0, "a warp owns whole 16-wide fragments");
-  static_assert(bytes <= 232448, "227 KB of shared memory a block");
-};
-
-// rows [row0, row0 + rows) of one head, D wide, from rows `tok` elements apart
-// into a bf16 smem tile of pitch LDX, 16 bytes at a time; rows past `valid`
-// and the columns [D, DP) are 0
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long tok, int row0, int rows, int valid) {
-  using L = MmaTile<D>;
-  constexpr int CHUNKS = L::DP / 8;
-  for (int e = threadIdx.x; e < rows * CHUNKS; e += L::THREADS) {
-    const int r = e / CHUNKS, c = 8 * (e % CHUNKS);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (c < D && row0 + r < valid)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * tok + c);
-    *reinterpret_cast<uint4*>(dst + r * L::LDX + c) = val;
-  }
-}
-
-// out (16 x MT fp32, pitch LDS) = A (16 x DP) . X^T (X: MT x DP), one 16x16
-// fragment at a time
-template <int D>
-__device__ __forceinline__ void product(const __nv_bfloat16* a, const __nv_bfloat16* x,
-                                        float* out) {
-  using L = MmaTile<D>;
-#pragma unroll
-  for (int j = 0; j < MT / 16; ++j) {
-    FragC acc;
-    mma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kd = 0; kd < L::DP; kd += 16) {
-      FragA fa;
-      FragBCol fx;  // X is [row][d] row-major, i.e. X^T column-major
-      mma::load_matrix_sync(fa, a + kd, L::LDX);
-      mma::load_matrix_sync(fx, x + j * 16 * L::LDX + kd, L::LDX);
-      mma::mma_sync(acc, fa, fx, acc);
-    }
-    mma::store_matrix_sync(out + j * 16, acc, L::LDS, mma::mem_row_major);
-  }
-}
-
-// this warp's share of a row group's z (pitch LDS) = A X^T and dp = B Y^T:
-// both with one warp a group, z or dp with two
-template <int D>
-__device__ __forceinline__ void products(const __nv_bfloat16* a, const __nv_bfloat16* bm,
-                                         const __nv_bfloat16* x, const __nv_bfloat16* y,
-                                         float* z, float* dp, int part) {
-  if (MmaTile<D>::SPLIT == 1 || part == 0) product<D>(a, x, z);
-  if (MmaTile<D>::SPLIT == 1 || part == 1) product<D>(bm, y, dp);
-}
-
-// acc[n] (16 x 16 slice n of this warp's 16 x DW sum) += P (16 x MT, pitch
-// LDP) . X (MT x DW, the warp's columns, pitch LDX)
-template <int D>
-__device__ __forceinline__ void accumulate(FragC* acc, const __nv_bfloat16* pw,
-                                           const __nv_bfloat16* x) {
-  using L = MmaTile<D>;
-#pragma unroll
-  for (int kk = 0; kk < MT; kk += 16) {
-    FragA fp;
-    mma::load_matrix_sync(fp, pw + kk, L::LDP);
-#pragma unroll
-    for (int n = 0; n < L::NF; ++n) {
-      FragBRow fx;
-      mma::load_matrix_sync(fx, x + kk * L::LDX + n * 16, L::LDX);
-      mma::mma_sync(acc[n], fp, fx, acc[n]);
-    }
-  }
-}
-
-// this warp's 16 x DW fp32 sum at columns [col0, col0 + DW), times `mul`,
-// rounded to bf16 into rows [row0, row0 + 16) of dst (rows `tok` apart), 8
-// columns a lane, through a 16x16 fp32 fragment of shared memory `stage`;
-// columns >= D and rows >= valid are not written
-template <int D>
-__device__ __forceinline__ void store_rows(const FragC* acc, float* stage, float mul,
-                                           __nv_bfloat16* dst, long long tok, int row0,
-                                           int col0, int valid) {
-  using L = MmaTile<D>;
-  const int lane = threadIdx.x % 32, r = lane / 2, half = lane % 2;
-  const bool row_ok = row0 + r < valid;
-#pragma unroll
-  for (int n = 0; n < L::NF; ++n) {
-    mma::store_matrix_sync(stage, acc[n], 16, mma::mem_row_major);
-    __syncwarp();
-    const int c = col0 + n * 16 + half * 8;
-    if (row_ok && c < D) {
-      const float* src = stage + r * 16 + half * 8;
-      __align__(16) __nv_bfloat16 out[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) out[e] = __float2bfloat16(src[e] * mul);
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * tok + c) =
-          *reinterpret_cast<const uint4*>(out);
-    }
-    __syncwarp();
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MmaTile<D>::THREADS)
-attn_dq_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, float qscale,
-                 float scale, Strides st) {
-  using L = MmaTile<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::own0);
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::own1);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::str0);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::str1);
-  float* zs = reinterpret_cast<float*>(smem_raw + L::z);
-  float* dps = reinterpret_cast<float*>(smem_raw + L::dp);
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::ds);
-  float* rl = reinterpret_cast<float*>(smem_raw + L::rows);
-  float* rd = rl + MT;
-
-  // warp (group, part): row group `group` of the block's four, output
-  // columns [part * DW, (part + 1) * DW)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int group = warp % 4, part = warp / 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * MR;
-  const long long tok = (long long)H * D;
-  const __nv_bfloat16* qb = q + b * st.qb + (long long)h * D;
-  const __nv_bfloat16* kb = k + b * st.kb + (long long)h * D;
-  const __nv_bfloat16* vb = v + b * st.vb + (long long)h * D;
-  const __nv_bfloat16* gb = dout + (long long)b * Tq * tok + (long long)h * D;
-
-  load_tile<D>(qs, qb, st.qt, q0, MR, Tq);
-  load_tile<D>(gs, gb, tok, q0, MR, Tq);
-  for (int i = threadIdx.x; i < MR; i += L::THREADS) {
-    const int t = q0 + i;
-    rl[i] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-    rd[i] = t < Tq ? delta[(long long)bh * Tq + t] : 0.f;
-  }
-
-  // elementwise step: the group's 32 * SPLIT threads, two a row, each
-  // MT / (2 * SPLIT) of its columns
-  constexpr int SEG = MT / (2 * L::SPLIT);
-  const int row = group * 16 + lane / 2, c0 = (part * 2 + lane % 2) * SEG;
-  const bool row_ok = q0 + row < Tq;
-  FragC acc[L::NF];
-#pragma unroll
-  for (int n = 0; n < L::NF; ++n) mma::fill_fragment(acc[n], 0.f);
-
-  for (int k0 = 0; k0 < S; k0 += MT) {
-    __syncthreads();  // previous tile consumed (first pass: owned rows loaded)
-    load_tile<D>(ks, kb, st.kt, k0, MT, S);
-    load_tile<D>(vs, vb, st.vt, k0, MT, S);
-    __syncthreads();
-
-    // z = Q_g K^T and dp = dO_g V^T, 16 x MT each
-    products<D>(qs + group * 16 * L::LDX, gs + group * 16 * L::LDX, ks, vs,
-                zs + group * 16 * L::LDS, dps + group * 16 * L::LDS, part);
-    __syncthreads();  // a group's z and dp may come from two warps
-    const float lse_r = rl[row], del_r = rd[row];
-    for (int j = 0; j < SEG; ++j) {
-      const int c = c0 + j;
-      const float p = (row_ok && k0 + c < S)
-                          ? exp2f(zs[row * L::LDS + c] * qscale - lse_r) : 0.f;
-      dss[row * L::LDP + c] = __float2bfloat16(p * (dps[row * L::LDS + c] - del_r));
-    }
-    __syncthreads();  // a group's ds rows feed both its warps
-    // dq_g[:, part's columns] += ds_g K[:, part's columns]
-    accumulate<D>(acc, dss + group * 16 * L::LDP, ks + part * L::DW);
-  }
-  __syncthreads();  // the staging below overwrites z
-  store_rows<D>(acc, zs + warp * 256, scale, dq + (long long)b * Tq * tok + (long long)h * D,
-                tok, q0 + group * 16, part * L::DW, Tq);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MmaTile<D>::THREADS)
-attn_dkv_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
-                  int S, int H, float qscale, float scale, Strides st) {
-  using L = MmaTile<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::own0);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::own1);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::str0);
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::str1);
-  float* zs = reinterpret_cast<float*>(smem_raw + L::z);
-  float* dps = reinterpret_cast<float*>(smem_raw + L::dp);
-  __nv_bfloat16* pss = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::p);
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::ds);
-  float* rl = reinterpret_cast<float*>(smem_raw + L::rows);
-  float* rd = rl + MT;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int group = warp % 4, part = warp / 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * MR;
-  const long long tok = (long long)H * D;
-  const __nv_bfloat16* qb = q + b * st.qb + (long long)h * D;
-  const __nv_bfloat16* kb = k + b * st.kb + (long long)h * D;
-  const __nv_bfloat16* vb = v + b * st.vb + (long long)h * D;
-  const __nv_bfloat16* gb = dout + (long long)b * Tq * tok + (long long)h * D;
-
-  load_tile<D>(ks, kb, st.kt, k0, MR, S);
-  load_tile<D>(vs, vb, st.vt, k0, MR, S);
-
-  // elementwise step: the group's 32 * SPLIT threads, two a key row, each
-  // MT / (2 * SPLIT) of its query columns
-  constexpr int SEG = MT / (2 * L::SPLIT);
-  const int row = group * 16 + lane / 2, c0 = (part * 2 + lane % 2) * SEG;
-  const bool key_ok = k0 + row < S;
-  FragC dk_acc[L::NF], dv_acc[L::NF];
-#pragma unroll
-  for (int n = 0; n < L::NF; ++n) {
-    mma::fill_fragment(dk_acc[n], 0.f);
-    mma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  for (int t0 = 0; t0 < Tq; t0 += MT) {
-    __syncthreads();  // previous tile consumed (first pass: owned rows loaded)
-    load_tile<D>(qs, qb, st.qt, t0, MT, Tq);
-    load_tile<D>(gs, gb, tok, t0, MT, Tq);
-    for (int i = threadIdx.x; i < MT; i += L::THREADS) {
-      const int t = t0 + i;
-      rl[i] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-      rd[i] = t < Tq ? delta[(long long)bh * Tq + t] : 0.f;
-    }
-    __syncthreads();
-
-    // z^T = K_g Q^T and dp^T = V_g dO^T, 16 keys x MT queries each
-    products<D>(ks + group * 16 * L::LDX, vs + group * 16 * L::LDX, qs, gs,
-                zs + group * 16 * L::LDS, dps + group * 16 * L::LDS, part);
-    __syncthreads();  // a group's z and dp may come from two warps
-    for (int j = 0; j < SEG; ++j) {
-      const int c = c0 + j;
-      const float p = (key_ok && t0 + c < Tq)
-                          ? exp2f(zs[row * L::LDS + c] * qscale - rl[c]) : 0.f;
-      pss[row * L::LDP + c] = __float2bfloat16(p);
-      dss[row * L::LDP + c] = __float2bfloat16(p * (dps[row * L::LDS + c] - rd[c]));
-    }
-    __syncthreads();  // a group's p and ds rows feed both its warps
-    // dv_g += p^T_g dO and dk_g += ds^T_g Q, at this warp's columns
-    accumulate<D>(dv_acc, pss + group * 16 * L::LDP, gs + part * L::DW);
-    accumulate<D>(dk_acc, dss + group * 16 * L::LDP, qs + part * L::DW);
-  }
-  __syncthreads();  // the staging below overwrites z
-  const long long out0 = (long long)b * S * tok + (long long)h * D;
-  store_rows<D>(dk_acc, zs + warp * 256, scale, dk + out0, tok, k0 + group * 16,
-                part * L::DW, S);
-  store_rows<D>(dv_acc, zs + warp * 256, 1.f, dv + out0, tok, k0 + group * 16,
-                part * L::DW, S);
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-bool aligned_bf16(const void* a, const void* b, const void* c, const void* d, const void* e,
-                  const Strides& st) {
-  const uintptr_t any = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-                        reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
-                        reinterpret_cast<uintptr_t>(e);
+int launch_f32(bool dkv, const void* q, const void* k, const void* v, const void* g,
+               const float* lse, const float* delta, void* o1, void* o2, int B, int Tq, int S,
+               int H, float qscale, float scale, Strides st, cudaStream_t s) {
+  using L = F32Tile<D>;
+  // 8-byte copies where every row of q, k, v and dO starts 8-byte aligned
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
   const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
-  return any % 16 == 0 && strides % 8 == 0;
+  const int vec = any % 8 == 0 && strides % 2 == 0;
+  cudaError_t err = dkv ? hopper::set_smem_once<attn_bwd_f32<D, true>>(L::SMEM)
+                        : hopper::set_smem_once<attn_bwd_f32<D, false>>(L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(((dkv ? S : Tq) + F32_ROWS - 1) / F32_ROWS), (unsigned)(B * H));
+  auto* kernel = dkv ? attn_bwd_f32<D, true> : attn_bwd_f32<D, false>;
+  kernel<<<grid, F32_THREADS, L::SMEM, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), lse, delta, static_cast<float*>(o1),
+      static_cast<float*>(o2), Tq, S, H, qscale, scale, st, vec);
+  return (int)cudaGetLastError();
 }
 
-// the compiled tile of head dim D in `dtype` is the host's
 template <int D>
-bool plan_is_compiled(const Plan& p, int dtype) {
-  if (dtype == 0)
-    return p.rows == FB && p.tile == FS && p.d_pad == D && p.split == 1 &&
-           p.smem == (long long)f32_smem_bytes<D>();
-  if constexpr (D == 512) {
-    return false;  // bf16 dh 512 does not fit a block
+int launch_bf16(bool dkv, const void* q, const void* k, const void* v, const void* g,
+                const float* lse, const float* delta, void* o1, void* o2, int B, int Tq, int S,
+                int H, float qscale, float scale, Strides st, cudaStream_t s) {
+  using Q = Bf16Tile<D, false>;
+  using K = Bf16Tile<D, true>;
+  // TMA: 16-byte aligned bases and byte strides; 4-byte aligned output pairs
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+                        reinterpret_cast<uintptr_t>(o1) |
+                        (dkv ? reinterpret_cast<uintptr_t>(o2) : 0);
+  const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
+  if (any % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  // 4-D maps over (d, head, token, batch); the box is 64 columns of one head
+  // and the owned (64) or streamed (the tile's) rows
+  const long long tok = (long long)H * D;
+  const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Tq, (uint64_t)B};
+  const uint64_t kdims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t qstr[3] = {2ull * D, 2ull * st.qt, 2ull * st.qb};
+  const uint64_t kstr[3] = {2ull * D, 2ull * st.kt, 2ull * st.kb};
+  const uint64_t vstr[3] = {2ull * D, 2ull * st.vt, 2ull * st.vb};
+  const uint64_t gstr[3] = {2ull * D, 2ull * tok, 2ull * Tq * tok};
+  const uint32_t own[4] = {64, 1, (uint32_t)BF16_ROWS, 1};
+  const uint32_t tile[4] = {64, 1, (uint32_t)(dkv ? K::TILE : Q::TILE), 1};
+  const uint32_t* qbox = dkv ? tile : own;   // q and dO: owned by dq, streamed by dk/dv
+  const uint32_t* kbox = dkv ? own : tile;
+  CUtensorMap qm, km, vm, gm;
+  int code = hopper::make_map(&qm, q, 4, qdims, qstr, qbox);
+  if (code == 0) code = hopper::make_map(&km, k, 4, kdims, kstr, kbox);
+  if (code == 0) code = hopper::make_map(&vm, v, 4, kdims, vstr, kbox);
+  if (code == 0) code = hopper::make_map(&gm, g, 4, qdims, gstr, qbox);
+  if (code != 0) return code;
+  if (dkv) {
+    cudaError_t err = hopper::set_smem_once<attn_dkv_wgmma<D>>(K::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((unsigned)((S + BF16_ROWS - 1) / BF16_ROWS), (unsigned)(B * H),
+              (unsigned)(K::SLICES * K::PASSES));
+    attn_dkv_wgmma<D><<<grid, BF16_THREADS, K::SMEM, s>>>(
+        qm, km, vm, gm, lse, delta, static_cast<__nv_bfloat16*>(o1),
+        static_cast<__nv_bfloat16*>(o2), Tq, S, H, qscale, scale);
   } else {
-    using L = MmaTile<D>;
-    return p.rows == MR && p.tile == MT && p.d_pad == L::DP && p.split == L::SPLIT &&
-           p.smem == (long long)L::bytes;
-  }
-}
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
-              const float* delta, void* dq, int B, int Tq, int S, int H, float qscale,
-              float scale, Strides st, int dtype, cudaStream_t s) {
-  if (dtype == 0) {
-    const size_t bytes = f32_smem_bytes<D>();
-    cudaError_t err = set_smem(attn_dq_f32<D>, bytes);
+    cudaError_t err = hopper::set_smem_once<attn_dq_wgmma<D>>(Q::SMEM);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)((Tq + FB - 1) / FB), (unsigned)(B * H));
-    attn_dq_f32<D><<<grid, FTHREADS, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
-        static_cast<float*>(dq), Tq, S, H, qscale, scale, st);
-    return (int)cudaGetLastError();
+    dim3 grid((unsigned)((Tq + BF16_ROWS - 1) / BF16_ROWS), (unsigned)(B * H),
+              (unsigned)(Q::SLICES * Q::PASSES));
+    attn_dq_wgmma<D><<<grid, BF16_THREADS, Q::SMEM, s>>>(
+        qm, km, vm, gm, lse, delta, static_cast<__nv_bfloat16*>(o1), Tq, S, H, qscale, scale);
   }
-  if constexpr (D == 512) {
-    return (int)cudaErrorInvalidValue;  // bf16 dh 512 does not fit a block
-  } else {
-    using L = MmaTile<D>;
-    if (!aligned_bf16(q, k, v, g, dq, st)) return (int)cudaErrorMisalignedAddress;
-    cudaError_t err = set_smem(attn_dq_bf16_mma<D>, L::bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)((Tq + MR - 1) / MR), (unsigned)(B * H));
-    attn_dq_bf16_mma<D><<<grid, L::THREADS, L::bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g), lse,
-        delta, static_cast<__nv_bfloat16*>(dq), Tq, S, H, qscale, scale, st);
-    return (int)cudaGetLastError();
-  }
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* g, const float* lse,
-               const float* delta, void* dk, void* dv, int B, int Tq, int S, int H,
-               float qscale, float scale, Strides st, int dtype, cudaStream_t s) {
-  if (dtype == 0) {
-    const size_t bytes = f32_smem_bytes<D>();
-    cudaError_t err = set_smem(attn_dkv_f32<D>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)((S + FB - 1) / FB), (unsigned)(B * H));
-    attn_dkv_f32<D><<<grid, FTHREADS, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), Tq, S, H, qscale, scale, st);
-    return (int)cudaGetLastError();
-  }
-  if constexpr (D == 512) {
-    return (int)cudaErrorInvalidValue;  // bf16 dh 512 does not fit a block
-  } else {
-    using L = MmaTile<D>;
-    if (!aligned_bf16(q, k, v, g, dk, st) || reinterpret_cast<uintptr_t>(dv) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-    cudaError_t err = set_smem(attn_dkv_bf16_mma<D>, L::bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)((S + MR - 1) / MR), (unsigned)(B * H));
-    attn_dkv_bf16_mma<D><<<grid, L::THREADS, L::bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g), lse,
-        delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Tq, S, H,
-        qscale, scale, st);
-    return (int)cudaGetLastError();
-  }
-}
-
-template <int D>
-int dispatch(bool dkv, const void* q, const void* k, const void* v, const void* g,
-             const float* lse, const float* delta, void* o1, void* o2, int B, int Tq, int S,
-             int H, float qscale, float scale, Strides st, int dtype, const Plan& p,
-             cudaStream_t s) {
-  if (!plan_is_compiled<D>(p, dtype))
-    return (int)cudaErrorInvalidValue;  // the host's plan is not the compiled one
-  if (dkv) return launch_dkv<D>(q, k, v, g, lse, delta, o1, o2, B, Tq, S, H, qscale, scale,
-                                st, dtype, s);
-  return launch_dq<D>(q, k, v, g, lse, delta, o1, B, Tq, S, H, qscale, scale, st, dtype, s);
+  return (int)cudaGetLastError();
 }
 
 int entry(bool dkv, const void* q, const void* k, const void* v, const void* g,
           const void* lse, const void* delta, void* o1, void* o2, int B, int T, int S, int H,
-          int D, float qscale, float scale, Strides st, int dtype, Plan p, void* stream) {
+          int D, float qscale, float scale, Strides st, int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-#define DPM_BWD_CASE(DH) \
-    case DH: return dispatch<DH>(dkv, q, k, v, g, l, dl, o1, o2, B, T, S, H, qscale, scale, \
-                                 st, dtype, p, s);
+#define DPM_BWD_CASE(DH)                                                                    \
+  case DH:                                                                                  \
+    return dtype == 0 ? launch_f32<DH>(dkv, q, k, v, g, l, dl, o1, o2, B, T, S, H, qscale,  \
+                                       scale, st, s)                                        \
+                      : launch_bf16<DH>(dkv, q, k, v, g, l, dl, o1, o2, B, T, S, H, qscale, \
+                                        scale, st, s);
     DPM_BWD_CASE(32) DPM_BWD_CASE(40) DPM_BWD_CASE(64) DPM_BWD_CASE(80)
     DPM_BWD_CASE(128) DPM_BWD_CASE(160) DPM_BWD_CASE(256) DPM_BWD_CASE(512)
 #undef DPM_BWD_CASE
@@ -691,20 +835,16 @@ int entry(bool dkv, const void* q, const void* k, const void* v, const void* g,
 // the forward's strides (elements; channel stride 1); dout, dq, dk and dv are
 // contiguous (B, T|S, H*D); lse (the forward's, base 2) and delta are float32
 // (B*H, T). qscale = scale * log2(e). D is one of 32, 40, 64, 80, 128, 160,
-// 256 and 512, but 512 in float32 only. rows, tile, d_pad, split and
-// smem_bytes are the host's tile (ops/attention.py::attention_bwd_plan); a
-// tile other than the compiled one is refused. Each returns the cudaError_t
-// of its launch.
+// 256 and 512; the tile is the compiled one of (D, dtype). Each returns the
+// cudaError_t of its launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dq, int B, int T, int S, int H, int D, float qscale,
                                     float scale, long long q_bs, long long q_ts, long long k_bs,
                                     long long k_ts, long long v_bs, long long v_ts, int dtype,
-                                    int rows, int tile, int d_pad, int split,
-                                    long long smem_bytes, void* stream) {
+                                    void* stream) {
   return entry(false, q, k, v, dout, lse, delta, dq, nullptr, B, T, S, H, D, qscale, scale,
-               Strides{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts}, dtype,
-               Plan{rows, tile, d_pad, split, smem_bytes}, stream);
+               Strides{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts}, dtype, stream);
 }
 
 extern "C" int dpm_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -712,9 +852,7 @@ extern "C" int dpm_attention_bwd_dkv(const void* q, const void* k, const void* v
                                      void* dk, void* dv, int B, int T, int S, int H, int D,
                                      float qscale, float scale, long long q_bs, long long q_ts,
                                      long long k_bs, long long k_ts, long long v_bs,
-                                     long long v_ts, int dtype, int rows, int tile, int d_pad,
-                                     int split, long long smem_bytes, void* stream) {
+                                     long long v_ts, int dtype, void* stream) {
   return entry(true, q, k, v, dout, lse, delta, dk, dv, B, T, S, H, D, qscale, scale,
-               Strides{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts}, dtype,
-               Plan{rows, tile, d_pad, split, smem_bytes}, stream);
+               Strides{q_bs, q_ts, k_bs, k_ts, v_bs, v_ts}, dtype, stream);
 }

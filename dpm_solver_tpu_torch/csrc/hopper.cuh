@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (attention.cu,
-// conv3x3.cu, geglu.cu, ln_linear.cu), for sm_90a: shared-memory mbarriers, TMA tile loads, the
-// wgmma shared-memory descriptor and the wgmma instructions themselves, and
-// the host-side encoding of a TMA tensor map.
+// attention_bwd.cu, conv3x3.cu, geglu.cu, ln_linear.cu), for sm_90a:
+// shared-memory mbarriers, TMA tile loads, the wgmma shared-memory
+// descriptor and the wgmma instructions themselves, and the host-side
+// encoding of a TMA tensor map.
 //
 // Conventions every kernel here keeps:
 // - Every tile in shared memory is bf16 with 64 elements (128 bytes) a row,
@@ -158,6 +159,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // K-major, 1: MN-major). scale_d == 0 overwrites the accumulator.
 template <int N>
 struct Wgmma;
+
+template <> struct Wgmma<16> {
+  static constexpr int kRegs = 8;
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b, uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+  }
+};
 
 template <> struct Wgmma<32> {
   static constexpr int kRegs = 16;

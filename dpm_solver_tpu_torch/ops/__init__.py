@@ -19,8 +19,8 @@ raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
 counts under one wrapper only (a `geglu_ff` call counts one, whichever of
 its route's kernels it runs). The wrappers of the kernels with more than
 one route (`ROUTED`: conv3x3 and its dx, ln_linear and geglu_ff, "wgmma" /
-"wmma" / "f32"; the attention forward, "wgmma" / "f32") also count them by
-route, in `<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
+"wmma" / "f32"; the attention forward, its lse form, dq and dk/dv, "wgmma" /
+"f32") also count them by route, in `<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
 for them launches as `attention_lse`. `ln_linear` and `geglu_ff` are
@@ -55,7 +55,8 @@ from dpm_solver_tpu_torch.ops.ln_linear import (layer_norm_fp32, ln_linear, ln_l
 KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
            attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
            attention_out_fused)
-ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse, ln_linear, geglu_ff)
+ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse, attention_dq, attention_dkv,
+          ln_linear, geglu_ff)
 
 
 def reset_launch_counts() -> None:

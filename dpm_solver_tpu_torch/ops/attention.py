@@ -22,8 +22,10 @@ Backward (when autograd asks for it): the forward also writes each row's
 base-2 log-sum-exp (`attention_lse`, the port of the Pallas side pass `_lse`),
 and two kernels in `csrc/attention_bwd.cu` rebuild P from it:
 `attention_dq` and `attention_dkv`, the port of `_mha_backward`'s dq and dk/dv
-kernels, at every head dim the forward takes but bf16 at 512
-(`BWD_HEAD_DIMS`; its tile per head dim and dtype is `attention_bwd_plan`).
+kernels, at every head dim the forward takes in both dtypes: in bf16 TMA +
+`wgmma` kernels (route "wgmma"), in fp32 exact CUDA-core ones ("f32"). Their
+tiles per head dim and dtype are fixed in the C source; `attention_bwd_plan`
+states the same rule, for the shared-memory figure and the grid.
 `delta = rowsum(dO * O)` is a torch op, as the JAX package leaves it outside
 its kernels.
 
@@ -39,13 +41,14 @@ Dispatch is by device only: a CPU tensor takes the plain twin
 `token_attention`, `attention_lse`, `attention_dq`, `attention_dkv` and
 `attention_out_fused` counts its own kernel launches in `.launches`: a
 forward that writes the lse counts under `attention_lse` only.
-`token_attention` and `attention_lse` also count them by route, in
-`.launches_by_route`.
+`token_attention`, `attention_lse`, `attention_dq` and `attention_dkv` also
+count them by route, in `.launches_by_route`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from collections import Counter
 from typing import Optional, Tuple
@@ -56,8 +59,6 @@ from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 40, 64, 80, 128, 160, 256, 512)
-# the backward's head dims by dtype: bf16 at 512 does not fit a block
-BWD_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: HEAD_DIMS[:-1]}
 _LOG2E = math.log2(math.e)
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on the H100
 
@@ -113,55 +114,163 @@ def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTil
     return AttentionTile("wgmma", 128, 128, d_pad, dh, 2 if dh >= 80 else 3)
 
 
-@dataclasses.dataclass(frozen=True)
-class AttentionBwdTile:
-    """The tile the dq and dk/dv kernels run at one head dim and dtype
-    (csrc/attention_bwd.cu).
+# The backward's tile rule (csrc/attention_bwd.cu states it with the same
+# constants, at compile time; tests/test_torch_kernel_plans.py holds the two
+# together). bf16: one consumer warpgroup owns 64 rows a block and streams
+# the widest tile (64, 32 or 16 rows) whose registers stay within the budget
+# and whose two stages fit a block; a third stage where it costs no block an
+# SM. fp32: 16 owned rows; 256 threads make 4x4 patches of z and dp, each
+# patch split over the head dim into `parts` slices of at most F32_SLICE
+# columns, so a streamed tile is 256 / parts rows; two cp.async buffers.
+BF16_ROWS = 64            # owned rows a bf16 block (its consumer warpgroup)
+BF16_THREADS = 160        # the warpgroup and one producer warp
+BF16_MAX_COLS = 256       # output columns a block: dh 512 in two slices
+BF16_REG_BUDGET = 176     # sums + logits + fragments, registers a thread
+BF16_MAX_STAGES = 3
+BF16_BLOCKS_PER_SM = 2    # what the register budget lets share an SM
+SM_SMEM = 233472          # shared memory of one SM (1 KB of it kept per block)
+F32_ROWS = 16             # owned rows an fp32 block
+F32_THREADS = 256
+F32_SLICE = 40            # head-dim columns a phase-1 lane sums, at most
+F32_REG_BUDGET = 128      # phase-1 partial sums + the output sums, registers a thread
 
-    route: "wmma" (bf16: WMMA 16x16x16 on the tensor cores) or "f32" (exact,
-    CUDA cores). rows: the output rows a block owns (queries for dq, keys for
-    dk/dv); tile: the rows of the other side a streamed tile holds; d_pad:
-    the head dim as staged in shared memory ("wmma": rounded up to whole
-    k16 steps, zero-filled); split: the warps that share one 16-row group's
-    output columns ("wmma" at d_pad >= 160, where one warp's fp32 dk and dv
-    sums would spill); smem_bytes: the block's dynamic shared memory."""
+
+def _pad64(d: int) -> int:
+    return -(-d // 64) * 64
+
+
+def _bf16_regs(outs: int, cols: int, tile: int) -> int:
+    """fp32 registers a thread: the sums, the logits and dp, the p and ds fragments."""
+    return outs * cols // 2 + 3 * tile // 2
+
+
+def _bf16_smem(dh: int, tile: int, stages: int, dkv: bool) -> int:
+    """A bf16 block's dynamic shared memory: + 1024 to align a swizzle atom;
+    the two owned operands, the ring, (dk/dv) each stage's lse and delta
+    rows, the owned, full and empty barriers."""
+    return (1024 + 2 * BF16_ROWS * _pad64(dh) * 2 + stages * 2 * tile * _pad64(dh) * 2
+            + (stages * 2 * tile * 4 if dkv else 0) + 8 * (1 + 2 * stages))
+
+
+def _f32_parts(dh: int) -> int:
+    """Head-dim slices of an fp32 phase-1 patch: a power of two >= 2 with
+    slices of at most F32_SLICE columns."""
+    parts = 2
+    while parts * F32_SLICE < dh:
+        parts *= 2
+    return parts
+
+
+def _bf16_blocks(smem: int) -> int:
+    return min(SM_SMEM // (smem + 1024), BF16_BLOCKS_PER_SM)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdKernelTile:
+    """The tile one backward kernel runs (`attention_bwd_plan`).
+
+    kernel: "dq" (a block owns queries and streams keys) or "dkv" (owns
+    keys, streams queries). rows: the rows a block owns; tile: the rows a
+    streamed tile holds; cols: the output columns a block accumulates (dh,
+    or 256 of the 512-wide head); outs: the outputs a dk/dv block
+    accumulates (2: dk and dv; 1: one, the other in a second block of the
+    grid, which recomputes the logits); stages: the ring's depth ("f32": two
+    cp.async buffers)."""
 
     route: str
+    kernel: str
+    dh: int
     rows: int
     tile: int
-    d_pad: int
-    split: int
+    cols: int
+    outs: int
+    stages: int
+
+    @property
+    def slices(self) -> int:
+        """Output column slices, each its own block (grid.z)."""
+        return self.dh // self.cols
+
+    @property
+    def passes(self) -> int:
+        """Blocks that split one dk/dv row tile's two outputs (grid.z)."""
+        return 2 // self.outs if self.kernel == "dkv" else 1
+
+    def col_slices(self) -> list:
+        """[start, stop) of each block's output columns."""
+        return [(i * self.cols, (i + 1) * self.cols) for i in range(self.slices)]
+
+    @property
+    def regs(self) -> int:
+        """fp32 registers a thread (csrc/attention_bwd.cu: "wgmma" the sums,
+        the logits and dp and the p/ds fragments; "f32" the phase-1 partial
+        sums and the 4 x ceil(dh/64) output sums of each output)."""
+        if self.route == "f32":
+            return 32 + 4 * -(-self.dh // 64) * self.outs
+        return _bf16_regs(self.outs, self.cols, self.tile)
+
+    @property
+    def reg_budget(self) -> int:
+        return F32_REG_BUDGET if self.route == "f32" else BF16_REG_BUDGET
 
     @property
     def smem_bytes(self) -> int:
-        if self.route == "f32":  # owned rows x2, streamed (+1 float) x2, p/ds, lse/delta
-            return 4 * (2 * self.rows * self.d_pad + 2 * self.tile * (self.d_pad + 1)
-                        + 2 * self.rows * self.tile + 2 * self.tile)
-        # q/k/v/dO tiles (pitch d_pad + 8), z and dp fp32 (pitch tile + 4),
-        # p and ds bf16 (pitch tile + 8), lse and delta
-        return (2 * (self.rows + self.tile) * (self.d_pad + 8) * 2
-                + 2 * self.rows * (self.tile + 4) * 4 + 2 * self.rows * (self.tile + 8) * 2
-                + 2 * self.tile * 4)
+        """Dynamic shared memory of one block (csrc/attention_bwd.cu's layout)."""
+        if self.route == "f32":  # owned rows (pitch dh + 2 | 4), two buffers of two
+            # streamed tiles (pitch dh + 2) and their lse and delta, p and ds
+            # (pitch tile + 1), the owned rows' lse and delta
+            po, ps = self.dh + (4 if _f32_parts(self.dh) == 16 else 2), self.dh + 2
+            return 4 * (2 * F32_ROWS * po + 2 * (2 * self.tile * ps + 2 * self.tile)
+                        + 2 * F32_ROWS * (self.tile + 1) + 2 * F32_ROWS)
+        return _bf16_smem(self.dh, self.tile, self.stages, self.kernel == "dkv")
+
+    def grid(self, b: int, t: int, s: int, heads: int) -> tuple:
+        """(row tiles, B*H, slices x passes) at queries t, keys s."""
+        owned = s if self.kernel == "dkv" else t
+        return (-(-owned // self.rows), b * heads, self.slices * self.passes)
 
 
+@dataclasses.dataclass(frozen=True)
+class AttentionBwdTile:
+    """The tiles the dq and dk/dv kernels run at one head dim and dtype.
+    route: "wgmma" (bf16: TMA + `wgmma`) or "f32" (exact, CUDA cores)."""
+
+    route: str
+    dq: BwdKernelTile
+    dkv: BwdKernelTile
+
+
+def _bwd_kernel_tile(dh: int, dtype: torch.dtype, kernel: str) -> BwdKernelTile:
+    dkv = kernel == "dkv"
+    if dtype == torch.float32:
+        tile = F32_THREADS // _f32_parts(dh)
+        return BwdKernelTile("f32", kernel, dh, F32_ROWS, tile, dh, 2 if dkv else 1, 2)
+    cols = min(dh, BF16_MAX_COLS)
+    outs = 2 if dkv and _bf16_regs(2, dh, 32) <= BF16_REG_BUDGET else 1
+    tile = next(t for t in (64, 32, 16) if _bf16_regs(outs, cols, t) <= BF16_REG_BUDGET
+                and _bf16_smem(dh, t, 2, dkv) <= SMEM_PER_BLOCK)
+    deep = _bf16_smem(dh, tile, BF16_MAX_STAGES, dkv)
+    stages = (BF16_MAX_STAGES if deep <= SMEM_PER_BLOCK and _bf16_blocks(deep)
+              >= _bf16_blocks(_bf16_smem(dh, tile, 2, dkv)) else 2)
+    return BwdKernelTile("wgmma", kernel, dh, BF16_ROWS, tile, cols, outs, stages)
+
+
+@functools.lru_cache(maxsize=None)
 def attention_bwd_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionBwdTile:
-    """The dq and dk/dv kernels' tile for head dim `dh`: fp32 the exact
-    kernels' 16 owned rows x 32-row tiles at every head dim; bf16 64 x 64,
-    the head dim padded to 16, two warps a row group from d_pad 160 on.
-    bf16 at dh 512 is refused: its tiles need more shared memory than a
-    block may have."""
+    """The dq and dk/dv kernels' tiles at head dim `dh`, every head dim of
+    the forward in both dtypes. bf16 ("wgmma"): 64 owned rows, streamed
+    tiles of 64 rows up to dh 160 (dk/dv: up to 80, and 160), 32 at dh 256
+    (and dk/dv at 128), 16 at dh 512; dk/dv takes both outputs in one block
+    up to dh 128 and one a block from dh 160 on; the 512-wide head runs two
+    256-column slices. fp32 ("f32"): 16 owned rows, 128-row tiles up to dh
+    80, 64 at 128 and 160, 32 at 256, 16 at 512. The kernels pick the same
+    tiles themselves (csrc/attention_bwd.cu)."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"attention backward kernels take head dims {HEAD_DIMS}, got {dh}")
-    if dtype == torch.float32:
-        return AttentionBwdTile("f32", 16, 32, dh, 1)
-    d_pad = -(-dh // 16) * 16
-    tile = AttentionBwdTile("wmma", 64, 64, d_pad, 2 if d_pad >= 160 else 1)
-    if tile.smem_bytes > SMEM_PER_BLOCK:
-        raise ValueError(f"the bf16 attention backward at head dim {dh} needs "
-                         f"{tile.smem_bytes} bytes of shared memory a block, over the "
-                         f"{SMEM_PER_BLOCK} one block may use on the H100; bf16 head dims "
-                         f"{BWD_HEAD_DIMS[torch.bfloat16]} are taken")
-    return tile
+    if dtype not in _DTYPES:
+        raise TypeError(f"attention backward kernels take float32 or bfloat16, got {dtype}")
+    dq, dkv = (_bwd_kernel_tile(dh, dtype, kernel) for kernel in ("dq", "dkv"))
+    return AttentionBwdTile(dq.route, dq, dkv)
 
 
 def _heads(u: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -297,14 +406,13 @@ def _check_bwd(q, k, v, g, num_heads) -> AttentionBwdTile:
     return tile
 
 
-def _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile):
+def _bwd_args(q, k, v, g, lse, delta, num_heads, scale):
     b, t, inner = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr()), (b, t, k.shape[1], num_heads, inner // num_heads,
                                 float(scale * _LOG2E), float(scale), *q.stride()[:2],
                                 *k.stride()[:2], *v.stride()[:2], _DTYPES[q.dtype],
-                                tile.rows, tile.tile, tile.d_pad, tile.split,
-                                tile.smem_bytes, _build.stream_ptr(q.device))
+                                _build.stream_ptr(q.device))
 
 
 def attention_dq(q, k, v, g, lse, delta, *, num_heads: int, scale: float) -> torch.Tensor:
@@ -314,10 +422,11 @@ def attention_dq(q, k, v, g, lse, delta, *, num_heads: int, scale: float) -> tor
         return _backward_plain(q, k, v, g, lse, delta, num_heads, scale)[0]
     tile = _check_bwd(q, k, v, g, num_heads)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile)
+    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale)
     _build.check(_build.library().dpm_attention_bwd_dq(*ins, dq.data_ptr(), *rest),
                  "attention_dq")
     attention_dq.launches += 1
+    attention_dq.launches_by_route[tile.route] += 1
     return dq
 
 
@@ -329,10 +438,11 @@ def attention_dkv(q, k, v, g, lse, delta, *, num_heads: int,
     tile = _check_bwd(q, k, v, g, num_heads)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale, tile)
+    ins, rest = _bwd_args(q, k, v, g, lse, delta, num_heads, scale)
     _build.check(_build.library().dpm_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
                                                         *rest), "attention_dkv")
     attention_dkv.launches += 1
+    attention_dkv.launches_by_route[tile.route] += 1
     return dk, dv
 
 
@@ -495,5 +605,7 @@ token_attention.launches_by_route = Counter()
 attention_lse.launches = 0
 attention_lse.launches_by_route = Counter()
 attention_dq.launches = 0
+attention_dq.launches_by_route = Counter()
 attention_dkv.launches = 0
+attention_dkv.launches_by_route = Counter()
 attention_out_fused.launches = 0

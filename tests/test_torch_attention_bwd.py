@@ -16,6 +16,10 @@ JAX package's Pallas backward, run in interpret mode.
   k, v that are
   strided column slices of one qkv projection, as the attention pool passes
   them.
+- bf16 at dh 512 (the VAE's single head, which the dq and dk/dv kernels
+  take in both dtypes): the plain twin against `_mha_backward`, and
+  `token_attention` autograd on strided qkv slices against `jax.grad` of
+  the Pallas `flash_attention`, within the bf16 bound.
 """
 
 import jax
@@ -121,6 +125,30 @@ def test_plain_matches_pallas_backward_bf16():
                                    rtol=TOL_BF16, atol=TOL_BF16, err_msg=name)
 
 
+def test_plain_matches_pallas_backward_bf16_at_dh_512():
+    """The VAE mid-block's single 512-wide head in bf16, at a small ragged
+    shape: the plain twin against `_mha_backward` in interpret mode."""
+    b, t, s, heads, dh = 1, 40, 24, 1, 512
+    q, k, v, g = (u.astype(jnp.bfloat16) for u in _inputs(b, t, s, heads, dh, seed=6))
+    scale = dh ** -0.5
+    qh, kh, vh, gh = (jnp.asarray(_bh(np.asarray(u), heads)) for u in (q, k, v, g))
+    o = attention_xla(qh, kh, vh, scale=scale)
+    lse = _lse(qh, kh, scale, 128, True)
+    want = _mha_backward(qh, kh, vh, o, lse, gh, scale, 128, 128, True)
+
+    tt = lambda u: torch.tensor(np.asarray(u, np.float32)).bfloat16()
+    tq, tk, tv, tg = (tt(u) for u in (q, k, v, g))
+    got_lse = attention_lse_plain(tq, tk, num_heads=heads, scale=scale)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), rtol=TOL_BF16, atol=TOL_BF16)
+    got = attention_backward_plain(tq, tk, tv, tt(_unbh(np.asarray(o, np.float32), b, heads)),
+                                   got_lse, tg, heads, scale)
+    for name, w, gg in zip(("dq", "dk", "dv"), want, got):
+        assert gg.dtype == torch.bfloat16
+        np.testing.assert_allclose(gg.float().numpy(),
+                                   _unbh(np.asarray(w, np.float32), b, heads),
+                                   rtol=TOL_BF16, atol=TOL_BF16, err_msg=name)
+
+
 _PALLAS = {
     "panel": lambda q, k, v, s: fused_attention(q, k, v, s, 128, True),
     "panel_t": lambda q, k, v, s: fused_attention_t(q, k, v, s, 128, True),
@@ -189,3 +217,30 @@ def test_autograd_with_one_input_requiring_grad(which):
     one = [u.clone().requires_grad_(i == which) for i, u in enumerate((q, k, v))]
     got, = torch.autograd.grad((token_attention(*one, num_heads=2) * g).sum(), one[which])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_autograd_bf16_dh_512_through_strided_qkv_slices():
+    """bf16 at dh 512 on q, k, v that are column slices of one (B, T, 3C)
+    projection, as the VAE's attention passes them: `token_attention`
+    autograd against `jax.grad` of the Pallas `flash_attention` in
+    interpret mode, the gradient in the qkv tensor's shape."""
+    b, t, heads, dh = 1, 40, 1, 512
+    rng = np.random.default_rng(7)
+    qkv = rng.standard_normal((b, t, 3 * dh)).astype(np.float32)
+    g = rng.standard_normal((b, t, dh)).astype(np.float32)
+    scale = dh ** -0.5
+
+    def loss(x):
+        qq, kk, vv = (_bh(x[..., i * dh:(i + 1) * dh], heads) for i in range(3))
+        out = flash_attention(qq, kk, vv, scale, 128, 128, True)
+        return jnp.sum(_unbh(out, b, heads).astype(jnp.float32) * g)
+
+    want = jax.grad(loss)(jnp.asarray(qkv, jnp.bfloat16))
+    tqkv = torch.tensor(qkv).bfloat16().requires_grad_(True)
+    q, k, v = tqkv.split(dh, dim=-1)
+    assert q.stride() == (t * 3 * dh, 3 * dh, 1)
+    out = token_attention(q, k, v, num_heads=heads, scale=scale)
+    got, = torch.autograd.grad((out.float() * torch.tensor(g)).sum(), tqkv)
+    assert got.shape == tqkv.shape and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=TOL_BF16, atol=TOL_BF16)

@@ -219,10 +219,9 @@ def test_attention_backward_checks_refuse_what_the_kernels_do_not_take():
     attention._check_bwd(q, q, q, q, 2)                      # dh = 64
     attention._check_bwd(q, q, q, q, 4)                      # dh = 32
     w = torch.zeros(2, 16, 512)
-    attention._check_bwd(w, w, w, w, 1)                      # dh = 512, fp32
-    with pytest.raises(ValueError, match="shared memory"):
-        wb = w.bfloat16()
-        attention._check_bwd(wb, wb, wb, wb, 1)              # dh = 512, bf16: no tile fits
+    assert attention._check_bwd(w, w, w, w, 1).route == "f32"           # dh = 512, fp32
+    wb = w.bfloat16()
+    assert attention._check_bwd(wb, wb, wb, wb, 1).route == "wgmma"     # dh = 512, bf16
     u = torch.zeros(2, 16, 96)
     with pytest.raises(ValueError, match="head dims"):
         attention._check_bwd(u, u, u, u, 2)                  # dh = 48: no kernel takes it

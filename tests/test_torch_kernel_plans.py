@@ -18,8 +18,10 @@ only, so these tests hold, on the CPU, what the plans promise:
   by `chip_smoke.py`);
 - every head dim: the tile fits the 227 KB a block may use, and its shapes
   are what `wgmma` and the 128-byte swizzle take; the attention backward's
-  tile (`ops/attention.py::attention_bwd_plan`) at every head dim and
-  dtype it takes fits too, and bf16 at dh 512, which cannot, is refused;
+  tiles (`ops/attention.py::attention_bwd_plan`, dq and dk/dv) at every
+  head dim in both dtypes fit too, their registers fit the budget, their
+  column slices cover the head once, and their grids at path C's and path
+  E's sites cover every row tile; head dims no kernel takes are refused;
 - every GEGLU and LayerNorm->Linear site of the SD-2.1 and SD-1 UNets
   (listed below, and checked against the configs on the meta device) takes
   "wgmma", its tiles cover M, N and K, its blocks fit their shared memory,
@@ -43,9 +45,9 @@ from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, Auto
                                          DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
                                          VAEConfig, layout, transformer)
 from dpm_solver_tpu_torch.ops import _build
-from dpm_solver_tpu_torch.ops.attention import (BWD_HEAD_DIMS, HEAD_DIMS, SMEM_PER_BLOCK,
-                                                AttentionBwdTile, AttentionTile,
-                                                attention_bwd_plan, attention_plan)
+from dpm_solver_tpu_torch.ops.attention import (HEAD_DIMS, SMEM_PER_BLOCK, AttentionBwdTile,
+                                                AttentionTile, attention_bwd_plan,
+                                                attention_plan)
 from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA_SMEM,
                                               conv3x3_patch, conv3x3_plan)
 from dpm_solver_tpu_torch.ops import geglu as geglu_mod
@@ -53,6 +55,7 @@ from dpm_solver_tpu_torch.ops.geglu import geglu_plan
 from dpm_solver_tpu_torch.ops.ln_linear import ln_linear_plan
 
 ln_linear_mod = importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear")
+attention_mod = importlib.import_module("dpm_solver_tpu_torch.ops.attention")
 
 # (B, H, W, C, CO) of every Conv3x3 call of one network forward at each
 # path's batch: A CIFAR-10 DDPM b64; D DDPM++ deep b256; B SD-2.1 UNet at
@@ -220,40 +223,80 @@ def test_attention_plan_refuses_other_head_dims():
             attention_plan(dh)
 
 
-BWD_CASES = [(dh, dt) for dt, dims in BWD_HEAD_DIMS.items() for dh in dims]
+BWD_CASES = [(dh, dt) for dt in (torch.bfloat16, torch.float32) for dh in HEAD_DIMS]
+BWD_IDS = [f"{dh}-{str(dt)[6:]}" for dh, dt in BWD_CASES]
+# (b, t, s, heads, dh): path C's classifier attentions (32x32, 16x16, 8x8
+# and the attention pool, bf16 dh 64) and path E's single head (b8, 16x16,
+# fp32 dh 256)
+BWD_SITES = {"C": [(8, 1024, 1024, 4, 64), (8, 256, 256, 8, 64), (8, 64, 64, 8, 64),
+                   (8, 65, 65, 8, 64)],
+             "E": [(8, 256, 256, 1, 256)]}
 
 
-@pytest.mark.parametrize("dh,dtype", BWD_CASES, ids=[f"{dh}-{str(dt)[6:]}" for dh, dt in BWD_CASES])
+@pytest.mark.parametrize("dh,dtype", BWD_CASES, ids=BWD_IDS)
 def test_attention_bwd_tile_fits(dh, dtype):
-    """fp32 takes every head dim of the forward, bf16 all but 512; each tile
-    fits a block, its k16 steps cover dh with less than one step of zero
-    padding, and from d_pad 160 on two warps share a row group's columns,
-    each owning whole 16-wide fragments."""
-    assert set(BWD_HEAD_DIMS[torch.float32]) == set(HEAD_DIMS)
-    assert set(HEAD_DIMS) - set(BWD_HEAD_DIMS[torch.bfloat16]) == {512}
+    """Both dtypes take every head dim of the forward; bf16 runs "wgmma"
+    with 64 owned rows (one consumer warpgroup) and streamed tiles that are
+    whole `wgmma` widths, fp32 "f32" with 16 owned rows; each tile fits a
+    block, and dk/dv keeps both outputs in one block exactly where their
+    sums fit the register budget beside a 32-row tile."""
     tile = attention_bwd_plan(dh, dtype)
-    assert isinstance(tile, AttentionBwdTile) and tile.smem_bytes <= SMEM_PER_BLOCK
-    if dtype == torch.float32:
-        assert tile == AttentionBwdTile("f32", 16, 32, dh, 1)
-        return
-    assert (tile.route, tile.rows, tile.tile) == ("wmma", 64, 64)
-    assert tile.d_pad % 16 == 0 and 0 <= tile.d_pad - dh < 16
-    assert tile.split == (2 if tile.d_pad >= 160 else 1)
-    assert (tile.d_pad // tile.split) % 16 == 0
-    # one warp's fp32 dk and dv sums: 8 registers a thread per 16-wide fragment
-    assert 2 * 8 * tile.d_pad // tile.split // 16 <= 128
+    assert isinstance(tile, AttentionBwdTile)
+    for kt in (tile.dq, tile.dkv):
+        assert kt.smem_bytes <= SMEM_PER_BLOCK and kt.dh == dh
+        if dtype == torch.float32:
+            assert (kt.route, kt.rows, kt.cols, kt.stages) == ("f32", 16, dh, 2)
+            # 256 threads: (16 / 4) x (tile / 4) patches x slices of <= 40 columns
+            parts = 256 // kt.tile
+            assert parts >= 2 and dh % parts == 0 and dh / parts <= 40
+            assert parts == 2 or dh / (parts // 2) > 40
+            continue
+        assert (kt.route, kt.rows) == ("wgmma", 64) and kt.tile in (16, 32, 64)
+        assert kt.stages in (2, 3) and kt.cols % 8 == 0 and kt.cols <= 256
+    if dtype == torch.bfloat16:
+        assert tile.dkv.outs == (2 if dh <= 128 else 1) and tile.dq.outs == 1
 
 
-def test_attention_bwd_plan_refuses_bf16_512_and_other_head_dims():
-    """bf16 dh 512 would need 320,000 bytes a block: a ValueError naming the
-    shared-memory limit; a head dim no kernel takes is refused by name."""
-    with pytest.raises(ValueError, match="shared memory") as err:
-        attention_bwd_plan(512, torch.bfloat16)
-    assert "320000" in str(err.value) and str(SMEM_PER_BLOCK) in str(err.value)
-    assert attention_bwd_plan(512, torch.float32).smem_bytes == 201216
+@pytest.mark.parametrize("dh,dtype", BWD_CASES, ids=BWD_IDS)
+def test_attention_bwd_tile_budget_columns_and_grid(dh, dtype):
+    """At each head dim and dtype, for dq and dk/dv: the block's shared
+    memory fits, its fp32 registers (output sums, logits, fragments) fit the
+    plan's budget, its output column slices cover [0, dh) exactly once, and
+    its grid at path C's and path E's sites has a block for every owned row
+    tile, head and (slice, pass); path E's fp32 site fills 128 of the 132 SMs."""
+    tile = attention_bwd_plan(dh, dtype)
+    for kt in (tile.dq, tile.dkv):
+        assert kt.smem_bytes <= SMEM_PER_BLOCK
+        assert kt.regs <= kt.reg_budget
+        covered = [c for lo, hi in kt.col_slices() for c in range(lo, hi)]
+        assert sorted(covered) == list(range(dh))
+        assert kt.passes * kt.outs == (2 if kt.kernel == "dkv" else 1)
+        for b, t, s, heads, _ in BWD_SITES["C"] + BWD_SITES["E"]:
+            owned = s if kt.kernel == "dkv" else t
+            grid = kt.grid(b, t, s, heads)
+            assert grid == (-(-owned // kt.rows), b * heads, kt.slices * kt.passes)
+            assert (grid[0] - 1) * kt.rows < owned <= grid[0] * kt.rows
+    if dh == 64 and dtype == torch.bfloat16:  # path C: 4 key tiles x 64 heads at 16x16
+        assert tile.dq.grid(8, 256, 256, 8) == tile.dkv.grid(8, 256, 256, 8) == (4, 64, 1)
+    if dh == 256 and dtype == torch.float32:  # path E
+        assert tile.dq.grid(8, 256, 256, 1) == tile.dkv.grid(8, 256, 256, 1) == (16, 8, 1)
+
+
+def test_attention_bwd_plan_takes_bf16_512_and_refuses_other_head_dims():
+    """bf16 dh 512 is taken: 16-row tiles, two 256-column slices, dk and dv
+    in separate blocks, within 227 KB; a head dim no kernel takes is refused
+    by name, in either dtype."""
+    tile = attention_bwd_plan(512, torch.bfloat16)
+    assert tile.route == "wgmma" and tile.dq.tile == tile.dkv.tile == 16
+    assert tile.dq.col_slices() == [(0, 256), (256, 512)] and tile.dkv.passes == 2
+    assert tile.dq.grid(1, 1024, 1024, 1) == (16, 1, 2)
+    assert tile.dkv.grid(1, 1024, 1024, 1) == (16, 1, 4)
+    assert max(tile.dq.smem_bytes, tile.dkv.smem_bytes) <= SMEM_PER_BLOCK
+    assert attention_bwd_plan(512, torch.float32).dq.smem_bytes == 200192
     for dh in (16, 48, 96, 1024):
-        with pytest.raises(ValueError, match="head dims"):
-            attention_bwd_plan(dh, torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head dims"):
+                attention_bwd_plan(dh, dtype)
 
 
 @pytest.mark.parametrize("cfg,want", [("sd_v1", {40, 80, 160}), ("sd_v2_1", {64})])
@@ -378,10 +421,17 @@ def _cu_constant(source: str, name: str) -> int:
     ("geglu.cu", "DOWN_STAGES", geglu_mod.DOWN_STAGES),
     ("ln_linear.cu", "LN_BN", ln_linear_mod.BLOCK_N),
     ("ln_linear.cu", "LN_SMEM_MAX", ln_linear_mod.SMEM_PER_BLOCK),
-    ("attention_bwd.cu", "MR", attention_bwd_plan(64).rows),
-    ("attention_bwd.cu", "MT", attention_bwd_plan(64).tile),
-    ("attention_bwd.cu", "FB", attention_bwd_plan(64, torch.float32).rows),
-    ("attention_bwd.cu", "FS", attention_bwd_plan(64, torch.float32).tile)],
+    ("attention_bwd.cu", "SMEM_LIMIT", SMEM_PER_BLOCK),
+    ("attention_bwd.cu", "SM_SMEM", attention_mod.SM_SMEM),
+    ("attention_bwd.cu", "BF16_ROWS", attention_bwd_plan(64).dq.rows),
+    ("attention_bwd.cu", "BF16_THREADS", attention_mod.BF16_THREADS),
+    ("attention_bwd.cu", "BF16_MAX_COLS", attention_bwd_plan(512).dq.cols),
+    ("attention_bwd.cu", "BF16_REG_BUDGET", attention_bwd_plan(64).dq.reg_budget),
+    ("attention_bwd.cu", "BF16_MAX_STAGES", attention_mod.BF16_MAX_STAGES),
+    ("attention_bwd.cu", "BF16_BLOCKS_PER_SM", attention_mod.BF16_BLOCKS_PER_SM),
+    ("attention_bwd.cu", "F32_ROWS", attention_bwd_plan(64, torch.float32).dq.rows),
+    ("attention_bwd.cu", "F32_SLICE", attention_mod.F32_SLICE),
+    ("attention_bwd.cu", "F32_THREADS", attention_mod.F32_THREADS)],
     ids=lambda v: str(v))
 def test_plans_name_the_compiled_tiles(source, name, value):
     """The plans' tile constants are the C sources' (the entries refuse others)."""
