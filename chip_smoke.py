@@ -11,10 +11,14 @@ and nothing of JAX. Phases, each fatal on failure:
 2. build: nvcc compiles `dpm_solver_tpu_torch/csrc/*.cu` for sm_90a into the
    ignored `dpm_solver_tpu_torch/_build/`, one nvcc per source in parallel,
    with `-Xptxas -v`; each instance of the attention backward's kernels
-   is logged with its registers and spilled bytes;
+   and of the fp32 conv3x3 (forward and dx modes, its split sum) and fp32
+   attention forward is logged with its registers and spilled bytes;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16:
-   the forwards, and the attention forward's lse, the attention backward's
+   card, at the paths' shapes and at tiny and ragged ones, fp32 and bf16
+   (every fp32 conv3x3, its dx and the attention forward with its lse
+   launched twice on the same inputs: the two results bitwise equal, the
+   determinism path E's RK45 needs): the forwards, and the attention
+   forward's lse, the attention backward's
    dq and dk/dv (at dh 64, and at every other head dim in both dtypes: dh
    256 at 16x16, SD-1's 40/80/160, 32, 128, 512 at T = S = 1024 and ragged
    on qkv slices; at each, the forward's o and lse are checked first on the
@@ -78,9 +82,10 @@ and nothing of JAX. Phases, each fatal on failure:
    DDPM++ deep at full width in fp32 (the dtype score_sde reports bits/dim
    in), frozen, continuous VP, labels t*999, batch LIK_BATCH of seeded
    8-bit images uniformly dequantised to [-1, 1], a Rademacher probe. First
-   each conv3x3 and its dx, and the attention's lse form (o and lse) and its
-   dq and dk/dv, at every spec of the path's network forward, in fp32
-   against the plain versions. Then the likelihood call, RK45
+   each conv3x3 and its dx, and the attention's lse form (o and lse), its
+   form without the lse and its dq and dk/dv, at every spec of the path's
+   network forward, in fp32 against the plain versions (the forwards and
+   dx launched twice, bitwise equal). Then the likelihood call, RK45
    at rtol = atol = LIK_TOL (the JAX default 1e-5 loosened for time, PERF.md
    section 4) and eps LIK_EPS (the JAX default). Every stage
    differentiates the network once (one vector-Jacobian product), so its
@@ -293,7 +298,7 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
     """{kernel instance: (registers, spilled bytes)} from nvcc's `-Xptxas -v`
     output, for the entry functions whose mangled name matches `pattern`;
     an instance reads as its name and template arguments ("attn_dq_wgmma
-    dh 64", "attn_bwd_f32 dh 256 dkv")."""
+    dh 64", "attn_bwd_f32 dh 256 dkv", "conv3x3_f32 dx")."""
     usage, name, spill = {}, None, 0
     for line in build_log.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
@@ -310,7 +315,8 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
             tag = f"{kernel} dh {dh[0]}" if dh else kernel
             flags = [v for t, v in args if t == "b"]
             if flags:
-                tag += " dkv" if flags[0] == "1" else " dq"
+                tag += ((" dx" if flags[0] == "1" else " fwd") if kernel.startswith("conv")
+                        else (" dkv" if flags[0] == "1" else " dq"))
             usage[tag] = (int(found.group(1)), spill)
     return usage
 
@@ -820,7 +826,10 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(ROOT)}")
     # (a library built by an earlier run of the same sources prints nothing)
     bwd_ptxas = ptxas_usage(build_log.getvalue(), r"attn_(dq_wgmma|dkv_wgmma|bwd_f32)")
-    for kernel, (regs, spill) in bwd_ptxas.items():
+    # the fp32 conv (forward and dx modes), its split sum, the fp32 attention forward
+    f32_ptxas = ptxas_usage(build_log.getvalue(),
+                            r"conv3x3_f32_sum|conv3x3_f32|attention_fwd_f32")
+    for kernel, (regs, spill) in chain(bwd_ptxas.items(), f32_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -838,20 +847,37 @@ def main() -> int:
         if not ok:
             fail(f"{name} {shape} {dtype} disagrees with its plain version")
 
+    def twice(name, shape, dt, fn):
+        """fn() on the same inputs; in fp32 (the route path E's RK45 rides)
+        twice, and the two results must be bitwise equal."""
+        got = fn()
+        if dt == torch.float32:
+            again = fn()
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(got, again)) \
+                if isinstance(got, tuple) else torch.equal(got, again)
+            log(f"  {name} {shape} float32, two launches: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"{name} {shape}: two launches on the same inputs differ")
+        return got
+
     def check_conv(spec, dt, dx):
         """conv3x3 at `spec` (b, h, w, c, co) and, if `dx`, its input
-        gradient, against the plain versions within BOUND."""
+        gradient, against the plain versions within BOUND (fp32: launched
+        twice, bitwise equal)."""
         b, h, w, c, co = spec
         x, wt = randn(b, h, w, c).to(dt), (randn(3, 3, c, co) * c ** -0.5).to(dt)
         bias = randn(co) * 0.1
-        report("conv3x3", spec, dt, ops.conv3x3(x, wt, bias),
+        report("conv3x3", spec, dt, twice("conv3x3", spec, dt, lambda: ops.conv3x3(x, wt, bias)),
                ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND[str(dt)[6:]])
         if dx:
             g_out = randn(b, h, w, co).to(dt)
             want = torch.nn.grad.conv2d_input((b, c, h, w), wt.float().permute(3, 2, 0, 1),
                                               g_out.float().permute(0, 3, 1, 2), padding=1)
-            report("conv3x3_dx", spec, dt, ops.conv3x3_dx(g_out, wt), want.permute(0, 2, 3, 1),
-                   BOUND[str(dt)[6:]])
+            report("conv3x3_dx", spec, dt,
+                   twice("conv3x3_dx", spec, dt, lambda: ops.conv3x3_dx(g_out, wt)),
+                   want.permute(0, 2, 3, 1), BOUND[str(dt)[6:]])
 
     def check_attention_bwd(spec, dt, bound):
         """attention_lse at `spec` (b, t, s, heads, dh, qkv slices; "odd": q,
@@ -868,7 +894,8 @@ def main() -> int:
             q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
         g_out = randn(b, t, inner).to(dt)
         shape = (b, t, s, heads, dh) + ((fused if fused == "odd" else "qkv",) if fused else ())
-        o, lse = ops.attention_lse(q, k, v, num_heads=heads)
+        o, lse = twice("attention_lse", shape, dt,
+                       lambda: ops.attention_lse(q, k, v, num_heads=heads))
         qf, kf, vf = q.float(), k.float(), v.float()
         report("attention_lse", shape + ("o",), dt, o,
                ops.attention_plain(qf, kf, vf, num_heads=heads), BOUND[str(dt)[6:]])
@@ -1538,12 +1565,20 @@ def main() -> int:
         h.remove()
     # each of those kernels at each of those specs, in fp32, against its
     # plain version (as in phase 3)
-    log(f"  path E's kernels at its {len(e_calls)} specs, fp32, vs plain:")
+    log(f"  path E's kernels at its {len(e_calls)} specs, fp32, vs plain (each launched "
+        f"twice: bitwise equal):")
     for names, spec in sorted(e_calls, key=str):
         if names[0] == "conv3x3":
             check_conv(spec, torch.float32, dx=True)
         else:
             check_attention_bwd(spec, torch.float32, BWD_BOUND["float32"])
+            # the same kernel without its lse (the sampler's forward)
+            b, t, s_, heads, dh, _ = spec
+            q, k, v = randn(b, t, 3 * heads * dh).split(heads * dh, dim=-1)
+            report("token_attention", spec, torch.float32,
+                   twice("token_attention", spec, torch.float32,
+                         lambda: ops.token_attention(q, k, v, num_heads=heads)),
+                   ops.attention_plain(q, k, v, num_heads=heads), BOUND["float32"])
     torch.cuda.empty_cache()
     # every conv3x3 weight gradient goes through torch.nn.grad.conv2d_weight
     # (ops/conv3x3.py::_Conv3x3Fn.backward): count its calls
@@ -2023,7 +2058,12 @@ def main() -> int:
     ptxas_of = {"attention_dq": {k: v for k, v in bwd_ptxas.items() if "attn_dq" in k
                                  or "attn_bwd_f32" in k and k.endswith("dq")},
                 "attention_dkv": {k: v for k, v in bwd_ptxas.items() if "attn_dkv" in k
-                                  or "attn_bwd_f32" in k and k.endswith("dkv")}}
+                                  or "attn_bwd_f32" in k and k.endswith("dkv")},
+                "conv3x3": {k: v for k, v in f32_ptxas.items() if k.startswith("conv3x3_f32")
+                            and not k.endswith(" dx")},
+                "conv3x3_dx": {k: v for k, v in f32_ptxas.items() if k.endswith(" dx")},
+                "attention_lse": {k: v for k, v in f32_ptxas.items()
+                                  if k.startswith("attention_fwd_f32")}}
 
     def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
         # SD-1's forward only where no path does)
@@ -2037,10 +2077,11 @@ def main() -> int:
                     max_abs_err=max_abs[name], **timing[name][newest(name)],
                     path=newest(name), timing_by_path=timing[name],
                     **({"head_dims": head_dims[name]} if name in head_dims else {}),
-                    **({"by_head_dim": bwd_by_dh,
-                        "ptxas": {k: dict(registers=r, spilled_bytes=b)
+                    **({"by_head_dim": bwd_by_dh} if name in ("attention_dq", "attention_dkv")
+                       else {}),
+                    **({"ptxas": {k: dict(registers=r, spilled_bytes=b)
                                   for k, (r, b) in ptxas_of[name].items()}}
-                       if name in ("attention_dq", "attention_dkv") else {}))
+                       if name in ptxas_of else {}))
                for name, (route, src, rep) in REPLACES.items()]
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

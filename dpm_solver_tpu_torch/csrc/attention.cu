@@ -61,15 +61,33 @@
 //   output halves (grid.z = 2), each of which recomputes the logits over all
 //   512 channels, with one consumer warpgroup and 32-key tiles to stay
 //   inside 227 KB of shared memory.
-// - fp32: `attention_fwd_f32`, exact on the CUDA cores: 16 queries per block,
-//   32-key tiles, the output accumulator in registers 16 columns apart per
-//   thread (conflict-free reads of V), K rows padded by one float so the 16
-//   threads of a logits row read 16 different banks. At D = 512 a block
-//   takes 166,208 bytes of shared memory.
+// - fp32: `attention_fwd_f32`, exact on the CUDA cores (no TF32: bits/dim
+//   rides its rounding), register-tiled like the fp32 backward, whose
+//   blocks it shares (attention_f32.cuh). At path E's site (b8, T = S = 256,
+//   one 256-wide head: 537 MFLOP a launch, 8 us at 67 TFLOP/s against about
+//   2.5 us of bytes) it is bound by the FMAs, so the design feeds them from
+//   registers. A block of 256 threads owns 16 queries (so that site runs 128
+//   blocks on the 132 SMs) and streams K/V tiles of 256 / PARTS keys (32 at
+//   dh 256), double-buffered by cp.async, so the next tile's copy overlaps
+//   this tile's math. Per tile, three phases: (1) the logits, each thread a
+//   4x4 patch over one of PARTS interleaved slices of dh (8 shared reads
+//   feed 16 FMAs), summed by a butterfly over the patch's lanes, scaled
+//   and masked (keys >= S get -inf) into shared memory; (2) the online
+//   softmax in base 2, 16 threads a row (exp2f: exact to the fp32 ulp, not
+//   ex2.approx); (3) O = O * alpha + P.V, each thread owning 4 rows x
+//   ceil(dv/64) columns 64 apart (4 broadcast reads of p and one row read
+//   of V a column feed 4 FMAs each). Where a launch has fewer than 128
+//   row blocks (path E's 4x4 mid-block: T = 16, 8 blocks), the output
+//   columns split over grid.z in 64-column multiples, each block
+//   recomputing the small logits (32 blocks there). The tile (16 queries,
+//   the key tile, two buffers) and the column split are stated on the host
+//   (ops/attention.py::attention_plan and AttentionTile.grid) and checked
+//   here against the compiled instance.
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -79,128 +97,165 @@ struct Strides {
   long long qb, qt, kb, kt, vb, vt;
 };
 
-constexpr int BQ = 16;       // queries per block
-constexpr int BKV = 32;      // keys per streamed tile (= warp width)
-constexpr int THREADS = 256; // 16 threads per query row
+// ---- fp32, exact, on the CUDA cores (attention_f32.cuh) ----------------------
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using attn_f32::F32_ROWS;
+using attn_f32::F32_THREADS;
+constexpr int F32_STAGES = 2;  // K/V buffers a block: cp.async double buffering
+
+// the shared streamed tile, and this kernel's shared-memory layout
+template <int D>
+struct FwdF32 : attn_f32::Stream<D> {
+  using S = attn_f32::Stream<D>;
+  static constexpr int VALS = 16 / S::PARTS;                 // logits a lane keeps
+  static constexpr int PT = S::TILE + 1;                     // logits / p pitch
+  static constexpr int QS = F32_ROWS * S::PO;                // floats: the owned queries
+  static constexpr int BUF = 2 * S::TILE * S::PS;            // a buffer: k and v rows
+  static constexpr size_t SMEM =
+      4 * (size_t)(QS + F32_STAGES * BUF + F32_ROWS * PT + 3 * F32_ROWS);
+  static_assert(S::PARTS * (F32_ROWS / 4) * (S::TILE / 4) == F32_THREADS, "patches");
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+};
 
 template <int D>
-constexpr size_t smem_floats() {
-  return (size_t)BQ * D + (size_t)BKV * (D + 1) + (size_t)BKV * D + BQ * BKV + 3 * BQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32_THREADS, 1)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st) {
-  constexpr int NC = (D + 15) / 16;  // output columns per thread: col + 16*i < D
+                  float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st,
+                  int vec, int dv) {
+  using L = FwdF32<D>;
+  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [BQ][D], pre-scaled by scale*log2(e)
-  float* ks = qs + BQ * D;           // [BKV][D+1]
-  float* vs = ks + BKV * (D + 1);    // [BKV][D]
-  float* ps = vs + BKV * D;          // [BQ][BKV] logits, then probabilities
-  float* row_m = ps + BQ * BKV;      // running max (base 2)
-  float* row_l = row_m + BQ;         // running sum
-  float* row_a = row_l + BQ;         // this tile's rescale factor
+  float* qs = smem;                        // [16][PO] queries
+  float* bufs = qs + L::QS;                // [2][BUF]: k rows, then v rows (pitch PS)
+  float* ps = bufs + F32_STAGES * L::BUF;  // [16][PT] the tile's logits, then p
+  float* row_m = ps + F32_ROWS * L::PT;    // running max (base 2)
+  float* row_l = row_m + F32_ROWS;         // running sum
+  float* row_a = row_l + F32_ROWS;         // this tile's rescale factor
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const long long otok = (long long)H * D;  // output elements between tokens
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * F32_ROWS, col0 = blockIdx.z * dv;
   const float* qb = q + b * st.qb + (long long)h * D;
   const float* kb = k + b * st.kb + (long long)h * D;
   const float* vb = v + b * st.vb + (long long)h * D;
-  float* ob = o + (long long)b * Tq * otok + (long long)h * D;
+  const int ntiles = (S + TILE - 1) / TILE;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int t = q0 + r;
-    qs[idx] = t < Tq ? qb[t * st.qt + d] * qscale : 0.f;
+  attn_f32::load_rows<D>(bufs, kb, st.kt, vb, st.vt, 0, S, vec != 0);
+  hopper::cp_async_commit();
+  for (int e = tid; e < F32_ROWS * D; e += F32_THREADS) {
+    const int r = e / D, d = e % D, t = q0 + r;
+    qs[r * L::PO + d] = t < Tq ? qb[t * st.qt + d] : 0.f;
   }
-  if (tid < BQ) {
+  if (tid < F32_ROWS) {
     row_m[tid] = -INFINITY;
     row_l[tid] = 0.f;
   }
 
-  const int row = tid / 16;  // query row of this thread (logits and output)
-  const int col = tid % 16;  // logits cols col, col+16; output cols col+16*i
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[NC];
+  // (1) patch (rb, cb) = queries [4rb, 4rb + 4) x keys [4cb, 4cb + 4) of the
+  // tile, head-dim slice d = part (mod PARTS)
+  const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
+  // (2) row srow, keys slane + 16 u
+  const int srow = tid / 16, slane = tid % 16;
+  // (3) queries [4rg, 4rg + 4), output columns col0 + ct + 64 i
+  const int rg = tid / 64, ct = tid % 64;
+  float acc[4][NC];
 #pragma unroll
-  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += BKV) {
-    __syncthreads();  // the previous tile is consumed; q tile and stats visible
-    for (int idx = tid; idx < BKV * D; idx += THREADS) {
-      const int j = idx / D, d = idx % D;
-      const int key = k0 + j;
-      const bool valid = key < S;
-      ks[j * (D + 1) + d] = valid ? kb[key * st.kt + d] : 0.f;
-      vs[j * D + d] = valid ? vb[key * st.vt + d] : 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      attn_f32::load_rows<D>(bufs + ((t + 1) & 1) * L::BUF, kb, st.kt, vb, st.vt,
+                             (t + 1) * TILE, S, vec != 0);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t, the queries and the row stats visible
+    const float* xs = bufs + (t & 1) * L::BUF;
+
+    float z[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) z[i] = 0.f;
+    attn_f32::patch_products<D, 1>(z, qs, 0, xs, 0, rb, cb, part);
+    attn_f32::fold<PARTS, 16>(z, part);  // lane `part`: values [part * VALS, + VALS)
+#pragma unroll
+    for (int m = 0; m < L::VALS; ++m) {
+      const int e = part * L::VALS + m, row = 4 * rb + e / 4, col = 4 * cb + e % 4;
+      ps[row * L::PT + col] = t * TILE + col < S ? z[m] * qscale : -INFINITY;
     }
     __syncthreads();
 
+    {  // (2) the row's max over the tile, p = exp2(z - m), the running stats
+      float zv[TILE / 16], mx = -INFINITY;
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = col + 16 * jj;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[row * D + d], ks[j * (D + 1) + d], dot);
-      ps[row * BKV + j] = (k0 + j < S) ? dot : -INFINITY;
-    }
-    __syncthreads();
-
-    // online softmax: warp w updates rows 2w and 2w+1, one key per lane
+      for (int u = 0; u < TILE / 16; ++u) {
+        zv[u] = ps[srow * L::PT + slane + 16 * u];
+        mx = fmaxf(mx, zv[u]);
+      }
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 2 + rr;
-      const float s = ps[r * BKV + lane];
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(s));  // finite: every tile has a valid key
-      const float p = exp2f(s - m_new);               // masked keys: exp2(-inf) = 0
-      const float sum = warp_sum(p);
-      ps[r * BKV + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);     // first tile: exp2(-inf) = 0
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-        row_a[r] = alpha;
+      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_old = row_m[srow];
+      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid key
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < TILE / 16; ++u) {
+        const float p = exp2f(zv[u] - m_new);  // masked keys: exp2(-inf) = 0
+        ps[srow * L::PT + slane + 16 * u] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      if (slane == 0) {  // the row's 16 lanes read m_old before the shuffles above
+        const float alpha = exp2f(m_old - m_new);  // first tile: exp2(-inf) = 0
+        row_l[srow] = row_l[srow] * alpha + sum;
+        row_m[srow] = m_new;
+        row_a[srow] = alpha;
       }
     }
     __syncthreads();
 
-    const float alpha = row_a[row];
+    // (3) O = O * alpha + P.V
+    float pr[4];
 #pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
-    for (int j = 0; j < BKV; ++j) {
-      const float p = ps[row * BKV + j];
+    for (int r = 0; r < 4; ++r) {
+      const float alpha = row_a[4 * rg + r];
 #pragma unroll
-      for (int i = 0; i < NC; ++i)
-        if (col + 16 * i < D) acc[i] = fmaf(p, vs[j * D + col + 16 * i], acc[i]);
+      for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
     }
+    const float* vs = xs + TILE * L::PS + col0 + ct;
+#pragma unroll 4
+    for (int j = 0; j < TILE; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r] = ps[(4 * rg + r) * L::PT + j];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        if (ct + 64 * i < dv) {
+          const float x = vs[j * L::PS + 64 * i];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[r][i] = fmaf(pr[r], x, acc[r][i]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copy reuses this buffer
   }
 
-  const int t = q0 + row;
-  if (t < Tq) {
+  const long long otok = (long long)H * D;
+  float* ob = o + (long long)b * Tq * otok + (long long)h * D + col0 + ct;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * rg + r, t = q0 + row;
+    if (t >= Tq) continue;
     const float inv = 1.f / row_l[row];
 #pragma unroll
     for (int i = 0; i < NC; ++i)
-      if (col + 16 * i < D) ob[t * otok + col + 16 * i] = acc[i] * inv;
+      if (ct + 64 * i < dv) ob[t * otok + 64 * i] = acc[r][i] * inv;
     // base-2 log-sum-exp of the pre-scaled logits, from the final max and sum
-    if (lse != nullptr && col == 0) lse[(long long)bh * Tq + t] = row_m[row] + log2f(row_l[row]);
+    if (lse != nullptr && ct == 0 && blockIdx.z == 0)
+      lse[(long long)bh * Tq + t] = row_m[row] + log2f(row_l[row]);
   }
 }
 
@@ -465,25 +520,34 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-               int Tq, int S, int H, float qscale, Strides st, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
-  attention_fwd_f32<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, S, H, qscale, st);
-  return (int)cudaGetLastError();
-}
-
-// the host's tile (ops/attention.py::attention_plan) for the bf16 kernel
+// the host's tile (ops/attention.py::attention_plan and AttentionTile.grid)
 struct Plan {
   int block_q, block_kv, d_pad, dv, stages;
 };
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int Tq, int S, int H, float qscale, Strides st, Plan plan, cudaStream_t stream) {
+  using L = FwdF32<D>;
+  // the compiled tile; the output split in whole 64-column runs that divide D
+  if (plan.block_q != F32_ROWS || plan.block_kv != L::TILE || plan.d_pad != D ||
+      plan.stages != F32_STAGES || plan.dv <= 0 || D % plan.dv != 0 ||
+      (plan.dv != D && plan.dv % 64 != 0))
+    return (int)cudaErrorInvalidValue;
+  // 8-byte copies where every row of k and v starts 8-byte aligned
+  const uintptr_t any = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const long long strides = st.kb | st.kt | st.vb | st.vt;
+  const int vec = any % 8 == 0 && strides % 2 == 0;
+  cudaError_t err = hopper::set_smem_once<attention_fwd_f32<D>>(L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((Tq + F32_ROWS - 1) / F32_ROWS), (unsigned)(B * H),
+            (unsigned)(D / plan.dv));
+  attention_fwd_f32<D><<<grid, F32_THREADS, L::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, S, H, qscale, st, vec,
+      plan.dv);
+  return (int)cudaGetLastError();
+}
 
 template <int D, int DV, int KV, int NWG, int STAGES>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -523,7 +587,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Tq,
            int S, int H, float qscale, Strides st, int dtype, Plan p, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, B, Tq, S, H, qscale, st, s);
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   if constexpr (D == 512) {
     return launch_wgmma<512, 256, 32, 1, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   } else if constexpr (D >= 160) {
@@ -543,8 +607,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // channel stride is 1 and o is contiguous. lse is null, or a float32 (B*H, T)
 // output for the base-2 log-sum-exp of each row's pre-scaled logits, which the
 // backward (attention_bwd.cu) reads. block_q, block_kv, d_pad, dv and stages
-// are the host's bf16 tile (ops/attention.py::attention_plan; ignored for
-// float32); a tile other than a compiled one is refused. Returns the
+// are the host's tile (ops/attention.py::attention_plan; for float32 dv is
+// the launch's output column slice, AttentionTile.grid); a tile other than a
+// compiled one is refused. Returns the
 // cudaError_t of the launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                  void* lse_out, int B, int T, int S, int H, int D, float qscale,

@@ -76,7 +76,9 @@
 //   dv), so 4 (+4) broadcast reads and ceil(dh/64) (x2) row reads feed 4x
 //   as many FMAs. The pitches (dh + 2, or + 4 at 16 slices) keep phase 1's
 //   reads on distinct banks. 16 rows a block keep path E's site (b8, T = S
-//   = 256, one head) at 128 blocks on the 132 SMs.
+//   = 256, one head) at 128 blocks on the 132 SMs. The tile rule, the
+//   streamed copies, phase 1's patch products and the butterfly are
+//   attention_f32.cuh's, which the fp32 forward (attention.cu) shares.
 //
 // The tile of each head dim and dtype is fixed here at compile time
 // (Bf16Tile, F32Tile); ops/attention.py::attention_bwd_plan states the same
@@ -89,6 +91,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -479,54 +482,24 @@ attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 
 // ---- fp32, exact, on the CUDA cores -------------------------------------------
 
-constexpr int F32_ROWS = 16;       // owned rows a block
-constexpr int F32_THREADS = 256;
-constexpr int F32_SLICE = 40;      // head-dim columns a phase-1 lane sums, at most
+using attn_f32::F32_ROWS;
+using attn_f32::F32_THREADS;
 
-// head-dim slices a phase-1 patch is split into: enough that a lane sums at
-// most F32_SLICE columns, at least 2
-constexpr int f32_parts(int d) {
-  int p = 2;
-  while (p * F32_SLICE < d) p *= 2;
-  return p;
-}
-
+// the shared streamed tile (attention_f32.cuh), and this kernel's layout
 template <int D>
-struct F32Tile {
-  static constexpr int PARTS = f32_parts(D);
-  static constexpr int TILE = F32_THREADS / PARTS;           // streamed rows: one 4x4 patch
-  static constexpr int PATCHES = (F32_ROWS / 4) * (TILE / 4);  // of z and dp per PARTS lanes
-  static constexpr int VALS = 32 / PARTS;                    // sums a lane keeps
-  static constexpr int PO = D + (PARTS == 16 ? 4 : 2);       // owned pitch (banks)
-  static constexpr int PS = D + 2;                           // streamed pitch (banks, 8-byte rows)
-  static constexpr int PT = TILE + 1;                        // p and ds pitch
-  static constexpr int NC = (D + 63) / 64;                   // phase 3: columns a thread
-  static constexpr int OWN = 2 * F32_ROWS * PO;              // floats: the owned rows
-  static constexpr int BUF = 2 * TILE * PS + 2 * TILE;       // a buffer: 2 tiles, lse, delta
-  static constexpr int PDS = 2 * F32_ROWS * PT;              // p and ds
-  static constexpr int OROWS = 2 * F32_ROWS;                 // the owned rows' lse and delta
+struct F32Tile : attn_f32::Stream<D> {
+  using S = attn_f32::Stream<D>;
+  static constexpr int PATCHES = (F32_ROWS / 4) * (S::TILE / 4);  // of z and dp per PARTS lanes
+  static constexpr int VALS = 32 / S::PARTS;                      // sums a lane keeps
+  static constexpr int PT = S::TILE + 1;                          // p and ds pitch
+  static constexpr int OWN = 2 * F32_ROWS * S::PO;                // floats: the owned rows
+  static constexpr int BUF = 2 * S::TILE * S::PS + 2 * S::TILE;   // a buffer: 2 tiles, lse, delta
+  static constexpr int PDS = 2 * F32_ROWS * PT;                   // p and ds
+  static constexpr int OROWS = 2 * F32_ROWS;                      // the owned rows' lse and delta
   static constexpr size_t SMEM = 4 * (size_t)(OWN + 2 * BUF + PDS + OROWS);
-  static_assert(D % PARTS == 0 && D % 2 == 0 && PARTS * PATCHES == F32_THREADS, "parts");
+  static_assert(S::PARTS * PATCHES == F32_THREADS, "parts");
   static_assert((long long)SMEM <= SMEM_LIMIT, "227 KB of shared memory a block");
 };
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
-  if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(hopper::smem_u32(dst)),
-                 "l"(src), "r"(valid ? 8 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // start copying streamed rows [r0, r0 + TILE) of x and y (rows sx, sy apart;
 // rows >= n read as 0) into a buffer, 8 bytes a copy when `vec`; with `lse`,
@@ -536,39 +509,13 @@ __device__ __forceinline__ void load_tile(float* buf, const float* x, long long 
                                           const float* y, long long sy, int r0, int n, bool vec,
                                           const float* lse, const float* delta) {
   using L = F32Tile<D>;
-  const int w = vec ? 2 : 1;
-  for (int e = threadIdx.x; e < L::TILE * D / w; e += F32_THREADS) {
-    const int j = e / (D / w), c = w * (e % (D / w));
-    const bool ok = r0 + j < n;
-    const long long o = ok ? (long long)(r0 + j) : 0;
-    cp_async(buf + j * L::PS + c, x + o * sx + c, 4 * w, ok);
-    cp_async(buf + (L::TILE + j) * L::PS + c, y + o * sy + c, 4 * w, ok);
-  }
+  attn_f32::load_rows<D>(buf, x, sx, y, sy, r0, n, vec);
   if (lse != nullptr)
     for (int i = threadIdx.x; i < L::TILE; i += F32_THREADS) {
       const bool ok = r0 + i < n;
-      cp_async(buf + 2 * L::TILE * L::PS + i, lse + (ok ? r0 + i : 0), 4, ok);
-      cp_async(buf + 2 * L::TILE * L::PS + L::TILE + i, delta + (ok ? r0 + i : 0), 4, ok);
+      hopper::cp_async<4>(buf + 2 * L::TILE * L::PS + i, lse + (ok ? r0 + i : 0), ok);
+      hopper::cp_async<4>(buf + 2 * L::TILE * L::PS + L::TILE + i, delta + (ok ? r0 + i : 0), ok);
     }
-}
-
-// one butterfly round over the lanes `w` = P / 2 apart, then the next: each
-// lane keeps the half of its N live sums its bit of `part` names (the upper
-// half where it is set) and adds its partner's copy of that half; after
-// log2(P) rounds lane `part` holds the full sums of values [part * 32 / P,
-// + 32 / P) in acc[0 ..). All indices are constants, so acc stays in registers.
-template <int P, int N>
-__device__ __forceinline__ void fold(float (&acc)[32], int part) {
-  if constexpr (P > 1) {
-    constexpr int w = P / 2, n = N / 2;
-    const bool up = (part & w) != 0;
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-      const float lo = acc[i], hi = acc[i + n];
-      acc[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, w);
-    }
-    fold<w, n>(acc, part);
-  }
 }
 
 // DKV false: dq (o1). DKV true: dk (o1) and dv (o2). The block owns rows
@@ -609,7 +556,7 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int ntiles = (n_str + TILE - 1) / TILE;
 
   load_tile<D>(bufs, x0, sx0, x1, sx1, 0, n_str, vec != 0, DKV ? lse_bh : nullptr, delta_bh);
-  cp_async_commit();
+  hopper::cp_async_commit();
   for (int e = tid; e < F32_ROWS * D; e += F32_THREADS) {
     const int r = e / D, d = e % D, row = r0 + r;
     own[r * L::PO + d] = row < n_own ? a0[row * sa0 + d] : 0.f;
@@ -636,10 +583,10 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (t + 1 < ntiles) {
       load_tile<D>(bufs + ((t + 1) & 1) * L::BUF, x0, sx0, x1, sx1, (t + 1) * TILE, n_str,
                    vec != 0, DKV ? lse_bh : nullptr, delta_bh);
-      cp_async_commit();
-      cp_async_wait<1>();
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();  // tile t and the owned rows visible
     const float* xs = bufs + (t & 1) * L::BUF;   // [2][TILE][PS], lse, delta
@@ -648,28 +595,10 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < D / PARTS; ++k) {
-      const int d = part + PARTS * k;
-      float a[4], g[4], x[4], y[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = own[(4 * rb + r) * L::PO + d];
-        g[r] = own[(F32_ROWS + 4 * rb + r) * L::PO + d];
-        x[r] = xs[(4 * cb + r) * L::PS + d];
-        y[r] = xs[(TILE + 4 * cb + r) * L::PS + d];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[2 * (4 * r + c)] = fmaf(a[r], x[c], acc[2 * (4 * r + c)]);
-          acc[2 * (4 * r + c) + 1] = fmaf(g[r], y[c], acc[2 * (4 * r + c) + 1]);
-        }
-    }
+    attn_f32::patch_products<D, 2>(acc, own, F32_ROWS * L::PO, xs, TILE * L::PS, rb, cb, part);
     // sum the PARTS slices: lane `part` ends with acc[0 .. VALS) = values
     // [part * VALS, + VALS)
-    fold<PARTS, 32>(acc, part);
+    attn_f32::fold<PARTS, 32>(acc, part);
     // (2) p and ds of this lane's elements (value pairs: z, dp)
 #pragma unroll
     for (int m = 0; m < L::VALS / 2; ++m) {

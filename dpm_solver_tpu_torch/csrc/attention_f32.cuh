@@ -1,0 +1,126 @@
+// The register-tiled fp32 attention blocks shared by the forward
+// (attention.cu, `attention_fwd_f32`) and the backward (attention_bwd.cu,
+// `attn_bwd_f32`), exact on the CUDA cores, for sm_90a.
+//
+// A block of F32_THREADS threads owns F32_ROWS rows (queries, or keys in the
+// dk/dv kernel) and streams the other side in tiles of TILE rows, two
+// buffers deep, by cp.async. The logits of a tile (and the backward's dp)
+// are register-tiled: each thread computes a 4 x 4 patch of (owned rows) x
+// (streamed rows) over one of PARTS interleaved slices of the head dim (at
+// most F32_SLICE columns a slice), so 8 shared-memory reads feed 16 FMAs of
+// each product, and a butterfly over the PARTS lanes of a patch sums the
+// slices. TILE = F32_THREADS / PARTS, so the patches of one tile take every
+// thread once: the tile grows as the head dim shrinks (128 rows up to dh
+// 80, 64 at 128 and 160, 32 at 256, 16 at 512). Pitches: owned rows D + 2
+// (D + 4 at 16 slices), streamed rows D + 2, which keep a warp's reads on
+// distinct banks (its patches share a column block, so the streamed reads
+// broadcast and the owned ones spread). ops/attention.py states the same
+// rule (`F32_ROWS`, `F32_THREADS`, `F32_SLICE`, `_f32_parts`), and
+// tests/test_torch_kernel_plans.py holds the constants equal.
+
+#pragma once
+
+#include "hopper.cuh"
+
+namespace attn_f32 {
+
+constexpr int F32_ROWS = 16;       // owned rows a block
+constexpr int F32_THREADS = 256;
+constexpr int F32_SLICE = 40;      // head-dim columns a patch lane sums, at most
+
+// head-dim slices a patch is split into: enough that a lane sums at most
+// F32_SLICE columns, at least 2
+constexpr int f32_parts(int d) {
+  int p = 2;
+  while (p * F32_SLICE < d) p *= 2;
+  return p;
+}
+
+// the streamed tile of head dim D and how the block's threads cover it
+template <int D>
+struct Stream {
+  static constexpr int PARTS = f32_parts(D);
+  static constexpr int TILE = F32_THREADS / PARTS;       // streamed rows a tile
+  static constexpr int PO = D + (PARTS == 16 ? 4 : 2);   // owned pitch (banks)
+  static constexpr int PS = D + 2;                       // streamed pitch (banks, 8-byte rows)
+  static constexpr int NC = (D + 63) / 64;               // output columns a thread: ct + 64 i
+  static_assert(D % PARTS == 0 && D % 2 == 0 && TILE % 16 == 0, "parts");
+};
+
+// start copying rows [r0, r0 + TILE) of x and y (rows sx, sy elements
+// apart; rows >= n read as 0) into buf: x's rows at buf, y's TILE * PS
+// floats on; 8 bytes a copy when `vec` (every row 8-byte aligned)
+template <int D>
+__device__ __forceinline__ void load_rows(float* buf, const float* x, long long sx,
+                                          const float* y, long long sy, int r0, int n, bool vec) {
+  using L = Stream<D>;
+  if (vec) {
+    for (int e = threadIdx.x; e < L::TILE * D / 2; e += F32_THREADS) {
+      const int j = e / (D / 2), c = 2 * (e % (D / 2));
+      const bool ok = r0 + j < n;
+      const long long o = ok ? (long long)(r0 + j) : 0;
+      hopper::cp_async<8>(buf + j * L::PS + c, x + o * sx + c, ok);
+      hopper::cp_async<8>(buf + (L::TILE + j) * L::PS + c, y + o * sy + c, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < L::TILE * D; e += F32_THREADS) {
+      const int j = e / D, c = e % D;
+      const bool ok = r0 + j < n;
+      const long long o = ok ? (long long)(r0 + j) : 0;
+      hopper::cp_async<4>(buf + j * L::PS + c, x + o * sx + c, ok);
+      hopper::cp_async<4>(buf + (L::TILE + j) * L::PS + c, y + o * sy + c, ok);
+    }
+  }
+}
+
+// N products on one patch, each over this lane's head-dim slice d = part
+// (mod PARTS): acc[N * (4 r + c) + p] += sum_d A_p[4 rb + r][d] * X_p[4 cb
+// + c][d], where operand p of the owned rows starts p * own_next floats
+// into `own` (pitch PO) and of the streamed rows p * xs_next into `xs`
+// (pitch PS). The sums of one element run in increasing d.
+template <int D, int N>
+__device__ __forceinline__ void patch_products(float (&acc)[16 * N], const float* own,
+                                               int own_next, const float* xs, int xs_next,
+                                               int rb, int cb, int part) {
+  using L = Stream<D>;
+#pragma unroll 4
+  for (int k = 0; k < D / L::PARTS; ++k) {
+    const int d = part + L::PARTS * k;
+    float a[N][4], x[N][4];
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[p][r] = own[p * own_next + (4 * rb + r) * L::PO + d];
+        x[p][r] = xs[p * xs_next + (4 * cb + r) * L::PS + d];
+      }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int p = 0; p < N; ++p)
+          acc[N * (4 * r + c) + p] = fmaf(a[p][r], x[p][c], acc[N * (4 * r + c) + p]);
+  }
+}
+
+// one butterfly round over the lanes `w` = P / 2 apart, then the next: each
+// lane keeps the half of its N live sums its bit of `part` names (the upper
+// half where it is set) and adds its partner's copy of that half; after
+// log2(P) rounds lane `part` holds the full sums of values [part * A / P,
+// + A / P) in acc[0 ..). All indices are constants, so acc stays in registers.
+template <int P, int N, int A>
+__device__ __forceinline__ void fold(float (&acc)[A], int part) {
+  if constexpr (P > 1) {
+    constexpr int w = P / 2, n = N / 2;
+    const bool up = (part & w) != 0;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float lo = acc[i], hi = acc[i + n];
+      acc[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, w);
+    }
+    fold<w, n, A>(acc, part);
+  }
+}
+
+}  // namespace attn_f32

@@ -5,7 +5,8 @@
 // VMEM with neighbour-indexed halo copies and a 128-channel-group accumulator
 // carried across the sequential grid. On Hopper blocks run in parallel and in
 // no order, so nothing is carried between them: each block owns one output
-// tile and walks the whole reduction (9 taps x C channels) itself.
+// tile and walks the reduction (9 taps x C channels) itself, or (fp32, on
+// small grids) one contiguous range of it, summed by a second pass.
 //
 //   out[m, n] = bias[n] + sum_{tap, c} x[pixel(m) + offset(tap), c] * w[tap, c, n]
 //   m = (b, oh, ow) over B*H*W output pixels, n over CO, tap = dy*3 + dx.
@@ -44,11 +45,37 @@
 //   `conv3x3_bf16_mma`, a 128x64 output tile per block, 8 warps each owning
 //   32x32 of it as 2x2 WMMA 16x16x16 bf16 fragments with fp32 accumulators
 //   (`mma.sync`), the reduction staged through shared memory 32 deep.
-// - "f32": `conv3x3_f32`, the exact form on the CUDA cores (67 TFLOP/s peak):
-//   a 64x64 tile per block with a 4x4 micro-tile per thread, so each value
-//   read from shared memory feeds four FMAs, the reduction staged 16 deep.
+// - "f32" (fp32: path E's bits/dim, whose RK45 step control rides fp32
+//   rounding, so no TF32 and no 3xTF32): `conv3x3_f32`, exact on the CUDA
+//   cores (67 TFLOP/s of FMA). At path E's shapes (M = B*H*W 128-8,192
+//   pixels, 128-512 channels) it is bound by the FMAs where the grid fills
+//   the card and by latency where it does not (4x4 and 8x8 maps: 2-8
+//   output tiles, each walking 9*C of reduction). Three parts answer that:
+//   * a 128-pixel x 128-channel tile a block, an 8x8 register patch a
+//     thread, float4 shared-memory reads: 24 reads feed 256 FMAs;
+//   * a cp.async ring of STAGES stages (a tap's 16 input channels: the
+//     128 x 16 input tile, 16-byte copies with SAME padding, ragged pixels
+//     and the channel tail as zero fill; and the weight's 16 x 128), one
+//     barrier a stage, the next stages' copies in flight under this one's
+//     FMAs; C or CO not a multiple of 4 (C = 3 at the image convs, the VAE's
+//     C = 4 / CO = 3 ends) or an unaligned tensor take 4-byte copies, the
+//     same kernel;
+//   * a split reduction where the output tiles fill the 132 SMs badly
+//     (one block an SM: 2-64 tiles at path E's maps, or 192, a wave and a
+//     half): the 9 * ceil(C/16) steps cut into contiguous ranges, each a
+//     block (grid.z) writing its partial tile to a float32 workspace the
+//     wrapper allocates, then `conv3x3_f32_sum` adds the partials in split
+//     order and the bias. The host picks the split
+//     (ops/conv3x3.py::f32_split) so that every wave of blocks keeps at
+//     least 90% of the SMs busy: 128 blocks at the 8x8 to 32x32 maps, not
+//     the 136-160 that a "reach 132" rule gives, whose few blocks past the
+//     wave nearly double a launch. No atomics: the result is bitwise the
+//     same on every launch (bits/dim's RK45 takes its steps on it).
+//   The input gradient is the same kernel in its DX mode, which reads the
+//   (3,3,C,CO) weight in place as flipped taps with the channels swapped,
+//   so no flipped copy is made before a launch.
 //
-// In the two older kernels SAME padding is the load's own halo mask: a tap
+// In the "wmma" kernel SAME padding is the load's own halo mask: a tap
 // that falls outside the image loads 0, so no padded copy of x is ever made
 // in device memory; ragged C, CO and pixel counts are masked the same way.
 // Accumulation is fp32 for every route; the bias is added in fp32 before
@@ -61,109 +88,231 @@
 
 namespace {
 
-constexpr int BM = 64;   // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 16;   // reduction depth staged per step
-constexpr int TM = 4;    // micro-tile rows per thread
-constexpr int TN = 4;    // micro-tile cols per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+// ---- fp32 on the CUDA cores ------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ bias, float* __restrict__ out,
-            int B, int H, int W, int C, int CO) {
-  // [k][pixel]; rows padded by 4 floats so the transposing stores below
-  // spread over banks while rows stay 16-byte aligned for float4 reads
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];  // [k][out channel]
+constexpr int F32_BM = 128;     // output pixels a block
+constexpr int F32_BN = 128;     // output channels a block
+constexpr int F32_BK = 16;      // input channels of one tap a stage
+constexpr int F32_STAGES = 4;   // cp.async ring depth
+constexpr int F32_THREADS = 256;
+constexpr int F32_PITCH = F32_BK + 4;  // floats a k-contiguous row (16-byte aligned)
+// a stage: the input tile [BM][PITCH], then the weight tile, [BK][BN]
+// (forward) or [BN][PITCH] (dx)
+constexpr int F32_A_FLOATS = F32_BM * F32_PITCH;
+constexpr int F32_B_FLOATS = F32_BN * F32_PITCH;
+constexpr int F32_STAGE_FLOATS = F32_A_FLOATS + F32_B_FLOATS;
+constexpr size_t F32_SMEM = (size_t)F32_STAGES * F32_STAGE_FLOATS * 4;
+static_assert(F32_BK * F32_BN <= F32_B_FLOATS && F32_SMEM <= 232448, "227 KB a block");
 
+// The input gradient's weight, read in place: dx = conv(g, w') with
+// w'[t][co][c] = w[8 - t][c][co] (the flipped, in/out-swapped weight), so in
+// DX mode the kernel's input has the weight's output channels (Cin = CO of
+// w) and its output the weight's input channels.
+//
+// A stage (tap, c0) of the reduction: input channels [c0, c0 + BK) of tap
+// `tap`. Step s of 9 * ceil(Cin / BK) is tap s / nch, chunk s % nch.
+template <bool DX>
+__device__ __forceinline__ void f32_load_stage(float* st, const float* __restrict__ x,
+                                               const float* __restrict__ w, int tap, int c0,
+                                               long long m0, int n0, int B, int H, int W,
+                                               int Cin, int Cout, bool vec_a, bool vec_b,
+                                               const int (&pb)[2], const int (&ph)[2],
+                                               const int (&pw)[2]) {
+  using hopper::cp_async;
   const int tid = threadIdx.x;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  float* as = st;
+  float* bs = st + F32_A_FLOATS;
   const long long M = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // A loads: thread -> (k lane, 4 pixel rows); consecutive threads read
-  // consecutive channels of one pixel, which are contiguous in NHWC.
-  const int a_k = tid % BK;
-  const int a_m = tid / BK;  // 0..15, rows a_m + 16*i
-  int pb[BM / 16], ph[BM / 16], pw[BM / 16];
-  bool pvalid[BM / 16];
+  // the input tile: pixel m0 + row, channels c0 + k, SAME padding as zero fill
+  if (vec_a) {  // 4 channels a copy: rows tid/4 and tid/4 + 64, chunk tid % 4
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    long long m = m0 + a_m + 16 * i;
-    pvalid[i] = m < M;
-    long long mm = pvalid[i] ? m : 0;
-    pw[i] = (int)(mm % W);
-    long long r = mm / W;
-    ph[i] = (int)(r % H);
-    pb[i] = (int)(r / H);
-  }
-  // B loads: thread -> (k row, 4 channels); consecutive threads read
-  // consecutive output channels, contiguous in the (3,3,C,CO) weight.
-  const int b_n = tid % BN;
-  const int b_k = tid / BN;  // 0..3, rows b_k + 4*i
-
-  const int ty = tid / (BN / TN);  // micro-tile row group
-  const int tx = tid % (BN / TN);  // micro-tile col group
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    // base offset of each of this thread's A pixels for this tap (-1 = halo)
-    long long abase[BM / 16];
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i) {
-      int ih = ph[i] + dy, iw = pw[i] + dx;
-      bool in = pvalid[i] && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      abase[i] = in ? (((long long)pb[i] * H + ih) * W + iw) * C : -1;
+    for (int u = 0; u < 2; ++u) {
+      const int row = tid / 4 + 64 * u, c = c0 + 4 * (tid % 4);
+      const int ih = ph[u] + dy, iw = pw[u] + dx;
+      const bool ok = pb[u] >= 0 && ih >= 0 && ih < H && iw >= 0 && iw < W && c < Cin;
+      const float* src = ok ? x + (((long long)pb[u] * H + ih) * W + iw) * Cin + c : x;
+      cp_async<16>(as + row * F32_PITCH + 4 * (tid % 4), src, ok);
     }
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      const int c = c0 + a_k;
-#pragma unroll
-      for (int i = 0; i < BM / 16; ++i) {
-        float v = 0.f;
-        if (abase[i] >= 0 && c < C) v = x[abase[i] + c];
-        As[a_k][a_m + 16 * i] = v;
+  } else {
+    for (int e = tid; e < F32_BM * F32_BK; e += F32_THREADS) {
+      const int row = e / F32_BK, k = e % F32_BK, c = c0 + k;
+      const long long m = m0 + row;
+      bool ok = m < M && c < Cin;
+      const float* src = x;
+      if (ok) {
+        const int ow = (int)(m % W), oh = (int)(m / W % H), ob = (int)(m / ((long long)W * H));
+        const int ih = oh + dy, iw = ow + dx;
+        ok = ih >= 0 && ih < H && iw >= 0 && iw < W;
+        if (ok) src = x + (((long long)ob * H + ih) * W + iw) * Cin + c;
       }
-#pragma unroll
-      for (int i = 0; i < BK / 4; ++i) {
-        const int kk = b_k + 4 * i;
-        const int cc = c0 + kk;
-        const int n = n0 + b_n;
-        float v = 0.f;
-        if (cc < C && n < CO) v = w[((long long)tap * C + cc) * CO + n];
-        Bs[kk][b_n] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-        const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-        const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+      cp_async<4>(as + row * F32_PITCH + k, src, ok);
     }
   }
-
+  // the weight tile: input channel c0 + k, output channel n0 + n
+  if constexpr (!DX) {  // w[tap][k][n]: [BK][BN], n contiguous
+    if (vec_b) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
+      for (int u = 0; u < 2; ++u) {
+        const int e = tid + F32_THREADS * u, k = e / 32, n = 4 * (e % 32);
+        const int c = c0 + k, co = n0 + n;
+        const bool ok = c < Cin && co < Cout;
+        cp_async<16>(bs + k * F32_BN + n, ok ? w + ((long long)tap * Cin + c) * Cout + co : w,
+                     ok);
+      }
+    } else {
+      for (int e = tid; e < F32_BK * F32_BN; e += F32_THREADS) {
+        const int k = e / F32_BN, n = e % F32_BN, c = c0 + k, co = n0 + n;
+        const bool ok = c < Cin && co < Cout;
+        cp_async<4>(bs + k * F32_BN + n, ok ? w + ((long long)tap * Cin + c) * Cout + co : w,
+                    ok);
+      }
+    }
+  } else {  // w[8 - tap][n][k]: [BN][PITCH], k contiguous
+    if (vec_b) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = tid + F32_THREADS * u, n = e / 4, k = 4 * (e % 4);
+        const int c = c0 + k, co = n0 + n;
+        const bool ok = c < Cin && co < Cout;
+        cp_async<16>(bs + n * F32_PITCH + k,
+                     ok ? w + ((long long)(8 - tap) * Cout + co) * Cin + c : w, ok);
+      }
+    } else {
+      for (int e = tid; e < F32_BK * F32_BN; e += F32_THREADS) {
+        const int n = e / F32_BK, k = e % F32_BK, c = c0 + k, co = n0 + n;
+        const bool ok = c < Cin && co < Cout;
+        cp_async<4>(bs + n * F32_PITCH + k,
+                    ok ? w + ((long long)(8 - tap) * Cout + co) * Cin + c : w, ok);
+      }
+    }
+  }
+}
+
+// One (128-pixel, 128-channel) output tile, over steps [it0, it1) of the
+// reduction (blockIdx.z of `split` contiguous ranges). A thread owns an 8x8
+// patch of the tile in registers: pixel rows 4ty + i and 64 + 4ty + i
+// (i < 4); output channels 4tx + j and 64 + 4tx + j in the forward, tx +
+// 16j in dx, which keeps each mode's weight reads on distinct banks. A
+// stage is four k-quads, each in two halves of the channels: per half a
+// thread reads its 4 x 4 weight values (4 float4 reads), then per pixel row
+// one float4 of 4 input channels, and makes 16 FMAs of it: 24 shared reads
+// feed 256 FMAs. One block an SM: capped at the 128 registers two blocks
+// would allow, ptxas spills the copies' addresses (96 and 180 bytes) and a
+// block runs 13% slower. With `split` 1 the
+// tile is written with the bias; else its partial sum goes to
+// ws[blockIdx.z] and conv3x3_f32_sum adds the partials in split order.
+template <bool DX>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ ws,
+            int B, int H, int W, int Cin, int Cout, int split, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long M = (long long)B * H * W;
+  const long long m0 = (long long)blockIdx.x * F32_BM;
+  const int n0 = blockIdx.y * F32_BN;
+  const int nch = (Cin + F32_BK - 1) / F32_BK, steps = 9 * nch;
+  const int it0 = (int)((long long)steps * blockIdx.z / split);
+  const int it1 = (int)((long long)steps * (blockIdx.z + 1) / split);
+
+  // the two pixels this thread copies for the 16-byte input path (-1: past M)
+  int pb[2], ph[2], pw[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long m = m0 + tid / 4 + 64 * u;
+    const bool in = m < M;
+    const long long mm = in ? m : 0;
+    pw[u] = (int)(mm % W);
+    ph[u] = (int)(mm / W % H);
+    pb[u] = in ? (int)(mm / ((long long)W * H)) : -1;
+  }
+
+  auto load = [&](int slot, int it) {
+    f32_load_stage<DX>(smem + slot * F32_STAGE_FLOATS, x, w, it / nch, (it % nch) * F32_BK, m0,
+                       n0, B, H, W, Cin, Cout, vec_a != 0, vec_b != 0, pb, ph, pw);
+  };
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (it0 + s < it1) load(s, it0 + s);
+    hopper::cp_async_commit();
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int it = it0; it < it1; ++it) {
+    hopper::cp_async_wait<F32_STAGES - 2>();
+    __syncthreads();  // step it's stage is visible; the stage read last step is free
+    const int next = it + F32_STAGES - 1;
+    if (next < it1) load((next - it0) % F32_STAGES, next);
+    hopper::cp_async_commit();
+
+    const float* as = smem + ((it - it0) % F32_STAGES) * F32_STAGE_FLOATS;
+    const float* bs = as + F32_A_FLOATS;
+#pragma unroll
+    for (int kq = 0; kq < F32_BK; kq += 4) {
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {  // output channels j = 4 jh .. 4 jh + 3
+        float b[4][4];  // [k][output channel j - 4 jh]
+        if constexpr (!DX) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(bs + (kq + kk) * F32_BN + 64 * jh + 4 * tx);
+            b[kk][0] = v.x, b[kk][1] = v.y, b[kk][2] = v.z, b[kk][3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(bs + (tx + 16 * (4 * jh + j)) * F32_PITCH + kq);
+            b[0][j] = v.x, b[1][j] = v.y, b[2][j] = v.z, b[3][j] = v.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = 4 * ty + (i % 4) + 64 * (i / 4);
+          const float4 a = *reinterpret_cast<const float4*>(as + row * F32_PITCH + kq);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][4 * jh + j] = fmaf(av[kk], b[kk][j], acc[i][4 * jh + j]);
+        }
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block (the empty tail groups)
+
+  float* dst = split == 1 ? out : ws + (long long)blockIdx.z * M * Cout;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long m = m0 + 4 * ty + (i % 4) + 64 * (i / 4);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= CO) continue;
-      out[m * CO + n] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (DX ? tx + 16 * j : 4 * tx + (j % 4) + 64 * (j / 4));
+      if (n >= Cout) continue;
+      dst[m * Cout + n] = split == 1 && bias != nullptr ? acc[i][j] + bias[n] : acc[i][j];
     }
+  }
+}
+
+// out = (((0 + ws[0]) + ws[1]) + ... + ws[split - 1]) + bias: the partial
+// sums of a split reduction in split order, so a launch's result does not
+// depend on which block finished first
+__global__ void __launch_bounds__(256)
+conv3x3_f32_sum(const float* __restrict__ ws, const float* __restrict__ bias,
+                float* __restrict__ out, long long MN, int Cout, int split) {
+  for (long long e = blockIdx.x * 256ll + threadIdx.x; e < MN; e += (long long)gridDim.x * 256) {
+    float acc = 0.f;
+    for (int z = 0; z < split; ++z) acc += ws[z * MN + e];
+    out[e] = bias != nullptr ? acc + bias[e % Cout] : acc;
   }
 }
 
@@ -408,13 +557,36 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
   }
 }
 
-int launch_f32(const void* x, const void* w, const void* bias, void* out,
-               int B, int H, int W, int C, int CO, cudaStream_t stream) {
+int launch_f32(const void* x, const void* w, const void* bias, void* out, void* ws, int B,
+               int H, int W, int Cin, int Cout, bool dx, int split, cudaStream_t stream) {
   const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((CO + BN - 1) / BN));
-  conv3x3_f32<<<grid, THREADS, 0, stream>>>(
+  const int steps = 9 * ((Cin + F32_BK - 1) / F32_BK);
+  const long long tiles_m = (M + F32_BM - 1) / F32_BM;
+  if (split < 1 || split > steps || split > 65535 || (split > 1 && ws == nullptr) ||
+      tiles_m >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte copies: rows of whole float4s from 16-byte aligned tensors; the
+  // input's channels (and, in dx, the weight's k) run along Cin, the
+  // forward weight's along Cout
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), wa = reinterpret_cast<uintptr_t>(w);
+  const int vec_a = Cin % 4 == 0 && xa % 16 == 0;
+  const int vec_b = (dx ? Cin : Cout) % 4 == 0 && wa % 16 == 0;
+  cudaError_t err = dx ? hopper::set_smem_once<conv3x3_f32<true>>(F32_SMEM)
+                       : hopper::set_smem_once<conv3x3_f32<false>>(F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)tiles_m, (unsigned)((Cout + F32_BN - 1) / F32_BN), (unsigned)split);
+  auto* kernel = dx ? conv3x3_f32<true> : conv3x3_f32<false>;
+  kernel<<<grid, F32_THREADS, F32_SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, C, CO);
+      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(ws), B, H,
+      W, Cin, Cout, split, vec_a, vec_b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long MN = M * Cout;
+  const long long blocks = (MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096;
+  conv3x3_f32_sum<<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(bias), static_cast<float*>(out),
+      MN, Cout, split);
   return (int)cudaGetLastError();
 }
 
@@ -463,18 +635,37 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out, int 
 
 }  // namespace
 
-// route (ops/conv3x3.py::conv3x3_plan): 0 = "f32" (x, w, out float32),
-// 1 = "wmma" and 2 = "wgmma" (bfloat16; "wgmma" needs C % 8 == 0, CO % 8 == 0
-// and 16-byte aligned tensors). bias is float32 or null. All tensors
-// contiguous: x (B,H,W,C), w (3,3,C,CO), out (B,H,W,CO). pw, ph, pb: the
-// "wgmma" route's output patch (pw*ph*pb == 128), ignored by the others.
-// Returns the cudaError_t of the launch, or a TMA-encoding error code (>= 10000).
+// route (ops/conv3x3.py::conv3x3_plan): 1 = "wmma" and 2 = "wgmma" (bfloat16;
+// "wgmma" needs C % 8 == 0, CO % 8 == 0 and 16-byte aligned tensors); fp32
+// takes dpm_conv3x3_f32. bias is float32 or null. All tensors contiguous: x
+// (B,H,W,C), w (3,3,C,CO), out (B,H,W,CO). pw, ph, pb: the "wgmma" route's
+// output patch (pw*ph*pb == 128), ignored by "wmma". Returns the
+// cudaError_t of the launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_conv3x3_fwd(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int C, int CO,
                                int route, int pw, int ph, int pb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) return launch_f32(x, w, bias, out, B, H, W, C, CO, s);
   if (route == 1) return launch_wmma(x, w, bias, out, B, H, W, C, CO, s);
   if (route == 2) return launch_wgmma(x, w, bias, out, B, H, W, C, CO, pw, ph, pb, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The "f32" route, x, w and out float32, contiguous. dx = 0: out (B,H,W,
+// Cout) = conv(x (B,H,W,Cin), w (3,3,Cin,Cout)) + bias. dx = 1: the input
+// gradient, out (B,H,W,Cout) = conv(x, flipped w) for w (3,3,Cout,Cin) read
+// in place (x is the cotangent, Cin the forward's output channels). block_m,
+// block_n, block_k and stages are the host's tile (ops/conv3x3.py::
+// conv3x3_plan), refused unless they are the compiled one; split: the
+// reduction's ranges (ops/conv3x3.py::f32_split), 1 .. 9 * ceil(Cin /
+// block_k); ws: float32 scratch of
+// split * B*H*W * Cout values when split > 1, else null. Returns the
+// cudaError_t of the launches.
+extern "C" int dpm_conv3x3_f32(const void* x, const void* w, const void* bias, void* out,
+                               void* ws, int B, int H, int W, int Cin, int Cout, int dx,
+                               int block_m, int block_n, int block_k, int stages, int split,
+                               void* stream) {
+  if (block_m != F32_BM || block_n != F32_BN || block_k != F32_BK || stages != F32_STAGES)
+    return (int)cudaErrorInvalidValue;  // the host's plan is not the compiled one
+  return launch_f32(x, w, bias, out, ws, B, H, W, Cin, Cout, dx != 0, split,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,8 @@
 // attention_bwd.cu, conv3x3.cu, geglu.cu, ln_linear.cu), for sm_90a:
 // shared-memory mbarriers, TMA tile loads, the wgmma shared-memory
 // descriptor and the wgmma instructions themselves, and the host-side
-// encoding of a TMA tensor map.
+// encoding of a TMA tensor map; and, for the fp32 CUDA-core kernels,
+// `cp.async` copies with zero fill and their commit groups.
 //
 // Conventions every kernel here keeps:
 // - Every tile in shared memory is bf16 with 64 elements (128 bytes) a row,
@@ -367,6 +368,32 @@ template <> struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
+
+// ---- cp.async (the fp32 kernels' staging) ----------------------------------------
+
+// copy BYTES (4, 8 or 16) from global to shared memory without passing
+// through registers; when !valid the destination is zero filled and src is
+// not read
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ---- host ------------------------------------------------------------------------
 

@@ -68,13 +68,16 @@ class AttentionTile:
     """The tile the forward kernel runs at one head dim and dtype.
 
     route: "wgmma" (bf16: TMA-fed `wgmma`, one producer warp and
-    block_q / 64 consumer warpgroups) or "f32" (exact, CUDA cores).
-    block_q: queries a block; block_kv: keys a tile; d_pad: the q/k width
-    as staged in shared memory (64-column swizzle tiles: TMA fills columns
-    past dh with zeros); dv: output columns one block owns (dh, or 256 of
-    the 512-wide head: grid.z = dh / dv); stages: K/V ring depth. The
-    kernel overlaps each key tile's softmax with the previous tile's P.V
-    product at dh <= 64 (csrc/attention.cu's header says why only there)."""
+    block_q / 64 consumer warpgroups) or "f32" (exact, CUDA cores,
+    register-tiled: csrc/attention_f32.cuh). block_q: queries a block;
+    block_kv: keys a tile; d_pad: the q/k width as staged in shared memory
+    (bf16: 64-column swizzle tiles: TMA fills columns past dh with zeros;
+    fp32: dh); dv: output columns one block owns (dh, or 256 of the
+    512-wide head: grid.z = dh / dv; fp32 splits further where a launch has
+    few blocks, `grid`); stages: K/V ring depth (fp32: two cp.async
+    buffers). The bf16 kernel overlaps each key tile's softmax with the
+    previous tile's P.V product at dh <= 64 (csrc/attention.cu's header
+    says why only there)."""
 
     route: str
     block_q: int
@@ -86,26 +89,52 @@ class AttentionTile:
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one block (csrc/attention.cu's layout)."""
-        if self.route == "f32":  # q, k (rows + 1 float), v, logits, 3 row stats
-            return 4 * (self.block_q * self.d_pad + self.block_kv * (2 * self.d_pad + 1)
-                        + self.block_q * (self.block_kv + 3))
+        if self.route == "f32":  # the queries (pitch dh + 2, + 4 at 16 slices), two
+            # buffers of k and v rows (pitch dh + 2), the logits (pitch tile + 1),
+            # three row stats
+            dh = self.d_pad
+            po = dh + (4 if _f32_parts(dh) == 16 else 2)
+            return 4 * (F32_ROWS * po + self.stages * 2 * self.block_kv * (dh + 2)
+                        + F32_ROWS * (self.block_kv + 1) + 3 * F32_ROWS)
         dv_pad = -(-self.dv // 64) * 64
         stage = 128 * self.block_kv * (self.d_pad + dv_pad) // 64
         # + 1024 to align to a swizzle atom, + the q, full and empty barriers
         return 1024 + 128 * self.block_q * self.d_pad // 64 + self.stages * stage \
             + 8 * (1 + 2 * self.stages)
 
+    def grid(self, b: int, t: int, heads: int) -> Tuple[int, int, int]:
+        """(query tiles, B*H, output column slices) of one launch. bf16: the
+        tile's slices (dh / dv). fp32: while the blocks are fewer than
+        F32_MIN_BLOCKS and the head splits into halves of whole 64-column
+        runs, twice the slices (path E's 4x4 mid-block, T = 16 at b8 with
+        dh 256: 8 blocks -> 32; its 16x16 site's 128 blocks stay whole)."""
+        blocks = -(-t // self.block_q) * b * heads
+        if self.route != "f32":
+            return blocks // (b * heads), b * heads, max(1, self.d_pad // self.dv)
+        slices = 1
+        while blocks * slices < F32_MIN_BLOCKS and self.dv % (128 * slices) == 0:
+            slices *= 2
+        return blocks // (b * heads), b * heads, slices
 
+    def launch_dv(self, b: int, t: int, heads: int) -> int:
+        """The output columns one block of this launch owns."""
+        return self.dv // self.grid(b, t, heads)[2] if self.route == "f32" else self.dv
+
+
+@functools.lru_cache(maxsize=None)
 def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTile:
     """The forward's tile for head dim `dh`: 128 queries (two consumer
     warpgroups) and 128-key tiles up to dh 128, 64-key tiles at 160 and 256
     (whose q and K/V stages would not fit 227 KB otherwise), and for the
     512-wide head one warpgroup, 32-key tiles and two 256-wide output
-    halves. fp32 takes the exact kernel's fixed 16 x 32 tile."""
+    halves. fp32: 16 queries (F32_ROWS) and key tiles of F32_THREADS /
+    parts keys (128 up to dh 80, 64 at 128 and 160, 32 at 256, 16 at 512),
+    two cp.async buffers: the register-tiled rule the fp32 backward keeps
+    (csrc/attention_f32.cuh)."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {dh}")
     if dtype == torch.float32:
-        return AttentionTile("f32", 16, 32, dh, dh, 1)
+        return AttentionTile("f32", F32_ROWS, F32_THREADS // _f32_parts(dh), dh, dh, F32_STAGES)
     d_pad = -(-dh // 64) * 64
     if dh == 512:
         return AttentionTile("wgmma", 64, 32, d_pad, 256, 2)
@@ -132,6 +161,8 @@ SM_SMEM = 233472          # shared memory of one SM (1 KB of it kept per block)
 F32_ROWS = 16             # owned rows an fp32 block
 F32_THREADS = 256
 F32_SLICE = 40            # head-dim columns a phase-1 lane sums, at most
+F32_STAGES = 2            # the fp32 forward's K/V buffers (csrc/attention.cu)
+F32_MIN_BLOCKS = 128      # the fp32 forward splits its output columns below this
 F32_REG_BUDGET = 128      # phase-1 partial sums + the output sums, registers a thread
 
 
@@ -382,8 +413,8 @@ def _attend(q, k, v, num_heads, scale, with_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, t, s, num_heads, inner // num_heads,
         float(scale * _LOG2E), *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        _DTYPES[q.dtype], tile.block_q, tile.block_kv, tile.d_pad, tile.dv, tile.stages,
-        _build.stream_ptr(q.device))
+        _DTYPES[q.dtype], tile.block_q, tile.block_kv, tile.d_pad,
+        tile.launch_dv(b, t, num_heads), tile.stages, _build.stream_ptr(q.device))
     _build.check(code, counter.__name__)
     counter.launches += 1
     counter.launches_by_route[tile.route] += 1

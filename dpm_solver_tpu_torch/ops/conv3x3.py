@@ -12,13 +12,19 @@ conv_in, C = 4, and conv_out, CO = 3) takes "wgmma", the TMA-fed `wgmma`
 kernel, whose block owns a 128-pixel output patch (w_t, h_t, b_t) chosen per
 map size by `conv3x3_patch`; other bf16 shapes take "wmma", the `mma.sync`
 kernel (TMA cannot stride rows that are not a multiple of 16 bytes); fp32
-takes "f32", the exact CUDA-core kernel.
+takes "f32", the exact CUDA-core kernel, every C and CO: a 128 x 128 output
+tile a block in a cp.async ring, and where those tiles fill the card's 132
+SMs badly, its reduction split into `ConvPlan.split` contiguous ranges
+(`f32_split`) whose partial sums a second pass adds in a fixed order (no
+atomics), so a launch is bitwise repeatable.
 
 The backward mirrors `_conv3x3_bwd`: dx is the same 3x3 SAME conv of the
 cotangent with the spatially flipped, in/out-transposed weight, so it runs the
-same kernel (`conv3x3_dx`); dw is a library conv, as the JAX package leaves it
-to XLA; db is a sum. Only the gradients autograd asks for are computed: with
-frozen weights (classifier guidance) that is dx alone.
+same kernel (`conv3x3_dx`): in bf16 on `flip_weight`'s copy, in fp32 in the
+kernel's dx mode, which reads the weight in place; dw is a library conv, as
+the JAX package leaves it to XLA; db is a sum. Only the gradients autograd
+asks for are computed: with frozen weights (classifier guidance, bits/dim)
+that is dx alone.
 
 Dispatch is by device only: a CPU tensor takes `conv3x3_plain`; a CUDA tensor
 launches the kernel or raises. `conv3x3.launches` counts forward launches,
@@ -29,6 +35,7 @@ counts each by route.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -39,7 +46,7 @@ from torch import nn
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"f32": 0, "wmma": 1, "wgmma": 2}   # the C entry's route codes
+ROUTES = {"wmma": 1, "wgmma": 2}   # the C entry's route codes ("f32": its own entry)
 PATCH_PIXELS = 128   # output pixels of one "wgmma" block: two warpgroups of 64
 WGMMA_BLOCK_N = 128  # output channels of one "wgmma" block
 WGMMA_STAGES = 3     # its ring of (128 x 64 input, 64 x 128 weight) bf16 tiles
@@ -47,15 +54,78 @@ WGMMA_STAGES = 3     # its ring of (128 x 64 input, 64 x 128 weight) bf16 tiles
 # to align it to a swizzle atom, a full and an empty barrier per stage
 WGMMA_SMEM = 1024 + WGMMA_STAGES * 2 * (PATCH_PIXELS * 64 + 64 * WGMMA_BLOCK_N) \
     + 16 * WGMMA_STAGES
+# the "f32" kernel's tile (csrc/conv3x3.cu's F32_* constants, which
+# tests/test_torch_kernel_plans.py holds equal): output pixels and channels
+# a block, input channels of one tap a stage, the cp.async ring, threads;
+# and the SMs whose waves the split reduction fills, one block an SM
+F32_BLOCK_M = 128
+F32_BLOCK_N = 128
+F32_BLOCK_K = 16
+F32_STAGES = 4
+F32_THREADS = 256
+F32_SMS = 132
+F32_WAVE_FILL = 0.9   # the least share of the SMs every wave of blocks keeps busy
+# a stage: the 128 x 16 input tile and the weight tile, each 128 rows of
+# 16 + 4 floats (16-byte aligned rows, reads on distinct banks)
+F32_SMEM = F32_STAGES * (F32_BLOCK_M + F32_BLOCK_N) * (F32_BLOCK_K + 4) * 4
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
     """route: "wgmma", "wmma" or "f32"; patch: the "wgmma" route's output
-    patch (w_t, h_t, b_t), PATCH_PIXELS pixels, else (0, 0, 0)."""
+    patch (w_t, h_t, b_t), PATCH_PIXELS pixels, else (0, 0, 0). For "f32":
+    split, the contiguous ranges the reduction is cut into (each a block of
+    the grid, summed by a second pass in range order), and dx, the kernel's
+    input-gradient mode (the weight read flipped in place)."""
 
     route: str
     patch: Tuple[int, int, int] = (0, 0, 0)
+    split: int = 1
+    dx: bool = False
+
+    @property
+    def f32_tile(self) -> Tuple[int, int, int, int]:
+        """(block_m, block_n, block_k, stages): the tile the C entry checks."""
+        return F32_BLOCK_M, F32_BLOCK_N, F32_BLOCK_K, F32_STAGES
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block of the route's kernel."""
+        return F32_SMEM if self.route == "f32" else WGMMA_SMEM if self.route == "wgmma" else 0
+
+    def grid(self, x_shape, co: int) -> Tuple[int, int, int]:
+        """The "f32" launch's grid: (pixel tiles, channel tiles, split)."""
+        b, h, w, _ = x_shape
+        return (-(-(b * h * w) // F32_BLOCK_M), -(-co // F32_BLOCK_N), self.split)
+
+    def ranges(self, cin: int) -> list:
+        """The "f32" reduction's [first, last) step of each split range; step s
+        is tap s // ceil(cin / block_k), input channels from
+        (s % ceil(cin / block_k)) * block_k."""
+        steps = f32_steps(cin)
+        return [(steps * z // self.split, steps * (z + 1) // self.split)
+                for z in range(self.split)]
+
+
+def f32_steps(cin: int) -> int:
+    """Stages of the "f32" reduction: 9 taps x ceil(cin / F32_BLOCK_K)."""
+    return 9 * -(-cin // F32_BLOCK_K)
+
+
+def f32_split(x_shape, co: int) -> int:
+    """The ranges the "f32" reduction is cut into. The kernel runs one block
+    an SM, so blocks past a whole wave of F32_SMS start a second wave: the
+    split is the least S >= max(1, F32_SMS // tiles) at which every wave of
+    tiles x S blocks keeps F32_WAVE_FILL of the SMs busy, at most one range
+    a step. Path E at b8: 2 tiles (4x4) -> 66, 8 (8x8) -> 16, 32 (16x16) ->
+    4, 64 (32x32) -> 2: 128-132 blocks; 48 tiles -> 5 (240 blocks, two
+    waves); from 128 tiles on mostly 1."""
+    b, h, w, c = x_shape
+    tiles = -(-(b * h * w) // F32_BLOCK_M) * -(-co // F32_BLOCK_N)
+    split, steps = max(1, F32_SMS // tiles), f32_steps(c)
+    while split < steps and tiles * split < F32_WAVE_FILL * F32_SMS * -(-tiles * split // F32_SMS):
+        split += 1
+    return min(split, steps)
 
 
 def conv3x3_patch(b: int, h: int, w: int) -> Tuple[int, int, int]:
@@ -77,12 +147,16 @@ def conv3x3_patch(b: int, h: int, w: int) -> Tuple[int, int, int]:
     return best[1]
 
 
-def conv3x3_plan(x_shape, co: int, dtype: torch.dtype, aligned: bool = True) -> ConvPlan:
-    """The route and patch for x (B, H, W, C) -> CO channels in `dtype`;
-    `aligned`: x and w start on 16-byte boundaries (TMA needs it)."""
+@functools.lru_cache(maxsize=4096)
+def conv3x3_plan(x_shape, co: int, dtype: torch.dtype, aligned: bool = True,
+                 dx: bool = False) -> ConvPlan:
+    """The route and patch (bf16) or split (fp32) for x (B, H, W, C) -> CO
+    channels in `dtype`; `aligned`: x and w start on 16-byte boundaries (TMA
+    needs it); `dx`: the input gradient, x the cotangent (B, H, W, CO of the
+    forward) and co the forward's C."""
     b, h, w, c = x_shape
     if dtype == torch.float32:
-        return ConvPlan("f32")
+        return ConvPlan("f32", split=f32_split(tuple(x_shape), co), dx=dx)
     if c % 8 == 0 and co % 8 == 0 and aligned:
         return ConvPlan("wgmma", conv3x3_patch(b, h, w))
     return ConvPlan("wmma")
@@ -96,12 +170,14 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def _check(x, w, bias):
+def _check(x, w, bias, dx=False):
+    """x (B,H,W,Cin) and w (3,3,C,CO) with Cin = C, or (dx) Cin = CO."""
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3 takes x (B,H,W,C) and w (3,3,C,CO); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if w.shape[2] != x.shape[3]:
-        raise ValueError(f"conv3x3: w has {w.shape[2]} input channels, x has {x.shape[3]}")
+    if w.shape[3 if dx else 2] != x.shape[3]:
+        raise ValueError(f"conv3x3{'_dx' if dx else ''}: w {tuple(w.shape)} does not take "
+                         f"{x.shape[3]} input channels")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16 x and w of one "
                         f"dtype; got {x.dtype} and {w.dtype}")
@@ -117,19 +193,29 @@ def _check(x, w, bias):
         raise ValueError("conv3x3 kernel takes fewer than 2**31 elements per tensor")
 
 
-def _launch(x, w, bias, counter):
+def _launch(x, w, bias, counter, dx=False):
+    """One launch of the plan's kernel; `dx` (fp32 only): the input
+    gradient of the (3,3,C,CO) weight w at cotangent x, w read in place."""
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
-    _check(x, w, bias)
+    _check(x, w, bias, dx)
     b, h, wd, c = x.shape
-    co = w.shape[3]
+    co = w.shape[2] if dx else w.shape[3]
     plan = conv3x3_plan(x.shape, co, x.dtype, aligned=x.data_ptr() % 16 == 0
-                        and w.data_ptr() % 16 == 0)
+                        and w.data_ptr() % 16 == 0, dx=dx)
     out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
-    code = _build.library().dpm_conv3x3_fwd(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, h, wd, c, co, ROUTES[plan.route], *plan.patch,
-        _build.stream_ptr(x.device))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if plan.route == "f32":
+        ws = (torch.empty((plan.split, b * h * wd, co), dtype=torch.float32, device=x.device)
+              if plan.split > 1 else None)
+        code = _build.library().dpm_conv3x3_f32(
+            x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h, wd, c, co, int(plan.dx),
+            *plan.f32_tile, plan.split, _build.stream_ptr(x.device))
+    else:
+        code = _build.library().dpm_conv3x3_fwd(
+            x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), b, h, wd, c, co,
+            ROUTES[plan.route], *plan.patch, _build.stream_ptr(x.device))
     _build.check(code, counter.__name__)
     counter.launches += 1
     counter.launches_by_route[plan.route] += 1
@@ -150,11 +236,13 @@ def flip_weight(w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of `conv3x3` at cotangent g (B, H, W, CO): the 3x3 SAME
-    conv of g with `flip_weight(w)`, through the same kernel."""
-    wf = flip_weight(w)
+    conv of g with `flip_weight(w)`, through the same kernel (fp32: its dx
+    mode, which reads w in place; bf16: on the flipped copy)."""
     if _build.device_type(g, "conv3x3_dx") == "cpu":
-        return conv3x3_plain(g, wf)
-    return _launch(g.contiguous(), wf, None, conv3x3_dx)
+        return conv3x3_plain(g, flip_weight(w))
+    if g.dtype == torch.float32:
+        return _launch(g.contiguous(), w.contiguous(), None, conv3x3_dx, dx=True)
+    return _launch(g.contiguous(), flip_weight(w), None, conv3x3_dx)
 
 
 class _Conv3x3Fn(torch.autograd.Function):

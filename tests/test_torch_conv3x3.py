@@ -88,3 +88,61 @@ def test_frozen_weights_give_dx_only():
     want = torch.nn.grad.conv2d_input(xt.shape[:1] + (20, 6, 5), w.permute(3, 2, 0, 1),
                                       cot.permute(0, 3, 1, 2), padding=1).permute(0, 2, 3, 1)
     torch.testing.assert_close(xt.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def _split_order_conv(x, wt, bias, dx=False):
+    """The "f32" kernel's split reduction emulated in fp32 on the CPU: the
+    partial conv of each of the plan's ranges of (tap, 16-channel chunk)
+    steps, added in range order from 0, then the bias (csrc/conv3x3.cu's
+    `conv3x3_f32_sum`). dx: the input gradient of the (3,3,C,CO) weight at
+    cotangent x, as the kernel's dx mode reads it (flipped taps, channels
+    swapped)."""
+    import torch.nn.functional as F
+
+    from dpm_solver_tpu_torch.ops.conv3x3 import F32_BLOCK_K, conv3x3_plan, flip_weight
+
+    w = flip_weight(wt) if dx else wt            # (3, 3, Cin, Cout) of the conv computed
+    cin, cout = w.shape[2], w.shape[3]
+    plan = conv3x3_plan(tuple(x.shape), cout, torch.float32, dx=dx)
+    nch = -(-cin // F32_BLOCK_K)
+    out = torch.zeros(x.shape[:3] + (cout,), dtype=torch.float32)
+    for first, last in plan.ranges(cin):
+        mask = torch.zeros(9, cin, 1)
+        for step in range(first, last):
+            c0 = step % nch * F32_BLOCK_K
+            mask[step // nch, c0:c0 + F32_BLOCK_K] = 1.0
+        wz = (w.reshape(9, cin, cout) * mask).reshape(3, 3, cin, cout)
+        out = out + F.conv2d(x.permute(0, 3, 1, 2), wz.permute(3, 2, 0, 1),
+                             padding=1).permute(0, 2, 3, 1)
+    return out if bias is None else out + bias, plan
+
+
+# path E's channel counts on its 4x4 and 8x8 maps (DDPM++ deep, the mid and
+# last down blocks), at b1, where the split is deepest
+SPLIT_SITES = [(1, 4, 4, 256, 256), (1, 4, 4, 512, 256), (1, 8, 8, 256, 256),
+               (1, 8, 8, 512, 256)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SITES, ids=str)
+def test_split_reduction_order_stays_in_the_fp32_bound(shape):
+    """The split kernel's summation order (per-range partial sums added in
+    range order) agrees with the JAX conv3x3 within 1e-5 of max|out|: the
+    new order moves the result only within fp32 rounding."""
+    x, wt, bias = _inputs(*shape, seed=7)
+    want = np.asarray(jax_conv3x3(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias)))
+    got, plan = _split_order_conv(torch.tensor(x), torch.tensor(wt), torch.tensor(bias))
+    assert plan.route == "f32" and plan.split > 1
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape", SPLIT_SITES[::2], ids=str)
+def test_split_reduction_order_of_dx_stays_in_the_fp32_bound(shape):
+    """The same for the input gradient, the kernel's dx mode, against the
+    JAX conv3x3's custom VJP."""
+    x, wt, bias = _inputs(*shape, seed=8)
+    cot = np.random.default_rng(9).standard_normal(x.shape[:3] + (shape[-1],)).astype(np.float32)
+    _, vjp = jax.vjp(lambda u: jax_conv3x3(u, jnp.asarray(wt), jnp.asarray(bias)), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    got, plan = _split_order_conv(torch.tensor(cot), torch.tensor(wt), None, dx=True)
+    assert plan.dx and plan.split > 1
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()

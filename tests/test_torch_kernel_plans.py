@@ -49,13 +49,14 @@ from dpm_solver_tpu_torch.ops.attention import (HEAD_DIMS, SMEM_PER_BLOCK, Atten
                                                 AttentionTile, attention_bwd_plan,
                                                 attention_plan)
 from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA_SMEM,
-                                              conv3x3_patch, conv3x3_plan)
+                                              conv3x3_patch, conv3x3_plan, f32_steps)
 from dpm_solver_tpu_torch.ops import geglu as geglu_mod
 from dpm_solver_tpu_torch.ops.geglu import geglu_plan
 from dpm_solver_tpu_torch.ops.ln_linear import ln_linear_plan
 
 ln_linear_mod = importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear")
 attention_mod = importlib.import_module("dpm_solver_tpu_torch.ops.attention")
+conv_mod = importlib.import_module("dpm_solver_tpu_torch.ops.conv3x3")
 
 # (B, H, W, C, CO) of every Conv3x3 call of one network forward at each
 # path's batch: A CIFAR-10 DDPM b64; D DDPM++ deep b256; B SD-2.1 UNet at
@@ -207,7 +208,11 @@ def test_attention_tile_fits(dh, dtype):
     tile = attention_plan(dh, dtype)
     assert isinstance(tile, AttentionTile) and tile.smem_bytes <= SMEM_PER_BLOCK
     if dtype == torch.float32:
-        assert tile == AttentionTile("f32", 16, 32, dh, dh, 1)
+        # the fp32 backward's register-tiled rule: 16 queries, key tiles of
+        # 256 / parts (one 4x4 patch a thread), two cp.async buffers
+        parts = attention_mod._f32_parts(dh)
+        assert tile == AttentionTile("f32", 16, 256 // parts, dh, dh, 2)
+        assert parts * (16 // 4) * (tile.block_kv // 4) == 256 and dh / parts <= 40
         return
     assert tile.route == "wgmma"
     assert tile.block_q in (64, 128) and tile.block_kv % 16 == 0 and tile.stages >= 2
@@ -408,7 +413,10 @@ def test_ln_linear_row_tile_past_the_budget_takes_wmma():
 
 
 def _cu_constant(source: str, name: str) -> int:
+    """A constant of `source` or of the local headers it includes."""
     text = (_build.CSRC / source).read_text()
+    for header in re.findall(r'#include "([^"]+)"', text):
+        text += (_build.CSRC / header).read_text()
     found = re.search(rf"constexpr (?:int|uint32_t|size_t) {name} = ([0-9]+);", text)
     assert found, f"{name} in {source}"
     return int(found.group(1))
@@ -431,8 +439,89 @@ def _cu_constant(source: str, name: str) -> int:
     ("attention_bwd.cu", "BF16_BLOCKS_PER_SM", attention_mod.BF16_BLOCKS_PER_SM),
     ("attention_bwd.cu", "F32_ROWS", attention_bwd_plan(64, torch.float32).dq.rows),
     ("attention_bwd.cu", "F32_SLICE", attention_mod.F32_SLICE),
-    ("attention_bwd.cu", "F32_THREADS", attention_mod.F32_THREADS)],
+    ("attention_bwd.cu", "F32_THREADS", attention_mod.F32_THREADS),
+    ("attention.cu", "F32_ROWS", attention_plan(256, torch.float32).block_q),
+    ("attention.cu", "F32_THREADS", attention_mod.F32_THREADS),
+    ("attention.cu", "F32_SLICE", attention_mod.F32_SLICE),
+    ("attention.cu", "F32_STAGES", attention_plan(256, torch.float32).stages),
+    ("conv3x3.cu", "F32_BM", conv_mod.F32_BLOCK_M),
+    ("conv3x3.cu", "F32_BN", conv_mod.F32_BLOCK_N),
+    ("conv3x3.cu", "F32_BK", conv_mod.F32_BLOCK_K),
+    ("conv3x3.cu", "F32_STAGES", conv_mod.F32_STAGES),
+    ("conv3x3.cu", "F32_THREADS", conv_mod.F32_THREADS)],
     ids=lambda v: str(v))
 def test_plans_name_the_compiled_tiles(source, name, value):
     """The plans' tile constants are the C sources' (the entries refuse others)."""
     assert _cu_constant(source, name) == value
+
+
+# path E's conv3x3 calls, (B, H, W, C, CO) of one DDPM++ deep forward at b8
+# (path D's list at b8); each also runs its dx, the kernel's dx mode on the
+# cotangent (B, H, W, CO) -> C channels
+PATH_E_CONVS = [(8, h, w, c, co) for _, h, w, c, co in CONV_SHAPES["D"]]
+F32_RAGGED = [(2, 4, 4, 3, 128), (1, 16, 16, 4, 3), (3, 5, 7, 20, 9), (1, 1, 1, 64, 64),
+              (2, 768, 768, 128, 3), (8, 256, 256, 256, 256)]
+
+
+def _f32_plans(b, h, w, c, co):
+    """The forward's and the input gradient's "f32" plans, with their
+    (input channels, output channels)."""
+    return [(conv3x3_plan((b, h, w, c), co, torch.float32), c, co),
+            (conv3x3_plan((b, h, w, co), c, torch.float32, dx=True), co, c)]
+
+
+@pytest.mark.parametrize("shape", PATH_E_CONVS + F32_RAGGED, ids=str)
+def test_conv_f32_plan_splits_small_grids(shape):
+    """At each of path E's conv sites (forward and dx) and at ragged ones:
+    the block's ring fits its shared memory; the split cuts the 9 *
+    ceil(C / 16) steps into non-empty contiguous ranges that cover them
+    once; and the kernel running one block an SM, every wave of tiles x
+    split blocks keeps 90% of the 132 SMs busy (where the unsplit grid is
+    under a wave, that is 119-132 blocks), with the least split that does
+    (or one range a step)."""
+    b, h, w, _, _ = shape
+    for plan, cin, cout in _f32_plans(*shape):
+        assert plan.route == "f32" and plan.smem_bytes <= SMEM_PER_BLOCK
+        ranges = plan.ranges(cin)
+        assert ranges[0][0] == 0 and ranges[-1][1] == f32_steps(cin)
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+        gm, gn, gz = plan.grid((b, h, w, cin), cout)
+        assert gz == plan.split and gm * 128 >= b * h * w and gn * 128 >= cout
+        blocks, waves = gm * gn * plan.split, -(-gm * gn * plan.split // 132)
+        assert blocks >= 0.9 * 132 * waves or plan.split == f32_steps(cin)
+        if gm * gn < 132 and plan.split < f32_steps(cin):
+            assert blocks >= 0.9 * 132
+        least = max(1, 132 // (gm * gn))
+        assert plan.split == least or (plan.split - 1) * gm * gn < 0.9 * 132 * -(
+            -(plan.split - 1) * gm * gn // 132)
+
+
+def test_conv_f32_plan_at_path_e_small_maps():
+    """The splits path E's maps take at b8 (one block an SM): 2 tiles of
+    128 x 128 at 4x4 -> 132 blocks, 8 at 8x8 -> 128 (not the 136 of 17
+    ranges, whose 4 blocks past the wave nearly double the launch), 32 at
+    16x16 -> 128, 64 at 32x32 -> 128; 128 tiles stay whole."""
+    assert conv3x3_plan((8, 4, 4, 256), 256, torch.float32).split == 66
+    assert conv3x3_plan((8, 8, 8, 512), 256, torch.float32).split == 16
+    assert conv3x3_plan((8, 16, 16, 256), 256, torch.float32).split == 4
+    assert conv3x3_plan((8, 32, 32, 128), 128, torch.float32).split == 2
+    assert conv3x3_plan((8, 32, 32, 256), 256, torch.float32).split == 1
+    assert conv3x3_plan((64, 32, 32, 128), 128, torch.float32).split == 1
+
+
+# path E's attention sites (b, t, heads, dh), and the blocks each launch runs
+ATTN_E_SITES = [((8, 256, 1, 256), 128), ((8, 16, 1, 256), 32)]
+
+
+@pytest.mark.parametrize("site,blocks", ATTN_E_SITES, ids=str)
+def test_attention_f32_grid_at_path_e(site, blocks):
+    """The fp32 forward keeps 128 blocks at the 16x16 site (16 queries a
+    block) and splits the 4x4 mid-block's 8 row blocks over 4 column
+    slices of 64: every slice a whole 64-column run of the head."""
+    b, t, heads, dh = site
+    tile = attention_plan(dh, torch.float32)
+    gx, gy, gz = tile.grid(b, t, heads)
+    assert gx * gy * gz == blocks and gx * tile.block_q >= t and gy == b * heads
+    dv = tile.launch_dv(b, t, heads)
+    assert dv * gz == dh and (dv == dh or dv % 64 == 0)
