@@ -23,7 +23,11 @@ and nothing of JAX. Phases, each fatal on failure:
    256 at 16x16, SD-1's 40/80/160, 32, 128, 512 at T = S = 1024 and ragged
    on qkv slices; at each, the forward's o and lse are checked first on the
    same inputs)
-   and conv3x3's input gradient; and the two kernels no path
+   and conv3x3's input gradient; the bf16 "narrow" conv route (forward and
+   dx) at the SD VAE's conv_in and conv_out, at C in {1, 3, 4, 5, 12} x CO in
+   {3, 4, 6, 20, 512} on a 7x9 map and at C = CO = 64 off a 16-byte
+   boundary, each launch on "narrow"; the fused update at paths A-D's
+   sizes; and the two kernels no path
    launches (as in the JAX package): bias + LeakyReLU forward and backward
    at path D's activation shapes and ragged ones, and attention with its
    out-projection and residual fused at the SD-2.1 sites and ragged ones;
@@ -42,8 +46,15 @@ and nothing of JAX. Phases, each fatal on failure:
 4. path A, CIFAR-10: the DDPM UNet at full width with seeded random weights
    in bf16, sampled at batch 64 by DPM-Solver++ 3M for 10 NFE on the logSNR
    grid of the discrete schedule, through `NoiseScheduleVP`, `model_wrapper`
-   and `DPM_Solver.sample`; the launch counters must rise by exactly the
-   expected counts; then batch 4 in fp32 against the plain path on the CPU;
+   and `DPM_Solver.sample(jit=False)`; the launch counters must rise by
+   exactly the expected counts. Then `jit=True`, the trajectory captured
+   as one CUDA graph: the first call (a warm eager call, then the capture)
+   counts the expected launches twice and makes one capture, a repeat call
+   replays with no launch counted and no capture. Then batch 4 in fp32: the
+   eager call on the card against the plain path on the CPU, and the
+   replayed call against the eager one on the card (within 1e-6 of max|x|),
+   also on a second x, with its intermediates, and an SDE solver's on two
+   (x, noise) pairs;
 5. path B, Stable Diffusion 2.1 txt2img: `ADMConfig.sd_v2_1()` (865.9M
    parameters) and `VAEConfig.sd_v1()` at full width with seeded random
    weights in bf16, the hermetic `constant_context_encoder(1024)`, and
@@ -51,8 +62,14 @@ and nothing of JAX. Phases, each fatal on failure:
    latents), 20 NFE of DPM-Solver++ 2M on the time-uniform grid, CFG 7.5,
    v-prediction; the images must be (4, 768, 768, 3), finite, in [0, 1], and
    the launch counters must rise by exactly what `layout()` and the VAE
-   config imply; then the same networks in fp32 at 16x16 latents, batch 1,
-   CFG, 3 NFE, on the card against the plain path on the CPU;
+   config imply (`jit=False`); then the same call graphed (`jit=True`: the
+   sampler's trajectory replayed, the VAE decode eager): the first call
+   counts the sampler's launches twice (warm call, capture) and the decode's
+   once, a repeat call only the decode's, with no new capture; then the
+   same networks in fp32 at 16x16 latents, batch 1, CFG, 3 NFE, on the card
+   against the plain path on the CPU, and the replayed sampler against the
+   eager one on the card, again with a new x_T and another prompt's context
+   (no new capture: the conditioning is copied into the graph's inputs);
 6. path C, classifier-guided ImageNet-256 (benchmarks/guided_bench.py's
    call): `ADMConfig.imagenet256_guided()` (553.8M parameters, learned
    sigma, the model takes out[..., :3]) and its 54.1M-parameter
@@ -74,9 +91,12 @@ and nothing of JAX. Phases, each fatal on failure:
    labels t*999 through `score.get_noise_fn`, batch 256, singlestep order 3,
    10 NFE, logSNR, t_end 1e-3, through `build_sampler`; the samples must be
    finite and the launch counters must rise by exactly what the config and
-   the plan's rows imply. Then the adaptive solver (order 3) at full width,
+   the plan's rows imply; then the same sampler through `GraphedSampler`
+   (the counterpart of JAX's `jit_hoisting_constants`), counted as path A's.
+   Then the adaptive solver (order 3) at full width,
    batch 16, its NFE printed; the deep net in fp32 at batch 2, 3 NFE, on the
-   card against the plain path on the CPU; and the adaptive solver on a tiny
+   card against the plain path on the CPU and graphed against eager on the
+   card (as path A); and the adaptive solver on a tiny
    FIR VP NCSN++ in fp32, card against CPU: the same NFE and within 5e-3;
 7b. path E, ScoreSDE bits/dim: `likelihood.get_likelihood_fn` on path D's
    DDPM++ deep at full width in fp32 (the dtype score_sde reports bits/dim
@@ -100,7 +120,8 @@ and nothing of JAX. Phases, each fatal on failure:
    RK45 take thousands of NFE) in fp32, card against CPU, bits/dim and the
    black-box `ode_sampler` (with its denoising step): the same NFE, bits/dim
    within 1e-3, z and the samples within 5e-3 of their max;
-8. timing: each path's median wall time, the SD call's UNet and VAE-decode
+8. timing: each path's median wall time (A, B and D both eager and replayed
+   from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
    shares, the ScoreSDE call's network-forward share, the bits/dim call's
    wall (median of LIK_TIMED_RUNS after the counted one), NFE, ms per NFE
@@ -117,13 +138,16 @@ and nothing of JAX. Phases, each fatal on failure:
    path E's kernels in fp32 (their bound counts fp32 operations at the CUDA
    cores' peak); and the dq and dk/dv kernels at each head dim and dtype,
    one launch at each site, beside the plain twin, SDPA's backward and the
-   bound.
+   bound; the "narrow" conv route alone at its path-B launches (the VAE's
+   conv_in and conv_out) beside the plain conv, cuDNN and the bound; and the
+   fused update at A-D's sizes both back to back and device alone (the
+   path's launches captured in one CUDA graph).
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
 dk/dv), LayerNorm->Linear and GEGLU on "wgmma", every bf16 conv with C % 8
 == CO % 8 == 0 on "wgmma", the others (the SD VAE's conv_in and conv_out)
-on "wmma"; path E's fp32 ones on "f32". A GEGLU call counts one
+on "narrow"; path E's fp32 ones on "f32". A GEGLU call counts one
 launch of `geglu_ff`, whichever of its route's kernels it runs (on "wgmma"
 the gate and the down-projection, and at a split reduction the sum of the
 partials), so `adm_unet_launches` counts one per feed-forward.
@@ -201,6 +225,9 @@ BWD_SHAPES = [(8, 256, 256, 1, 256, True), (8, 256, 256, 1, 256, False),
 # fp32 trajectories, kernels on the card vs plain ops on the CPU, relative to
 # max|x|: the repo's trajectory parity bound (tests/test_solver_parity.py:70-75)
 SLICE_BOUND = 1e-4
+# fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
+# relative to max|x|: the same kernels on the same inputs
+GRAPH_BOUND = 1e-6
 # the least time the card could take (one H100 SXM at 700 W, dense peaks):
 # bf16 tensor-core products, fp32 elementwise work, device memory. The three
 # units work at once, so the bound is the largest of the three times.
@@ -287,6 +314,27 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fns: list, calls: int) -> float:
+    """Device time of `calls` calls, fns[i % len(fns)]() the i-th, captured in
+    one CUDA graph and replayed (no host work between the launches): ms a
+    replay, by cuda_ms."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()   # warm: compiled and loaded before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    ms = cuda_ms(graph.replay)
+    del graph
+    return ms
+
+
 def kernel_modules() -> tuple:
     """The modules ops/geglu.py and ops/ln_linear.py (the package's
     `ops.ln_linear` is the function)."""
@@ -298,7 +346,8 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
     """{kernel instance: (registers, spilled bytes)} from nvcc's `-Xptxas -v`
     output, for the entry functions whose mangled name matches `pattern`;
     an instance reads as its name and template arguments ("attn_dq_wgmma
-    dh 64", "attn_bwd_f32 dh 256 dkv", "conv3x3_f32 dx")."""
+    dh 64", "attn_bwd_f32 dh 256 dkv", "conv3x3_f32 dx", "conv3x3_narrow
+    kc 32 nt 1")."""
     usage, name, spill = {}, None, 0
     for line in build_log.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
@@ -312,7 +361,8 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
             kernel = re.search(pattern, name).group(0)
             args = re.findall(r"L([ib])(\d+)E", name[name.index(kernel):])
             dh = [v for t, v in args if t == "i"]
-            tag = f"{kernel} dh {dh[0]}" if dh else kernel
+            tag = (f"{kernel} kc {dh[0]} nt {dh[1]}" if kernel == "conv3x3_narrow"
+                   else f"{kernel} dh {dh[0]}" if dh else kernel)
             flags = [v for t, v in args if t == "b"]
             if flags:
                 tag += ((" dx" if flags[0] == "1" else " fwd") if kernel.startswith("conv")
@@ -655,12 +705,12 @@ def plan_launches(cfg, plan) -> dict:
     return {name: out.get(name, 0) for name in REPLACES}
 
 
-def check_routes(what: str, launches: dict, routes: dict, wmma_convs: int = 0) -> None:
+def check_routes(what: str, launches: dict, routes: dict, narrow_convs: int = 0) -> None:
     """`routes` (`ops.launch_routes()` read with `launches`, just after a bf16
     run): attention (forward, lse, dq, dk/dv), LayerNorm->Linear and GEGLU
-    all on "wgmma"; conv3x3 (and its dx) on "wgmma" but for `wmma_convs`
-    launches with C or CO not a multiple of 8."""
-    want = {"conv3x3": {"wgmma": launches["conv3x3"] - wmma_convs, "wmma": wmma_convs},
+    all on "wgmma"; conv3x3 (and its dx) on "wgmma" but for `narrow_convs`
+    launches with C or CO not a multiple of 8, on "narrow"."""
+    want = {"conv3x3": {"wgmma": launches["conv3x3"] - narrow_convs, "narrow": narrow_convs},
             "conv3x3_dx": {"wgmma": launches["conv3x3_dx"]},
             "token_attention": {"wgmma": launches["token_attention"]},
             "attention_lse": {"wgmma": launches["attention_lse"]},
@@ -829,7 +879,10 @@ def main() -> int:
     # the fp32 conv (forward and dx modes), its split sum, the fp32 attention forward
     f32_ptxas = ptxas_usage(build_log.getvalue(),
                             r"conv3x3_f32_sum|conv3x3_f32|attention_fwd_f32")
-    for kernel, (regs, spill) in chain(bwd_ptxas.items(), f32_ptxas.items()):
+    # the "narrow" bf16 conv, one instance a (kc, nt) tile
+    narrow_ptxas = ptxas_usage(build_log.getvalue(), r"conv3x3_narrow")
+    for kernel, (regs, spill) in chain(bwd_ptxas.items(), f32_ptxas.items(),
+                                       narrow_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -861,6 +914,50 @@ def main() -> int:
             if not same:
                 fail(f"{name} {shape}: two launches on the same inputs differ")
         return got
+
+    def check_graphed(what, call, eager_out, sampler, once=None):
+        """The first call of a graphed path (a warm eager call, then the
+        capture: twice `sampler`, one eager sampler call's launches, plus
+        `once`, those the call makes outside the graph; one capture), then a
+        repeat call (a replay: only `once`, no capture). Each result against
+        the eager call's (bf16: max|d| printed; the fp32 bound is
+        check_replays')."""
+        once = once or {}
+        for first in (True, False):
+            ops.reset_launch_counts()
+            captures = P.GraphedSampler.captures
+            got = call()
+            torch.cuda.synchronize()
+            launches, made = ops.launch_counts(), P.GraphedSampler.captures - captures
+            want = {k: (2 * n if first else 0) + once.get(k, 0) for k, n in sampler.items()}
+            run = "first call (warm call + capture)" if first else "repeat call (replay)"
+            log(f"  {what} jit=True, {run}: launches {launches} (expected {want}), "
+                f"{made} capture(s)")
+            if launches != want or made != int(first):
+                fail(f"{what} jit=True {run}: launches {launches} != {want}, or {made} captures")
+            d, r = rel_err(got, eager_out)
+            log(f"    graphed vs eager on the card: max|d| {d:.3e}, /max|x| {r:.3e}")
+            if not torch.isfinite(got).all():
+                fail(f"{what}: the replayed result is not finite")
+
+    def check_replays(what, graphed, eager, inputs, eager_first=None):
+        """fp32: `graphed(u)` (captured at the first input, then replayed)
+        against `eager(u)` on each of `inputs`, within GRAPH_BOUND of
+        max|x|, with one capture in all."""
+        captures = P.GraphedSampler.captures
+        for i, u in enumerate(inputs):
+            got = graphed(u)
+            want = eager_first if i == 0 and eager_first is not None else eager(u)
+            d, r = rel_err(got, want)
+            ok = r <= GRAPH_BOUND and bool(torch.isfinite(got).all())
+            log(f"  {what}, input {i}: graphed (replay) vs eager on the card: max|d| {d:.3e}, "
+                f"/max|x| {r:.3e} (bound {GRAPH_BOUND:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{what}: the replayed trajectory disagrees with the eager one")
+        made = P.GraphedSampler.captures - captures
+        log(f"  {what}: {made} capture(s) over {len(inputs)} calls")
+        if made != 1:
+            fail(f"{what}: {made} captures over {len(inputs)} calls of one key")
 
     def check_conv(spec, dt, dx):
         """conv3x3 at `spec` (b, h, w, c, co) and, if `dx`, its input
@@ -973,7 +1070,9 @@ def main() -> int:
     check_attention_bwd((3, 33, 129, 4, 128, "odd"), torch.float32, BWD_BOUND["float32"])
     torch.cuda.empty_cache()
     coef = randn(4, 8)
-    for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4)]:
+    # paths A-D's sizes (C's takes 3 blocks a program, D's 2: one wave) and a ragged one
+    for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4),
+                  (GUIDED_BATCH, GUIDED_SIZE, GUIDED_SIZE, 3), (SCORE_BATCH, 32, 32, 3)]:
         for dt in (torch.float32, torch.bfloat16):
             xs = [randn(*shape).to(dt) for _ in range(5)]
             for z in (None, xs[4]):
@@ -1006,6 +1105,37 @@ def main() -> int:
 
     def expected_route(d, dt):
         return "f32" if dt == torch.float32 else "wmma" if d == ragged_d else "wgmma"
+
+    # the bf16 "narrow" conv route (C or CO % 8 != 0, or off a 16-byte
+    # boundary): the SD VAE's conv_in and conv_out (path B's two launches),
+    # ragged widths on an odd map, and C = CO = 64 one element past an
+    # aligned base; forward and dx, each counted under "narrow", within the
+    # bf16 bound against the plain conv in fp32 on the same values
+    def bf16_at(shape, offset):
+        """A bf16 tensor of `shape` starting `offset` elements into its storage."""
+        return randn(math.prod(shape) + offset).to(torch.bfloat16)[offset:].view(shape)
+
+    for spec, offset in chain([((4, 96, 96, 4, 512), 0), ((4, 768, 768, 128, 3), 0)],
+                              [((2, 7, 9, c, co), 0) for c in (1, 3, 4, 5, 12)
+                               for co in (3, 4, 6, 20, 512)],
+                              [((3, 5, 7, 64, 64), 1)]):
+        b, h, w, c, co = spec
+        x, g_out = bf16_at((b, h, w, c), offset), bf16_at((b, h, w, co), offset)
+        wt = (randn(3, 3, c, co) * c ** -0.5).to(torch.bfloat16)
+        bias = randn(co) * 0.1
+        label = spec + (("narrow", "unaligned") if offset else ("narrow",))
+        got, route = routed(ops.conv3x3, lambda: ops.conv3x3(x, wt, bias))
+        got_dx, route_dx = routed(ops.conv3x3_dx, lambda: ops.conv3x3_dx(g_out, wt))
+        if (route, route_dx) != ("narrow", "narrow"):
+            fail(f"conv3x3 {spec} (offset {offset}) took {route!r}, its dx {route_dx!r}")
+        report("conv3x3", label, torch.bfloat16, got,
+               ops.conv3x3_plain(x.float(), wt.float(), bias), BOUND["bfloat16"])
+        want = torch.nn.grad.conv2d_input((b, c, h, w), wt.float().permute(3, 2, 0, 1),
+                                          g_out.float().permute(0, 3, 1, 2), padding=1)
+        report("conv3x3_dx", label, torch.bfloat16, got_dx, want.permute(0, 2, 3, 1),
+               BOUND["bfloat16"])
+        del x, g_out, got, got_dx, want
+    torch.cuda.empty_cache()
 
     for (m, d), bias in chain(((r, False) for r in sd_rows + sd1_rows),
                               ((r, True) for r in odd_rows + [(100, 32), (1000, ragged_d)])):
@@ -1208,7 +1338,7 @@ def main() -> int:
     log(f"path A: CIFAR-10 DDPM UNet ({n_params / 1e6:.2f}M params, bf16 compute), "
         f"b{BATCH}, DPM-Solver++ {ORDER}M, {STEPS} NFE, logSNR, discrete betas")
     ops.reset_launch_counts()
-    out = solver.sample(x_T, **sample_kw)
+    out = solver.sample(x_T, jit=False, **sample_kw)
     torch.cuda.synchronize()
     launches_a, routes_a = ops.launch_counts(), ops.launch_routes()
     expected = {name: 0 for name in REPLACES}
@@ -1220,12 +1350,15 @@ def main() -> int:
     if out.shape != x_T.shape or out.dtype != torch.float32 or not torch.isfinite(out).all():
         fail(f"path A output {tuple(out.shape)} {out.dtype} is not finite fp32 of x_T's shape")
     log(f"  output {tuple(out.shape)} finite, max|x| {out.abs().max().item():.4f}")
+    check_graphed("path A", lambda: solver.sample(x_T, jit=True, **sample_kw), out, expected)
 
-    # batch 4 in fp32: kernels on the card against the plain ops on the CPU
+    # batch 4 in fp32: kernels on the card against the plain ops on the CPU,
+    # and the trajectory replayed from its CUDA graph against the eager one
     net32 = DDPMUNet(cfg, device=dev).eval()
     net32.load_state_dict(net_cpu.state_dict())
     x4 = x_T[:4].float()
-    got = P.DPM_Solver(P.model_wrapper(net32, ns), ns).sample(x4, **sample_kw)
+    solver32 = P.DPM_Solver(P.model_wrapper(net32, ns), ns)
+    got = solver32.sample(x4, jit=False, **sample_kw)
     t0 = time.perf_counter()
     want = P.DPM_Solver(P.model_wrapper(net_cpu, ns), ns).sample(x4.cpu(), **sample_kw)
     d, r = rel_err(got.cpu(), want)
@@ -1233,7 +1366,30 @@ def main() -> int:
         f"max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g})")
     if not r <= SLICE_BOUND:
         fail("the fp32 CIFAR-10 path on the card disagrees with the plain path")
-    del net32, net_cpu
+    x4b = torch.randn(x4.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    check_replays("path A fp32 b4", lambda u: solver32.sample(u, jit=True, **sample_kw),
+                  lambda u: solver32.sample(u, jit=False, **sample_kw), [x4, x4b], got)
+    # the intermediates come out of the graph too (another key)
+    graphed_mid = solver32.sample(x4b, jit=True, return_intermediate=True, **sample_kw)
+    eager_mid = solver32.sample(x4b, jit=False, return_intermediate=True, **sample_kw)
+    pairs = list(zip([graphed_mid[0], *graphed_mid[1]], [eager_mid[0], *eager_mid[1]]))
+    r = max(rel_err(u, v)[1] for u, v in pairs)
+    ok = len(graphed_mid[1]) == len(eager_mid[1]) == STEPS + 1 and r <= GRAPH_BOUND
+    log(f"  path A fp32 b4, return_intermediate: {len(pairs)} tensors, graphed vs eager on the "
+        f"card /max|x| {r:.3e} (bound {GRAPH_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path A fp32: the replayed intermediates disagree with the eager ones")
+    # an SDE solver on the same net: x and the noise are both the graph's inputs
+    sde32 = P.DPM_Solver(P.model_wrapper(net32, ns), ns, algorithm_type="sde-dpmsolver++")
+    sde_kw = dict(steps=STEPS, order=2, method="multistep", skip_type="time_uniform")
+    z1, z2 = (torch.randn((STEPS, *x4.shape), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+              for seed in (10, 11))
+    check_replays("path A fp32 b4, SDE-DPM-Solver++ 2M",
+                  lambda u: sde32.sample(u[0], noise=u[1], jit=True, **sde_kw),
+                  lambda u: sde32.sample(u[0], noise=u[1], jit=False, **sde_kw),
+                  [(x4, z1), (x4b, z2)])
+    del net32, net_cpu, solver32, sde32
 
     # ---- 5. path B: Stable Diffusion 2.1 txt2img ------------------------------
     t0 = time.perf_counter()
@@ -1253,29 +1409,34 @@ def main() -> int:
         f"txt2img b{len(SD_PROMPTS)} {SD_SIZE}x{SD_SIZE}, DPM-Solver++ 2M, {SD_STEPS} NFE, "
         f"time_uniform, CFG {SD_SCALE}, v-prediction")
 
-    expected = adm_unet_launches(ucfg)
-    for key in expected:
-        expected[key] *= SD_STEPS
-    expected.update(vae_decoder_launches(vcfg))
-    expected["fused_update"] = SD_STEPS
-    expected = {name: expected[name] for name in REPLACES}
+    # the sampler's launches (20 UNet forwards, 20 fused updates) and the
+    # VAE decode's, which stays outside the graph
+    sampler_b = Counter({name: n * SD_STEPS for name, n in adm_unet_launches(ucfg).items()})
+    sampler_b["fused_update"] = SD_STEPS
+    sampler_b = {name: sampler_b[name] for name in REPLACES}
+    decode_b = {name: vae_decoder_launches(vcfg)[name] for name in REPLACES}
+    expected = {name: sampler_b[name] + decode_b[name] for name in REPLACES}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    img = pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+    img = pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1),
+                       jit=False, **sd_kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches_b, routes_b = ops.launch_counts(), ops.launch_routes()
     log(f"  launches {launches_b} (expected {expected}); first call {first_s:.2f} s")
     if launches_b != expected:
         fail(f"path B launch counts {launches_b} != {expected}")
-    # the VAE's conv_in (C = 4) and conv_out (CO = 3) take the "wmma" route
-    check_routes("path B", launches_b, routes_b, wmma_convs=2)
+    # the VAE's conv_in (C = 4) and conv_out (CO = 3) take the "narrow" route
+    check_routes("path B", launches_b, routes_b, narrow_convs=2)
     shape = (len(SD_PROMPTS), SD_SIZE, SD_SIZE, 3)
     if tuple(img.shape) != shape or not torch.isfinite(img).all() \
             or img.min() < 0 or img.max() > 1:
         fail(f"path B images {tuple(img.shape)} are not finite {shape} in [0, 1]")
     log(f"  images {tuple(img.shape)} finite in [0, 1]: mean {img.mean().item():.4f}, "
         f"std {img.std().item():.4f}")
+    check_graphed("path B", lambda: pipe.txt2img(
+        SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), jit=True, **sd_kw),
+        img, sampler_b, decode_b)
 
     # fp32 at 16x16 latents, b1, CFG, 3 NFE: kernels on the card vs plain on the CPU
     t0 = time.perf_counter()
@@ -1295,7 +1456,7 @@ def main() -> int:
         uncond = p.model.get_learned_conditioning([""])
         z, _ = p.sampler.sample(3, 1, (16, 16, 4), cond, unconditional_guidance_scale=SD_SCALE,
                                 unconditional_conditioning=uncond, x_T=z_T,
-                                return_intermediate=False)
+                                return_intermediate=False, jit=False)
         result[where] = (z.cpu(), p.model.decode_first_stage(z).cpu())
         log(f"  fp32 b1 16x16 latents, 3 NFE on {where}: {time.perf_counter() - t1:.1f} s")
     for i, what in enumerate(("latents", "decoded image")):
@@ -1305,7 +1466,23 @@ def main() -> int:
             f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"the fp32 SD path on the card disagrees with the plain path ({what})")
-    del nets, result
+    # the sampler replayed from its graph against the eager one on the card:
+    # x_T and the first prompt, then another x_T and another prompt's
+    # context at the same shapes (a replay with the new conditioning copied in)
+    p32 = nets["cuda"]
+    uncond32 = p32.model.get_learned_conditioning([""])
+
+    def sd_sample(inputs, jit):
+        z, prompt = inputs
+        cond = p32.model.get_learned_conditioning([prompt])
+        return p32.sampler.sample(3, 1, (16, 16, 4), cond, unconditional_guidance_scale=SD_SCALE,
+                                  unconditional_conditioning=uncond32, x_T=z,
+                                  return_intermediate=False, jit=jit)[0]
+
+    z_T2 = torch.randn(1, 16, 16, 4, generator=torch.Generator().manual_seed(4))
+    check_replays("path B fp32 b1", lambda u: sd_sample(u, True), lambda u: sd_sample(u, False),
+                  [(z_T, SD_PROMPTS[0]), (z_T2, SD_PROMPTS[1])], result["cuda"][0].to(dev))
+    del nets, result, p32
     torch.cuda.empty_cache()
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
@@ -1435,6 +1612,10 @@ def main() -> int:
         fail(f"path D samples {tuple(dout.shape)} {dout.dtype} are not finite fp32 of x_T's shape")
     log(f"  samples {tuple(dout.shape)} finite: min {dout.min().item():.4f}, max "
         f"{dout.max().item():.4f}, std {dout.std().item():.4f}")
+    # the same sampler replayed from its CUDA graph (the counterpart of JAX's
+    # jit_hoisting_constants for build_sampler users)
+    graphed_d = P.GraphedSampler(sample_d)
+    check_graphed("path D", lambda: graphed_d(dx_T), dout, expected_d)
 
     # the adaptive solver (DPM-Solver-23) through DPM_Solver.sample, full width:
     # a model evaluation is one network forward, counted at the network
@@ -1467,15 +1648,18 @@ def main() -> int:
         nets[where.type] = NCSNpp(dcfg, device=where).eval()
         nets[where.type].load_state_dict(dnet.state_dict())
     kw3 = dict(score_kw, steps=3)
-    result = {where: P.build_sampler(noise_model(net_), vns, **kw3)(
-        dx_T[:2].to(where)).cpu() for where, net_ in nets.items()}
+    samplers = {where: P.build_sampler(noise_model(net_), vns, **kw3)
+                for where, net_ in nets.items()}
+    result = {where: fn(dx_T[:2].to(where)).cpu() for where, fn in samplers.items()}
     d, r = rel_err(result["cuda"], result["cpu"])
     ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"]).all())
     log(f"  fp32 b2 3 NFE, kernels (card) vs plain (cpu, {time.perf_counter() - t0:.1f} s): "
         f"max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the fp32 ScoreSDE path on the card disagrees with the plain path")
-    del nets, result
+    check_replays("path D fp32 b2", P.GraphedSampler(samplers["cuda"]), samplers["cuda"],
+                  [dx_T[:2], dx_T[2:4]], result["cuda"].to(dev))
+    del nets, result, samplers
 
     # the adaptive solver on the tiny twin of cifar10_ncsnpp_vp (FIR
     # resampling, residual input pyramid), fp32, card vs CPU: equal NFE
@@ -1698,34 +1882,56 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. timing -------------------------------------------------------------
-    solver.sample(x_T, **sample_kw)  # warm
-    walls = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.sample(x_T, **sample_kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    log(f"path A time on {smi}: median {wall * 1e3:.2f} ms over {len(walls)} runs "
-        f"(min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) -> "
-        f"{BATCH / wall:.1f} samples/s")
+    # paths A, B and D both ways in this one call: eager (jit=False, the
+    # plain sampler) and replayed from the CUDA graph captured in phases 4,
+    # 5 and 7 (jit=True, GraphedSampler), each after a warm call
+    walls_by_path = {}
+
+    def time_walls(call, runs):
+        """Median, min and max wall (ms) of `runs` calls after a warm one."""
+        call()
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3, min(walls) * 1e3, max(walls) * 1e3
+
+    def log_walls(path, what, runs, eager, graphed, unit, per):
+        walls_by_path[path] = dict(eager_ms=eager[0], graphed_ms=graphed[0], runs=runs,
+                                   eager_range_ms=eager[1:], graphed_range_ms=graphed[1:])
+        log(f"path {path} walls on {smi}: {what}, median of {runs}: eager (jit=False) "
+            f"{eager[0]:.2f} ms (min {eager[1]:.2f}, max {eager[2]:.2f}) -> {per / eager[0] * 1e3:.4f} "
+            f"{unit}; graphed (jit=True, replay) {graphed[0]:.2f} ms (min {graphed[1]:.2f}, max "
+            f"{graphed[2]:.2f}) -> {per / graphed[0] * 1e3:.4f} {unit}; "
+            f"{eager[0] / graphed[0]:.3f}x")
+
+    runs_a = 7
+    log_walls("A", f"b{BATCH} {STEPS} NFE", runs_a,
+              time_walls(lambda: solver.sample(x_T, jit=False, **sample_kw), runs_a),
+              time_walls(lambda: solver.sample(x_T, jit=True, **sample_kw), runs_a),
+              "samples/s", BATCH)
     del solver, net
 
-    # UNet-forward and VAE-decode device spans of each call, by CUDA events
+    # UNet-forward and VAE-decode device spans of each eager call, by CUDA
+    # events (a replay runs no Python, so no hook marks its UNet forwards)
     spans = {"unet": [], "vae": []}
     handles = []
     for where, mod in (("unet", unet), ("vae", vae.decoder)):
         pre, post = span_hooks(spans, where)
         handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+    pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), jit=False,
+                 **sd_kw)
     runs = []
     for _ in range(SD_TIMED_RUNS):
         for v in spans.values():
             v.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), **sd_kw)
+        pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev).manual_seed(1), jit=False,
+                     **sd_kw)
         torch.cuda.synchronize()
         w = time.perf_counter() - t0
         runs.append((w, *(sum(a.elapsed_time(b) for a, b in spans[k]) / 1e3
@@ -1739,6 +1945,11 @@ def main() -> int:
         f"{runs[-1][0] * 1e3:.2f}) -> {len(SD_PROMPTS) / sd_wall:.4f} images/s; in that run "
         f"UNet forwards {unet_s * 1e3:.2f} ms ({unet_s / sd_wall:.3f} of the wall), VAE decode "
         f"{vae_s * 1e3:.2f} ms ({vae_s / sd_wall:.3f})")
+    sd_call = lambda jit: pipe.txt2img(SD_PROMPTS, generator=torch.Generator(device=dev)
+                                       .manual_seed(1), jit=jit, **sd_kw)
+    log_walls("B", f"txt2img b{len(SD_PROMPTS)} {SD_SIZE}px {SD_STEPS} NFE", SD_TIMED_RUNS,
+              (sd_wall * 1e3, runs[0][0] * 1e3, runs[-1][0] * 1e3),
+              time_walls(lambda: sd_call(True), SD_TIMED_RUNS), "images/s", len(SD_PROMPTS))
 
     # path C: wall time, and the UNet-forward and classifier forward+backward
     # device spans by CUDA events (the classifier's ends at the hook on its
@@ -1782,6 +1993,7 @@ def main() -> int:
         f"forward+backward {c_clf_s * 1e3:.2f} ms ({c_clf_s / c_wall:.3f})")
 
     # path D: wall time, and the network forwards' device spans by CUDA events
+    # (eager); then the graphed sampler's wall
     dspans = {"net": []}
     pre, post = span_hooks(dspans, "net")
     handles = [dnet.register_forward_pre_hook(pre), dnet.register_forward_hook(post)]
@@ -1803,6 +2015,11 @@ def main() -> int:
         f"{d_wall * 1e3:.2f} ms over {len(runs)} runs (min {runs[0][0] * 1e3:.2f}, max "
         f"{runs[-1][0] * 1e3:.2f}) -> {SCORE_BATCH / d_wall:.2f} samples/s; in that run network "
         f"forwards {d_net_s * 1e3:.2f} ms ({d_net_s / d_wall:.3f} of the wall)")
+    log_walls("D", f"ScoreSDE b{SCORE_BATCH} {SCORE_STEPS} NFE", SCORE_TIMED_RUNS,
+              (d_wall * 1e3, runs[0][0] * 1e3, runs[-1][0] * 1e3),
+              time_walls(lambda: graphed_d(dx_T), SCORE_TIMED_RUNS), "samples/s",
+              SCORE_BATCH)
+    del graphed_d
 
     # path E: the wall of one bits/dim call after the warm (counted) one, and
     # the network's forward and backward device spans by CUDA events
@@ -1881,6 +2098,31 @@ def main() -> int:
         f"{2 * len(SD_PROMPTS)} and one VAE decode at b{len(SD_PROMPTS)}, bf16):")
     time_path("B", per_kernel_b, launches_b, f"one txt2img call, SD-2.1 {SD_SIZE}px "
               f"b{len(SD_PROMPTS)}")
+    # the "narrow" route alone at its path-B launches (the VAE decoder's
+    # conv_in and conv_out), beside the plain conv, cuDNN and the bound
+    narrow_b = Counter({spec: n for spec, n in per_kernel_b["conv3x3"].items()
+                        if spec[3] % 8 or spec[4] % 8})
+    if sum(narrow_b.values()) != routes_b["conv3x3"].get("narrow", 0):
+        fail(f"path B's narrow convs {dict(narrow_b)} are not its {routes_b['conv3x3']}")
+    log("kernel times, the \"narrow\" conv route at its path-B launches (bf16):")
+    rec = timing["conv3x3"]["B narrow"] = dict(
+        time_kernel("conv3x3", narrow_b, randn, smi, "the narrow route's launches of one "
+                    f"txt2img call, SD-2.1 {SD_SIZE}px b{len(SD_PROMPTS)}"),
+        launches=sum(narrow_b.values()))
+    # and device alone (one call captured in a CUDA graph, so the wrapper's
+    # host work, ~40 us, is not in it), beside cuDNN's the same way
+    rec.update(device_alone_ms=0.0, library_device_alone_ms=0.0)
+    for spec, n in sorted(narrow_b.items()):
+        case = make_case("conv3x3", spec, randn)
+        k, lib = graph_ms([case.kernel], 1), graph_ms([case.library], 1)
+        rec["device_alone_ms"] += n * k
+        rec["library_device_alone_ms"] += n * lib
+        log(f"  conv3x3 {spec} on {smi}, device alone: narrow {k:.4f} ms, cuDNN {lib:.4f} ms, "
+            f"bound {max(case.bound()) * 1e3:.4f} ms")
+        del case
+    log(f"the narrow route's path-B launches, device alone: {rec['device_alone_ms']:.4f} ms "
+        f"against cuDNN's {rec['library_device_alone_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['device_alone_ms']:.3f} of the kernel's time)")
 
     # path C: the specs of one NFE (a UNet forward, a classifier forward and
     # backward), times the NFE count
@@ -1969,6 +2211,27 @@ def main() -> int:
     log(f"kernel times, path D (one {SCORE_STEPS}-NFE singlestep call, b{SCORE_BATCH}, bf16):")
     time_path("D", per_kernel_d, launches_d, f"one ScoreSDE sample call, DDPM++ deep "
               f"b{SCORE_BATCH}")
+
+    # the fused update's device time alone: each path's launches captured in
+    # one CUDA graph and replayed (as the graphed executor runs them), beside
+    # the back-to-back time above, which reads the host's work a launch. In
+    # the trajectory a network evaluation passes between two updates, so each
+    # finds its inputs out of the 50 MB L2: the launches rotate over input
+    # sets at least 100 MB apart
+    for path, calls in (("A", per_kernel_a), ("B", per_kernel_b), ("C", per_kernel_c),
+                        ("D", per_kernel_d)):
+        (spec, n), = calls["fused_update"].items()
+        sets = min(n, -(-100_000_000 // (5 * 4 * math.prod(spec[0]))))
+        cases = [make_case("fused_update", spec, randn) for _ in range(sets)]
+        rec = timing["fused_update"][path]
+        rec["device_alone_ms"] = graph_ms([c.kernel for c in cases], n)
+        del cases
+        rec["device_alone_bound_share"] = rec["bound_ms"] / rec["device_alone_ms"]
+        log(f"fused_update on {smi}, path {path} {spec[0]} x{n}: device alone (one CUDA graph, "
+            f"{sets} input sets) "
+            f"{rec['device_alone_ms']:.4f} ms, back to back {rec['ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['device_alone_bound_share']:.3f} of the device-alone "
+            f"time, {rec['bound_share']:.3f} of the back-to-back)")
 
     # path E: the specs of one network forward (e_calls, 7b), times the NFE
     per_kernel_e = {name: Counter() for name in REPLACES}
@@ -2059,8 +2322,9 @@ def main() -> int:
                                  or "attn_bwd_f32" in k and k.endswith("dq")},
                 "attention_dkv": {k: v for k, v in bwd_ptxas.items() if "attn_dkv" in k
                                   or "attn_bwd_f32" in k and k.endswith("dkv")},
-                "conv3x3": {k: v for k, v in f32_ptxas.items() if k.startswith("conv3x3_f32")
-                            and not k.endswith(" dx")},
+                "conv3x3": {**{k: v for k, v in f32_ptxas.items()
+                               if k.startswith("conv3x3_f32") and not k.endswith(" dx")},
+                            **narrow_ptxas},
                 "conv3x3_dx": {k: v for k, v in f32_ptxas.items() if k.endswith(" dx")},
                 "attention_lse": {k: v for k, v in f32_ptxas.items()
                                   if k.startswith("attention_fwd_f32")}}
@@ -2083,6 +2347,7 @@ def main() -> int:
                                   for k, (r, b) in ptxas_of[name].items()}}
                        if name in ptxas_of else {}))
                for name, (route, src, rep) in REPLACES.items()]
+    log(json.dumps({"walls": walls_by_path, "card": smi}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

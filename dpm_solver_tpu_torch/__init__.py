@@ -10,6 +10,8 @@ Public API (mirrors the reference's three symbols, plus the functional layer):
     NoiseScheduleVP   -- alpha/sigma/lambda(t) bijection      (schedule.py)
     model_wrapper     -- parameterization + guidance adapter  (wrapper.py)
     DPM_Solver        -- solver object with .sample/.inverse  (solver/)
+    build_sampler, GraphedSampler -- the functional layer: a planned
+                         sampler, and its CUDA-graph replay (solver/sample.py)
 """
 
 from dpm_solver_tpu_torch.schedule import (
@@ -18,11 +20,12 @@ from dpm_solver_tpu_torch.schedule import (
     interp_linear_extrap,
     interpolate_fn,
 )
-from dpm_solver_tpu_torch.solver import DPM_Solver, build_sampler
+from dpm_solver_tpu_torch.solver import DPM_Solver, GraphedSampler, build_sampler
 from dpm_solver_tpu_torch.wrapper import model_wrapper
 
 __all__ = [
     "DPM_Solver",
+    "GraphedSampler",
     "NoiseScheduleVP",
     "build_sampler",
     "expand_dims",

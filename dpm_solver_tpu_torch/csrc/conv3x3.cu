@@ -40,11 +40,29 @@
 //   the registers, masking the patch's ragged edges and the CO tail. Two
 //   blocks fit on an SM (96 KB of shared memory each), so one block's
 //   epilogue and ramp overlap the other's products.
-// - "wmma" (bf16 with C or CO not a multiple of 8, where TMA cannot stride:
-//   the VAE's conv_in with C = 4, its conv_out with CO = 3, ragged shapes):
-//   `conv3x3_bf16_mma`, a 128x64 output tile per block, 8 warps each owning
-//   32x32 of it as 2x2 WMMA 16x16x16 bf16 fragments with fp32 accumulators
-//   (`mma.sync`), the reduction staged through shared memory 32 deep.
+// - "narrow" (bf16 with C or CO not a multiple of 8, or a tensor off a
+//   16-byte boundary, where TMA cannot stride: the SD VAE's conv_in, x
+//   (4,96,96,4) -> 512, and conv_out, x (4,768,768,128) -> 3, and ragged
+//   shapes): `conv3x3_narrow`. Both VAE convs are bound by bytes, not by
+//   products: conv_out reads 604 MB to write 14 MB, conv_in writes 37.7 MB
+//   from 74 KB. So the kernel streams units of (16 x 16 output patch, 64- or
+//   8-column pass) through a persistent grid (as many blocks as the SMs
+//   hold, each walking every gridDim-th unit, its ring running on from one
+//   to the next), and copies each patch with its one-pixel halo (18 x 18
+//   pixels) into shared memory once per chunk of channels, by cp.async
+//   (16-, 8- or 4-byte copies as C and the alignment allow; SAME padding
+//   and the channel tail as zero fill); all 9 taps read it there at their
+//   offsets through ldmatrix (each lane gives the address of its pixel
+//   shifted by the tap), feeding `mma.sync`: m16n8k16, or m16n8k8 where
+//   C <= 8 (conv_in's 4 channels pad to 8, not 32). The output tile fits the
+//   narrow side: N is padded to 8 where CO <= 8 (conv_out's 3), and a wide
+//   CO is cut into 64-column passes that neighbouring blocks run at once
+//   (conv_in's 512 channels: x read from device memory once, then from L2).
+//   A two-stage cp.async ring of (patch chunk, weight tile) keeps the next
+//   copies in flight under the products; the weight is laid out by the
+//   wrapper (zero-padded, each output channel's inputs contiguous) so its
+//   copies are unmasked 16-byte ones. The epilogue adds the bias in fp32
+//   and rounds once to bf16, masking the patch's edges and the CO tail.
 // - "f32" (fp32: path E's bits/dim, whose RK45 step control rides fp32
 //   rounding, so no TF32 and no 3xTF32): `conv3x3_f32`, exact on the CUDA
 //   cores (67 TFLOP/s of FMA). At path E's shapes (M = B*H*W 128-8,192
@@ -75,13 +93,9 @@
 //   (3,3,C,CO) weight in place as flipped taps with the channels swapped,
 //   so no flipped copy is made before a launch.
 //
-// In the "wmma" kernel SAME padding is the load's own halo mask: a tap
-// that falls outside the image loads 0, so no padded copy of x is ever made
-// in device memory; ragged C, CO and pixel counts are masked the same way.
 // Accumulation is fp32 for every route; the bias is added in fp32 before
 // the one rounding to the output type.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -316,142 +330,240 @@ conv3x3_f32_sum(const float* __restrict__ ws, const float* __restrict__ bias,
   }
 }
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16, narrow channels: mma.sync over a halo patch in shared memory ----
 
-namespace mma = nvcuda::wmma;
-constexpr int MM = 128;           // output pixels per block
-constexpr int MN = 64;            // output channels per block
-constexpr int MK = 32;            // reduction depth staged per step
-constexpr int LDA = MK + 8;       // smem row pitch (bf16) of the A tile
-constexpr int LDB = MN + 8;       // smem row pitch (bf16) of the B tile
-constexpr int LDC = MN + 4;       // smem row pitch (fp32) of the output tile
-constexpr int MMA_THREADS = 256;  // 8 warps: 4 along M x 2 along N, 32x32 each
-constexpr int A_BYTES = MM * LDA * 2, B_BYTES = MK * LDB * 2, C_BYTES = MM * LDC * 4;
-constexpr int MMA_SMEM = (A_BYTES + B_BYTES > C_BYTES) ? A_BYTES + B_BYTES : C_BYTES;
+// A block owns an output patch of NR_PH rows x NR_PW pixels of one image;
+// its input is that patch with a one-pixel halo (NR_PH + 2 rows of NR_XW pixels).
+constexpr int NR_THREADS = 256;  // 8 warps
+constexpr int NR_PH = 16;        // output rows a patch
+constexpr int NR_PW = 16;        // output pixels a row: one m16 tile
+constexpr int NR_MT = NR_PH / (NR_THREADS / 32);  // patch rows (m16 tiles) a warp
+static_assert(NR_MT * (NR_THREADS / 32) == NR_PH, "whole rows a warp");
+constexpr int NR_STAGES = 2;     // cp.async ring depth
+constexpr int NR_XW = NR_PW + 2;                  // the halo patch's row
+constexpr int NR_XPIX = (NR_PH + 2) * NR_XW;      // its 324 pixels
+// bf16 a row of KC reduction values in shared memory (a pixel's channels, a
+// weight row's): an odd multiple of 16 bytes, so the 8 rows one ldmatrix
+// reads (8 neighbouring pixels, or 8 output channels) fall on distinct banks
+template <int KC>
+__host__ __device__ constexpr int nr_pitch() { return KC == 8 ? 8 : KC + 8; }
+// a stage: the halo patch's KC channels, then the weight tile [9][8 NT][KC]
+template <int KC, int NT>
+__host__ __device__ constexpr int nr_stage_elems() { return (NR_XPIX + 9 * 8 * NT) * nr_pitch<KC>(); }
+template <int KC, int NT>
+constexpr size_t nr_smem() { return (size_t)NR_STAGES * nr_stage_elems<KC, NT>() * 2; }
+static_assert(nr_smem<64, 1>() <= 232448 && nr_smem<32, 8>() <= 232448, "227 KB a block");
 
-__global__ void __launch_bounds__(MMA_THREADS)
-conv3x3_bf16_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                 int B, int H, int W, int C, int CO, bool vec_x, bool vec_w) {
-  // the A/B staging tiles and the fp32 output tile share one buffer
-  __shared__ __align__(128) unsigned char smem[MMA_SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);            // [MM][LDA]
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + A_BYTES);  // [MK][LDB]
-  float* Cs = reinterpret_cast<float*>(smem);                            // [MM][LDC]
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp % 4, wn = warp / 4;  // this warp's 32x32 sub-tile
-  const long long M = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * MM;
-  const int n0 = blockIdx.y * MN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  // A rows this thread stages in the vector path: r = tid/4 and r + 64,
-  // 8 channels each at k offset 8*(tid%4) (4 threads cover 32 channels)
-  const int a_row = tid / 4, a_k = 8 * (tid % 4);
-  int pb[2], ph[2], pw[2];
-  bool pvalid[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + a_row + 64 * i;
-    pvalid[i] = m < M;
-    const long long mm = pvalid[i] ? m : 0;
-    pw[i] = (int)(mm % W);
-    ph[i] = (int)((mm / W) % H);
-    pb[i] = (int)(mm / ((long long)W * H));
-  }
-  // B: this thread stages 8 output channels of one k row in the vector path
-  const int b_k = tid / 8, b_n = 8 * (tid % 8);
-
-  mma::fragment<mma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) mma::fill_fragment(acc[i][j], 0.f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    long long abase[2];  // NHWC offset of each staged pixel for this tap, -1 = halo
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ih = ph[i] + dy, iw = pw[i] + dx;
-      const bool in = pvalid[i] && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      abase[i] = in ? (((long long)pb[i] * H + ih) * W + iw) * C : -1;
-    }
-    for (int c0 = 0; c0 < C; c0 += MK) {
-      if (vec_x) {  // C % 8 == 0: a chunk of 8 channels is in or out as a whole
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          uint4 v = make_uint4(0, 0, 0, 0);
-          const int c = c0 + a_k;
-          if (abase[i] >= 0 && c < C) v = *reinterpret_cast<const uint4*>(x + abase[i] + c);
-          *reinterpret_cast<uint4*>(As + (a_row + 64 * i) * LDA + a_k) = v;
-        }
-      } else {
-        for (int e = tid; e < MM * MK; e += MMA_THREADS) {
-          const int r = e / MK, kk = e % MK, c = c0 + kk;
-          const long long m = m0 + r;
-          __nv_bfloat16 v = zero;
-          if (m < M && c < C) {
-            const int ow = (int)(m % W), oh = (int)((m / W) % H);
-            const int ih = oh + dy, iw = ow + dx;
-            const long long b = m / ((long long)W * H);
-            if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-              v = x[((b * H + ih) * W + iw) * C + c];
-          }
-          As[r * LDA + kk] = v;
-        }
-      }
-      if (vec_w) {  // CO % 8 == 0
-        uint4 v = make_uint4(0, 0, 0, 0);
-        const int c = c0 + b_k, n = n0 + b_n;
-        if (c < C && n < CO)
-          v = *reinterpret_cast<const uint4*>(w + ((long long)tap * C + c) * CO + n);
-        *reinterpret_cast<uint4*>(Bs + b_k * LDB + b_n) = v;
-      } else {
-        for (int e = tid; e < MK * MN; e += MMA_THREADS) {
-          const int kk = e / MN, nn = e % MN, c = c0 + kk, n = n0 + nn;
-          Bs[kk * LDB + nn] =
-              (c < C && n < CO) ? w[((long long)tap * C + c) * CO + n] : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < MK; kk += 16) {
-        mma::fragment<mma::matrix_a, 16, 16, 16, __nv_bfloat16, mma::row_major> fa[2];
-        mma::fragment<mma::matrix_b, 16, 16, 16, __nv_bfloat16, mma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          mma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) mma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // epilogue through shared memory: + bias in fp32, one rounding to bf16
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      mma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                             LDC, mma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < MM * MN; e += MMA_THREADS) {
-    const int r = e / MN, nn = e % MN;
-    const long long m = m0 + r;
-    const int n = n0 + nn;
-    if (m < M && n < CO)
-      out[m * CO + n] = __float2bfloat16(Cs[r * LDC + nn] + (bias != nullptr ? bias[n] : 0.f));
-  }
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x1(uint32_t& r0, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n" : "=r"(r0) : "r"(addr));
+}
+// d += a (16 x 16, rows) * b (16 x 8, columns), bf16 in, fp32 accumulators
+__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a (16 x 8) * b (8 x 8): the 8-deep reduction of a narrow C
+__device__ __forceinline__ void mma_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
+// The "narrow" route: out (B,H,W,Cout) = bias + conv(x (B,H,W,Cin), w) for
+// any Cin, Cout >= 1 and any base alignment. wp is the weight in the layout
+// a stage reads, made by the wrapper (ops/conv3x3.py::narrow_weight):
+// [9][npad][cpad] bf16, tap-major, a row of each output channel's input
+// channels (k contiguous), zero past Cin and Cout, cpad = ceil(Cin/KC) KC and
+// npad = ceil(Cout/8NT) 8NT; so its copies are whole 16-byte cp.asyncs with
+// no mask. KC: input channels a stage (8: Cin <= 8, one m16n8k8 a tap;
+// else 64 where Cout <= 8, four m16n8k16, and 32 beside a wide Cout, whose
+// 64-column weight tile would not fit twice at 64), NT: 8-column output
+// tiles a pass (1: Cout <= 8; 8: 64 columns a pass).
+//
+// The work is units (output patch, pass of 8 NT output channels), patch-major,
+// each walking the ceil(Cin / KC) channel chunks. The grid is persistent: at
+// most the blocks the SMs hold at once, block i taking units i, i +
+// gridDim.x, ... So the ring runs on from one unit to the next and the next
+// unit's copies overlap this one's products, and the passes of one patch
+// (conv_in's 8) run in neighbouring blocks at once, its input read from
+// device memory once and from L2 by the rest. A step's stage holds the halo
+// patch's channels [cc KC, cc KC + KC) and the weight tile of (pass, cc), and
+// every tap reads the patch at its offset, so an input pixel is copied into
+// shared memory once a pass and read there by all 9 taps, not fetched once
+// per tap. Lane l of a warp gives ldmatrix the address of patch pixel (row,
+// l % 16 + dx) of tap (dy, dx), so one A fragment is 16 output pixels
+// shifted by the tap. `vec`: bf16 a copy of x (8, 4, 2: 16-, 8-, 4-byte
+// cp.async; 1: a plain load), the largest that divides Cin and x's
+// alignment; a thread copies the same channels of every NR_THREADS /
+// (KC / vec)-th pixel. The shape of the block (16 x 16 patches, 8 warps of
+// two m16 rows, two stages of 64 channels) is what a sweep on the card
+// found fastest at conv_out, against 8- and 32-row patches, 4 or 16 warps,
+// three or four stages and 16 or 32 channels a stage: a deeper ring leaves
+// fewer blocks on an SM to hide the copies, and a taller patch re-copies
+// fewer halo pixels (18 x 18 for 256 outputs, not 10 x 18 for 128) and
+// spreads each B fragment over more rows.
+template <int KC, int NT>
+__global__ void __launch_bounds__(NR_THREADS)
+conv3x3_narrow(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wp,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
+               int Cin, int Cout, int vec, int tiles_h, int tiles_w, int units) {
+  using hopper::cp_async;
+  constexpr int P = nr_pitch<KC>(), NB = 8 * NT, XE = NR_XPIX * P;
+  constexpr int SE = nr_stage_elems<KC, NT>();
+  constexpr int KSTEP = KC == 8 ? 8 : 16;
+  extern __shared__ __align__(16) uint8_t nsm_raw[];
+  __nv_bfloat16* nsm = reinterpret_cast<__nv_bfloat16*>(nsm_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_c = (Cin + KC - 1) / KC, n_n = (Cout + NB - 1) / NB;
+  const int cpad = n_c * KC, npad = n_n * NB;
+  const int steps = (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * n_c;
+  // this thread's copies of x: channels [kx, kx + vec) of the chunk at the
+  // patch pixels tid / parts + j * pstep
+  const int parts = KC / vec, kx = tid % parts * vec, pstep = NR_THREADS / parts;
+
+  struct Step { int b, h0, w0, nn, cc; };
+  auto decode = [&](int s) {
+    const int u = (int)blockIdx.x + s / n_c * (int)gridDim.x, p = u / n_n;
+    return Step{p / (tiles_w * tiles_h), p / tiles_w % tiles_h * NR_PH, p % tiles_w * NR_PW,
+                u % n_n, s % n_c};
+  };
+  auto load = [&](int slot, int s) {
+    const Step t = decode(s);
+    __nv_bfloat16* st = nsm + slot * SE;
+    // the halo patch, channels [c0, c0 + KC); SAME padding and the channel tail as zeros
+    const int c = t.cc * KC + kx;
+    for (int pix = tid / parts; pix < NR_XPIX; pix += pstep) {
+      const int ih = t.h0 + pix / NR_XW - 1, iw = t.w0 + pix % NR_XW - 1;
+      const bool ok = ih >= 0 && ih < H && iw >= 0 && iw < W && c < Cin;
+      const __nv_bfloat16* src = ok ? x + (((long long)t.b * H + ih) * W + iw) * Cin + c : x;
+      __nv_bfloat16* dst = st + pix * P + kx;
+      if (vec == 8) cp_async<16>(dst, src, ok);
+      else if (vec == 4) cp_async<8>(dst, src, ok);
+      else if (vec == 2) cp_async<4>(dst, src, ok);
+      else *dst = ok ? *src : __float2bfloat16(0.f);
+    }
+    // the weight tile: rows (tap, n) of pass nn, k in chunk cc, 8 bf16 a copy
+    constexpr int WPARTS = KC / 8;
+    for (int e = tid; e < 9 * NB * WPARTS; e += NR_THREADS) {
+      const int row = e / WPARTS, k = (e % WPARTS) * 8, tap = row / NB, n = row % NB;
+      cp_async<16>(st + XE + row * P + k,
+                   wp + ((long long)tap * npad + t.nn * NB + n) * cpad + t.cc * KC + k, true);
+    }
+  };
+
+  // ldmatrix rows of this lane: A, output pixel column l % 16 of patch rows
+  // NR_MT warp + mt (k8: lanes 0-15 give the addresses; k16: lanes 16-31 the
+  // second 8 channels); B, output channel l % 8 of each 8-column tile (k16:
+  // lanes 8-15 the second 8 channels)
+  const int a_k = KC == 8 ? 0 : (lane / 16) * 8, b_k = KC == 8 ? 0 : (lane / 8 % 2) * 8;
+  int a_off[NR_MT];
+#pragma unroll
+  for (int mt = 0; mt < NR_MT; ++mt)
+    a_off[mt] = ((NR_MT * warp + mt) * NR_XW + lane % 16) * P + a_k;
+  const int b_off = (lane % 8) * P + b_k;
+
+  float acc[NR_MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < NR_MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NR_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    hopper::cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    hopper::cp_async_wait<NR_STAGES - 2>();
+    __syncthreads();  // step it's stage is visible; the stage read last step is free
+    const int next = it + NR_STAGES - 1;
+    if (next < steps) load(next % NR_STAGES, next);
+    hopper::cp_async_commit();
+
+    const uint32_t xs = hopper::smem_u32(nsm + it % NR_STAGES * SE);
+    const uint32_t ws = xs + 2 * XE;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int t_off = ((tap / 3) * NR_XW + tap % 3) * P;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += KSTEP) {
+        uint32_t bf[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t addr = ws + 2 * ((tap * NB + 8 * j) * P + b_off + kk);
+          if constexpr (KC == 8) ldsm_x1(bf[j][0], addr);
+          else ldsm_x2(bf[j][0], bf[j][1], addr);
+        }
+#pragma unroll
+        for (int mt = 0; mt < NR_MT; ++mt) {
+          const uint32_t addr = xs + 2 * (a_off[mt] + t_off + kk);
+          if constexpr (KC == 8) {
+            uint32_t a0, a1;
+            ldsm_x2(a0, a1, addr);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_k8(acc[mt][j], a0, a1, bf[j][0]);
+          } else {
+            uint32_t a[4];
+            ldsm_x4(a, addr);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_k16(acc[mt][j], a, bf[j][0], bf[j][1]);
+          }
+        }
+      }
+    }
+    const Step t = decode(it);
+    if (t.cc != n_c - 1) continue;
+    // the pass is done: + bias in fp32, one rounding to bf16; this thread
+    // holds pixels (NR_MT warp + mt, l / 4 and l / 4 + 8), columns 2 (l % 4)
+    // (+1) of every 8
+    const int n_base = t.nn * NB + 2 * (lane % 4);
+#pragma unroll
+    for (int mt = 0; mt < NR_MT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int oh = t.h0 + NR_MT * warp + mt, ow = t.w0 + lane / 4 + 8 * r;
+        if (oh >= H || ow >= W) continue;
+        __nv_bfloat16* dst = out + (((long long)t.b * H + oh) * W + ow) * Cout;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = n_base + 8 * j;
+          const float v0 = acc[mt][j][2 * r] + (bias != nullptr && n < Cout ? bias[n] : 0.f);
+          const float v1 =
+              acc[mt][j][2 * r + 1] + (bias != nullptr && n + 1 < Cout ? bias[n + 1] : 0.f);
+          if (Cout % 2 == 0 && n + 1 < Cout) {  // 4-byte aligned pair
+            *reinterpret_cast<__nv_bfloat162*>(dst + n) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (n < Cout) dst[n] = __float2bfloat16(v0);
+            if (n + 1 < Cout) dst[n + 1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < NR_MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block (the empty tail groups)
+}
 
 // ---- bf16 on the tensor cores: TMA + wgmma ---------------------------------
 
@@ -590,18 +702,55 @@ int launch_f32(const void* x, const void* w, const void* bias, void* out, void* 
   return (int)cudaGetLastError();
 }
 
-int launch_wmma(const void* x, const void* w, const void* bias, void* out,
-                int B, int H, int W, int C, int CO, cudaStream_t stream) {
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + MM - 1) / MM), (unsigned)((CO + MN - 1) / MN));
-  // 16-byte vector loads need 8-channel rows and 16-byte aligned bases
-  const bool vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_w = CO % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  conv3x3_bf16_mma<<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, H, W, C, CO,
-      vec_x, vec_w);
+template <int KC, int NT>
+int launch_narrow_tile(const void* x, const void* wp, const void* bias, void* out, int B,
+                       int H, int W, int Cin, int Cout, int vec, cudaStream_t stream) {
+  constexpr size_t smem = nr_smem<KC, NT>();
+  cudaError_t err = hopper::set_smem_once<conv3x3_narrow<KC, NT>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  // the persistent grid: as many blocks as the SMs hold at once, or the units
+  static int resident[64] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_narrow<KC, NT>,
+                                                        NR_THREADS, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = per_sm * sms;
+  }
+  const int tiles_h = (H + NR_PH - 1) / NR_PH, tiles_w = (W + NR_PW - 1) / NR_PW;
+  const long long units = (long long)B * tiles_h * tiles_w * ((Cout + 8 * NT - 1) / (8 * NT));
+  if (units * ((Cin + KC - 1) / KC) >= (1ll << 31) || resident[dev] < 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = units < resident[dev] ? (int)units : resident[dev];
+  conv3x3_narrow<KC, NT><<<blocks, NR_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wp),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, Cin, Cout, vec,
+      tiles_h, tiles_w, (int)units);
   return (int)cudaGetLastError();
+}
+
+int launch_narrow(const void* x, const void* wp, const void* bias, void* out, int B, int H,
+                  int W, int Cin, int Cout, int kc, int nt, cudaStream_t stream) {
+  // the host's tile must be the one its shape takes (ops/conv3x3.py::narrow_tile)
+  if (kc != (Cin <= 8 ? 8 : Cout <= 8 ? 64 : 32) || nt != (Cout <= 8 ? 1 : 8) ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // bf16 a copy of x: the largest of 8, 4, 2 that divides Cin and x's
+  // alignment, else single values
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  int vec = 8;
+  while (vec > 1 && (Cin % vec != 0 || xa % (2 * vec) != 0)) vec /= 2;
+  if (kc == 8)
+    return nt == 1 ? launch_narrow_tile<8, 1>(x, wp, bias, out, B, H, W, Cin, Cout, vec, stream)
+                   : launch_narrow_tile<8, 8>(x, wp, bias, out, B, H, W, Cin, Cout, vec, stream);
+  return nt == 1 ? launch_narrow_tile<64, 1>(x, wp, bias, out, B, H, W, Cin, Cout, vec, stream)
+                 : launch_narrow_tile<32, 8>(x, wp, bias, out, B, H, W, Cin, Cout, vec, stream);
 }
 
 int launch_wgmma(const void* x, const void* w, const void* bias, void* out, int B, int H,
@@ -635,19 +784,34 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out, int 
 
 }  // namespace
 
-// route (ops/conv3x3.py::conv3x3_plan): 1 = "wmma" and 2 = "wgmma" (bfloat16;
-// "wgmma" needs C % 8 == 0, CO % 8 == 0 and 16-byte aligned tensors); fp32
-// takes dpm_conv3x3_f32. bias is float32 or null. All tensors contiguous: x
-// (B,H,W,C), w (3,3,C,CO), out (B,H,W,CO). pw, ph, pb: the "wgmma" route's
-// output patch (pw*ph*pb == 128), ignored by "wmma". Returns the
-// cudaError_t of the launch, or a TMA-encoding error code (>= 10000).
+// route (ops/conv3x3.py::conv3x3_plan): 2 = "wgmma", bfloat16 with C % 8 ==
+// 0, CO % 8 == 0 and 16-byte aligned tensors (other bf16 shapes take
+// dpm_conv3x3_narrow, fp32 dpm_conv3x3_f32). bias is float32 or null. All
+// tensors contiguous: x (B,H,W,C), w (3,3,C,CO), out (B,H,W,CO). pw, ph, pb:
+// the output patch (pw*ph*pb == 128). Returns the cudaError_t of the launch,
+// or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_conv3x3_fwd(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int C, int CO,
                                int route, int pw, int ph, int pb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 1) return launch_wmma(x, w, bias, out, B, H, W, C, CO, s);
-  if (route == 2) return launch_wgmma(x, w, bias, out, B, H, W, C, CO, pw, ph, pb, s);
-  return (int)cudaErrorInvalidValue;
+  if (route != 2) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, w, bias, out, B, H, W, C, CO, pw, ph, pb,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The "narrow" route, bfloat16, any Cin, Cout and alignment: out (B,H,W,Cout)
+// = bias + conv(x (B,H,W,Cin), w), w given as wp, the [9][npad][cpad] layout
+// of ops/conv3x3.py::narrow_weight (the forward's weight transposed, or the
+// input gradient's flipped one), 16-byte aligned. kc, nt, patch_h, patch_w
+// and stages are the host's tile (ops/conv3x3.py::narrow_tile), refused
+// unless they are the compiled one for this Cin and Cout. Returns the
+// cudaError_t of the launch.
+extern "C" int dpm_conv3x3_narrow(const void* x, const void* wp, const void* bias, void* out,
+                                  int B, int H, int W, int Cin, int Cout, int kc, int nt,
+                                  int patch_h, int patch_w, int stages, void* stream) {
+  if (patch_h != NR_PH || patch_w != NR_PW || stages != NR_STAGES)
+    return (int)cudaErrorInvalidValue;  // the host's plan is not the compiled one
+  return launch_narrow(x, wp, bias, out, B, H, W, Cin, Cout, kc, nt,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The "f32" route, x, w and out float32, contiguous. dx = 0: out (B,H,W,

@@ -18,9 +18,10 @@ A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`; one launch
 counts under one wrapper only (a `geglu_ff` call counts one, whichever of
 its route's kernels it runs). The wrappers of the kernels with more than
-one route (`ROUTED`: conv3x3 and its dx, ln_linear and geglu_ff, "wgmma" /
-"wmma" / "f32"; the attention forward, its lse form, dq and dk/dv, "wgmma" /
-"f32") also count them by route, in `<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
+one route (`ROUTED`: conv3x3 and its dx, "wgmma" / "narrow" / "f32";
+ln_linear and geglu_ff, "wgmma" / "wmma" / "f32"; the attention forward,
+its lse form, dq and dk/dv, "wgmma" / "f32") also count them by route, in
+`<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
 for them launches as `attention_lse`. `ln_linear` and `geglu_ff` are

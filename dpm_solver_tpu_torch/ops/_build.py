@@ -39,6 +39,7 @@ _L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
     "dpm_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "dpm_conv3x3_narrow": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "dpm_conv3x3_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "dpm_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _L, _L, _L, _L,
                           _L, _I, _I, _I, _I, _I, _I, _P),

@@ -10,18 +10,24 @@ Routes (`conv3x3_plan`, decided here and handed to the kernel): bf16 with C
 and CO multiples of 8 (every conv of the sampling paths but the SD VAE's
 conv_in, C = 4, and conv_out, CO = 3) takes "wgmma", the TMA-fed `wgmma`
 kernel, whose block owns a 128-pixel output patch (w_t, h_t, b_t) chosen per
-map size by `conv3x3_patch`; other bf16 shapes take "wmma", the `mma.sync`
-kernel (TMA cannot stride rows that are not a multiple of 16 bytes); fp32
-takes "f32", the exact CUDA-core kernel, every C and CO: a 128 x 128 output
-tile a block in a cp.async ring, and where those tiles fill the card's 132
-SMs badly, its reduction split into `ConvPlan.split` contiguous ranges
-(`f32_split`) whose partial sums a second pass adds in a fixed order (no
-atomics), so a launch is bitwise repeatable.
+map size by `conv3x3_patch`; other bf16 shapes (TMA cannot stride rows that
+are not a multiple of 16 bytes), and tensors off a 16-byte boundary, take
+"narrow": an `mma.sync` kernel whose persistent blocks walk 16 x 16 output
+patches (and 64-column passes of a wide CO), each patch's input with its
+halo copied into shared memory and all 9 taps read there, its tile
+(`narrow_tile`) fitted to the narrow side, on the weight laid out by
+`narrow_weight`; fp32 takes "f32", the exact CUDA-core kernel, every C and
+CO: a 128 x 128 output tile a block in a cp.async ring, and where those
+tiles fill the card's 132 SMs badly, its reduction split into
+`ConvPlan.split` contiguous ranges (`f32_split`) whose partial sums a
+second pass adds in a fixed order (no atomics), so a launch is bitwise
+repeatable.
 
 The backward mirrors `_conv3x3_bwd`: dx is the same 3x3 SAME conv of the
 cotangent with the spatially flipped, in/out-transposed weight, so it runs the
-same kernel (`conv3x3_dx`): in bf16 on `flip_weight`'s copy, in fp32 in the
-kernel's dx mode, which reads the weight in place; dw is a library conv, as
+same kernel (`conv3x3_dx`): "wgmma" on `flip_weight`'s copy, "narrow" on
+`narrow_weight`'s flipped layout, "f32" in the kernel's dx mode, which
+reads the weight in place; dw is a library conv, as
 the JAX package leaves it to XLA; db is a sum. Only the gradients autograd
 asks for are computed: with frozen weights (classifier guidance, bits/dim)
 that is dx alone.
@@ -46,7 +52,7 @@ from torch import nn
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"wmma": 1, "wgmma": 2}   # the C entry's route codes ("f32": its own entry)
+WGMMA_ROUTE = 2   # dpm_conv3x3_fwd's route code ("narrow", "f32": their own entries)
 PATCH_PIXELS = 128   # output pixels of one "wgmma" block: two warpgroups of 64
 WGMMA_BLOCK_N = 128  # output channels of one "wgmma" block
 WGMMA_STAGES = 3     # its ring of (128 x 64 input, 64 x 128 weight) bf16 tiles
@@ -70,16 +76,50 @@ F32_WAVE_FILL = 0.9   # the least share of the SMs every wave of blocks keeps bu
 F32_SMEM = F32_STAGES * (F32_BLOCK_M + F32_BLOCK_N) * (F32_BLOCK_K + 4) * 4
 
 
+# the "narrow" kernel (csrc/conv3x3.cu's NR_* constants, which
+# tests/test_torch_kernel_plans.py holds equal): output patches of
+# NARROW_PATCH (rows, pixels) of one image, each patch's input with the
+# one-pixel halo in shared memory, a cp.async ring of NARROW_STAGES stages
+NARROW_PATCH = (16, 16)
+NARROW_STAGES = 2
+NARROW_THREADS = 256
+NARROW_HALO_PIXELS = (NARROW_PATCH[0] + 2) * (NARROW_PATCH[1] + 2)
+
+
+def narrow_tile(cin: int, cout: int) -> Tuple[int, int]:
+    """The "narrow" kernel's (kc, nt) for cin -> cout channels: kc input
+    channels a stage (8 where cin <= 8, one m16n8k8 product a tap, so the
+    VAE's 4 channels pad to 8; else 64 beside cout <= 8, four m16n8k16, and
+    32 beside a wider cout, whose weight tile would not fit twice at 64),
+    nt 8-column output tiles a pass (1 where cout <= 8: the VAE's 3 output
+    channels pad to 8; else 8, 64-column passes, each a unit of work of its
+    own)."""
+    return (8 if cin <= 8 else 64 if cout <= 8 else 32), (1 if cout <= 8 else 8)
+
+
+def narrow_smem(tile: Tuple[int, int]) -> int:
+    """Dynamic shared memory of one "narrow" block: NARROW_STAGES stages of
+    the halo patch's kc channels and the [9][8 nt][kc] weight tile, each row
+    padded to an odd multiple of 16 bytes (distinct banks for ldmatrix)."""
+    kc, nt = tile
+    pitch = kc if kc == 8 else kc + 8
+    return NARROW_STAGES * (NARROW_HALO_PIXELS + 9 * 8 * nt) * pitch * 2
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """route: "wgmma", "wmma" or "f32"; patch: the "wgmma" route's output
-    patch (w_t, h_t, b_t), PATCH_PIXELS pixels, else (0, 0, 0). For "f32":
+    """route: "wgmma", "narrow" or "f32"; patch: the "wgmma" route's output
+    patch (w_t, h_t, b_t), PATCH_PIXELS pixels, else (0, 0, 0); tile: the
+    "narrow" route's (kc, nt) (`narrow_tile`), else (0, 0). For "f32":
     split, the contiguous ranges the reduction is cut into (each a block of
-    the grid, summed by a second pass in range order), and dx, the kernel's
-    input-gradient mode (the weight read flipped in place)."""
+    the grid, summed by a second pass in range order). dx: the plan is an
+    input gradient's, whose weight is read flipped ("f32": in place, the
+    kernel's dx mode; "narrow": `narrow_weight`'s layout; "wgmma":
+    `flip_weight`'s copy)."""
 
     route: str
     patch: Tuple[int, int, int] = (0, 0, 0)
+    tile: Tuple[int, int] = (0, 0)
     split: int = 1
     dx: bool = False
 
@@ -91,11 +131,19 @@ class ConvPlan:
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one block of the route's kernel."""
-        return F32_SMEM if self.route == "f32" else WGMMA_SMEM if self.route == "wgmma" else 0
+        if self.route == "narrow":
+            return narrow_smem(self.tile)
+        return F32_SMEM if self.route == "f32" else WGMMA_SMEM
 
     def grid(self, x_shape, co: int) -> Tuple[int, int, int]:
-        """The "f32" launch's grid: (pixel tiles, channel tiles, split)."""
+        """The launch's work: "f32", its grid (pixel tiles, channel tiles,
+        split); "narrow", (units, 1, 1), the (16 x 16 output patch, pass of
+        8 nt output channels) pairs its persistent grid (at most the blocks
+        the SMs hold) walks."""
         b, h, w, _ = x_shape
+        if self.route == "narrow":
+            ph, pw = NARROW_PATCH
+            return (b * -(-h // ph) * -(-w // pw) * -(-co // (8 * self.tile[1])), 1, 1)
         return (-(-(b * h * w) // F32_BLOCK_M), -(-co // F32_BLOCK_N), self.split)
 
     def ranges(self, cin: int) -> list:
@@ -150,16 +198,16 @@ def conv3x3_patch(b: int, h: int, w: int) -> Tuple[int, int, int]:
 @functools.lru_cache(maxsize=4096)
 def conv3x3_plan(x_shape, co: int, dtype: torch.dtype, aligned: bool = True,
                  dx: bool = False) -> ConvPlan:
-    """The route and patch (bf16) or split (fp32) for x (B, H, W, C) -> CO
-    channels in `dtype`; `aligned`: x and w start on 16-byte boundaries (TMA
-    needs it); `dx`: the input gradient, x the cotangent (B, H, W, CO of the
-    forward) and co the forward's C."""
+    """The route and patch ("wgmma"), tile ("narrow") or split ("f32") for
+    x (B, H, W, C) -> CO channels in `dtype`; `aligned`: x and w start on
+    16-byte boundaries (TMA needs it); `dx`: the input gradient, x the
+    cotangent (B, H, W, CO of the forward) and co the forward's C."""
     b, h, w, c = x_shape
     if dtype == torch.float32:
         return ConvPlan("f32", split=f32_split(tuple(x_shape), co), dx=dx)
     if c % 8 == 0 and co % 8 == 0 and aligned:
-        return ConvPlan("wgmma", conv3x3_patch(b, h, w))
-    return ConvPlan("wmma")
+        return ConvPlan("wgmma", conv3x3_patch(b, h, w), dx=dx)
+    return ConvPlan("narrow", tile=narrow_tile(c, co), dx=dx)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -193,29 +241,52 @@ def _check(x, w, bias, dx=False):
         raise ValueError("conv3x3 kernel takes fewer than 2**31 elements per tensor")
 
 
+def narrow_weight(w: torch.Tensor, tile: Tuple[int, int], dx: bool = False) -> torch.Tensor:
+    """The (3, 3, C, CO) weight in the layout the "narrow" kernel copies:
+    [9][npad][cpad], for each tap each output channel's input channels
+    contiguous, zero past them (cpad a multiple of kc, npad of 8 nt), so its
+    copies are unmasked 16-byte ones. dx: the input gradient's weight, the
+    taps flipped, its outputs C and its inputs CO."""
+    kc, nt = tile
+    taps = (w.flip(0, 1) if dx else w).reshape(9, w.shape[2], w.shape[3])
+    rows = taps if dx else taps.transpose(1, 2)   # [tap][output][input]
+    n, k = rows.shape[1:]
+    return F.pad(rows, (0, -(-k // kc) * kc - k, 0, -(-n // (8 * nt)) * 8 * nt - n)).contiguous()
+
+
 def _launch(x, w, bias, counter, dx=False):
-    """One launch of the plan's kernel; `dx` (fp32 only): the input
-    gradient of the (3,3,C,CO) weight w at cotangent x, w read in place."""
+    """One launch of the plan's kernel; `dx`: the input gradient of the
+    (3,3,C,CO) weight w at cotangent x, w read flipped: in place ("f32"), in
+    `narrow_weight`'s layout ("narrow") or from `flip_weight`'s copy
+    ("wgmma")."""
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     _check(x, w, bias, dx)
     b, h, wd, c = x.shape
     co = w.shape[2] if dx else w.shape[3]
+    # a bf16 dx reads a fresh, aligned copy of the weight
     plan = conv3x3_plan(x.shape, co, x.dtype, aligned=x.data_ptr() % 16 == 0
-                        and w.data_ptr() % 16 == 0, dx=dx)
+                        and (dx or w.data_ptr() % 16 == 0), dx=dx)
     out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
     bias_ptr = None if bias is None else bias.data_ptr()
+    stream = _build.stream_ptr(x.device)
     if plan.route == "f32":
         ws = (torch.empty((plan.split, b * h * wd, co), dtype=torch.float32, device=x.device)
               if plan.split > 1 else None)
         code = _build.library().dpm_conv3x3_f32(
             x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
             None if ws is None else ws.data_ptr(), b, h, wd, c, co, int(plan.dx),
-            *plan.f32_tile, plan.split, _build.stream_ptr(x.device))
+            *plan.f32_tile, plan.split, stream)
+    elif plan.route == "narrow":
+        wp = narrow_weight(w, plan.tile, dx)
+        code = _build.library().dpm_conv3x3_narrow(
+            x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(), b, h, wd, c, co,
+            *plan.tile, *NARROW_PATCH, NARROW_STAGES, stream)
     else:
+        wt = flip_weight(w) if dx else w
         code = _build.library().dpm_conv3x3_fwd(
-            x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), b, h, wd, c, co,
-            ROUTES[plan.route], *plan.patch, _build.stream_ptr(x.device))
+            x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, h, wd, c, co,
+            WGMMA_ROUTE, *plan.patch, stream)
     _build.check(code, counter.__name__)
     counter.launches += 1
     counter.launches_by_route[plan.route] += 1
@@ -236,13 +307,10 @@ def flip_weight(w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of `conv3x3` at cotangent g (B, H, W, CO): the 3x3 SAME
-    conv of g with `flip_weight(w)`, through the same kernel (fp32: its dx
-    mode, which reads w in place; bf16: on the flipped copy)."""
+    conv of g with `flip_weight(w)`, through the same kernels (`_launch`)."""
     if _build.device_type(g, "conv3x3_dx") == "cpu":
         return conv3x3_plain(g, flip_weight(w))
-    if g.dtype == torch.float32:
-        return _launch(g.contiguous(), w.contiguous(), None, conv3x3_dx, dx=True)
-    return _launch(g.contiguous(), flip_weight(w), None, conv3x3_dx)
+    return _launch(g.contiguous(), w.contiguous(), None, conv3x3_dx, dx=True)
 
 
 class _Conv3x3Fn(torch.autograd.Function):

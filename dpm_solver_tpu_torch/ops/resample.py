@@ -52,13 +52,25 @@ def _zero_insert(x: torch.Tensor, up: Tuple[int, int]) -> torch.Tensor:
     return z
 
 
+_FLIPPED_TAPS = {}
+
+
+def _flipped_taps(taps_hw: np.ndarray, dtype, device) -> torch.Tensor:
+    """The flipped taps on `device`, made once per (taps, dtype, device), so
+    a sampling call captured as a CUDA graph makes no tensor from host data."""
+    key = (taps_hw.shape, taps_hw.tobytes(), dtype, torch.device(device))
+    if key not in _FLIPPED_TAPS:
+        _FLIPPED_TAPS[key] = torch.as_tensor(np.ascontiguousarray(taps_hw[::-1, ::-1]),
+                                             dtype=dtype, device=device)
+    return _FLIPPED_TAPS[key]
+
+
 def _depthwise(x, taps_hw, *, up, down, pad):
     """One depthwise conv doing zero-insert + pad + FIR + decimate per axis,
     on an NCHW tensor; pad = ((top, bottom), (left, right))."""
     c = x.shape[1]
     kh, kw = taps_hw.shape
-    w = torch.as_tensor(np.ascontiguousarray(taps_hw[::-1, ::-1]), dtype=x.dtype,
-                        device=x.device).expand(c, 1, kh, kw)
+    w = _flipped_taps(taps_hw, x.dtype, x.device).expand(c, 1, kh, kw)
     (p0, p1), (q0, q1) = pad
     x = F.pad(_zero_insert(x, up), (q0, q1, p0, p1))
     return F.conv2d(x, w, stride=down, groups=c)

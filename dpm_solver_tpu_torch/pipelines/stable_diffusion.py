@@ -13,8 +13,13 @@ The initial noise comes from an explicit `torch.Generator` or an `x_T`
 tensor. `img2img`, `inpaint`, `upscale`, the sampler's encode and time
 converters, `load_sd_checkpoint`, `class_conditional_sample`, concat and
 class-label conditioning, VQ first stages and `mesh=` are not ported yet.
-Everything runs eagerly on the models' device; CFG folds the conditional
-and unconditional halves into one doubled UNet batch (`model_wrapper`).
+CFG folds the conditional and unconditional halves into one doubled UNet
+batch (`model_wrapper`). On the card the sampler's trajectory replays as one
+CUDA graph (`jit=True`, `DPM_Solver.sample`), captured once per latent,
+conditioning and guidance signature: the CFG closure reads the
+conditioning from tensors the sampler keeps, into which each call copies
+its own, so a later call at the same shapes replays with its own prompts.
+The VAE decode runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,6 +35,30 @@ from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
 from dpm_solver_tpu_torch.solver import DPM_Solver
 from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dpm_solver_tpu_torch.wrapper import model_wrapper
+
+
+def _cond_tree(fn, c):
+    """fn over the tensors of a conditioning (a tensor, or a dict, list or
+    tuple of them; None stays None)."""
+    if c is None:
+        return None
+    if isinstance(c, dict):
+        return {k: _cond_tree(fn, v) for k, v in c.items()}
+    if isinstance(c, (list, tuple)):
+        return type(c)(_cond_tree(fn, v) for v in c)
+    return fn(torch.as_tensor(c))
+
+
+def _cond_copy(dst, src) -> None:
+    """Copy conditioning `src` into the tensors of `dst`, of the same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _cond_copy(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, v in zip(dst, src):
+            _cond_copy(d, v)
+    elif dst is not None:
+        dst.copy_(torch.as_tensor(src))
 
 
 def make_ldm_betas(n_timestep: int = 1000, linear_start: float = 0.00085,
@@ -106,6 +135,9 @@ class DPMSolverSampler:
     def __init__(self, model: LatentDiffusion):
         self.model = model
         self.noise_schedule = NoiseScheduleVP("discrete", alphas_cumprod=model.alphas_cumprod)
+        # (conditioning signature, guidance scale) -> (conditioning tensors,
+        # unconditional ones, the DPM_Solver whose CFG closure reads them)
+        self._solvers = {}
 
     def _model_fn(self, conditioning, unconditional_conditioning, scale):
         model_type = {"eps": "noise", "v": "v"}[self.model.parameterization]
@@ -119,14 +151,36 @@ class DPMSolverSampler:
             guidance_scale=scale,
         )
 
+    def _solver(self, conditioning, unconditional_conditioning, scale) -> DPM_Solver:
+        """The DPM_Solver of this conditioning's signature (shapes, dtypes,
+        devices) and guidance scale, its CFG closure over tensors kept here,
+        into which this call's conditioning is copied: the counterpart of
+        `jit_hoisting_constants` turning closed-over arrays into arguments,
+        so that the solver's CUDA graphs serve every later call at the same
+        shapes, each with its own prompts."""
+        sig = lambda t: (tuple(t.shape), str(t.dtype), str(t.device))
+        key = repr((_cond_tree(sig, conditioning), _cond_tree(sig, unconditional_conditioning),
+                    float(scale)))
+        if key not in self._solvers:
+            cond, uncond = (_cond_tree(torch.clone, c)
+                            for c in (conditioning, unconditional_conditioning))
+            self._solvers[key] = cond, uncond, DPM_Solver(
+                self._model_fn(cond, uncond, scale), self.noise_schedule,
+                algorithm_type="dpmsolver++")
+        cond, uncond, solver = self._solvers[key]
+        _cond_copy(cond, conditioning)
+        _cond_copy(uncond, unconditional_conditioning)
+        return solver
+
     def sample(self, S: int, batch_size: int, shape: Tuple[int, int, int], conditioning=None,
                *, unconditional_guidance_scale: float = 1.0, unconditional_conditioning=None,
                x_T: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-               return_intermediate: bool = True):
+               return_intermediate: bool = True, jit: bool = True):
         """`shape` is the (H, W, C) latent shape (NHWC). The initial noise is
         `x_T`, or a standard normal draw from `generator`. Returns
         (x, intermediates) like the reference, intermediates None unless
-        `return_intermediate`."""
+        `return_intermediate`. `jit`: as `DPM_Solver.sample`'s (a CUDA graph
+        on the card)."""
         h, w, c = shape
         dev = self.model.device
         if x_T is None:
@@ -135,12 +189,11 @@ class DPMSolverSampler:
             x_T = torch.randn((batch_size, h, w, c), generator=generator,
                               device=generator.device)
         x_T = x_T.to(dev)
-        model_fn = self._model_fn(conditioning, unconditional_conditioning,
-                                  unconditional_guidance_scale)
-        solver = DPM_Solver(model_fn, self.noise_schedule, algorithm_type="dpmsolver++")
+        solver = self._solver(conditioning, unconditional_conditioning,
+                              unconditional_guidance_scale)
         out = solver.sample(x_T, steps=S, order=2, skip_type="time_uniform",
                             method="multistep", lower_order_final=True,
-                            return_intermediate=return_intermediate)
+                            return_intermediate=return_intermediate, jit=jit)
         return out if return_intermediate else (out, None)
 
 
@@ -162,10 +215,11 @@ class StableDiffusionPipeline:
     def txt2img(self, prompts, *, negative_prompt: str = "", steps: int = 25,
                 guidance_scale: float = 7.5, height: int = 512, width: int = 512,
                 generator: Optional[torch.Generator] = None,
-                x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_T: Optional[torch.Tensor] = None, jit: bool = True) -> torch.Tensor:
         """Images (B, height, width, 3) in [0, 1], fp32. The initial latent
         noise is `x_T`, else a draw from `generator` (a CPU generator seeded
-        with 0 when neither is given)."""
+        with 0 when neither is given). `jit`: the sampler's (a CUDA graph of
+        the trajectory on the card; the VAE decode runs eagerly)."""
         if isinstance(prompts, str):
             prompts = [prompts]
         b = len(prompts)
@@ -177,6 +231,6 @@ class StableDiffusionPipeline:
         latents, _ = self.sampler.sample(
             steps, b, (height // f, width // f, self.model.vae.config.z_channels), cond,
             unconditional_guidance_scale=guidance_scale, unconditional_conditioning=uncond,
-            x_T=x_T, generator=generator, return_intermediate=False)
+            x_T=x_T, generator=generator, return_intermediate=False, jit=jit)
         img = self.model.decode_first_stage(latents)
         return ((img.float() + 1.0) / 2.0).clamp(0.0, 1.0)

@@ -26,6 +26,7 @@ def interp_linear_extrap(x, xp, yp):
     arrays (host) or torch tensors (any device).
     """
     if isinstance(x, torch.Tensor):
+        # device tables (NoiseScheduleVP.tables) pass through without a copy
         xp = torch.as_tensor(xp, dtype=x.dtype, device=x.device)
         yp = torch.as_tensor(yp, dtype=x.dtype, device=x.device)
         idx = torch.searchsorted(xp, x.contiguous()).clamp(1, xp.shape[0] - 1)

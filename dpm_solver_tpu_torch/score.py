@@ -31,12 +31,15 @@ def get_score_fn(sde, model_fn: Callable, continuous: bool = True) -> Callable:
                 return batch_mul(-1.0 / std, eps)
         else:
             sqrt_1m_abar = np.sqrt(1.0 - np.cumprod(1.0 - sde._betas()))
+            tables = {}   # (dtype, device) -> the table there, made once
 
             def score_fn(x, t):
                 labels = (t * (sde.N - 1)).to(torch.int64)
                 eps = model_fn(x, labels.float())
-                std = torch.as_tensor(sqrt_1m_abar, dtype=x.dtype, device=x.device)[labels]
-                return batch_mul(-1.0 / std, eps)
+                key = (x.dtype, x.device)
+                if key not in tables:
+                    tables[key] = torch.as_tensor(sqrt_1m_abar, dtype=x.dtype, device=x.device)
+                return batch_mul(-1.0 / tables[key][labels], eps)
         return score_fn
     if isinstance(sde, VESDE):
         if continuous:

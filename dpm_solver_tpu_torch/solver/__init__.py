@@ -10,13 +10,16 @@ from dpm_solver_tpu_torch.solver.plan import (
 )
 from dpm_solver_tpu_torch.solver.sample import (
     DPM_Solver,
+    GraphedSampler,
     build_sampler,
     execute_plan,
+    graph_key,
     make_plan,
 )
 
 __all__ = [
     "DPM_Solver",
+    "GraphedSampler",
     "PlanRows",
     "SamplePlan",
     "build_multistep_plan",
@@ -26,6 +29,7 @@ __all__ = [
     "execute_plan",
     "get_orders_and_timesteps_for_singlestep_solver",
     "get_time_steps",
+    "graph_key",
     "make_dynamic_thresholding",
     "make_plan",
 ]

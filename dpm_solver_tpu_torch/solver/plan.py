@@ -290,7 +290,10 @@ class SamplePlan:
     def device_tables(self, device) -> Dict:
         """The plan's rows as fp32 tensors on `device`, packed on first use:
         'init' (t, alpha, sigma) of the first eval, 'scan', 'scan_corr',
-        'tail' and 'seg' (one table per seg scan, n_seg*R rows)."""
+        'tail', 'seg' (one table per seg scan, n_seg*R rows) and 'denoise'
+        (the denoise-to-zero time, a 0-d tensor, or None). After the first
+        use the executor makes no tensor from host data, so a CUDA graph can
+        capture it."""
         import torch
 
         key = torch.device(device)
@@ -304,6 +307,8 @@ class SamplePlan:
                 else rows.corr_table(key),
                 tail=None if self.tail_rows is None else self.tail_rows.table(key),
                 seg=[g.rows.reshape((g.rows.a.size,)).table(key) for g in self.seg_scans],
+                denoise=torch.tensor(self.t_denoise, dtype=torch.float32, device=key)
+                if self.denoise_final else None,
             )
         return self._device[key]
 

@@ -2,11 +2,16 @@
 
 Port of `dpm_solver_tpu/solver/sample.py`. The JAX executor compiles a
 host-built :class:`SamplePlan` into one XLA program (`lax.scan` over the
-coefficient rows plus an unrolled tail). Here the same plan runs as a Python
-loop over rows that already live on the device (`SamplePlan.device_tables`):
-every coefficient is read from a device tensor, the update is the fused
-kernel (`ops/fused_update.py`), and the loop makes no host sync, so a later
-change can capture it as one CUDA graph.
+coefficient rows plus an unrolled tail), cached per plan and input
+signature (`DPM_Solver.sample(jit=True)`). Here the same plan runs as a
+Python loop over rows that already live on the device
+(`SamplePlan.device_tables`): every coefficient is read from a device
+tensor, the update is the fused kernel (`ops/fused_update.py`), and after
+the first call the loop makes no host sync and no tensor from host data. So
+on a CUDA tensor the whole fixed-grid trajectory is captured once as one
+CUDA graph and replayed (`GraphedSampler`, the counterpart of JAX's
+`jit_hoisting_constants`), which is what `sample(jit=True)` does there; on
+the CPU, and with `jit=False`, the loop runs eagerly.
 
 Public surface mirrors the reference `DPM_Solver`
 (dpm_solver_pytorch.py:337-1245): `.sample`, `.inverse`, `.add_noise`, plus
@@ -15,6 +20,7 @@ the functional `build_sampler`. SDE noise is passed in as a tensor.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, List, Optional
 
@@ -67,6 +73,12 @@ def _noise_at(noise, plan: SamplePlan, step: int):
     return noise[step - 1]
 
 
+def _device_guard(x: torch.Tensor):
+    """x's device made the current one for a call (the fused update's Triton
+    launcher reads it), once a call rather than once a launch."""
+    return torch.cuda.device(x.device) if x.device.type == "cuda" else contextlib.nullcontext()
+
+
 def execute_plan(
     model_fn: Callable,
     plan: SamplePlan,
@@ -86,21 +98,48 @@ def execute_plan(
     History is the newest-first triple of the JAX executor (`_push_hist`),
     kept as a Python list of three tensors that rotates on each push: no
     tensor is copied or updated in place.
+
+    The fused update's operand checks are made here once a call: the tables
+    are the plan's own, x and every model value are made contiguous fp32 of
+    x's shape and device as they enter the history, so each launch skips
+    them (`fused_update(check=False)`).
     """
     if plan.has_noise:
         if noise is None:
             raise ValueError("SDE plan requires `noise` of shape (steps, *x.shape)")
         if tuple(noise.shape[1:]) != tuple(x.shape):
             raise ValueError(f"noise must be (steps, *{tuple(x.shape)}); got {tuple(noise.shape)}")
-    x = x.float().contiguous()
+        if noise.device != x.device:
+            raise ValueError(f"noise is on {noise.device}, x on {x.device}")
+        noise = noise.float().contiguous()
+    if x.numel() >= 2**31:
+        raise ValueError("the fused update takes fewer than 2**31 elements")
+    with _device_guard(x):
+        return _run_plan(model_fn, plan, x.float().contiguous(), predict_x0, noise,
+                         correcting_x0_fn, correcting_xt_fn, return_intermediate)
+
+
+def _run_plan(model_fn, plan, x, predict_x0, noise, correcting_x0_fn, correcting_xt_fn,
+              return_intermediate):
     dev = plan.device_tables(x.device)
     eval_fn = _make_eval_fn(model_fn, predict_x0, correcting_x0_fn)
     intermediates: List[torch.Tensor] = []
     zeros = torch.zeros_like(x)
     hist = [zeros, zeros, zeros]
 
+    def state(u):
+        """A value the fused update reads: contiguous fp32 of x's shape and device."""
+        u = u.float().contiguous()
+        if u.shape != x.shape or u.device != x.device:
+            raise ValueError(f"the solver's state must be {tuple(x.shape)} on {x.device}; got "
+                             f"{tuple(u.shape)} on {u.device}")
+        return u
+
     def push(m):
-        hist[:] = [m.contiguous(), hist[0], hist[1]]
+        hist[:] = [state(m), hist[0], hist[1]]
+
+    def update(tab, row, y, z=None):
+        return fused_update(tab, row, y, *hist, z, check=False)
 
     # --- initial model eval (multistep-style plans) ---
     if not math.isnan(plan.t_first):
@@ -108,7 +147,7 @@ def execute_plan(
         push(eval_fn(x, t0, a0, s0))
         if plan.initial_correct_record:
             if correcting_xt_fn is not None:
-                x = correcting_xt_fn(x, t0, 0)
+                x = state(correcting_xt_fn(x, t0, 0))
             if return_intermediate:
                 intermediates.append(x)
 
@@ -118,16 +157,16 @@ def execute_plan(
         for i in range(plan.scan_rows.n_ops):
             step = i + 1
             t_next, alpha, sigma = tab[i, T_NEXT], tab[i, ALPHA], tab[i, SIGMA]
-            x_new = fused_update(tab, i, x, *hist, _noise_at(noise, plan, step))
+            x_new = update(tab, i, x, _noise_at(noise, plan, step))
             if correcting_xt_fn is not None:
-                x_new = correcting_xt_fn(x_new, t_next, step)
-            m = eval_fn(x_new, t_next, alpha, sigma)
+                x_new = state(correcting_xt_fn(x_new, t_next, step))
+            m = state(eval_fn(x_new, t_next, alpha, sigma))
             if corr is not None:
                 # UniC: re-anchor at the previous x with the step's one model
                 # value as the extra term (the fused update with z = m)
-                x_new = fused_update(corr, i, x, *hist, m.contiguous())
+                x_new = update(corr, i, x, m)
                 if correcting_xt_fn is not None:
-                    x_new = correcting_xt_fn(x_new, t_next, step)
+                    x_new = state(correcting_xt_fn(x_new, t_next, step))
             push(m)
             x = x_new
             if return_intermediate:
@@ -141,10 +180,10 @@ def execute_plan(
             hist[:] = [zeros, zeros, zeros]
             for k in range(r):
                 row = seg * r + k
-                y = fused_update(tab, row, x, *hist)
+                y = update(tab, row, x)
                 if gs.commit[k]:
                     if correcting_xt_fn is not None:
-                        y = correcting_xt_fn(y, tab[row, T_NEXT], step)
+                        y = state(correcting_xt_fn(y, tab[row, T_NEXT], step))
                     x = y
                 if gs.eval_after[k]:
                     push(eval_fn(y, tab[row, T_NEXT], tab[row, ALPHA], tab[row, SIGMA]))
@@ -156,10 +195,10 @@ def execute_plan(
         tab = dev["tail"]
         for k in range(plan.tail_rows.n_ops):
             step = plan.tail_step_index[k]
-            y = fused_update(tab, k, x, *hist, _noise_at(noise, plan, step))
+            y = update(tab, k, x, _noise_at(noise, plan, step))
             if plan.tail_commit[k]:
                 if correcting_xt_fn is not None:
-                    y = correcting_xt_fn(y, tab[k, T_NEXT], step)
+                    y = state(correcting_xt_fn(y, tab[k, T_NEXT], step))
                 x = y
                 if return_intermediate:
                     intermediates.append(x)
@@ -168,7 +207,7 @@ def execute_plan(
 
     # --- optional denoise-to-zero: x <- x0_prediction(x, t_0) ---
     if plan.denoise_final:
-        t_d = torch.tensor(plan.t_denoise, dtype=torch.float32, device=x.device)
+        t_d = dev["denoise"]
         if predict_x0:
             x = eval_fn(x, t_d, plan.alpha_denoise, plan.sigma_denoise)
         else:
@@ -182,6 +221,87 @@ def execute_plan(
     if return_intermediate:
         return x, intermediates
     return x
+
+
+# --------------------------------------------------------------------------- #
+# the fixed-grid trajectory as one CUDA graph
+# --------------------------------------------------------------------------- #
+
+
+def graph_key(x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> tuple:
+    """What a captured trajectory is specialised to besides its plan, as the
+    JAX cache key (`dpm_solver_tpu/solver/sample.py:512-516`) has it: x's
+    shape, dtype and device, and the noise's shape and dtype (None: no
+    noise)."""
+    return (tuple(x.shape), x.dtype, x.device,
+            None if noise is None else (tuple(noise.shape), noise.dtype))
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return type(out)(_clone(u) for u in out)
+
+
+class GraphedSampler:
+    """`fn(x, noise=None)` captured as one CUDA graph per `graph_key` and
+    replayed: the port's counterpart of
+    `dpm_solver_tpu/solver/sample.py::jit_hoisting_constants`, for
+    `build_sampler` users (and `DPM_Solver.sample(jit=True)`).
+
+    jit_hoisting_constants compiles the sampler once and feeds its closed-over
+    arrays (the weights) to the program as arguments. Here the program is
+    the graph of every kernel the call launches; x and the noise are static
+    buffers each call copies into, and the result is copied out. The graph
+    reads every other tensor the closure holds (the weights, the plan's
+    tables, a caller's conditioning) where it lay at capture: a caller that
+    changes one between calls updates it in place (`copy_`), as
+    `pipelines/stable_diffusion.py::DPMSolverSampler` does with each call's
+    conditioning.
+
+    On a CUDA x, the first call of a key runs `fn` once eagerly on a side
+    stream (it builds the plan's device tables, compiles and loads the
+    kernels), then captures it; a failed capture raises. A replay launches
+    every captured kernel but runs no Python, so the launch counters of
+    `ops` count the warm call and the capture, never a replay. On a CPU x,
+    `fn` runs eagerly. `GraphedSampler.captures` counts captures.
+    """
+
+    captures = 0
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._graphs = {}
+
+    def __call__(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        if x.device.type != "cuda":
+            return self.fn(x) if noise is None else self.fn(x, noise)
+        key = graph_key(x, noise)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(x, noise)
+        graph, static_x, static_noise, out = entry
+        static_x.copy_(x)
+        if static_noise is not None:
+            static_noise.copy_(noise)
+        graph.replay()
+        return _clone(out)
+
+    def _capture(self, x, noise):
+        static_x = x.clone()
+        static_noise = None if noise is None else noise.clone()
+        args = (static_x,) if noise is None else (static_x, static_noise)
+        with torch.cuda.device(x.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.fn(*args)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self.fn(*args)
+        GraphedSampler.captures += 1
+        return graph, static_x, static_noise, out
 
 
 # --------------------------------------------------------------------------- #
@@ -238,7 +358,8 @@ def build_sampler(
     return_intermediate: bool = False,
     **plan_kwargs: Any,
 ) -> Callable:
-    """Functional entry: plans once and returns `fn(x, noise=None) -> x0`."""
+    """Functional entry: plans once and returns `fn(x, noise=None) -> x0`,
+    run eagerly; `GraphedSampler(fn)` replays it as a CUDA graph."""
     plan = make_plan(ns, algorithm_type=algorithm_type, **plan_kwargs)
     predict_x0 = U.is_predict_x0(algorithm_type)
 
@@ -261,10 +382,17 @@ class DPM_Solver:
     """Drop-in equivalent of the reference `DPM_Solver` class, on torch.
 
     `.sample` plans each configuration once, on the host in float64, and
-    keeps the plan (and its device tables) for later calls. SDE algorithm
-    types take their noise as a tensor (`noise=` of `.sample`).
-    `method="adaptive"` runs `solver/adaptive.py` (no plan: its step sizes
-    follow the error estimate). `mesh=` is not ported yet and raises.
+    keeps the plan (and its device tables) for later calls. With `jit=True`
+    (the JAX default) a fixed-grid call on a CUDA x replays a CUDA graph of
+    the whole trajectory, captured once per JAX cache key (the plan's
+    arguments, `return_intermediate`, and x's shape, dtype and device and
+    the noise's: `graph_key`) and kept on the solver, as JAX keeps its
+    compiled program (`GraphedSampler`); with `jit=False`, or on the CPU,
+    the loop runs eagerly. SDE algorithm types take their noise as a tensor
+    (`noise=` of `.sample`). `method="adaptive"` runs `solver/adaptive.py`
+    (no plan: its step sizes follow the error estimate, one host read a
+    step), eagerly whatever `jit` says. `mesh=` is not ported yet and
+    raises.
     """
 
     def __init__(
@@ -290,6 +418,7 @@ class DPM_Solver:
             self.correcting_x0_fn = correcting_x0_fn
         self.correcting_xt_fn = correcting_xt_fn
         self._plans = {}
+        self._graphed = {}   # plan key + return_intermediate -> GraphedSampler
 
     # -- reference helper surface ------------------------------------------------
 
@@ -337,6 +466,7 @@ class DPM_Solver:
         variant: str = "bh2",
         mesh=None,
         denoise: Optional[bool] = None,
+        jit: bool = True,
     ):
         if denoise is not None:  # older JAX kwarg (dpm_solver_jax.py:966-968)
             denoise_to_zero = bool(denoise)
@@ -362,13 +492,22 @@ class DPM_Solver:
                 variant=variant,
             )
             self._plans[key] = plan
-        return execute_plan(
-            self.model_fn_raw, plan, x,
-            predict_x0=U.is_predict_x0(self.algorithm_type), noise=noise,
-            correcting_x0_fn=self.correcting_x0_fn,
-            correcting_xt_fn=self.correcting_xt_fn,
-            return_intermediate=return_intermediate,
-        )
+
+        def run(xx, nz=None):
+            return execute_plan(
+                self.model_fn_raw, plan, xx,
+                predict_x0=U.is_predict_x0(self.algorithm_type), noise=nz,
+                correcting_x0_fn=self.correcting_x0_fn,
+                correcting_xt_fn=self.correcting_xt_fn,
+                return_intermediate=return_intermediate,
+            )
+
+        if not jit or x.device.type != "cuda":
+            return run(x, noise)
+        graphed = self._graphed.get(key + (return_intermediate,))
+        if graphed is None:
+            graphed = self._graphed[key + (return_intermediate,)] = GraphedSampler(run)
+        return graphed(x, noise)
 
     def _sample_adaptive(self, x, order, t_start, t_end, denoise_to_zero, solver_type,
                          atol, rtol, return_intermediate):
@@ -408,6 +547,7 @@ class DPM_Solver:
         rtol: float = 0.05,
         return_intermediate: bool = False,
         noise: Optional[torch.Tensor] = None,
+        jit: bool = True,
     ):
         """Run the ODE t_start -> T for deterministic encoding (DiffEdit).
 
@@ -420,5 +560,5 @@ class DPM_Solver:
             x, steps=steps, t_start=t_0, t_end=t_T, order=order, skip_type=skip_type,
             method=method, lower_order_final=lower_order_final,
             denoise_to_zero=denoise_to_zero, solver_type=solver_type, atol=atol, rtol=rtol,
-            return_intermediate=return_intermediate, noise=noise,
+            return_intermediate=return_intermediate, noise=noise, jit=jit,
         )

@@ -146,3 +146,61 @@ def test_split_reduction_order_of_dx_stays_in_the_fp32_bound(shape):
     got, plan = _split_order_conv(torch.tensor(cot), torch.tensor(wt), None, dx=True)
     assert plan.dx and plan.split > 1
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _narrow_conv(x, wt, bias=None, dx=False):
+    """The "narrow" kernel's arithmetic emulated on the CPU: bf16 x with the
+    one-pixel halo (SAME padding) and its channels zero-padded to the
+    weight's rows, each tap the product of the patch shifted by the tap with
+    that tap's [output][input] rows of `narrow_weight` (the layout the kernel
+    copies; dx: the flipped weight), summed in fp32, the CO tail dropped,
+    the bias added, one rounding to bf16."""
+    import torch.nn.functional as F
+
+    from dpm_solver_tpu_torch.ops.conv3x3 import conv3x3_plan, narrow_weight
+
+    b, h, w, cin = x.shape
+    cout = wt.shape[2] if dx else wt.shape[3]
+    plan = conv3x3_plan(tuple(x.shape), cout, torch.bfloat16, dx=dx)
+    wp = narrow_weight(wt, plan.tile, dx).float()
+    xp = F.pad(x.float(), (0, wp.shape[2] - cin, 1, 1, 1, 1))
+    acc = torch.zeros(b, h, w, wp.shape[1])
+    for tap in range(9):
+        dy, dxx = divmod(tap, 3)
+        acc += xp[:, dy:dy + h, dxx:dxx + w] @ wp[tap].T
+    out = acc[..., :cout] + (0.0 if bias is None else bias)
+    return out.to(torch.bfloat16), plan
+
+
+# the SD VAE's ends cut to small maps (conv_in 4 -> 512, conv_out 128 -> 3),
+# and ragged C x CO on an odd map
+NARROW_SHAPES = [(1, 12, 20, 4, 512), (1, 16, 24, 128, 3), (2, 7, 9, 1, 20),
+                 (2, 7, 9, 3, 4), (2, 7, 9, 5, 6), (2, 7, 9, 12, 3)]
+
+
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+@pytest.mark.parametrize("shape", NARROW_SHAPES, ids=str)
+def test_narrow_route_layout_matches_jax_conv(shape, dx):
+    """The "narrow" route's decomposition on bf16 inputs (its weight layout,
+    the halo patch read at each tap's offset, fp32 sums, one rounding)
+    against the JAX conv in fp32 on the same values, then its VJP for dx:
+    within one bf16 rounding of the result (2^-8 of max|out|) plus the
+    fp32 bound."""
+    b, h, w, c, co = shape
+    x, wt, bias = _inputs(*shape, seed=10)
+    bf = lambda u: torch.tensor(u).to(torch.bfloat16)
+    xb, wb = bf(x), bf(wt)
+    f32 = lambda u: jnp.asarray(u.float().numpy())
+    conv = lambda u: jax.lax.conv_general_dilated(u, f32(wb), (1, 1), ((1, 1), (1, 1)),
+                                                  dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    if dx:
+        g = bf(np.random.default_rng(11).standard_normal((b, h, w, co)).astype(np.float32))
+        want = np.asarray(jax.vjp(conv, f32(xb))[1](f32(g))[0])
+        got, plan = _narrow_conv(g, wb, dx=True)
+    else:
+        want = np.asarray(conv(f32(xb))) + bias
+        got, plan = _narrow_conv(xb, wb, torch.tensor(bias))
+    assert plan.route == "narrow" and plan.dx == dx
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert np.abs(got.float().numpy() - want).max() <= (2.0 ** -8 + TOL) * scale

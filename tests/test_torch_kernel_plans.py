@@ -12,7 +12,7 @@ only, so these tests hold, on the CPU, what the plans promise:
 - every conv shape of paths A-D, the SD VAE decoder and SD-1 (listed below,
   and checked against the configs by tracing them on the meta device), and
   ragged ones: the route follows the TMA rule (bf16 with C % 8 == 0 and
-  CO % 8 == 0 takes "wgmma"), and a "wgmma" patch is 128 pixels, a legal
+  CO % 8 == 0 takes "wgmma", the rest "narrow"), and a "wgmma" patch is 128 pixels, a legal
   TMA box, and tiles each path's map with no pixel past it (the kernel's
   decode of a patch, and its masks on a ragged edge, are held on the card
   by `chip_smoke.py`);
@@ -159,9 +159,9 @@ def test_conv_route_follows_the_tma_rule(group):
     for b, h, w, c, co in GROUPS[group]:
         tma = c % 8 == 0 and co % 8 == 0
         plan = conv3x3_plan((b, h, w, c), co, torch.bfloat16)
-        assert plan.route == ("wgmma" if tma else "wmma"), (b, h, w, c, co)
+        assert plan.route == ("wgmma" if tma else "narrow"), (b, h, w, c, co)
         assert (plan.patch != (0, 0, 0)) == tma
-        assert conv3x3_plan((b, h, w, c), co, torch.bfloat16, aligned=False).route == "wmma"
+        assert conv3x3_plan((b, h, w, c), co, torch.bfloat16, aligned=False).route == "narrow"
         assert conv3x3_plan((b, h, w, c), co, torch.float32).route == "f32"
 
 
@@ -193,6 +193,77 @@ def test_conv_patch_of_each_map(bhw, patch):
     """The patches `conv3x3_patch` names: 16x8x1 where W >= 16 divides by
     16, 8x8x2 at 8x8 and 24x24, 4x4x8 at 4x4 and 12x12."""
     assert conv3x3_patch(*bhw) == patch
+
+
+# the "narrow" route's rule: every bf16 shape with C or CO % 8 != 0, or a
+# tensor off a 16-byte boundary; C in {1, 3, 4, 5, 12} x CO in {3, 4, 6, 20,
+# 512} as chip_smoke.py checks them, the VAE's ends, and C = CO = 64
+NARROW_CIN = (1, 3, 4, 5, 12)
+NARROW_COUT = (3, 4, 6, 20, 512)
+
+
+@pytest.mark.parametrize("cin", NARROW_CIN + (128,))
+def test_conv_narrow_route_takes_every_ragged_bf16_shape(cin):
+    """C or CO % 8 != 0 (or unaligned) in bf16 takes "narrow", forward and
+    dx, its tile fitted to the narrow side (kc 8 for C <= 8: one m16n8k8 a
+    tap; nt 1 for CO <= 8: N padded to 8; else kc 64 beside nt 1, 32 beside
+    nt 8); the rest keep "wgmma"; fp32
+    keeps "f32" whatever the widths."""
+    for co in NARROW_COUT + (64, 128):
+        for dx in (False, True):
+            plan = conv3x3_plan((2, 7, 9, cin), co, torch.bfloat16, dx=dx)
+            want = "wgmma" if cin % 8 == 0 and co % 8 == 0 else "narrow"
+            assert plan.route == want and plan.dx == dx, (cin, co, dx)
+            if want == "narrow":
+                assert plan.tile == ((8 if cin <= 8 else 64 if co <= 8 else 32),
+                                     (1 if co <= 8 else 8))
+            unaligned = conv3x3_plan((2, 7, 9, cin), co, torch.bfloat16, aligned=False, dx=dx)
+            assert unaligned.route == "narrow"
+            assert conv3x3_plan((2, 7, 9, cin), co, torch.float32, dx=dx).route == "f32"
+
+
+@pytest.mark.parametrize("shape", [(4, 96, 96, 4, 512), (4, 768, 768, 128, 3),
+                                   (2, 7, 9, 12, 20), (1, 16, 16, 4, 3), (3, 5, 7, 64, 64)],
+                         ids=str)
+def test_conv_narrow_tile_fits_and_covers_the_map(shape):
+    """The "narrow" block's ring fits the 227 KB a block may use, and its
+    units of 16 x 16 output patches cover the map, forward
+    and dx, in units of a patch and a pass of 8 nt output channels; the
+    VAE's ends take one pass over CO (conv_out's 3 -> 8) or one chunk of C
+    (conv_in's 4 -> 8)."""
+    b, h, w, c, co = shape
+    for cin, cout, dx in ((c, co, False), (co, c, True)):
+        plan = conv3x3_plan((b, h, w, cin), cout, torch.bfloat16, aligned=False, dx=dx)
+        assert plan.route == "narrow" and plan.smem_bytes == conv_mod.narrow_smem(plan.tile)
+        assert plan.smem_bytes <= SMEM_PER_BLOCK
+        kc, nt = plan.tile
+        units, passes = plan.grid((b, h, w, cin), cout)[0], -(-cout // (8 * nt))
+        assert units % passes == 0 and passes * 8 * nt >= cout > (passes - 1) * 8 * nt
+        patches = units // passes
+        assert patches * conv_mod.NARROW_PATCH[0] * conv_mod.NARROW_PATCH[1] >= b * h * w
+        assert patches == b * -(-h // 16) * -(-w // 16)
+    assert conv3x3_plan((4, 96, 96, 4), 512, torch.bfloat16).tile == (8, 8)
+    assert conv3x3_plan((4, 768, 768, 128), 3, torch.bfloat16).tile == (64, 1)
+
+
+def test_conv_narrow_weight_layout():
+    """`narrow_weight` lays the weight out as the kernel copies it:
+    [9][npad][cpad], row (tap, n) holding w[tap][k][n] (forward) or the
+    flipped w[8 - tap][n][k] (dx) over k < C, zero past C and CO, cpad a
+    multiple of kc and npad of 8 nt (16-byte rows)."""
+    g = torch.Generator().manual_seed(0)
+    for c, co in ((4, 512), (128, 3), (5, 20), (12, 6)):
+        w = torch.randn(3, 3, c, co, generator=g).to(torch.bfloat16)
+        for dx in (False, True):
+            cin, cout = (co, c) if dx else (c, co)
+            kc, nt = conv_mod.narrow_tile(cin, cout)
+            wp = conv_mod.narrow_weight(w, (kc, nt), dx)
+            assert wp.is_contiguous() and wp.shape == (9, -(-cout // (8 * nt)) * 8 * nt,
+                                                       -(-cin // kc) * kc)
+            taps = w.reshape(9, c, co)
+            want = taps.flip(0) if dx else taps.transpose(1, 2)
+            assert torch.equal(wp[:, :cout, :cin], want)
+            assert not wp[:, cout:].any() and not wp[:, :, cin:].any()
 
 
 def test_conv_blocks_fit_two_to_an_sm():
@@ -448,7 +519,11 @@ def _cu_constant(source: str, name: str) -> int:
     ("conv3x3.cu", "F32_BN", conv_mod.F32_BLOCK_N),
     ("conv3x3.cu", "F32_BK", conv_mod.F32_BLOCK_K),
     ("conv3x3.cu", "F32_STAGES", conv_mod.F32_STAGES),
-    ("conv3x3.cu", "F32_THREADS", conv_mod.F32_THREADS)],
+    ("conv3x3.cu", "F32_THREADS", conv_mod.F32_THREADS),
+    ("conv3x3.cu", "NR_THREADS", conv_mod.NARROW_THREADS),
+    ("conv3x3.cu", "NR_PH", conv_mod.NARROW_PATCH[0]),
+    ("conv3x3.cu", "NR_PW", conv_mod.NARROW_PATCH[1]),
+    ("conv3x3.cu", "NR_STAGES", conv_mod.NARROW_STAGES)],
     ids=lambda v: str(v))
 def test_plans_name_the_compiled_tiles(source, name, value):
     """The plans' tile constants are the C sources' (the entries refuse others)."""

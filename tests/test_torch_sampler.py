@@ -250,3 +250,109 @@ def test_sample_denoise_is_denoise_to_zero():
     assert not torch.equal(solver.sample(x, **kwargs), denoised)
     assert torch.equal(solver.sample(x, denoise=False, denoise_to_zero=True, **kwargs),
                        solver.sample(x, **kwargs))
+
+
+# --------------------------------------------------------------------------- #
+# jit=: the JAX API's compiled trajectory, a CUDA graph in the port
+# --------------------------------------------------------------------------- #
+
+JIT_CONFIGS = [
+    ("discrete", "dpmsolver++", dict(steps=10, order=3, skip_type="logSNR", method="multistep")),
+    ("linear", "dpmsolver++", dict(steps=10, order=3, skip_type="logSNR", method="singlestep",
+                                   t_end=1e-3)),
+    ("discrete", "dpmsolver++", dict(steps=6, order=3, skip_type="logSNR", method="multistep",
+                                     denoise_to_zero=True)),
+]
+
+
+@pytest.mark.parametrize("schedule,algorithm,kwargs", JIT_CONFIGS,
+                         ids=["multistep", "singlestep", "denoise"])
+def test_sample_takes_jit_like_jax(schedule, algorithm, kwargs):
+    """`sample(jit=)` as the JAX `DPM_Solver.sample` takes it: on the CPU
+    both settings run the same eager loop (a CUDA graph needs a CUDA x), and
+    both equal the JAX jitted trajectory within 1e-4 of max|x|."""
+    ns_j, ns_t = _schedules(schedule)
+    x = np.random.default_rng(11).standard_normal(SHAPE).astype(np.float32)
+    want = np.asarray(J.DPM_Solver(J.model_wrapper(toy_jax, ns_j), ns_j, algorithm_type=algorithm)
+                      .sample(jnp.asarray(x), jit=True, **kwargs))
+    solver = P.DPM_Solver(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type=algorithm)
+    eager = solver.sample(torch.tensor(x), jit=False, **kwargs)
+    jitted = solver.sample(torch.tensor(x), jit=True, **kwargs)
+    assert torch.equal(eager, jitted)
+    assert_traj_close(jitted.numpy(), want)
+    assert not solver._graphed  # no graph is made for a CPU x
+
+
+def test_graph_key_holds_shape_dtype_device_and_noise():
+    """The capture key (`graph_key`) separates what the JAX cache key
+    (dpm_solver_tpu/solver/sample.py:512-516) separates: x's shape, dtype and
+    device, and whether noise comes (and its shape)."""
+    x = torch.zeros(SHAPE)
+    key = P.solver.graph_key
+    assert key(x) == key(torch.ones(SHAPE))
+    assert key(x) != key(torch.zeros(2, 2, 4, 4))
+    assert key(x) != key(x.to(torch.float64))
+    assert key(x) != key(torch.zeros(SHAPE, device="meta"))
+    noise = torch.zeros((4,) + SHAPE)
+    assert key(x) != key(x, noise)
+    assert key(x, noise) != key(x, torch.zeros((5,) + SHAPE))
+
+
+@pytest.mark.parametrize("algorithm", ["dpmsolver++", "sde-dpmsolver++"])
+def test_graphed_sampler_is_the_eager_sampler_on_the_cpu(algorithm):
+    """`GraphedSampler`, the counterpart of `jit_hoisting_constants` for
+    `build_sampler` users, returns the eager result (and takes the noise of
+    an SDE plan) on a CPU x, where there is no graph to capture."""
+    _, ns_t = _schedules("discrete")
+    kwargs = dict(steps=8, order=2, skip_type="time_uniform", method="multistep")
+    fn = build_sampler(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type=algorithm, **kwargs)
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.standard_normal(SHAPE).astype(np.float32))
+    noise = (torch.tensor(rng.standard_normal((8,) + SHAPE).astype(np.float32))
+             if algorithm.startswith("sde") else None)
+    graphed = P.GraphedSampler(fn)
+    before = P.GraphedSampler.captures
+    got = graphed(x) if noise is None else graphed(x, noise)
+    assert torch.equal(got, fn(x, noise))
+    assert P.GraphedSampler.captures == before and not graphed._graphs
+
+
+SAFE_PLANS = {
+    "multistep": ("discrete", "dpmsolver++", dict(steps=6, order=3, skip_type="logSNR",
+                                                  method="multistep")),
+    "singlestep": ("linear", "dpmsolver++", dict(steps=9, order=3, skip_type="logSNR",
+                                                 method="singlestep", t_end=1e-3)),
+    "denoise": ("discrete", "dpmsolver", dict(steps=6, order=2, skip_type="time_uniform",
+                                              method="multistep", denoise_to_zero=True)),
+    "unipc": ("discrete", "dpmsolver++", dict(steps=6, order=2, skip_type="logSNR",
+                                              method="unipc")),
+    "sde": ("discrete", "sde-dpmsolver++", dict(steps=6, order=2, skip_type="time_uniform",
+                                                method="multistep")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAFE_PLANS))
+def test_executor_makes_no_tensor_from_host_data_after_the_warm_call(name, monkeypatch):
+    """What a CUDA graph cannot capture is a copy from host memory: after one
+    warm call (which packs the plan's device tables and the schedule's), a
+    call of `execute_plan` makes no tensor from host data, for a multistep,
+    a singlestep, a denoise-to-zero, a UniPC and an SDE plan."""
+    schedule, algorithm, kwargs = SAFE_PLANS[name]
+    _, ns_t = _schedules(schedule)
+    fn = build_sampler(P.model_wrapper(toy_torch, ns_t), ns_t, algorithm_type=algorithm, **kwargs)
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.standard_normal(SHAPE).astype(np.float32))
+    noise = (torch.tensor(rng.standard_normal((6,) + SHAPE).astype(np.float32))
+             if algorithm.startswith("sde") else None)
+    want = fn(x, noise)
+
+    def guard(make):
+        def made(data, *args, **kw):
+            if not isinstance(data, torch.Tensor):
+                raise AssertionError(f"a tensor made from host data {type(data).__name__}")
+            return make(data, *args, **kw)
+        return made
+
+    monkeypatch.setattr(torch, "tensor", guard(torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", guard(torch.as_tensor))
+    assert torch.equal(fn(x, noise), want)

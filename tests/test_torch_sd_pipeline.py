@@ -152,3 +152,38 @@ def test_betas_and_crossattn_conditioning_match_jax(weights):
         raw = port_pipe.model.apply_model(tx, tt, torch.tensor(np.concatenate([ca, cb], 1)))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)  # the UNet bound
     torch.testing.assert_close(raw, got, rtol=0, atol=0)
+
+
+def test_repeat_sample_reuses_its_solver_with_the_new_prompts(weights):
+    """A second sampler call at the same shapes takes the solver (and, on
+    the card, the CUDA graph) of the first: its CFG closure reads the
+    conditioning from tensors the sampler keeps, into which each call copies
+    its own. So the second call's latents are those of its own prompts (the
+    JAX sampler's on them, within the trajectory bound), not the first's;
+    another guidance scale is another solver."""
+    jax_pipe, port_pipe = _pipelines(weights, "v")
+    x_T = np.random.default_rng(9).standard_normal((2, 8, 8, 4)).astype(np.float32)
+    uncond = jax_pipe.model.get_learned_conditioning([""] * 2)
+    kw = dict(unconditional_guidance_scale=3.0, return_intermediate=False)
+    sampler = port_pipe.sampler
+    outs = []
+    for prompts in (PROMPTS, ["a lighthouse", "a bowl of ramen"]):
+        cond = jax_pipe.model.get_learned_conditioning(prompts)
+        want, _ = jax_pipe.sampler.sample(3, 2, (8, 8, 4), cond, x_T=jnp.asarray(x_T),
+                                          unconditional_conditioning=uncond, **kw)
+        with torch.no_grad():
+            got, _ = sampler.sample(3, 2, (8, 8, 4), torch.tensor(np.asarray(cond)),
+                                    x_T=torch.tensor(x_T),
+                                    unconditional_conditioning=torch.tensor(np.asarray(uncond)),
+                                    **kw)
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=TRAJ_BOUND * np.abs(want).max())
+        outs.append(got)
+    assert len(sampler._solvers) == 1
+    assert not torch.equal(outs[0], outs[1])
+    with torch.no_grad():
+        sampler.sample(3, 2, (8, 8, 4), torch.tensor(np.asarray(cond)), x_T=torch.tensor(x_T),
+                       unconditional_conditioning=torch.tensor(np.asarray(uncond)),
+                       unconditional_guidance_scale=5.0, return_intermediate=False)
+    assert len(sampler._solvers) == 2
