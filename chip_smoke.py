@@ -30,7 +30,12 @@ and nothing of JAX. Phases, each fatal on failure:
    sizes; and the two kernels no path
    launches (as in the JAX package): bias + LeakyReLU forward and backward
    at path D's activation shapes and ragged ones, and attention with its
-   out-projection and residual fused at the SD-2.1 sites and ragged ones;
+   out-projection and residual fused (its plan's tile and cluster logged)
+   at SD-2.1's four self-attention sites (CFG b8, H*dh up to 1280), SD-1's
+   four (CFG b2, dh 40/80/160) with a cross-attention case at each of those
+   head dims, single heads of dh 256 and 512, and ragged ones, with its
+   gradient through the autograd Function at dh 40 against the plain
+   version's autograd;
    and SD-1's attention sites at 512 px, CFG b2 (head dims 40, 80, 160:
    self-attention at T = 4096, 1024, 256, 64, cross-attention at S = 77,
    ragged and fused-qkv cases, output and lse); LayerNorm->Linear and GEGLU
@@ -132,8 +137,10 @@ and nothing of JAX. Phases, each fatal on failure:
    "composition", and their "wmma" route, the fused WMMA kernels) and its bound, at
    the shapes and launch counts of one call of each path and of the SD-1
    forward (the kernels no
-   path launches: one launch at each shape where they would run, the fused
-   attention output beside the unfused composition), each beside the card's
+   path launches: one launch at each shape where they would run; the fused
+   attention output at every SD site it is checked at, beside the port's
+   unfused composition and the library composition, SDPA then
+   `torch.addmm`), each beside the card's
    name and power limit, with the tensor-core rate and the bound's share;
    path E's kernels in fp32 (their bound counts fp32 operations at the CUDA
    cores' peak); and the dq and dk/dv kernels at each head dim and dtype,
@@ -362,6 +369,9 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
             args = re.findall(r"L([ib])(\d+)E", name[name.index(kernel):])
             dh = [v for t, v in args if t == "i"]
             tag = (f"{kernel} kc {dh[0]} nt {dh[1]}" if kernel == "conv3x3_narrow"
+                   else f"{kernel} dh {dh[0]} kv {dh[1]} rows {64 * int(dh[2])} stages {dh[3]}"
+                   if kernel == "attention_out_wgmma"
+                   else f"{kernel} dh {dh[0]} buffers {dh[1]}" if kernel == "attention_out_f32"
                    else f"{kernel} dh {dh[0]}" if dh else kernel)
             flags = [v for t, v in args if t == "b"]
             if flags:
@@ -544,31 +554,43 @@ def make_case(name: str, spec: tuple, randn, route: str = None, dtype=None) -> C
         n = g.numel()
         return Case(lambda: ops.fused_bias_act_bwd(g, out),
                     lambda: ops.bias_act_grad_plain(g, out), None, 0, 2 * n, 3 * 2 * n)
-    if name == "attention_out_fused":  # spec: (b, t, s, heads, c), dh 64
-        b, t, s, heads, c = spec
-        inner = heads * 64
+    if name == "attention_out_fused":  # spec: (b, t, s, heads, dh, c)
+        b, t, s, heads, dh, c = spec
+        inner = heads * dh
         q, k, v = randn(b, t, inner).to(bf), randn(b, s, inner).to(bf), randn(b, s, inner).to(bf)
         w, res = (randn(inner, c) * inner ** -0.5).to(bf), randn(b, t, c).to(bf)
         bias = randn(c) * 0.1
         args = (q, k, v, w, bias, res)
+        # the library composition: SDPA, then torch.addmm onto the residual
+        # (the bias folded into it once, outside the timing)
+        qh, kh, vh = (u.unflatten(-1, (heads, dh)).transpose(1, 2) for u in (q, k, v))
+        res_bias = (res.float() + bias).to(bf).reshape(b * t, c)
+
+        def library():
+            o = F.scaled_dot_product_attention(qh, kh, vh)
+            return torch.addmm(res_bias, o.transpose(1, 2).reshape(b * t, inner), w)
         return Case(lambda: ops.attention_out_fused(*args, heads),
-                    lambda: ops.attention_out_plain(*args, num_heads=heads), None,
-                    4 * b * heads * t * s * 64 + 2 * b * t * inner * c, 5 * b * heads * t * s,
-                    2 * (b * t * inner + 2 * b * s * inner + inner * c + 2 * b * t * c) + 4 * c)
+                    lambda: ops.attention_out_plain(*args, num_heads=heads), library,
+                    *work(4 * b * heads * t * s * dh + 2 * b * t * inner * c,
+                          5 * b * heads * t * s),
+                    es * (b * t * inner + 2 * b * s * inner + inner * c + 2 * b * t * c) + 4 * c)
     raise ValueError(name)
 
 
-def time_kernel(name: str, calls: Counter, randn, smi: str, what: str, dtype=None) -> dict:
+def time_kernel(name: str, calls: Counter, randn, smi: str, what: str, dtype=None,
+                per_spec: bool = False) -> dict:
     """Kernel, plain and library device time over `calls` (spec -> launches),
     and the bound (Case.bound), with the rate of Case.work ("tflops"). For
     the kernels in COMPOSED the library slot's time is the composition's
     ("composition_ms"; "library_ms" is null: no one library call computes
     the function), and their "wmma" route (the fused WMMA kernel) is timed
     beside the plan's at the same shapes ("wmma_ms"). `dtype` float32 times
-    the fp32 calls (make_case)."""
+    the fp32 calls (make_case). `per_spec` also returns each spec's times
+    under "by_spec"."""
     import torch
 
     composed = name in COMPOSED
+    by_spec = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     if composed:
         tot.update(wmma_ms=0.0)
@@ -590,6 +612,10 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str, dtype=Non
             f"{wmma_note}, plain {p:.4f} ms, {lib_label} "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        if per_spec:
+            by_spec.append(dict(spec=list(spec), launches=n, ms=k, plain_ms=p, library_ms=lib,
+                                bound_ms=bound, bound_by="operations" if t_ops >= t_bytes
+                                else "bytes", tflops=case.work / k / 1e9, bound_share=bound / k))
         flops += n * case.work
         tot["ms"] += n * k
         tot["plain_ms"] += n * p
@@ -608,6 +634,8 @@ def time_kernel(name: str, calls: Counter, randn, smi: str, what: str, dtype=Non
     tot["tflops"] = flops / tot["ms"] / 1e9   # Case.work over kernel time
     tot["bound_share"] = tot["bound_ms"] / tot["ms"]
     tot["timed"] = what
+    if per_spec:
+        tot["by_spec"] = by_spec
     lib = tot["composition_ms"] if composed else tot["library_ms"]
     wmma_note = (f", wmma route {tot['wmma_ms']:.3f} ms ({flops / tot['wmma_ms'] / 1e9:.1f} "
                  f"TFLOP/s)" if composed else "")
@@ -717,7 +745,8 @@ def check_routes(what: str, launches: dict, routes: dict, narrow_convs: int = 0)
             "attention_dq": {"wgmma": launches["attention_dq"]},
             "attention_dkv": {"wgmma": launches["attention_dkv"]},
             "ln_linear": {"wgmma": launches["ln_linear"]},
-            "geglu_ff": {"wgmma": launches["geglu_ff"]}}
+            "geglu_ff": {"wgmma": launches["geglu_ff"]},
+            "attention_out_fused": {"wgmma": launches["attention_out_fused"]}}
     want = {k: {r: n for r, n in v.items() if n} for k, v in want.items()}
     log(f"  launches by route {routes} (expected {want})")
     if routes != want:
@@ -847,6 +876,7 @@ def main() -> int:
     from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
     from dpm_solver_tpu_torch.ops import _build
     from dpm_solver_tpu_torch.ops.attention import HEAD_DIMS, attention_delta
+    from dpm_solver_tpu_torch.ops.attention import attention_out_plan as out_plan
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
     from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
     from dpm_solver_tpu_torch.likelihood import (get_likelihood_fn, hutchinson_divergence,
@@ -881,14 +911,17 @@ def main() -> int:
                             r"conv3x3_f32_sum|conv3x3_f32|attention_fwd_f32")
     # the "narrow" bf16 conv, one instance a (kc, nt) tile
     narrow_ptxas = ptxas_usage(build_log.getvalue(), r"conv3x3_narrow")
+    # the fused attention output, one instance a tile (bf16) or head dim (fp32)
+    out_ptxas = ptxas_usage(build_log.getvalue(), r"attention_out_(wgmma|f32)")
     for kernel, (regs, spill) in chain(bwd_ptxas.items(), f32_ptxas.items(),
-                                       narrow_ptxas.items()):
+                                       narrow_ptxas.items(), out_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
     # ---- 3. kernels against their plain versions ---------------------------
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, device=dev, generator=g)
-    max_abs = {name: 0.0 for name in chain(REPLACES, ("ln_linear_grad", "geglu_ff_grad"))}
+    max_abs = {name: 0.0 for name in chain(REPLACES, ("ln_linear_grad", "geglu_ff_grad",
+                                                      "attention_out_fused_grad"))}
 
     def report(name, shape, dtype, got, want, bound):
         torch.cuda.synchronize()
@@ -1229,31 +1262,73 @@ def main() -> int:
             report("fused_bias_act_bwd", shape + ("dx",), dt, dx, want_dx, bound)
             report("fused_bias_act_bwd", shape + ("db",), dt, db, want_db, bound)
             del x, g_out, out, dx, want, want_dx
-    # attention -> out-projection (+ bias) -> + residual, dh 64: the two SD-2.1
-    # self-attention sites (CFG batch 8), cross-attention (S = 77), ragged
-    # T and S, q/k/v as column slices of one projection, H*dh = 1024 (the
-    # widest the kernel takes), with and without bias. The plain version in
+    # attention -> out-projection (+ bias) -> + residual: the SD-2.1 768 px
+    # self-attention sites at CFG b8 (96x96 and 48x48; 24x24 and 12x12, 20
+    # heads: H*dh = 1280), cross-attention (S = 77), ragged T and S, q/k/v as
+    # column slices of one projection, H*dh = 1024, with and without bias;
+    # SD-1's self-attention sites at 512 px, CFG b2 (64x64 ... 8x8: dh 40, 80,
+    # 160, 160), a cross-attention case at each of those head dims; single
+    # heads of dh 256 (DDPM/NCSN++ at 16x16) and dh 512 (the VAE's middle at
+    # 256 px). Each launch's tile and cluster logged. The plain version in
     # fp32, one batch element at a time (its logits at 9216 tokens are 1.7 GB)
-    for b, t, s, heads, c, with_bias, fused in [
-            (8, 9216, 9216, 5, 320, True, False), (8, 2304, 2304, 10, 640, True, False),
-            (8, 9216, 77, 5, 320, False, False), (2, 100, 77, 2, 96, False, False),
-            (2, 100, 100, 2, 96, True, True), (3, 65, 200, 16, 1024, True, False),
-            (1, 5, 5, 1, 8, False, False)]:
+    for b, t, s, heads, dh, c, with_bias, fused in [
+            (8, 9216, 9216, 5, 64, 320, True, False), (8, 2304, 2304, 10, 64, 640, True, False),
+            (8, 9216, 77, 5, 64, 320, False, False), (2, 100, 77, 2, 64, 96, False, False),
+            (2, 100, 100, 2, 64, 96, True, True), (3, 65, 200, 16, 64, 1024, True, False),
+            (1, 5, 5, 1, 64, 8, False, False),
+            (8, 576, 576, 20, 64, 1280, True, False), (8, 144, 144, 20, 64, 1280, True, False),
+            (2, 4096, 4096, 8, 40, 320, True, False), (2, 1024, 1024, 8, 80, 640, True, False),
+            (2, 256, 256, 8, 160, 1280, True, False), (2, 64, 64, 8, 160, 1280, True, False),
+            (2, 4096, 77, 8, 40, 320, False, False), (2, 1024, 77, 8, 80, 640, True, False),
+            (2, 256, 77, 8, 160, 1280, True, False),
+            (8, 256, 256, 1, 256, 256, True, True), (1, 1024, 1024, 1, 512, 512, True, False)]:
         for dt in (torch.float32, torch.bfloat16):
-            inner = heads * 64
+            inner = heads * dh
             if fused:
                 q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
             else:
                 q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
             w, res = (randn(inner, c) * inner ** -0.5).to(dt), randn(b, t, c).to(dt)
             bias = randn(c) * 0.1 if with_bias else None
-            got = ops.attention_out_fused(q, k, v, w, bias, res, heads)
+            tile = out_plan(dh, inner, c, dt, b, t, s)
+            got, route = routed(ops.attention_out_fused,
+                                lambda: ops.attention_out_fused(q, k, v, w, bias, res, heads))
+            if route != tile.route:
+                fail(f"attention_out_fused {(b, t, s, heads, dh, c)} {dt} took {route!r}")
             want = torch.cat([ops.attention_out_plain(
                 q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(), w.float(), bias,
                 res[i:i + 1].float(), num_heads=heads) for i in range(b)])
-            report("attention_out_fused", (b, t, s, heads, c) + (("bias",) if with_bias else ())
-                   + (("qkv",) if fused else ()), dt, got, want, BOUND[str(dt)[6:]])
+            report("attention_out_fused", (b, t, s, heads, dh, c)
+                   + (("bias",) if with_bias else ()) + (("qkv",) if fused else ())
+                   + (f"{route} rows {tile.rows} kv {tile.block_kv} stages {tile.stages} "
+                      f"cluster {tile.cluster}",), dt, got, want, BOUND[str(dt)[6:]])
             del q, k, v, w, res, got, want
+    # its gradient on the card at dh 40 (SD-1's 64x64 level, cross-attention):
+    # the autograd Function (forward on the kernel, backward the recompute VJP
+    # through token_attention's lse, dq and dk/dv kernels) against autograd of
+    # the plain version on the same inputs in fp32, within the attention
+    # backward's bound
+    b, t, s, heads, dh, c = 2, 1024, 77, 8, 40, 320
+    for dt in (torch.float32, torch.bfloat16):
+        inner = heads * dh
+        args = [randn(b, t, inner).to(dt), randn(b, s, inner).to(dt), randn(b, s, inner).to(dt),
+                (randn(inner, c) * inner ** -0.5).to(dt), randn(c) * 0.1, randn(b, t, c).to(dt)]
+        cot = randn(b, t, c).to(dt)
+        with torch.enable_grad():
+            ins = [a.clone().requires_grad_(True) for a in args]
+            before = ops.attention_out_fused.launches
+            out = ops.attention_out_fused(*ins, heads)
+            if out.grad_fn is None or ops.attention_out_fused.launches != before + 1:
+                fail("attention_out_fused on the card: no gradient, or no kernel launch")
+            got = torch.autograd.grad(out, ins, cot)
+            ref = [a.float().clone().requires_grad_(True) for a in args]
+            want = torch.autograd.grad(ops.attention_out_plain(*ref, num_heads=heads), ref,
+                                       cot.float())
+        for what, a_, b_ in zip(("dq", "dk", "dv", "dw", "dbias", "dres"), got, want):
+            report("attention_out_fused_grad", (b, t, s, heads, dh, c, what), dt, a_, b_,
+                   BWD_BOUND[str(dt)[6:]])
+        del args, ins, out, got, ref, want
+    torch.cuda.empty_cache()
     # SD-1 at 512 px, CFG b2, 8 heads: self-attention at each level (64x64,
     # 32x32, 16x16 and the 8x8 middle), cross-attention to the 77 context
     # tokens, a ragged case and q/k/v as column slices of one projection at
@@ -1799,7 +1874,7 @@ def main() -> int:
                    "token_attention": {}, "attention_lse": {"f32": expected_e["attention_lse"]},
                    "attention_dq": {"f32": expected_e["attention_dq"]},
                    "attention_dkv": {"f32": expected_e["attention_dkv"]},
-                   "ln_linear": {}, "geglu_ff": {}}
+                   "ln_linear": {}, "geglu_ff": {}, "attention_out_fused": {}}
     log(f"  launches by route {routes_e} (expected {want_routes})")
     if routes_e != want_routes:
         fail(f"path E launches by route {routes_e} != {want_routes}")
@@ -2277,34 +2352,60 @@ def main() -> int:
 
     # the kernels no path launches, one launch at each shape where they would
     # run: bias + LeakyReLU at path D's activations (every conv3x3 input), the
-    # fused attention output at the SD-2.1 768 px self-attention sites (CFG b8)
+    # fused attention output at the SD sites it is checked at (phase 3): SD-2.1
+    # 768 px at CFG b8 (its first two are row 10's first sites), SD-1 512
+    # px at CFG b2 (self- and cross-attention), the single heads of dh 256 and
+    # 512; its library yardstick is SDPA then torch.addmm (make_case)
     act_shapes = sorted({spec[:4] for spec in per_kernel_d["conv3x3"]})
     cfg_b = 2 * len(SD_PROMPTS)
-    sd_sites = [(cfg_b, 9216, 9216, 5, 320), (cfg_b, 2304, 2304, 10, 640)]
+    sd_sites = [(cfg_b, 9216, 9216, 5, 64, 320), (cfg_b, 2304, 2304, 10, 64, 640),
+                (cfg_b, 576, 576, 20, 64, 1280), (cfg_b, 144, 144, 20, 64, 1280)]
+    out_sites = sd_sites + [(2, 4096, 4096, 8, 40, 320), (2, 1024, 1024, 8, 80, 640),
+                            (2, 256, 256, 8, 160, 1280), (2, 64, 64, 8, 160, 1280),
+                            (2, 4096, 77, 8, 40, 320), (2, 1024, 77, 8, 80, 640),
+                            (2, 256, 77, 8, 160, 1280), (8, 256, 256, 1, 256, 256),
+                            (1, 1024, 1024, 1, 512, 512)]
     acts = f"path D's activations, b{SCORE_BATCH}"
     for name, specs, where in [
             ("fused_bias_act", [(s,) for s in act_shapes], acts),
             ("fused_bias_act_bwd", [(s,) for s in act_shapes], acts),
-            ("attention_out_fused", sd_sites, f"the SD-2.1 768 px self-attention sites, CFG b{cfg_b}")]:
+            ("attention_out_fused", out_sites,
+             f"the SD-2.1 768 px (CFG b{cfg_b}) and SD-1 512 px (CFG b2) sites and the dh "
+             f"256 and 512 single heads")]:
         log(f"kernel times, {name} (no path launches it; one launch at each of {where}):")
         timing[name]["none"] = dict(time_kernel(name, Counter(specs), randn, smi,
-                                                f"one launch at each of {where}"), launches=0)
-    # beside it, the unfused composition path B runs at those sites today:
-    # the attention kernel, the out-projection (F.linear, bias) and the add
-    unfused_ms = 0.0
-    for b, t, s, heads, c in sd_sites:
-        inner = heads * 64
+                                                f"one launch at each of {where}",
+                                                per_spec=name == "attention_out_fused"),
+                                    launches=0)
+    # beside it, the port's unfused composition (what path B runs at those
+    # sites today): the attention kernel, the out-projection (F.linear with
+    # the bias) and the add; and each site's tile and cluster
+    out_timing = timing["attention_out_fused"]["none"]
+    for rec in out_timing["by_spec"]:
+        b, t, s, heads, dh, c = rec["spec"]
+        inner = heads * dh
         q, k, v = (randn(b, n, inner).to(torch.bfloat16) for n in (t, s, s))
         wt = (randn(c, inner) * inner ** -0.5).to(torch.bfloat16)
         bias, res = (randn(c) * 0.1).to(torch.bfloat16), randn(b, t, c).to(torch.bfloat16)
-        ms = cuda_ms(lambda: torch.add(F.linear(ops.token_attention(q, k, v, num_heads=heads),
-                                                wt, bias), res))
-        unfused_ms += ms
-        log(f"  unfused (token_attention + F.linear + add) {(b, t, s, heads, c)}: {ms:.4f} ms")
+        rec["unfused_ms"] = cuda_ms(lambda: torch.add(F.linear(
+            ops.token_attention(q, k, v, num_heads=heads), wt, bias), res))
+        tile = out_plan(dh, inner, c, torch.bfloat16, b, t, s)
+        rec["tile"] = dict(rows=tile.rows, block_kv=tile.block_kv, stages=tile.stages,
+                           cluster=tile.cluster)
+        log(f"  {(b, t, s, heads, dh, c)} on {smi}: fused {rec['ms']:.4f} ms vs unfused "
+            f"(token_attention + F.linear + add) {rec['unfused_ms']:.4f} ms, library (SDPA + "
+            f"addmm) {rec['library_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms; rows {tile.rows}, cluster {tile.cluster}"
+            f"{'; FUSED WINS' if rec['ms'] < rec['unfused_ms'] else ''}")
         del q, k, v, wt, res
-    timing["attention_out_fused"]["none"]["unfused_ms"] = unfused_ms
-    log(f"attention_out_fused {timing['attention_out_fused']['none']['ms']:.3f} ms vs the unfused "
-        f"composition {unfused_ms:.3f} ms over the two SD sites")
+    out_timing["unfused_ms"] = sum(rec["unfused_ms"] for rec in out_timing["by_spec"])
+    row10 = [rec for rec in out_timing["by_spec"] if tuple(rec["spec"]) in sd_sites[:2]]
+    out_timing["row10_sites"] = {key: sum(rec[key] for rec in row10) for key in
+                                 ("ms", "unfused_ms", "library_ms", "plain_ms", "bound_ms")}
+    log(f"attention_out_fused on {smi}: {out_timing['ms']:.3f} ms vs the unfused composition "
+        f"{out_timing['unfused_ms']:.3f} ms over {len(out_sites)} sites; at row 10's two "
+        f"SD-2.1 sites {out_timing['row10_sites']['ms']:.3f} ms vs "
+        f"{out_timing['row10_sites']['unfused_ms']:.3f} ms")
 
     # each kernel's times and launches ("launches") on the newest path that
     # runs it ("none": no path launches it), every path's times, and its
@@ -2317,7 +2418,7 @@ def main() -> int:
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(HEAD_DIMS), "bfloat16": list(HEAD_DIMS)}
                  for name in ("token_attention", "attention_lse", "attention_dq",
-                              "attention_dkv")}
+                              "attention_dkv", "attention_out_fused")}
     ptxas_of = {"attention_dq": {k: v for k, v in bwd_ptxas.items() if "attn_dq" in k
                                  or "attn_bwd_f32" in k and k.endswith("dq")},
                 "attention_dkv": {k: v for k, v in bwd_ptxas.items() if "attn_dkv" in k
@@ -2327,7 +2428,8 @@ def main() -> int:
                             **narrow_ptxas},
                 "conv3x3_dx": {k: v for k, v in f32_ptxas.items() if k.endswith(" dx")},
                 "attention_lse": {k: v for k, v in f32_ptxas.items()
-                                  if k.startswith("attention_fwd_f32")}}
+                                  if k.startswith("attention_fwd_f32")},
+                "attention_out_fused": out_ptxas}
 
     def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
         # SD-1's forward only where no path does)

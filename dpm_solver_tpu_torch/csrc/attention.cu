@@ -88,9 +88,12 @@
 #include <stdint.h>
 
 #include "attention_f32.cuh"
+#include "attention_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace attn_wgmma;
 
 // element strides of q, k and v; o is contiguous (B, T, H*D)
 struct Strides {
@@ -107,7 +110,6 @@ constexpr int F32_STAGES = 2;  // K/V buffers a block: cp.async double buffering
 template <int D>
 struct FwdF32 : attn_f32::Stream<D> {
   using S = attn_f32::Stream<D>;
-  static constexpr int VALS = 16 / S::PARTS;                 // logits a lane keeps
   static constexpr int PT = S::TILE + 1;                     // logits / p pitch
   static constexpr int QS = F32_ROWS * S::PO;                // floats: the owned queries
   static constexpr int BUF = 2 * S::TILE * S::PS;            // a buffer: k and v rows
@@ -124,7 +126,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ lse, int Tq, int S, int H, float qscale, Strides st,
                   int vec, int dv) {
   using L = FwdF32<D>;
-  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
+  constexpr int TILE = L::TILE, NC = L::NC;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // [16][PO] queries
   float* bufs = qs + L::QS;                // [2][BUF]: k rows, then v rows (pitch PS)
@@ -152,12 +154,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     row_l[tid] = 0.f;
   }
 
-  // (1) patch (rb, cb) = queries [4rb, 4rb + 4) x keys [4cb, 4cb + 4) of the
-  // tile, head-dim slice d = part (mod PARTS)
-  const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
-  // (2) row srow, keys slane + 16 u
-  const int srow = tid / 16, slane = tid % 16;
-  // (3) queries [4rg, 4rg + 4), output columns col0 + ct + 64 i
+  // queries [4rg, 4rg + 4), output columns col0 + ct + 64 i (forward_tile's phase 3)
   const int rg = tid / 64, ct = tid % 64;
   float acc[4][NC];
 #pragma unroll
@@ -175,71 +172,8 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       hopper::cp_async_wait<0>();
     }
     __syncthreads();  // tile t, the queries and the row stats visible
-    const float* xs = bufs + (t & 1) * L::BUF;
-
-    float z[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) z[i] = 0.f;
-    attn_f32::patch_products<D, 1>(z, qs, 0, xs, 0, rb, cb, part);
-    attn_f32::fold<PARTS, 16>(z, part);  // lane `part`: values [part * VALS, + VALS)
-#pragma unroll
-    for (int m = 0; m < L::VALS; ++m) {
-      const int e = part * L::VALS + m, row = 4 * rb + e / 4, col = 4 * cb + e % 4;
-      ps[row * L::PT + col] = t * TILE + col < S ? z[m] * qscale : -INFINITY;
-    }
-    __syncthreads();
-
-    {  // (2) the row's max over the tile, p = exp2(z - m), the running stats
-      float zv[TILE / 16], mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < TILE / 16; ++u) {
-        zv[u] = ps[srow * L::PT + slane + 16 * u];
-        mx = fmaxf(mx, zv[u]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_old = row_m[srow];
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid key
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < TILE / 16; ++u) {
-        const float p = exp2f(zv[u] - m_new);  // masked keys: exp2(-inf) = 0
-        ps[srow * L::PT + slane + 16 * u] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      if (slane == 0) {  // the row's 16 lanes read m_old before the shuffles above
-        const float alpha = exp2f(m_old - m_new);  // first tile: exp2(-inf) = 0
-        row_l[srow] = row_l[srow] * alpha + sum;
-        row_m[srow] = m_new;
-        row_a[srow] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // (3) O = O * alpha + P.V
-    float pr[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float alpha = row_a[4 * rg + r];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
-    }
-    const float* vs = xs + TILE * L::PS + col0 + ct;
-#pragma unroll 4
-    for (int j = 0; j < TILE; ++j) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pr[r] = ps[(4 * rg + r) * L::PT + j];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        if (ct + 64 * i < dv) {
-          const float x = vs[j * L::PS + 64 * i];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][i] = fmaf(pr[r], x, acc[r][i]);
-        }
-      }
-    }
+    attn_f32::forward_tile<D>(acc, qs, bufs + (t & 1) * L::BUF, ps, row_m, row_l, row_a,
+                              t * TILE, S, qscale, col0, dv);
     __syncthreads();  // the next iteration's copy reuses this buffer
   }
 
@@ -261,21 +195,6 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---- bf16: TMA + wgmma -------------------------------------------------------
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // D: the q/k head width; DV: the output columns one block owns (D, or 256
 // for the 512-wide head); KV: keys per tile; NWG: consumer warpgroups (64
 // queries each); STAGES: K/V ring depth
@@ -295,77 +214,6 @@ struct AttnTile {
   static constexpr int THREADS = 128 * NWG + 32;
   static_assert(DV_ % 8 == 0 && KV_ % 16 == 0 && SMEM <= 232448, "tile");
 };
-
-// the softmax of one key tile, in base 2, on its logits S (the wgmma
-// accumulator): scale, mask keys >= S, the row max over the quad, the new
-// running max m and sum l, the factor alpha the running output must take,
-// and P rounded to bf16 as register A fragments (k-step j takes accumulator
-// columns [16j, 16j + 16), i.e. sacc[8j .. 8j + 8) in pairs)
-template <int KV>
-__device__ __forceinline__ void online_softmax(float (&sacc)[KV / 2], uint32_t (&pa)[KV / 16][4],
-                                               float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                               int key0, int S, float qscale, int quad) {
-  float mx[2] = {-INFINITY, -INFINITY};
-  const bool ragged = key0 + KV > S;
-#pragma unroll
-  for (int i = 0; i < KV / 2; ++i) {
-    const int key = key0 + 8 * (i / 4) + 2 * quad + (i % 2);
-    const float sv = (ragged && key >= S) ? -INFINITY : sacc[i] * qscale;
-    sacc[i] = sv;
-    mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sv);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], quad_max(mx[r]));  // finite: a tile has a valid key
-    alpha[r] = ex2(m[r] - m_new);                      // first tile: exp2(-inf) = 0
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int j = 0; j < KV / 16; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float p0 = ex2(sacc[8 * j + 2 * r] - m[r % 2]);  // masked keys: exp2(-inf) = 0
-      const float p1 = ex2(sacc[8 * j + 2 * r + 1] - m[r % 2]);
-      l[r % 2] += p0 + p1;
-      pa[j][r] = hopper::pack_bf16(p0, p1);
-    }
-}
-
-template <int KV>
-__device__ __forceinline__ void fence_frags(uint32_t (&pa)[KV / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < KV / 16; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[j][r])::"memory");
-}
-
-// S = Q . K^T of one tile: 64 x KV per warpgroup, reduced over D in steps
-// of 16 (the first step overwrites the accumulator); one commit group
-template <typename L>
-__device__ __forceinline__ void qk_product(float (&sacc)[L::KV / 2], uint32_t q_addr,
-                                        uint32_t k_addr) {
-#pragma unroll
-  for (int ks = 0; ks < L::KSTEPS; ++ks) {
-    const int c = ks / 4, kk = ks % 4;
-    hopper::Wgmma<L::KV>::template ss<0>(
-        sacc, hopper::desc(q_addr + c * L::BM * 128 + kk * 32, 16, 1024),
-        hopper::desc(k_addr + c * L::KV * 128 + kk * 32, 16, 1024), ks > 0);
-  }
-  hopper::wgmma_commit();
-}
-
-// O += P . V of one tile: V is [key][d], MN-major, its 64-column tiles
-// KV*128 bytes apart; one commit group
-template <typename L>
-__device__ __forceinline__ void pv_product(float (&oacc)[L::DV / 2],
-                                         const uint32_t (&pa)[L::KV / 16][4], uint32_t v_addr) {
-#pragma unroll
-  for (int j = 0; j < L::KV / 16; ++j)
-    hopper::Wgmma<L::DV>::template rs<1>(oacc, pa[j],
-                                         hopper::desc(v_addr + j * 2048, L::KV * 128, 1024), 1);
-  hopper::wgmma_commit();
-}
 
 template <int D, int DV, int KV, int NWG, int STAGES>
 __global__ void __launch_bounds__(128 * NWG + 32, 1)

@@ -16,9 +16,14 @@
 // distinct banks (its patches share a column block, so the streamed reads
 // broadcast and the owned ones spread). ops/attention.py states the same
 // rule (`F32_ROWS`, `F32_THREADS`, `F32_SLICE`, `_f32_parts`), and
-// tests/test_torch_kernel_plans.py holds the constants equal.
+// tests/test_torch_kernel_plans.py holds the constants equal. The forward's
+// step over one streamed tile (`forward_tile`) is shared by the fp32
+// attention forward and the fp32 fused attention with its out-projection
+// (attention_out.cu).
 
 #pragma once
+
+#include <math.h>
 
 #include "hopper.cuh"
 
@@ -120,6 +125,95 @@ __device__ __forceinline__ void fold(float (&acc)[A], int part) {
       acc[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, w);
     }
     fold<w, n, A>(acc, part);
+  }
+}
+
+// The forward's step over one streamed key tile `xs` (its k rows, then its
+// v rows TILE * PS floats on), in base 2, for the 16 owned queries `qs`
+// (pitch PO), in three phases split by __syncthreads (every thread of the
+// block calls it): (1) the logits, each thread a 4x4 patch (queries 4rb..,
+// keys 4cb..) over its head-dim slice, folded across the slices, scaled by
+// qscale and masked (keys >= S get -inf) into `ps` (pitch TILE + 1); (2) the
+// online softmax, 16 threads a row: the row's max over the tile, p =
+// exp2(z - m) (exp2f: exact to the fp32 ulp) back into `ps`, the running max
+// and sum and this tile's rescale factor in row_m, row_l, row_a; (3) O = O *
+// alpha + P.V into `acc`, each thread 4 rows (4rg..) x the output columns
+// col0 + ct + 64 i below dv. key0 is the tile's first key.
+template <int D>
+__device__ __forceinline__ void forward_tile(float (&acc)[4][Stream<D>::NC], const float* qs,
+                                             const float* xs, float* ps, float* row_m,
+                                             float* row_l, float* row_a, int key0, int S,
+                                             float qscale, int col0, int dv) {
+  using L = Stream<D>;
+  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
+  constexpr int VALS = 16 / PARTS, PT = TILE + 1;  // logits a lane keeps; logits pitch
+  const int tid = threadIdx.x;
+  const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
+  const int srow = tid / 16, slane = tid % 16;
+  const int rg = tid / 64, ct = tid % 64;
+
+  float z[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) z[i] = 0.f;
+  patch_products<D, 1>(z, qs, 0, xs, 0, rb, cb, part);
+  fold<PARTS, 16>(z, part);  // lane `part`: values [part * VALS, + VALS)
+#pragma unroll
+  for (int m = 0; m < VALS; ++m) {
+    const int e = part * VALS + m, row = 4 * rb + e / 4, col = 4 * cb + e % 4;
+    ps[row * PT + col] = key0 + col < S ? z[m] * qscale : -INFINITY;
+  }
+  __syncthreads();
+
+  {  // (2) the row's max over the tile, p = exp2(z - m), the running stats
+    float zv[TILE / 16], mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < TILE / 16; ++u) {
+      zv[u] = ps[srow * PT + slane + 16 * u];
+      mx = fmaxf(mx, zv[u]);
+    }
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    const float m_old = row_m[srow];
+    const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid key
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < TILE / 16; ++u) {
+      const float p = exp2f(zv[u] - m_new);  // masked keys: exp2(-inf) = 0
+      ps[srow * PT + slane + 16 * u] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    if (slane == 0) {  // the row's 16 lanes read m_old before the shuffles above
+      const float alpha = exp2f(m_old - m_new);  // first tile: exp2(-inf) = 0
+      row_l[srow] = row_l[srow] * alpha + sum;
+      row_m[srow] = m_new;
+      row_a[srow] = alpha;
+    }
+  }
+  __syncthreads();
+
+  // (3) O = O * alpha + P.V
+  float pr[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float alpha = row_a[4 * rg + r];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
+  }
+  const float* vs = xs + TILE * L::PS + col0 + ct;
+#pragma unroll 4
+  for (int j = 0; j < TILE; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pr[r] = ps[(4 * rg + r) * PT + j];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (ct + 64 * i < dv) {
+        const float x = vs[j * L::PS + 64 * i];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][i] = fmaf(pr[r], x, acc[r][i]);
+      }
+    }
   }
 }
 

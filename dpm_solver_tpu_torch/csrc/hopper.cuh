@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (attention.cu,
 // attention_bwd.cu, conv3x3.cu, geglu.cu, ln_linear.cu), for sm_90a:
-// shared-memory mbarriers, TMA tile loads, the wgmma shared-memory
+// shared-memory mbarriers, the cluster barrier and distributed shared-memory
+// loads, TMA tile loads, the wgmma shared-memory
 // descriptor and the wgmma instructions themselves, and the host-side
 // encoding of a TMA tensor map; and, for the fp32 CUDA-core kernels,
 // `cp.async` copies with zero fill and their commit groups.
@@ -90,6 +91,40 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` (1..15) over `threads` threads (a multiple of 32)
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier: arrive (release: this thread's shared-memory writes
+// become visible to the cluster's CTAs that wait; relaxed: no ordering), and
+// wait (acquire) for every thread of the cluster that has not exited
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 16 bytes at shared-memory address `addr` of the cluster's CTA `rank`
+// (distributed shared memory)
+__device__ __forceinline__ uint4 ld_peer_16(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- TMA -----------------------------------------------------------------------

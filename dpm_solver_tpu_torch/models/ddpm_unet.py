@@ -54,6 +54,17 @@ class DDPMUNetConfig:
         return DDPMUNetConfig()
 
     @staticmethod
+    def celeba() -> "DDPMUNetConfig":
+        """configs/celeba.yml model section (DDPM 64x64)."""
+        return DDPMUNetConfig(ch_mult=(1, 2, 2, 2, 4), resolution=64)
+
+    @staticmethod
+    def lsun256() -> "DDPMUNetConfig":
+        """LSUN/CelebAHQ 256px DDPM (score_sde configs/vp/ddpm/
+        {church,bedroom,celebahq}.py: ch_mult (1,1,2,2,4,4))."""
+        return DDPMUNetConfig(ch_mult=(1, 1, 2, 2, 4, 4), resolution=256)
+
+    @staticmethod
     def tiny(resolution: int = 16) -> "DDPMUNetConfig":
         """Small config for tests."""
         return DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,

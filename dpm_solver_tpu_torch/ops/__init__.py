@@ -20,7 +20,8 @@ counts under one wrapper only (a `geglu_ff` call counts one, whichever of
 its route's kernels it runs). The wrappers of the kernels with more than
 one route (`ROUTED`: conv3x3 and its dx, "wgmma" / "narrow" / "f32";
 ln_linear and geglu_ff, "wgmma" / "wmma" / "f32"; the attention forward,
-its lse form, dq and dk/dv, "wgmma" / "f32") also count them by route, in
+its lse form, dq and dk/dv, and attention_out_fused, "wgmma" / "f32") also
+count them by route, in
 `<wrapper>.launches_by_route`. `conv3x3` and `token_attention` are
 differentiable (torch.autograd.Function): their backwards launch `conv3x3_dx`,
 `attention_dq` and `attention_dkv`, and a forward that keeps its residual
@@ -57,7 +58,7 @@ KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attentio
            attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
            attention_out_fused)
 ROUTED = (conv3x3, conv3x3_dx, token_attention, attention_lse, attention_dq, attention_dkv,
-          ln_linear, geglu_ff)
+          ln_linear, geglu_ff, attention_out_fused)
 
 
 def reset_launch_counts() -> None:

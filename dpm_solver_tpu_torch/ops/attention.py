@@ -31,9 +31,12 @@ its kernels.
 
 Attention with its out-projection and residual (`attention_out_fused`, the
 port of `_attn_out_forward`): one kernel in `csrc/attention_out.cu` keeps the
-heads' outputs in shared memory and multiplies them by w_out there, dh 64
-only; its backward is the recompute VJP of the unfused composition, as in
-the JAX package. Like there, no model calls it.
+heads' outputs in shared memory and multiplies them by w_out there, at every
+head dim with H*dh up to 1280: in bf16 the forward's TMA + `wgmma` mainloop
+with the projection as its epilogue (route "wgmma"), in fp32 exact CUDA-core
+blocks ("f32"); `attention_out_plan` chooses the tile. Its backward is the
+recompute VJP of the unfused composition, as in the JAX package. Like
+there, no model calls it (`attn_out_fused_wins`).
 
 Dispatch is by device only: a CPU tensor takes the plain twin
 (`attention_plain`, `attention_lse_plain`, `attention_backward_plain`,
@@ -41,8 +44,8 @@ Dispatch is by device only: a CPU tensor takes the plain twin
 `token_attention`, `attention_lse`, `attention_dq`, `attention_dkv` and
 `attention_out_fused` counts its own kernel launches in `.launches`: a
 forward that writes the lse counts under `attention_lse` only.
-`token_attention`, `attention_lse`, `attention_dq` and `attention_dkv` also
-count them by route, in `.launches_by_route`.
+`token_attention`, `attention_lse`, `attention_dq`, `attention_dkv` and
+`attention_out_fused` also count them by route, in `.launches_by_route`.
 """
 
 from __future__ import annotations
@@ -522,8 +525,147 @@ def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # attention -> out-projection -> residual, fused (csrc/attention_out.cu)
 # --------------------------------------------------------------------------- #
 
-OUT_HEAD_DIMS = (64,)
-OUT_MAX_INNER = 1024  # H*dh: the width of the kernel's shared-memory head buffer
+OUT_MAX_INNER = 1280  # H*dh: SD-2.1's and SD-1's widest transformer (csrc MAX_INNER)
+OUT_MAX_C = 1280      # output channels (csrc MAX_C)
+OUT_N_CHUNK = 128     # bf16: output columns a projection pass (csrc OUT_NCH)
+# The compiled bf16 tiles of each head dim, (queries a block, keys a tile,
+# ring stages), widest first: three, two, then one consumer warpgroup, and at
+# dh 256 and 512 wider key tiles or deeper rings while the concat buffer
+# leaves room (csrc/attention_out.cu's OUT_TILE list, in the same order)
+OUT_TILES = {32: ((192, 64, 3), (128, 64, 3), (64, 64, 3)),
+             40: ((192, 64, 3), (128, 64, 3), (64, 64, 3)),
+             64: ((192, 64, 3), (128, 64, 3), (64, 64, 3)), 80: ((128, 32, 2), (64, 32, 3)),
+             128: ((128, 32, 2), (64, 32, 3)), 160: ((64, 16, 3),),
+             256: ((64, 64, 2), (64, 16, 2)), 512: ((64, 16, 2), (64, 16, 1))}
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionOutTile:
+    """The tile `attention_out_fused`'s kernel runs at one (dh, H*dh, dtype).
+
+    route: "wgmma" (bf16: TMA + `wgmma`, one producer warp and rows / 64
+    consumer warpgroups) or "f32" (exact, CUDA cores, register-tiled:
+    csrc/attention_f32.cuh). rows: queries a block, which walks every head;
+    block_kv: keys a tile; stages: the ring's depth (f32: cp.async buffers);
+    cluster: CTAs that split a query tile's heads (1: one block holds them
+    all; more: each attends to H / cluster heads, gathers the others'
+    outputs through distributed shared memory and computes the output
+    passes n = rank (mod cluster)); n_chunk: output columns a projection
+    pass (f32: the block's threads, a column each); w_rows: rows of w_out a ring stage holds (bf16:
+    a K/V stage's bytes over n_chunk columns; f32: 0, w_out is read from
+    device memory)."""
+
+    route: str
+    dh: int
+    inner: int
+    rows: int
+    block_kv: int
+    stages: int
+    cluster: int
+    n_chunk: int
+    w_rows: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block (csrc/attention_out.cu's layout)."""
+        dh = self.dh
+        if self.route == "f32":  # the concat buffer (16 x H*dh), the queries (pitch
+            # dh + 2 | 4), the K/V buffers (pitch dh + 2), the logits, three row stats
+            po = dh + (4 if _f32_parts(dh) == 16 else 2)
+            return 4 * (F32_ROWS * self.inner + F32_ROWS * po
+                        + self.stages * 2 * self.block_kv * (dh + 2)
+                        + F32_ROWS * (self.block_kv + 1) + 3 * F32_ROWS)
+        # + 1024 to align a swizzle atom, the q tile, the ring (K and V tiles of
+        # 64-column runs; V of a 256-wide output half at dh 512), the concat
+        # buffer in whole 64-column tiles, the qfull/qempty/full/empty barriers
+        stage = 128 * self.block_kv * (_pad64(dh) + _pad64(min(dh, 256))) // 64
+        return (1024 + 128 * self.rows * _pad64(dh) // 64 + self.stages * stage
+                + 128 * self.rows * _pad64(self.inner) // 64 + 8 * (2 + 2 * self.stages))
+
+    def grid(self, b: int, t: int) -> Tuple[int, int]:
+        """(CTAs along x: cluster x query tiles, batch) of one launch."""
+        return self.cluster * -(-t // self.rows), b
+
+
+def _out_f32_stages(dh: int) -> int:
+    """The fp32 kernel's K/V buffers at `dh`: two where they fit beside the
+    concat buffer of the head dim's widest H*dh, else one (csrc out_f32_bufs)."""
+    tile = AttentionOutTile("f32", dh, OUT_MAX_INNER // dh * dh, F32_ROWS,
+                            F32_THREADS // _f32_parts(dh), 2, 1, F32_THREADS, 0)
+    return 2 if tile.smem_bytes <= SMEM_PER_BLOCK else 1
+
+
+# The bf16 plan's estimate of a launch (`_out_estimate`): a CTA's rate on
+# the tensor cores by its consumer warpgroups (one warpgroup: alone on an SM,
+# or two CTAs sharing one), a CTA's fixed time, and the cluster gather's time
+# a MB, fitted to H100 timings of every tile and cluster size at the SD-2.1
+# and SD-1 sites (chip_smoke.py times the plan's pick at each)
+OUT_SMS = 132
+OUT_TFLOPS = {(1, 1): 1.4, (1, 2): 1.0, (2, 1): 2.1, (3, 1): 2.4}
+OUT_CTA_MS = 0.015
+OUT_GATHER_MS_PER_MB = 0.02
+OUT_MAX_CLUSTER = 8   # CTAs a cluster (the portable limit; csrc MAX_CLUSTER)
+
+
+def _out_estimate(tile: AttentionOutTile, b: int, t: int, s: int, c: int) -> float:
+    """ms one launch takes by the model above: whole waves of CTAs (one an
+    SM, two where two fit its shared memory at 64 rows), each CTA its heads'
+    attention and its output passes at its rate, plus the fixed time and its
+    share of the gather."""
+    heads, dh = tile.inner // tile.dh, tile.dh
+    per_sm = 2 if tile.rows == 64 and 2 * (tile.smem_bytes + 1024) <= SM_SMEM else 1
+    ctas = tile.cluster * b * -(-t // tile.rows)
+    waves = -(-ctas // (OUT_SMS * per_sm))
+    hc = heads // tile.cluster
+    chunks = -(-c // tile.n_chunk)
+    passes = -(-chunks // tile.cluster)  # a CTA's output passes
+    gflop = (4 * tile.rows * hc * -(-s // tile.block_kv) * tile.block_kv * -(-dh // 16) * 16
+             + 2 * tile.rows * -(-tile.inner // 16) * 16 * tile.n_chunk * passes) / 1e9
+    gather_mb = (tile.cluster - 1) / tile.cluster * tile.rows * tile.inner * 2 / 1e6
+    return waves * (gflop / OUT_TFLOPS[(tile.rows // 64, per_sm)] + OUT_CTA_MS
+                    + OUT_GATHER_MS_PER_MB * gather_mb)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_out_plan(dh: int, inner: int, c: int, dtype: torch.dtype = torch.bfloat16,
+                       b: int = 1, t: Optional[int] = None,
+                       s: Optional[int] = None) -> AttentionOutTile:
+    """The fused kernel's tile at head dim `dh`, H*dh = `inner`, C = `c`,
+    for a launch of b x t queries over s keys (t None: a grid of many waves).
+    bf16 ("wgmma"): among `OUT_TILES[dh]` whose shared memory (the q tile,
+    the ring and the rows x H*dh concat buffer) fits 227 KB at this `inner`,
+    and cluster sizes that divide H (1, 2, 4, 8: a cluster's CTAs split the
+    heads and gather the concat buffer through distributed shared memory),
+    the pair `_out_estimate` rates fastest; with t None, the first tile
+    that fits and no cluster. w_out arrives through the ring in
+    OUT_N_CHUNK-column passes. fp32 ("f32"): 16 queries, the fp32
+    forward's key tile (256 / parts keys), two cp.async buffers where they
+    fit at the head dim's widest H*dh, one block holding every head."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"attention_out kernel takes head dims {HEAD_DIMS}, got {dh}")
+    if inner % dh or not 0 < inner <= OUT_MAX_INNER:
+        raise ValueError(f"attention_out kernel takes H*dh <= {OUT_MAX_INNER} in whole heads "
+                         f"of {dh}, got {inner}")
+    if c % 8 or not 0 < c <= OUT_MAX_C:
+        raise ValueError(f"attention_out kernel takes C % 8 == 0 and C <= {OUT_MAX_C}, got {c}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"attention_out kernel takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.float32:
+        return AttentionOutTile("f32", dh, inner, F32_ROWS, F32_THREADS // _f32_parts(dh),
+                                _out_f32_stages(dh), 1, F32_THREADS, 0)
+    tiles = []
+    for rows, kv, stages in OUT_TILES[dh]:
+        stage = 128 * kv * (_pad64(dh) + _pad64(min(dh, 256))) // 64
+        tile = AttentionOutTile("wgmma", dh, inner, rows, kv, stages, 1, OUT_N_CHUNK,
+                                stage // (2 * OUT_N_CHUNK) // 16 * 16)
+        if tile.smem_bytes <= SMEM_PER_BLOCK:
+            tiles.append(tile)
+    if t is None:
+        return tiles[0]
+    heads = inner // dh
+    clusters = [n for n in (1, 2, 4, 8) if n <= OUT_MAX_CLUSTER and heads % n == 0]
+    return min((dataclasses.replace(tile, cluster=n) for tile in tiles for n in clusters),
+               key=lambda tile: _out_estimate(tile, b, t, t if s is None else s, c))
 
 
 def _compose(attend, q, k, v, w_out, bias, residual, num_heads, scale):
@@ -544,15 +686,12 @@ def attention_out_plain(q, k, v, w_out, bias, residual, *, num_heads: int,
     return _compose(attention_plain, q, k, v, w_out, bias, residual, num_heads, scale)
 
 
-def _check_out(q, k, v, w_out, bias, residual, num_heads):
+def _check_out(q, k, v, w_out, bias, residual, num_heads) -> AttentionOutTile:
+    """The checks of the attention and of the projection's operands; the tile."""
     _check(q, k, v, num_heads)
     b, t, inner = q.shape
-    if inner // num_heads not in OUT_HEAD_DIMS:
-        raise ValueError(f"attention_out kernel takes head dims {OUT_HEAD_DIMS}, got "
-                         f"{inner // num_heads}")
-    if inner > OUT_MAX_INNER:
-        raise ValueError(f"attention_out kernel takes H*dh <= {OUT_MAX_INNER}, got {inner}")
     c = w_out.shape[-1]
+    tile = attention_out_plan(inner // num_heads, inner, c, q.dtype, b, t, k.shape[1])
     if w_out.shape != (inner, c) or w_out.dtype != q.dtype or not w_out.is_contiguous():
         raise ValueError(f"attention_out kernel takes a contiguous w_out ({inner}, C) of q's "
                          f"dtype; got {tuple(w_out.shape)} {w_out.dtype}")
@@ -561,12 +700,13 @@ def _check_out(q, k, v, w_out, bias, residual, num_heads):
                          f"of q's dtype; got {tuple(residual.shape)} {residual.dtype}")
     if bias is not None and (bias.shape != (c,) or bias.dtype != torch.float32):
         raise ValueError(f"attention_out kernel takes a float32 bias of shape ({c},)")
-    if q.dtype == torch.bfloat16 and (c % 8 or w_out.data_ptr() % 16):
-        raise ValueError("attention_out kernel needs C % 8 == 0 and a 16-byte aligned bf16 w_out")
+    if q.dtype == torch.bfloat16 and (w_out.data_ptr() % 16 or residual.data_ptr() % 16):
+        raise ValueError("attention_out kernel needs a 16-byte aligned bf16 w_out and residual")
     if any(u.device != q.device for u in (w_out, residual) + (() if bias is None else (bias,))):
         raise ValueError("attention_out_fused: all tensors must share a device")
     if b >= 65536:
         raise ValueError("attention_out kernel takes B < 65536")
+    return tile
 
 
 def _attention_out_forward(q, k, v, w_out, bias, residual, num_heads, scale):
@@ -575,7 +715,9 @@ def _attention_out_forward(q, k, v, w_out, bias, residual, num_heads, scale):
                                    scale=scale)
     w_out = w_out.to(q.dtype).contiguous()
     bias = None if bias is None else bias.to(torch.float32).contiguous()
-    _check_out(q, k, v, w_out, bias, residual, num_heads)
+    if bias is not None and bias.data_ptr() % 16:
+        bias = bias.clone()  # the bf16 kernel reads it in pairs
+    tile = _check_out(q, k, v, w_out, bias, residual, num_heads)
     b, t, inner = q.shape
     out = torch.empty_like(residual)
     code = _build.library().dpm_attention_out_fwd(
@@ -583,17 +725,19 @@ def _attention_out_forward(q, k, v, w_out, bias, residual, num_heads, scale):
         None if bias is None else bias.data_ptr(), residual.data_ptr(), out.data_ptr(),
         b, t, k.shape[1], num_heads, inner // num_heads, w_out.shape[1],
         float(scale * _LOG2E), *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        _DTYPES[q.dtype], _build.stream_ptr(q.device))
+        _DTYPES[q.dtype], tile.rows, tile.block_kv, tile.stages, tile.cluster, tile.n_chunk,
+        tile.w_rows, _build.stream_ptr(q.device))
     _build.check(code, "attention_out_fused")
     attention_out_fused.launches += 1
+    attention_out_fused.launches_by_route[tile.route] += 1
     return out
 
 
 class _AttentionOut(torch.autograd.Function):
     """Autograd for `attention_out_fused`: the backward is the recompute VJP
     of the unfused composition (the JAX `_attn_out_bwd`, :1230-1244), whose
-    attention is `token_attention` and so, at dh 64 on the card, its
-    forward-with-lse and dq, dk/dv kernels."""
+    attention is `token_attention` and so, on the card, its forward-with-lse
+    and dq, dk/dv kernels at every head dim."""
 
     @staticmethod
     def forward(ctx, q, k, v, w_out, bias, residual, num_heads, scale):
@@ -622,13 +766,33 @@ def attention_out_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, T, H*dh); k, v (B, S, H*dh); w_out (H*dh, C); bias (C,) or None;
     residual (B, T, C); the result in the residual's dtype. On the card dh
-    must be 64. Differentiable in every tensor input. Nothing in the port
-    calls it: the JAX package never wires it (`_ATTN_OUT_WINS = []`)."""
+    is one of HEAD_DIMS, H*dh <= OUT_MAX_INNER, C % 8 == 0 and C <=
+    OUT_MAX_C (`attention_out_plan`). Differentiable in every tensor input.
+    Nothing in the port calls it, as in the JAX package
+    (`attn_out_fused_wins`)."""
     scale = _scale(q, num_heads, scale)
     tensors = (q, k, v, w_out, bias, residual)
     if torch.is_grad_enabled() and any(u is not None and u.requires_grad for u in tensors):
         return _AttentionOut.apply(*tensors, num_heads, scale)
     return _attention_out_forward(*tensors, num_heads, scale)
+
+
+# The self-attention sites, (T, H, dh, C), where the fused kernel beat the
+# unfused composition (token_attention, then F.linear with the bias, then
+# the add) on the H100 in the same call (chip_smoke.py's row-10 timing, which
+# times both at every site it checks): SD-2.1's 96x96 level at CFG b8,
+# SD-1's 8x8 level at CFG b2, and the 256-wide single head at b8. Where it
+# lost (SD-2.1's 48x48 to 12x12, SD-1's 64x64 to 16x16, the VAE's 512-wide
+# head), the unfused composition stays.
+_ATTN_OUT_WINS: list = [(9216, 5, 64, 320), (64, 8, 160, 1280), (256, 1, 256, 256)]
+
+
+def attn_out_fused_wins(t: int, s: int, num_heads: int, dh: int, c: int) -> bool:
+    """Model-side dispatch (the JAX `attn_out_fused_wins`): fuse the
+    out-projection and residual into the attention kernel at this site?
+    True only at a measured win on self-attention (T == S). No model calls
+    it, as in the JAX package."""
+    return t == s and (t, num_heads, dh, c) in _ATTN_OUT_WINS
 
 
 token_attention.launches = 0
@@ -640,3 +804,4 @@ attention_dq.launches_by_route = Counter()
 attention_dkv.launches = 0
 attention_dkv.launches_by_route = Counter()
 attention_out_fused.launches = 0
+attention_out_fused.launches_by_route = Counter()

@@ -48,11 +48,11 @@ def _numerical_clip_alpha(log_alphas: np.ndarray, clipped_lambda: float = -5.1) 
     return log_alphas
 
 
-def _as_float(t) -> torch.Tensor:
-    """A floating tensor keeps its dtype and device; anything else becomes float32."""
+def _as_float(t, dtype=torch.float32) -> torch.Tensor:
+    """A floating tensor keeps its dtype and device; anything else becomes `dtype`."""
     if isinstance(t, torch.Tensor) and t.is_floating_point():
         return t
-    return torch.as_tensor(t, dtype=torch.float32)
+    return torch.as_tensor(t, dtype=dtype)
 
 
 class NoiseScheduleVP:
@@ -60,15 +60,19 @@ class NoiseScheduleVP:
 
     q(x_t | x_0) = N(alpha_t x_0, sigma_t^2 I), lambda_t = log alpha_t - log sigma_t.
     Constructed reference-style, `NoiseScheduleVP('discrete', betas=...)`, or
-    through `discrete`, `linear` and `cosine`. Torch methods take a tensor t
-    and compute in its dtype and on its device.
+    through `create`, `discrete`, `linear` and `cosine`, each taking the JAX
+    package's arguments. Torch methods take a tensor t and compute in its
+    dtype and on its device. `dtype` is the precision the discrete tables are
+    rounded to once, the default dtype of `tables()`, and the dtype a t that
+    is not a floating tensor is taken in.
     """
 
     def __init__(self, schedule: str = "discrete", betas=None, alphas_cumprod=None,
-                 continuous_beta_0: float = 0.1, continuous_beta_1: float = 20.0):
+                 continuous_beta_0: float = 0.1, continuous_beta_1: float = 20.0,
+                 dtype: torch.dtype = torch.float32):
         if schedule not in SCHEDULES:
             raise ValueError(f"Unsupported noise schedule {schedule!r}; need one of {SCHEDULES}.")
-        self.schedule = schedule
+        self.schedule, self.dtype = schedule, dtype
         self.beta_0, self.beta_1 = 0.1, 20.0
         self.cosine_s = 0.008
         self.t_array_np = self.log_alpha_array_np = None
@@ -84,10 +88,10 @@ class NoiseScheduleVP:
             self.total_N = log_alphas.shape[0]
             self.T = 1.0
             # t_i = (i+1)/N over the clipped table (dpm_solver_pytorch.py:105-107);
-            # rounded to float32 once, like the JAX package's stored tables
+            # rounded to `dtype` once, like the JAX package's stored tables
             t = np.linspace(0.0, 1.0, self.total_N + 1, dtype=np.float64)[1:]
-            self.t_array_np = t.astype(np.float32).astype(np.float64)
-            self.log_alpha_array_np = log_alphas.astype(np.float32).astype(np.float64)
+            rounded = lambda a: torch.as_tensor(a).to(dtype).double().numpy()
+            self.t_array_np, self.log_alpha_array_np = rounded(t), rounded(log_alphas)
         elif schedule == "linear":
             self.total_N, self.T = 1000, 1.0
             self.beta_0, self.beta_1 = float(continuous_beta_0), float(continuous_beta_1)
@@ -95,8 +99,17 @@ class NoiseScheduleVP:
             self.total_N, self.T = 1000, 0.9946
 
     @staticmethod
-    def discrete(betas=None, alphas_cumprod=None) -> "NoiseScheduleVP":
-        return NoiseScheduleVP("discrete", betas=betas, alphas_cumprod=alphas_cumprod)
+    def create(schedule: str = "discrete", betas=None, alphas_cumprod=None,
+               continuous_beta_0: float = 0.1, continuous_beta_1: float = 20.0,
+               dtype: torch.dtype = torch.float32) -> "NoiseScheduleVP":
+        """The JAX package's constructor (dpm_solver_tpu/schedule.py:119-126)."""
+        return NoiseScheduleVP(schedule, betas, alphas_cumprod, continuous_beta_0,
+                               continuous_beta_1, dtype)
+
+    @staticmethod
+    def discrete(betas=None, alphas_cumprod=None,
+                 dtype: torch.dtype = torch.float32) -> "NoiseScheduleVP":
+        return NoiseScheduleVP("discrete", betas=betas, alphas_cumprod=alphas_cumprod, dtype=dtype)
 
     @staticmethod
     def linear(beta_0: float = 0.1, beta_1: float = 20.0) -> "NoiseScheduleVP":
@@ -106,13 +119,14 @@ class NoiseScheduleVP:
     def cosine() -> "NoiseScheduleVP":
         return NoiseScheduleVP("cosine")
 
-    def tables(self, device, dtype=torch.float32):
-        """The discrete (t, log_alpha) tables on `device`, made once per device."""
-        key = (torch.device(device), dtype)
+    def tables(self, device, dtype=None):
+        """The discrete (t, log_alpha) tables on `device` in `dtype` (default:
+        the schedule's), made once per device and dtype."""
+        key = (torch.device(device), dtype or self.dtype)
         if key not in self._tables:
             self._tables[key] = (
-                torch.as_tensor(self.t_array_np, dtype=dtype, device=device),
-                torch.as_tensor(self.log_alpha_array_np, dtype=dtype, device=device))
+                torch.as_tensor(self.t_array_np, dtype=key[1], device=device),
+                torch.as_tensor(self.log_alpha_array_np, dtype=key[1], device=device))
         return self._tables[key]
 
     # ---- torch methods --------------------------------------------------------
@@ -124,7 +138,7 @@ class NoiseScheduleVP:
 
     def marginal_log_mean_coeff(self, t: torch.Tensor) -> torch.Tensor:
         """log(alpha_t) for continuous t in (0, T]."""
-        t = _as_float(t)
+        t = _as_float(t, self.dtype)
         if self.schedule == "discrete":
             ta, la = self.tables(t.device, t.dtype)
             return interp_linear_extrap(t, ta, la)
@@ -144,7 +158,7 @@ class NoiseScheduleVP:
 
     def inverse_lambda(self, lamb: torch.Tensor) -> torch.Tensor:
         """t such that lambda_t == lamb (lambda is strictly decreasing in t)."""
-        lamb = _as_float(lamb)
+        lamb = _as_float(lamb, self.dtype)
         zero = torch.zeros_like(lamb)
         if self.schedule == "linear":
             tmp = 2.0 * (self.beta_1 - self.beta_0) * torch.logaddexp(-2.0 * lamb, zero)

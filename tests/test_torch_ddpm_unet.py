@@ -94,3 +94,37 @@ def test_cifar10_config_matches_jax():
         assert getattr(ours, f) == getattr(theirs, f), f
     n = sum(p.numel() for p in DDPMUNet(ours, device="cpu").parameters())
     assert 35_600_000 < n < 35_800_000  # the CIFAR-10 DDPM's 35.7M parameters
+
+
+PRESETS = ("cifar10", "celeba", "lsun256")
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_preset_fields_match_jax(preset):
+    ours, theirs = getattr(DDPMUNetConfig, preset)(), getattr(JaxConfig, preset)()
+    assert [f.name for f in dataclasses.fields(ours)] == \
+        [f.name for f in dataclasses.fields(theirs)]
+    for f in dataclasses.fields(theirs):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+@pytest.mark.parametrize("preset", ("celeba", "lsun256"))
+def test_preset_forward_matches_jax(preset):
+    """One forward of each preset at its own ch_mult and resolution, cut to
+    32 channels a unit and one ResnetBlock a level: weights from one torch
+    init carried into the JAX model by its own converter (jitted: the
+    compile takes less than the op-by-op run)."""
+    cut = dict(ch=32, num_res_blocks=1, dropout=0.0)
+    cfg = dataclasses.replace(getattr(DDPMUNetConfig, preset)(), **cut)
+    port = init_random_(DDPMUNet(cfg, device="cpu"), torch.Generator().manual_seed(4)).eval()
+    params = convert_ddpm_unet({k: v.numpy() for k, v in port.state_dict().items()})
+    rng = np.random.default_rng(4)
+    res = cfg.resolution
+    x = rng.standard_normal((1, res, res, 3)).astype(np.float32)
+    t = np.asarray([271.5], dtype=np.float32)
+    model = JaxDDPMUNet(dataclasses.replace(getattr(JaxConfig, preset)(), **cut))
+    want = np.asarray(jax.jit(model.apply)(params, jnp.asarray(x), jnp.asarray(t)))
+    with torch.no_grad():
+        got = port(torch.tensor(x), torch.tensor(t)).numpy()
+    assert got.shape == (1, res, res, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)

@@ -28,6 +28,11 @@ only, so these tests hold, on the CPU, what the plans promise:
   and its grid covers the card's 132 SMs (GEGLU's down-projection by a
   split of its reduction where 64-row blocks fall short; LayerNorm->Linear
   wherever its 128-column tiles allow); ragged widths take "wmma";
+- the fused attention with its out-projection
+  (`ops/attention.py::attention_out_plan`): at every head dim and every H
+  with H*dh <= 1280, in both dtypes, the tile is a compiled one and fits
+  227 KB, and at the SD-2.1 and SD-1 sites the cluster splits the heads
+  evenly and the grid covers the query tiles;
 - the tiles the plans name are the ones the C sources compile.
 """
 
@@ -46,7 +51,8 @@ from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, Auto
                                          VAEConfig, layout, transformer)
 from dpm_solver_tpu_torch.ops import _build
 from dpm_solver_tpu_torch.ops.attention import (HEAD_DIMS, SMEM_PER_BLOCK, AttentionBwdTile,
-                                                AttentionTile, attention_bwd_plan,
+                                                AttentionOutTile, AttentionTile,
+                                                attention_bwd_plan, attention_out_plan,
                                                 attention_plan)
 from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA_SMEM,
                                               conv3x3_patch, conv3x3_plan, f32_steps)
@@ -523,7 +529,14 @@ def _cu_constant(source: str, name: str) -> int:
     ("conv3x3.cu", "NR_THREADS", conv_mod.NARROW_THREADS),
     ("conv3x3.cu", "NR_PH", conv_mod.NARROW_PATCH[0]),
     ("conv3x3.cu", "NR_PW", conv_mod.NARROW_PATCH[1]),
-    ("conv3x3.cu", "NR_STAGES", conv_mod.NARROW_STAGES)],
+    ("conv3x3.cu", "NR_STAGES", conv_mod.NARROW_STAGES),
+    ("attention_out.cu", "MAX_INNER", attention_mod.OUT_MAX_INNER),
+    ("attention_out.cu", "MAX_C", attention_mod.OUT_MAX_C),
+    ("attention_out.cu", "OUT_NCH", attention_mod.OUT_N_CHUNK),
+    ("attention_out.cu", "OUT_SMEM_LIMIT", SMEM_PER_BLOCK),
+    ("attention_out.cu", "MAX_CLUSTER", attention_mod.OUT_MAX_CLUSTER),
+    ("attention_out.cu", "F32_ROWS", attention_out_plan(64, 64, 8, torch.float32).rows),
+    ("attention_out.cu", "F32_THREADS", attention_out_plan(64, 64, 8, torch.float32).n_chunk)],
     ids=lambda v: str(v))
 def test_plans_name_the_compiled_tiles(source, name, value):
     """The plans' tile constants are the C sources' (the entries refuse others)."""
@@ -600,3 +613,101 @@ def test_attention_f32_grid_at_path_e(site, blocks):
     assert gx * gy * gz == blocks and gx * tile.block_q >= t and gy == b * heads
     dv = tile.launch_dv(b, t, heads)
     assert dv * gz == dh and (dv == dh or dv % 64 == 0)
+
+
+# ---- attention -> out-projection -> residual (csrc/attention_out.cu) ---------
+
+OUT_CASES = [(dh, heads, dt) for dt in (torch.bfloat16, torch.float32) for dh in HEAD_DIMS
+             for heads in range(1, attention_mod.OUT_MAX_INNER // dh + 1)]
+
+
+def _compiled_out_tiles() -> set:
+    """(dh, rows, keys a tile, stages) of every OUT_TILE the C source compiles."""
+    text = (_build.CSRC / "attention_out.cu").read_text()
+    return {tuple(map(int, m)) for m in
+            re.findall(r"OUT_TILE\((\d+), (\d+), (\d+), (\d+)\)", text)}
+
+
+def test_out_tile_list_is_the_compiled_one():
+    """OUT_TILES names exactly the bf16 instances csrc/attention_out.cu
+    compiles, in the order the C source lists them."""
+    text = (_build.CSRC / "attention_out.cu").read_text()
+    listed = [tuple(map(int, m)) for m in
+              re.findall(r"OUT_TILE\((\d+), (\d+), (\d+), (\d+)\)", text)]
+    assert listed == [(dh, *tile) for dh in HEAD_DIMS for tile in attention_mod.OUT_TILES[dh]]
+
+
+@pytest.mark.parametrize("dh,heads,dtype", OUT_CASES,
+                         ids=[f"{dh}x{h}-{str(dt)[6:]}" for dh, h, dt in OUT_CASES])
+def test_out_tile_fits_every_width(dh, heads, dtype):
+    """At every head dim and every H with H*dh <= 1280 the plan's tile is a
+    compiled one and fits 227 KB: bf16 on "wgmma" (64-row warpgroups, a
+    ring stage that also holds w_rows x 128 of w_out), fp32 on "f32"."""
+    inner = heads * dh
+    tile = attention_out_plan(dh, inner, 1280, dtype)
+    assert isinstance(tile, AttentionOutTile) and tile.smem_bytes <= SMEM_PER_BLOCK
+    assert (tile.dh, tile.inner, tile.cluster) == (dh, inner, 1)
+    if dtype == torch.float32:
+        parts = attention_mod._f32_parts(dh)
+        assert tile.route == "f32" and tile.rows == 16 and tile.block_kv == 256 // parts
+        assert tile.stages in (1, 2) and tile.n_chunk == 256 and tile.w_rows == 0
+        return
+    assert tile.route == "wgmma" and (dh, tile.rows, tile.block_kv, tile.stages) in \
+        _compiled_out_tiles()
+    assert tile.rows % 64 == 0 and tile.block_kv % 16 == 0 and tile.n_chunk == 128
+    # a w_out stage: whole 16-deep steps, a legal TMA box, inside a K/V stage
+    stage = 128 * tile.block_kv * (-(-dh // 64) + -(-min(dh, 256) // 64))
+    assert tile.w_rows % 16 == 0 and 16 <= tile.w_rows <= 256
+    assert tile.w_rows * tile.n_chunk * 2 <= stage
+    # the first compiled tile that fits: no earlier one would
+    first = attention_mod.OUT_TILES[dh].index((tile.rows, tile.block_kv, tile.stages))
+    for rows, kv, stages in attention_mod.OUT_TILES[dh][:first]:
+        wider = dataclasses.replace(tile, rows=rows, block_kv=kv, stages=stages)
+        assert wider.smem_bytes > SMEM_PER_BLOCK
+
+
+def test_out_f32_buffers_are_the_compiled_ones():
+    """Two cp.async buffers where they fit beside the head dim's widest
+    concat buffer, else one: the instances the card's build compiles
+    (`attention_out_f32<D, NBUF>`)."""
+    got = {dh: attention_out_plan(dh, dh, 8, torch.float32).stages for dh in HEAD_DIMS}
+    assert got == {32: 2, 40: 2, 64: 2, 80: 1, 128: 2, 160: 1, 256: 1, 512: 2}
+
+
+# the fused kernel's SD sites (b, t, s, heads, dh, c): SD-2.1 768 px at CFG
+# b8 (96x96, 48x48, 24x24, 12x12), SD-1 512 px at CFG b2 (64x64 ... 8x8 and
+# a cross-attention), the VAE's 512-wide head, DDPM's 256-wide head at b64
+OUT_SITES = [(8, 9216, 9216, 5, 64, 320), (8, 2304, 2304, 10, 64, 640),
+             (8, 576, 576, 20, 64, 1280), (8, 144, 144, 20, 64, 1280),
+             (2, 4096, 4096, 8, 40, 320), (2, 1024, 1024, 8, 80, 640),
+             (2, 256, 256, 8, 160, 1280), (2, 64, 64, 8, 160, 1280),
+             (2, 4096, 77, 8, 40, 320), (1, 9216, 9216, 1, 512, 512),
+             (64, 256, 256, 1, 256, 256)]
+
+
+@pytest.mark.parametrize("site", OUT_SITES, ids=str)
+def test_out_plan_splits_heads_over_a_cluster(site):
+    """With the launch's b, t and s the plan picks a tile that fits and a
+    cluster of 1, 2, 4 or 8 CTAs that divides H; its grid covers every
+    query tile of every batch element, and no CTA of a cluster is left
+    without heads."""
+    b, t, s, heads, dh, c = site
+    tile = attention_out_plan(dh, heads * dh, c, torch.bfloat16, b, t, s)
+    assert tile.smem_bytes <= SMEM_PER_BLOCK and tile.cluster in (1, 2, 4, 8)
+    assert heads % tile.cluster == 0
+    gx, gy = tile.grid(b, t)
+    assert gy == b and gx % tile.cluster == 0 and gx // tile.cluster * tile.rows >= t
+    est = attention_mod._out_estimate(tile, b, t, s, c)
+    for other in (dataclasses.replace(tile, cluster=n) for n in (1, 2, 4, 8)
+                  if heads % n == 0):
+        assert est <= attention_mod._out_estimate(other, b, t, s, c)
+
+
+def test_out_plan_at_the_sd_sites():
+    """The picks the timings behind the estimate's constants made: 192 rows
+    at SD-2.1's 96x96 site (384 CTAs, one cluster each), 128 rows in pairs at
+    48x48, 64-row clusters of 4 at the 1280-wide levels, 8 at SD-1's 16x16."""
+    pick = lambda site: (lambda p: (p.rows, p.cluster))(attention_out_plan(
+        site[4], site[3] * site[4], site[5], torch.bfloat16, *site[:3]))
+    assert [pick(site) for site in OUT_SITES[:4]] == [(192, 1), (128, 2), (64, 4), (64, 4)]
+    assert pick(OUT_SITES[6]) == (64, 8)

@@ -78,7 +78,12 @@ def test_static_fields_match(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_torch_methods_match_jax(kind):
-    j, t = _pair(kind)
+    _hold_methods(*_pair(kind), kind)
+
+
+def _hold_methods(j, t, kind):
+    """The fp32 torch methods of `t` against the JAX object `j` (the cosine
+    schedule's ill-conditioned pair against the float64 truth)."""
     ts = _grid(t, 333).astype(np.float32)
     for name in ("marginal_log_mean_coeff", "marginal_alpha", "marginal_std",
                  "marginal_lambda"):
@@ -95,6 +100,59 @@ def test_torch_methods_match_jax(kind):
     lambdas = np.asarray(j.marginal_lambda(jnp.asarray(ts)))
     _close(t.inverse_lambda(torch.tensor(lambdas)).numpy(),
            np.asarray(j.inverse_lambda(jnp.asarray(lambdas))), FP32_REL)
+
+
+# the JAX package's constructor forms (dpm_solver_tpu/schedule.py:73-86 routes
+# a reference-style call to `create`, :119-126; `discrete` takes dtype, :177-178),
+# each built the same way on both sides: (kind for the cosine rule, port, JAX)
+_BETAS = np.linspace(1e-4, 0.02, 1000, dtype=np.float64)
+FORMS = {
+    "ref_discrete_dtype": ("discrete",
+                           lambda: NoiseScheduleVP("discrete", betas=_BETAS, dtype=torch.float32),
+                           lambda: JaxNS("discrete", betas=_BETAS, dtype=jnp.float32)),
+    "ref_linear_betas": ("linear",
+                         lambda: NoiseScheduleVP("linear", continuous_beta_0=0.05,
+                                                 continuous_beta_1=15.0),
+                         lambda: JaxNS("linear", continuous_beta_0=0.05, continuous_beta_1=15.0)),
+    "create_linear": ("linear", lambda: NoiseScheduleVP.create("linear"),
+                      lambda: JaxNS.create("linear")),
+    "create_cosine": ("cosine", lambda: NoiseScheduleVP.create("cosine", dtype=torch.float32),
+                      lambda: JaxNS.create("cosine", dtype=jnp.float32)),
+    "create_discrete_alphas_cumprod": (
+        "discrete", lambda: NoiseScheduleVP.create(
+            "discrete", alphas_cumprod=_cosine_alphas_cumprod(), dtype=torch.float32),
+        lambda: JaxNS.create("discrete", alphas_cumprod=_cosine_alphas_cumprod(),
+                             dtype=jnp.float32)),
+    "discrete_dtype": ("discrete",
+                       lambda: NoiseScheduleVP.discrete(betas=_BETAS, dtype=torch.float32),
+                       lambda: JaxNS.discrete(betas=_BETAS, dtype=jnp.float32)),
+}
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_constructor_forms_match_jax(form):
+    kind, port, ref = FORMS[form]
+    t, j = port(), ref()
+    assert (t.schedule, t.total_N, t.T, t.beta_0, t.beta_1) == \
+        (j.schedule, j.total_N, j.T, j.beta_0, j.beta_1)
+    _hold_methods(j, t, kind)
+
+
+def test_dtype_sets_the_tables_and_untyped_times():
+    """`dtype` rounds the discrete tables once and is the default of
+    `tables()` and the dtype of a t that is not a floating tensor."""
+    t32 = NoiseScheduleVP.discrete(betas=_BETAS)
+    t64 = NoiseScheduleVP("discrete", betas=_BETAS, dtype=torch.float64)
+    assert t32.tables("cpu")[1].dtype == torch.float32
+    assert t64.tables("cpu")[1].dtype == torch.float64
+    want = 0.5 * np.cumsum(np.log1p(-_BETAS))
+    np.testing.assert_array_equal(t64.log_alpha_array_np, want)
+    np.testing.assert_array_equal(t32.log_alpha_array_np, want.astype(np.float32))
+    assert t64.marginal_log_mean_coeff(0.5).dtype == torch.float64
+    assert t32.marginal_log_mean_coeff(0.5).dtype == torch.float32
+    got = t64.marginal_log_mean_coeff(torch.tensor([0.25, 0.5], dtype=torch.float64))
+    np.testing.assert_allclose(got.numpy(), t64.marginal_log_mean_coeff_np([0.25, 0.5]),
+                               rtol=0, atol=1e-15)
 
 
 @pytest.mark.parametrize("kind", KINDS)
