@@ -22,7 +22,10 @@ and nothing of JAX. Phases, each fatal on failure:
    dq and dk/dv (at dh 64, and at every other head dim in both dtypes: dh
    256 at 16x16, SD-1's 40/80/160, 32, 128, 512 at T = S = 1024 and ragged
    on qkv slices; at each, the forward's o and lse are checked first on the
-   same inputs)
+   same inputs); the forward and its lse at the wide presets' head dims
+   (cin256's 384, 576 and 960 at CFG b8 with S = 1, 96 and 192, ragged and
+   on qkv slices), each launch on its route; LayerNorm->Linear and GEGLU at
+   cin256's widths too
    and conv3x3's input gradient; the bf16 "narrow" conv route (forward and
    dx) at the SD VAE's conv_in and conv_out, at C in {1, 3, 4, 5, 12} x CO in
    {3, 4, 6, 20, 512} on a 7x9 map and at C = CO = 64 off a 16-byte
@@ -75,6 +78,35 @@ and nothing of JAX. Phases, each fatal on failure:
    against the plain path on the CPU, and the replayed sampler against the
    eager one on the card, again with a new x_T and another prompt's context
    (no new capture: the conditioning is copied into the graph's inputs);
+5b. path G, SD-2.1 img2img and inpaint: path B's networks, b4 at 768 px,
+   CFG 7.5: img2img at strength 0.75 (15 of 20 steps) and inpaint (20
+   steps, one seeded rectangle a mask), each encoding its images with the
+   VAE encoder (its first run on the card; conv_in 3 -> 128 on "narrow");
+   launch counts and routes as path B's plus the encode's; inpaint keeps
+   its masked-out pixels; both graphed (`jit=True`) as path B. Then fp32 at
+   128 px, b1: both card vs CPU within 1e-4 of max|x|, and a second inpaint
+   call with another image, mask and noise replays the first's graph within
+   1e-6 of its own eager call (the sampler's held blend table). Then
+   DiffEdit at SD-2.1 width, 512 px, b1, encode ratio 0.5, bf16: finite,
+   and graphed (captured once, replayed) equal to eager within 1e-6;
+5c. path F, class-conditional cin256: `load_sd_checkpoint(...,
+   preset="cin256")` on a CompVis-style state dict synthesised on the host
+   with seeded random weights (`ADMConfig.cin256()`, 400.9M parameters; the
+   VQ-f4 first stage `VAEConfig.vq_cin256()` with 8192 codes, 55.3M),
+   `ClassEmbedder(1001, 512)`, `class_conditional_sample` b8, CFG 3.0
+   against class 1000, 20 NFE, bf16, 256 px: launch counts and routes from
+   the configs, the attentions recorded by head dim (384, 576, 960, each
+   self- and S = 1 cross-attention), graphed as path B; fp32 at 32x32
+   latents, b2, 3 NFE, card vs CPU: latents within 1e-4 of max|x|, the VQ
+   indices each side picks (flips counted), the decoder on the CPU's
+   indices within 1e-4;
+5d. the conditioners and upscale, fp32, card vs CPU within 1e-4 of max|x|:
+   `FrozenCLIPEmbedder` at ViT-L/14's text width (12 layers, 768 wide,
+   vocab 49,408, 77 tokens) from an HF-format directory written to a
+   temporary path (synthetic vocab, seeded random weights); `BERTEmbedder`
+   at LDM txt2img-f8's width (1280, 32 layers; its 32 attentions on the
+   fp32 kernel); `ClassEmbedder` (equal); `upscale` on a small
+   concat-conditioned LDM (64 channels, KL-f4), 32 -> 128 px;
 6. path C, classifier-guided ImageNet-256 (benchmarks/guided_bench.py's
    call): `ADMConfig.imagenet256_guided()` (553.8M parameters, learned
    sigma, the model takes out[..., :3]) and its 54.1M-parameter
@@ -125,8 +157,8 @@ and nothing of JAX. Phases, each fatal on failure:
    RK45 take thousands of NFE) in fp32, card against CPU, bits/dim and the
    black-box `ode_sampler` (with its denoising step): the same NFE, bits/dim
    within 1e-3, z and the samples within 5e-3 of their max;
-8. timing: each path's median wall time (A, B and D both eager and replayed
-   from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
+8. timing: each path's median wall time (A, B, D, F and G both eager and
+   replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
    shares, the ScoreSDE call's network-forward share, the bits/dim call's
    wall (median of LIK_TIMED_RUNS after the counted one), NFE, ms per NFE
@@ -148,7 +180,10 @@ and nothing of JAX. Phases, each fatal on failure:
    bound; the "narrow" conv route alone at its path-B launches (the VAE's
    conv_in and conv_out) beside the plain conv, cuDNN and the bound; and the
    fused update at A-D's sizes both back to back and device alone (the
-   path's launches captured in one CUDA graph).
+   path's launches captured in one CUDA graph); path G's img2img call's
+   kernels (the VAE encoder's included, and the "narrow" route at its
+   three launches) and path F's call's, recorded from the calls, with the
+   attention at F's sites by spec.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -180,6 +215,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from itertools import chain
@@ -195,11 +231,30 @@ SD_TIMED_RUNS = 3
 GUIDED_BATCH, GUIDED_SIZE, GUIDED_STEPS, GUIDED_SCALE = 8, 256, 20, 8.0   # path C
 GUIDED_TIMED_RUNS = 3
 SCORE_BATCH, SCORE_STEPS, SCORE_T_END = 256, 10, 1e-3                     # path D
+I2I_STRENGTH = 0.75                                 # path G: img2img, 15 of 20 steps
+CIN_LABELS, CIN_STEPS, CIN_SCALE, CIN_UNCOND = 8, 20, 3.0, 1000           # path F
+CIN_CLASSES, CIN_CONTEXT, CIN_CODES = 1001, 512, 8192
+CIN_TIMED_RUNS = 3
+DIFFEDIT_SIZE, DIFFEDIT_RATIO = 512, 0.5            # DiffEdit at SD-2.1 width, b1
+# the attention forward (and its lse) at the head dims the wide presets give:
+# cin256's single heads of 384 (32x32), 576 (16x16) and 960 (8x8) at CFG b8,
+# self-attention and the S = 1 cross-attention to the class token, fused qkv
+# slices, ragged lengths; the ADM ImageNet-64 and -128 presets' 96 and 192
+WIDE_ATTENTION = [(16, 1024, 1024, 1, 384, False), (16, 1024, 1, 1, 384, False),
+                  (16, 256, 256, 1, 576, False), (16, 256, 1, 1, 576, False),
+                  (16, 64, 64, 1, 960, False), (16, 64, 1, 1, 960, False),
+                  (16, 1024, 1024, 1, 384, True), (16, 64, 64, 1, 960, True),
+                  (2, 100, 37, 1, 960, False), (3, 77, 200, 1, 384, False),
+                  (2, 65, 9, 2, 576, False), (1, 17, 300, 1, 960, False),
+                  (4, 256, 256, 4, 96, False), (4, 1024, 77, 4, 96, False),
+                  (4, 256, 256, 4, 192, True)]
 SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
 # path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
 # loosened to 1e-4 to keep the phase near its time budget (PERF.md section 4:
 # the call is host-bound, so a smaller batch would not be faster)
-LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 3
+# one timed bits/dim call after the counted one (three until paths F and G
+# came: the script's time limit; PERF.md section 4)
+LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 1
 # the adaptive solver's bound, card against CPU: each side accepts its steps
 # on its own fp32 error estimate (tests/test_solver_parity.py:286)
 ADAPTIVE_BOUND = 5e-3
@@ -255,8 +310,8 @@ REPLACES = {
                  "dpm_solver_tpu/ops/geglu.py:125"),
     "attention_lse": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
                       "dpm_solver_tpu/ops/attention.py:187 (_lse, _lse_kernel :157)"),
-    # rows 8-9 take every head dim of the forward in both dtypes: the JSON
-    # record's "head_dims" (ops/attention.py::HEAD_DIMS)
+    # rows 8-9 take HEAD_DIMS in both dtypes, the forward FWD_HEAD_DIMS: the
+    # JSON record's "head_dims" (ops/attention.py)
     "attention_dq": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
                      "dpm_solver_tpu/ops/attention.py:375 (_mha_backward dq: _dq_kernel :226, "
                      "_dq_kernel_T :245)"),
@@ -368,12 +423,17 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
             kernel = re.search(pattern, name).group(0)
             args = re.findall(r"L([ib])(\d+)E", name[name.index(kernel):])
             dh = [v for t, v in args if t == "i"]
+            flags = [v for t, v in args if t == "b"]
+            if kernel == "ln_linear_wgmma":  # <WM, SEG>
+                usage[f"{kernel} rows {64 * int(dh[0])} "
+                      f"{'segmented' if flags[0] == '1' else 'resident'}"] = (
+                    int(found.group(1)), spill)
+                continue
             tag = (f"{kernel} kc {dh[0]} nt {dh[1]}" if kernel == "conv3x3_narrow"
                    else f"{kernel} dh {dh[0]} kv {dh[1]} rows {64 * int(dh[2])} stages {dh[3]}"
                    if kernel == "attention_out_wgmma"
                    else f"{kernel} dh {dh[0]} buffers {dh[1]}" if kernel == "attention_out_f32"
                    else f"{kernel} dh {dh[0]}" if dh else kernel)
-            flags = [v for t, v in args if t == "b"]
             if flags:
                 tag += ((" dx" if flags[0] == "1" else " fwd") if kernel.startswith("conv")
                         else (" dkv" if flags[0] == "1" else " dq"))
@@ -686,6 +746,51 @@ def vae_decoder_launches(cfg) -> Counter:
     return Counter({"conv3x3": conv, "token_attention": attn})
 
 
+def vae_encoder_launches(cfg) -> Counter:
+    """Kernel launches of one VAE encode, from the config: conv_in, conv_out,
+    two per res block (the stride-2 downsample is a library conv); one
+    attention in the middle and one after each res block at an attention
+    resolution."""
+    levels = len(cfg.ch_mult)
+    res = [cfg.resolution // 2 ** i for i in range(levels)]
+    attn = 1 + sum(cfg.num_res_blocks for r in res if r in cfg.attn_resolutions)
+    return Counter({"conv3x3": 2 + 2 * (levels * cfg.num_res_blocks + 2),
+                    "token_attention": attn})
+
+
+def inpaint_masks(b: int, size: int, seed: int):
+    """(b, size, size) masks of one seeded rectangle each (1 = regenerate),
+    half the side long, at a seeded corner."""
+    import torch
+
+    corners = torch.randint(0, size // 2, (b, 2), generator=torch.Generator().manual_seed(seed))
+    mask = torch.zeros(b, size, size)
+    for i, (y, x) in enumerate(corners.tolist()):
+        mask[i, y:y + size // 2, x:x + size // 2] = 1.0
+    return mask
+
+
+def write_clip_text_dir(directory: Path, seed: int) -> Path:
+    """An HF-format CLIP text directory at ViT-L/14's text width (12 layers,
+    768 wide, 12 heads, vocab 49,408, 77 positions): config.json, seeded
+    random weights as pytorch_model.bin under transformers' names, and a
+    synthetic vocab.json and merges.txt (no pretrained CLIP is in the repo)."""
+    import torch
+
+    from dpm_solver_tpu_torch.models import init_random_
+    from dpm_solver_tpu_torch.models.clip import CLIPTextModel, CLIPTowerConfig
+    from dpm_solver_tpu_torch.models.clip_tokenizer import write_synthetic_vocab
+
+    cfg = CLIPTowerConfig.vit_l14_text()
+    write_synthetic_vocab(directory)
+    (directory / "config.json").write_text(json.dumps(dict(
+        dataclasses.asdict(cfg), architectures=["CLIPTextModel"], model_type="clip_text_model",
+        bos_token_id=49406, pad_token_id=1)))
+    model = init_random_(CLIPTextModel(cfg), torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), directory / "pytorch_model.bin")
+    return directory
+
+
 def guided_launches(ucfg, ccfg, steps: int) -> dict:
     """Kernel launches of one guided sample call of `steps` NFE: per NFE one
     UNet forward and one classifier forward and backward. The classifier's
@@ -792,15 +897,15 @@ def record_guided_calls(unet, clf, run) -> tuple:
     return calls["unet"], calls["classifier"]
 
 
-def record_sd_calls(unet, vae, run) -> tuple:
-    """The kernel specs of one UNet forward and one VAE decode (vae may be
-    None), read from the modules' inputs by forward hooks while `run` makes
-    one of each."""
+def record_sd_calls(unet, vae, run, encoder: bool = False) -> tuple:
+    """The kernel specs of the UNet forwards and VAE decodes (vae may be
+    None) that `run` makes, read from the modules' inputs by forward hooks;
+    with `encoder`, also the VAE encodes' (a third Counter)."""
     from dpm_solver_tpu_torch import ops
     from dpm_solver_tpu_torch.models.transformer import CrossAttention, GEGLUFeedForward
     from dpm_solver_tpu_torch.models.vae import VAEAttnBlock
 
-    calls = {"unet": Counter(), "vae": Counter()}
+    calls = {"unet": Counter(), "vae": Counter(), "encoder": Counter()}
 
     def hook(where):
         def pre(mod, args, kwargs):
@@ -824,16 +929,17 @@ def record_sd_calls(unet, vae, run) -> tuple:
         return pre
 
     kinds = (ops.Conv3x3, CrossAttention, GEGLUFeedForward, VAEAttnBlock)
+    nets = (("unet", unet), ("vae", None if vae is None else vae.decoder),
+            ("encoder", vae.encoder if encoder else None))
     handles = [m.register_forward_pre_hook(hook(where), with_kwargs=True)
-               for where, net in (("unet", unet), ("vae", None if vae is None else vae.decoder))
-               if net is not None
+               for where, net in nets if net is not None
                for m in net.modules() if isinstance(m, kinds)]
     try:
         run()
     finally:
         for h in handles:
             h.remove()
-    return calls["unet"], calls["vae"]
+    return (calls["unet"], calls["vae"]) + ((calls["encoder"],) if encoder else ())
 
 
 def span_hooks(spans: dict, where: str) -> tuple:
@@ -871,14 +977,18 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
-                                             DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
-                                             VAEConfig, constant_context_encoder, init_random_)
+                                             BERTEmbedder, ClassEmbedder, DDPMUNet,
+                                             DDPMUNetConfig, FrozenCLIPEmbedder, NCSNpp,
+                                             NCSNppConfig, VAEConfig, VQModel,
+                                             constant_context_encoder, init_random_)
     from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
     from dpm_solver_tpu_torch.ops import _build
-    from dpm_solver_tpu_torch.ops.attention import HEAD_DIMS, attention_delta
+    from dpm_solver_tpu_torch.ops.attention import FWD_HEAD_DIMS, HEAD_DIMS, attention_delta
     from dpm_solver_tpu_torch.ops.attention import attention_out_plan as out_plan
     from dpm_solver_tpu_torch.ops.conv3x3 import flip_weight
-    from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
+    from dpm_solver_tpu_torch.pipelines import (DPMSolverSampler, LatentDiffusion,
+                                                StableDiffusionPipeline, class_conditional_sample,
+                                                diffedit, load_sd_checkpoint)
     from dpm_solver_tpu_torch.likelihood import (get_likelihood_fn, hutchinson_divergence,
                                                  ode_sampler, sample_hutchinson)
     from dpm_solver_tpu_torch.score import get_noise_fn, get_score_fn
@@ -913,8 +1023,13 @@ def main() -> int:
     narrow_ptxas = ptxas_usage(build_log.getvalue(), r"conv3x3_narrow")
     # the fused attention output, one instance a tile (bf16) or head dim (fp32)
     out_ptxas = ptxas_usage(build_log.getvalue(), r"attention_out_(wgmma|f32)")
+    # the bf16 attention forward, one instance a head dim (fp32: f32_ptxas);
+    # LayerNorm->Linear's "wgmma" instances, resident and segmented
+    fwd_ptxas = ptxas_usage(build_log.getvalue(), r"attention_fwd_wgmma")
+    ln_ptxas = ptxas_usage(build_log.getvalue(), r"ln_linear_wgmma")
     for kernel, (regs, spill) in chain(bwd_ptxas.items(), f32_ptxas.items(),
-                                       narrow_ptxas.items(), out_ptxas.items()):
+                                       narrow_ptxas.items(), out_ptxas.items(),
+                                       fwd_ptxas.items(), ln_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -1083,6 +1198,40 @@ def main() -> int:
                    ops.attention_plain(q.float(), k.float(), v.float(), num_heads=heads),
                    BOUND[str(dt)[6:]])
             del q, k, v
+    def routed(fn, call):
+        """call(); the route `fn` counted it under."""
+        before = Counter(fn.launches_by_route)
+        out = call()
+        taken = [r for r, k in (Counter(fn.launches_by_route) - before).items() if k]
+        if len(taken) != 1:
+            fail(f"{fn.__name__}: one call counted under routes {taken}")
+        return out, taken[0]
+
+    # the forward and its lse at the wide presets' head dims (cin256's 384,
+    # 576 and 960 with S = 1; 96, 192): o and lse against the plain versions,
+    # fp32 launched twice (bitwise equal); each launch on its plan's route
+    for b, t, s, heads, dh, fused in WIDE_ATTENTION:
+        for dt in (torch.float32, torch.bfloat16):
+            inner = heads * dh
+            if fused:
+                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+            else:
+                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+            shape = (b, t, s, heads, dh) + (("qkv",) if fused else ())
+            qf, kf, vf = q.float(), k.float(), v.float()
+            want = ops.attention_plain(qf, kf, vf, num_heads=heads)
+            got, route = routed(ops.token_attention,
+                                lambda: ops.token_attention(q, k, v, num_heads=heads))
+            report("token_attention", shape + (route,), dt, got, want, BOUND[str(dt)[6:]])
+            o, lse = twice("attention_lse", shape, dt,
+                           lambda: ops.attention_lse(q, k, v, num_heads=heads))
+            report("attention_lse", shape + ("o",), dt, o, want, BOUND[str(dt)[6:]])
+            report("attention_lse", shape + ("lse",), dt, lse,
+                   ops.attention_lse_plain(qf, kf, num_heads=heads), BOUND[str(dt)[6:]])
+            if route != ("f32" if dt == torch.float32 else "wgmma"):
+                fail(f"token_attention {shape} {dt} took {route!r}")
+            del q, k, v, o, lse, want, got
+    torch.cuda.empty_cache()
     # the forward's lse and the backward (dh 64): the guided classifier's
     # blocks at 32x32, 16x16 and 8x8 and its attention pool (qkv slices,
     # T = S = 65); tiny and ragged ones. (S >= 2: with one key ds is 0 and
@@ -1124,17 +1273,12 @@ def main() -> int:
     GE, LN = kernel_modules()
     sd_rows = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)]
     sd1_rows = [(8192, 320), (2048, 640), (512, 1280), (128, 1280)]
+    # cin256 at CFG b8 (path F): 32x32 at d 384, 16x16 at 576, 8x8 at 960;
+    # the retrieval LDM (rdm_768) at CFG b2: its 12x12 level at 1344 and its
+    # middle block at 1792, LayerNorm->Linear's row tile in segments there
+    cin_rows = [(16384, 384), (4096, 576), (1024, 960), (288, 1344), (72, 1792)]
     odd_rows = [(1000, 320), (100, 640), (1000, 1280)]
     ragged_d = 36
-
-    def routed(fn, call):
-        """call(); the route `fn` counted it under."""
-        before = Counter(fn.launches_by_route)
-        out = call()
-        taken = [r for r, k in (Counter(fn.launches_by_route) - before).items() if k]
-        if len(taken) != 1:
-            fail(f"{fn.__name__}: one call counted under routes {taken}")
-        return out, taken[0]
 
     def expected_route(d, dt):
         return "f32" if dt == torch.float32 else "wmma" if d == ragged_d else "wgmma"
@@ -1148,7 +1292,11 @@ def main() -> int:
         """A bf16 tensor of `shape` starting `offset` elements into its storage."""
         return randn(math.prod(shape) + offset).to(torch.bfloat16)[offset:].view(shape)
 
-    for spec, offset in chain([((4, 96, 96, 4, 512), 0), ((4, 768, 768, 128, 3), 0)],
+    # (and, since path G and F, the SD VAE encoder's conv_in 3 -> 128 at 768 px
+    # and the VQ-f4 decoder's ends, 3 -> 512 at 64x64 and 128 -> 3 at 256 px)
+    for spec, offset in chain([((4, 96, 96, 4, 512), 0), ((4, 768, 768, 128, 3), 0),
+                               ((4, 768, 768, 3, 128), 0), ((8, 64, 64, 3, 512), 0),
+                               ((8, 256, 256, 128, 3), 0)],
                               [((2, 7, 9, c, co), 0) for c in (1, 3, 4, 5, 12)
                                for co in (3, 4, 6, 20, 512)],
                               [((3, 5, 7, 64, 64), 1)]):
@@ -1170,7 +1318,7 @@ def main() -> int:
         del x, g_out, got, got_dx, want
     torch.cuda.empty_cache()
 
-    for (m, d), bias in chain(((r, False) for r in sd_rows + sd1_rows),
+    for (m, d), bias in chain(((r, False) for r in sd_rows + sd1_rows + cin_rows),
                               ((r, True) for r in odd_rows + [(100, 32), (1000, ragged_d)])):
         for n in (3 * d, d) if d > 40 else (96 if d == 32 else 70,):
             for dt in (torch.float32, torch.bfloat16):
@@ -1181,14 +1329,16 @@ def main() -> int:
                 got, route = routed(ops.ln_linear, lambda: ops.ln_linear(x, gam, bet, w, bb))
                 if route != expected_route(d, dt):
                     fail(f"ln_linear {(m, d, n)} {dt} took {route!r}")
-                report("ln_linear", (m, d, n, route), dt, got, want, BOUND[str(dt)[6:]])
-                if route == "wgmma":
+                seg = LN.ln_linear_plan(m, d, n, dt).seg if route == "wgmma" else 0
+                report("ln_linear", (m, d, n, route) + ((f"seg {seg}",) if seg else ()), dt, got,
+                       want, BOUND[str(dt)[6:]])
+                if route == "wgmma" and d <= LN.MAX_D:  # "wmma" keeps 64 rows resident
                     plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, dt), route="wmma")
                     report("ln_linear", (m, d, n, "wmma"), dt,
                            LN.ln_linear_launch(x, gam, bet, w, bb, 1e-5, plan), want,
                            BOUND[str(dt)[6:]])
                 del x, w, got, want
-    for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows + sd1_rows + odd_rows] \
+    for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows + sd1_rows + cin_rows + odd_rows] \
             + [(100, 32, 128), (300, ragged_d, 100)]:
         for dt in (torch.float32, torch.bfloat16):
             x, w1 = randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt)
@@ -1202,7 +1352,7 @@ def main() -> int:
             tiles = (f"rows {plan.gate_rows}/{plan.down_rows} split {plan.splits}",) \
                 if route == "wgmma" else ()
             report("geglu_ff", (m, d, inner, route) + tiles, dt, got, want, BOUND[str(dt)[6:]])
-            if route == "wgmma":
+            if route == "wgmma" and d <= GE.MAX_D:  # "wmma" keeps 64 rows resident
                 report("geglu_ff", (m, d, inner, "wmma"), dt,
                        GE.geglu_launch(x, w1, b1, w2, b2, dataclasses.replace(plan, route="wmma")),
                        want, BOUND[str(dt)[6:]])
@@ -1560,6 +1710,328 @@ def main() -> int:
     del nets, result, p32
     torch.cuda.empty_cache()
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5b. path G: SD-2.1 768 px img2img and inpaint --------------------------
+    # path B's networks (bf16): img2img at strength I2I_STRENGTH and inpaint
+    # with seeded rectangular masks, b4, CFG; the VAE encoder runs on the card
+    t0 = time.perf_counter()
+    b_g = len(SD_PROMPTS)
+    steps_g = max(1, int(SD_STEPS * I2I_STRENGTH))
+    init_g = torch.rand(b_g, SD_SIZE, SD_SIZE, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5)) * 2 - 1
+    mask_g = inpaint_masks(b_g, SD_SIZE, seed=6).to(dev)
+    unet_n = adm_unet_launches(ucfg)
+    enc_g = {name: vae_encoder_launches(vcfg)[name] for name in REPLACES}
+    once_g = {name: enc_g[name] + decode_b[name] for name in REPLACES}
+
+    def sampler_launches(per_forward, steps):
+        out = {name: per_forward[name] * steps for name in REPLACES}
+        out["fused_update"] = steps
+        return out
+
+    g_calls = {
+        "img2img": (lambda jit: pipe.img2img(
+            init_g, SD_PROMPTS, strength=I2I_STRENGTH, steps=SD_STEPS, guidance_scale=SD_SCALE,
+            generator=torch.Generator(device=dev).manual_seed(7), jit=jit), steps_g),
+        "inpaint": (lambda jit: pipe.inpaint(
+            init_g, mask_g, SD_PROMPTS, steps=SD_STEPS, guidance_scale=SD_SCALE,
+            generator=torch.Generator(device=dev).manual_seed(8), jit=jit), SD_STEPS)}
+    log(f"path G: path B's networks (bf16); img2img b{b_g} {SD_SIZE}x{SD_SIZE} at strength "
+        f"{I2I_STRENGTH} ({steps_g} of {SD_STEPS} steps) and inpaint b{b_g} ({SD_STEPS} steps, "
+        f"one seeded rectangle a mask), CFG {SD_SCALE}, v-prediction, DPM-Solver++ 2M; each "
+        f"encodes its images with the VAE encoder")
+    launches_g = routes_g = None
+    for what, (call, steps) in g_calls.items():
+        sampler = sampler_launches(unet_n, steps)
+        expected_run = {name: sampler[name] + once_g[name] for name in REPLACES}
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        img = call(False)
+        torch.cuda.synchronize()
+        launches_run, routes_run = ops.launch_counts(), ops.launch_routes()
+        log(f"  {what}: launches {launches_run} (expected {expected_run}); first call "
+            f"{time.perf_counter() - t1:.2f} s")
+        if launches_run != expected_run:
+            fail(f"path G {what} launch counts {launches_run} != {expected_run}")
+        # the encoder's conv_in (C = 3), the decoder's conv_in (C = 4) and conv_out (CO = 3)
+        check_routes(f"path G {what}", launches_run, routes_run, narrow_convs=3)
+        if tuple(img.shape) != (b_g, SD_SIZE, SD_SIZE, 3) or not torch.isfinite(img).all() \
+                or img.min() < 0 or img.max() > 1:
+            fail(f"path G {what} images {tuple(img.shape)} are not finite in [0, 1]")
+        log(f"  {what} images {tuple(img.shape)} finite in [0, 1]: mean {img.mean().item():.4f}, "
+            f"std {img.std().item():.4f}")
+        if what == "img2img":
+            launches_g, routes_g = launches_run, routes_run
+        else:  # the kept region is the init image itself
+            keep = (mask_g == 0)[..., None].expand_as(img)
+            d = (img - ((init_g + 1) / 2).clamp(0, 1))[keep].abs().max().item()
+            log(f"  inpaint, kept pixels against the init image: max|d| {d:.3e}")
+            if d > 1e-6:
+                fail("path G inpaint changed pixels its mask keeps")
+        check_graphed(f"path G {what}", lambda: call(True), img, sampler, once_g)
+    log(f"  path G (bf16 b{b_g}): {time.perf_counter() - t0:.1f} s")
+
+    # fp32 at 16x16 latents (128 px), b1: img2img and inpaint, kernels on the
+    # card vs plain on the CPU; then a second inpaint call with another image,
+    # mask and noise at the same shapes replays the first's graph, within
+    # GRAPH_BOUND of its own eager call: the graph reads each call's blend table
+    t0 = time.perf_counter()
+    nets_g = {}
+    for where in (dev, torch.device("cpu")):
+        u = ADMUNet(ucfg, device=where).eval()
+        u.load_state_dict(unet.state_dict())
+        a = AutoencoderKL(vcfg, device=where).eval()
+        a.load_state_dict(vae.state_dict())
+        nets_g[where.type] = StableDiffusionPipeline(LatentDiffusion(
+            u, a, text_encode=encode, parameterization="v"), device=where)
+    gs = torch.Generator().manual_seed(9)
+    small = [(torch.rand(1, 128, 128, 3, generator=gs) * 2 - 1, inpaint_masks(1, 128, seed=10 + i),
+              torch.randn(4, 1, 16, 16, 4, generator=gs), torch.randn(1, 1, 16, 16, 4, generator=gs),
+              SD_PROMPTS[i]) for i in range(2)]
+
+    def small_g(p, inputs, what, jit):
+        x, m, n_inp, n_i2i, prompt = inputs
+        if what == "img2img":
+            return p.img2img(x, [prompt], strength=I2I_STRENGTH, steps=4, guidance_scale=SD_SCALE,
+                             noise=n_i2i, jit=jit)
+        return p.inpaint(x, m, [prompt], steps=3, guidance_scale=SD_SCALE, noise=n_inp, jit=jit)
+
+    result = {}
+    for where, p in nets_g.items():
+        t1 = time.perf_counter()
+        result[where] = {what: small_g(p, small[0], what, False).cpu()
+                         for what in ("img2img", "inpaint")}
+        log(f"  fp32 b1 128 px img2img (3 NFE) and inpaint (3 NFE) on {where}: "
+            f"{time.perf_counter() - t1:.1f} s")
+    for what in ("img2img", "inpaint"):
+        d, r = rel_err(result["cuda"][what], result["cpu"][what])
+        ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"][what]).all())
+        log(f"  {what} images, kernels (card) vs plain (cpu): max|d| {d:.3e}, /max|x| {r:.3e} "
+            f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the fp32 {what} path on the card disagrees with the plain path")
+    p32 = nets_g["cuda"]
+    check_replays("path G fp32 b1 inpaint", lambda u: small_g(p32, u, "inpaint", True),
+                  lambda u: small_g(p32, u, "inpaint", False), small,
+                  result["cuda"]["inpaint"].to(dev))
+    log(f"  fp32 checks: {time.perf_counter() - t0:.1f} s")
+
+    del nets_g, p32, result
+    torch.cuda.empty_cache()
+
+    # DiffEdit at SD-2.1 width, 512 px, b1, encode ratio 0.5, the stochastic
+    # encoding, on path B's networks (bf16; fp32 at 512 px takes minutes):
+    # finite, and the edit replayed from its graph (the first graphed call
+    # captures, the second replays) equal to the eager edit within
+    # GRAPH_BOUND of max|x|
+    t0 = time.perf_counter()
+    sampler_de = DPMSolverSampler(pipe.model)
+    gd = torch.Generator().manual_seed(11)
+    lat_de = DIFFEDIT_SIZE // 8
+    x_de = torch.rand(1, DIFFEDIT_SIZE, DIFFEDIT_SIZE, 3, generator=gd) * 2 - 1
+    de_noise = (torch.randn(1, 3, lat_de, lat_de, 4, generator=gd),
+                torch.randn(SD_STEPS + 1, 1, lat_de, lat_de, 4, generator=gd))
+    de_call = lambda jit: diffedit(
+        pipe.model, x_de, "a photograph of a cat", "a photograph of a dog",
+        encode_ratio=DIFFEDIT_RATIO, steps=SD_STEPS, guidance_scale=SD_SCALE, clamp_rate=1.5,
+        mask_noise=de_noise[0], noise=de_noise[1], return_mask=True, sampler=sampler_de, jit=jit)
+    eager_de, mask_de = de_call(False)
+    if tuple(eager_de.shape) != (1, DIFFEDIT_SIZE, DIFFEDIT_SIZE, 3) \
+            or not torch.isfinite(eager_de).all():
+        fail(f"DiffEdit gave {tuple(eager_de.shape)}, or values that are not finite")
+    log(f"DiffEdit: SD-2.1 bf16 b1 {DIFFEDIT_SIZE}px, {SD_STEPS} steps from encode ratio "
+        f"{DIFFEDIT_RATIO}, CFG {SD_SCALE}: image finite, edit mask covers "
+        f"{mask_de.mean().item():.3f} of the latent")
+    captures = P.GraphedSampler.captures
+    for i in range(2):
+        got, got_mask = de_call(True)
+        d, r = rel_err(got, eager_de)
+        ok = r <= GRAPH_BOUND and torch.equal(got_mask, mask_de)
+        log(f"  DiffEdit jit=True call {i}: graphed vs eager on the card: max|d| {d:.3e}, "
+            f"/max|x| {r:.3e} (bound {GRAPH_BOUND:g}), the same mask: "
+            f"{torch.equal(got_mask, mask_de)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("DiffEdit: the graphed edit disagrees with the eager one")
+    if P.GraphedSampler.captures - captures != 1:
+        fail(f"DiffEdit: {P.GraphedSampler.captures - captures} captures over two calls of one key")
+    del sampler_de
+    log(f"  DiffEdit: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5c. path F: class-conditional cin256 -------------------------------------
+    # the UNet ADMConfig.cin256() and the VQ-f4 first stage VAEConfig.vq_cin256()
+    # (8192 codes), built by load_sd_checkpoint from a CompVis-style checkpoint
+    # synthesised on the host with seeded random weights; ClassEmbedder(1001,
+    # 512); class_conditional_sample b8, CFG 3.0 against class 1000, 20 NFE, bf16
+    t0 = time.perf_counter()
+    cfg_f, vcfg_f = ADMConfig.cin256(), VAEConfig.vq_cin256()
+    gh = torch.Generator().manual_seed(12)
+    ckpt_f = {f"model.diffusion_model.{k}": v for k, v in
+              init_random_(ADMUNet(cfg_f, device="cpu"), gh).state_dict().items()}
+    ckpt_f.update({f"first_stage_model.{k}": v for k, v in init_random_(
+        VQModel(vcfg_f, n_embed=CIN_CODES, device="cpu"), gh).state_dict().items()})
+    model_f = load_sd_checkpoint(ckpt_f, preset="cin256", compute_dtype=torch.bfloat16, device=dev)
+    embedder_f = ClassEmbedder(CIN_CLASSES, CIN_CONTEXT, seed=0, device=dev)
+    if not model_f.is_vq or model_f.vae.n_embed != CIN_CODES \
+            or model_f.conditioning_key != "crossattn" or model_f.scale_factor != 1.0:
+        fail("load_sd_checkpoint(preset='cin256') did not build the VQ-f4 crossattn LDM")
+    n_unet_f = sum(p.numel() for p in model_f.unet.parameters())
+    n_vq_f = sum(p.numel() for p in model_f.vae.parameters())
+    labels_f = torch.from_numpy(np.random.default_rng(1).integers(0, CIN_CLASSES - 1, CIN_LABELS))
+    sampler_f = DPMSolverSampler(model_f)
+    cin_call = lambda jit: class_conditional_sample(
+        model_f, embedder_f, labels_f, steps=CIN_STEPS, guidance_scale=CIN_SCALE,
+        uncond_label=CIN_UNCOND, generator=torch.Generator(device=dev).manual_seed(13),
+        sampler=sampler_f, jit=jit)
+    torch.cuda.synchronize()
+    log(f"path F: cin256 UNet ({n_unet_f / 1e6:.2f}M params) + VQ-f4 ({n_vq_f / 1e6:.2f}M, "
+        f"{CIN_CODES} codes) through load_sd_checkpoint(preset='cin256'), ClassEmbedder("
+        f"{CIN_CLASSES}, {CIN_CONTEXT}), bf16, seeded random weights, built in "
+        f"{time.perf_counter() - t0:.1f} s; class_conditional_sample b{CIN_LABELS} 256x256 (64x64x3 "
+        f"latents), DPM-Solver++ 2M, {CIN_STEPS} NFE, CFG {CIN_SCALE} against class {CIN_UNCOND}")
+    sampler_fl = sampler_launches(adm_unet_launches(cfg_f), CIN_STEPS)
+    decode_f = {name: vae_decoder_launches(vcfg_f)[name] for name in REPLACES}
+    expected_run = {name: sampler_fl[name] + decode_f[name] for name in REPLACES}
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    img_f = []
+    unet_calls_f, vae_calls_f = record_sd_calls(model_f.unet, model_f.vae,
+                                                lambda: img_f.append(cin_call(False)))
+    torch.cuda.synchronize()
+    img_f = img_f[0]
+    launches_f, routes_f = ops.launch_counts(), ops.launch_routes()
+    log(f"  launches {launches_f} (expected {expected_run}); first call "
+        f"{time.perf_counter() - t1:.2f} s")
+    if launches_f != expected_run:
+        fail(f"path F launch counts {launches_f} != {expected_run}")
+    # the VQ decoder's conv_in (C = 3) and conv_out (CO = 3)
+    check_routes("path F", launches_f, routes_f, narrow_convs=2)
+    attn_f = Counter()
+    for (name, spec), n in unet_calls_f.items():
+        if name == "token_attention":
+            attn_f["dh", spec[4], "S = 1" if spec[2] == 1 else "self"] += n
+    log(f"  attention launches by head dim and keys: {dict(attn_f)}")
+    if {k[1] for k in attn_f} != {384, 576, 960} or not all(
+            attn_f["dh", dh, kind] for dh in (384, 576, 960) for kind in ("self", "S = 1")):
+        fail(f"path F's attentions {dict(attn_f)} are not cin256's dh 384/576/960 with S = 1")
+    if tuple(img_f.shape) != (CIN_LABELS, 256, 256, 3) or not torch.isfinite(img_f).all() \
+            or img_f.min() < 0 or img_f.max() > 1:
+        fail(f"path F images {tuple(img_f.shape)} are not finite (8, 256, 256, 3) in [0, 1]")
+    log(f"  images {tuple(img_f.shape)} finite in [0, 1]: mean {img_f.mean().item():.4f}, "
+        f"std {img_f.std().item():.4f}")
+    check_graphed("path F", lambda: cin_call(True), img_f, sampler_fl, decode_f)
+
+    # fp32 at 32x32 latents, b2, CFG, 3 NFE: kernels on the card vs plain on
+    # the CPU, both built from the same checkpoint. The latents within
+    # SLICE_BOUND; the VQ indices each side picks (a near tie may flip one:
+    # counted), then the decoder on the CPU's indices within SLICE_BOUND
+    t0 = time.perf_counter()
+    result = {}
+    x_T_f = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(14))
+    for where in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        m = load_sd_checkpoint(ckpt_f, preset="cin256", device=where)
+        emb = ClassEmbedder(CIN_CLASSES, CIN_CONTEXT, embedding=embedder_f.embedding.weight.cpu(),
+                            device=where)
+        z, _ = DPMSolverSampler(m).sample(
+            3, 2, (32, 32, 3), emb(labels_f[:2]), unconditional_guidance_scale=CIN_SCALE,
+            unconditional_conditioning=emb([CIN_UNCOND] * 2), x_T=x_T_f, return_intermediate=False,
+            jit=False)
+        result[where.type] = (m, z)
+        log(f"  fp32 b2 32x32 latents, 3 NFE on {where}: {time.perf_counter() - t1:.1f} s")
+    d, r = rel_err(result["cuda"][1].cpu(), result["cpu"][1])
+    ok = r <= SLICE_BOUND and bool(torch.isfinite(result["cuda"][1]).all())
+    log(f"  latents, kernels (card) vs plain (cpu): max|d| {d:.3e}, /max|x| {r:.3e} "
+        f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fp32 cin256 trajectory on the card disagrees with the plain path")
+    idx = {w: m.vae.quantize.indices(z).cpu() for w, (m, z) in result.items()}
+    flips = int((idx["cuda"] != idx["cpu"]).sum())
+    images = {}
+    for w, (m, _) in result.items():
+        z_q = m.vae.quantize.embedding.weight[idx["cpu"].to(m.device)]
+        images[w] = m.vae.decode(z_q, force_not_quantize=True).cpu()
+    d, r = rel_err(images["cuda"], images["cpu"])
+    ok = r <= SLICE_BOUND and bool(torch.isfinite(images["cuda"]).all())
+    log(f"  VQ indices, card vs cpu: {flips} of {idx['cpu'].numel()} differ; the decode of the "
+        f"cpu's indices, card vs cpu: max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fp32 VQ decode on the card disagrees with the plain path")
+    del result, images, m, emb
+    torch.cuda.empty_cache()
+    log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5d. conditioners and upscale, fp32, card vs CPU ---------------------------
+    t0 = time.perf_counter()
+    # FrozenCLIPEmbedder at ViT-L/14's text width, from an HF-format directory
+    # written here (synthetic vocab, seeded random weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_dir = write_clip_text_dir(Path(tmp), seed=15)
+        clip = {w.type: FrozenCLIPEmbedder(clip_dir, device=w) for w in (dev, torch.device("cpu"))}
+        n_clip = sum(p.numel() for p in clip["cpu"].model.parameters())
+        ctx_clip = {w: e(SD_PROMPTS).cpu() for w, e in clip.items()}
+        del clip
+    d, r = rel_err(ctx_clip["cuda"], ctx_clip["cpu"])
+    ok = ctx_clip["cuda"].shape == (len(SD_PROMPTS), 77, 768) and r <= SLICE_BOUND
+    log(f"FrozenCLIPEmbedder (12 layers, 768 wide, vocab 49408, {n_clip / 1e6:.2f}M params) "
+        f"b{len(SD_PROMPTS)}, card vs cpu: "
+        f"{tuple(ctx_clip['cuda'].shape)}, max|d| {d:.3e}, /max|x| {r:.3e} (bound "
+        f"{SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("FrozenCLIPEmbedder on the card disagrees with its CPU run")
+    # BERTEmbedder at the LDM txt2img-f8 width (n_embed 1280, 32 layers): its
+    # attention is the forward kernel, fp32, dh 64, T = S = 77
+    gb = torch.Generator().manual_seed(16)
+    bert = {"cpu": init_random_(BERTEmbedder(1280, 32, device="cpu"), gb).eval()}
+    bert["cuda"] = BERTEmbedder(1280, 32, device=dev).eval()
+    bert["cuda"].load_state_dict(bert["cpu"].state_dict())
+    tokens = torch.randint(0, 30522, (2, 77), generator=gb)
+    ops.reset_launch_counts()
+    out_bert = {w: m(tokens).cpu() for w, m in bert.items()}
+    torch.cuda.synchronize()
+    n_bert = sum(p.numel() for p in bert["cpu"].parameters())
+    bert_launches = ops.launch_routes()["token_attention"]
+    d, r = rel_err(out_bert["cuda"], out_bert["cpu"])
+    ok = r <= SLICE_BOUND and bert_launches == {"f32": 32}
+    log(f"BERTEmbedder (1280 wide, 32 layers, {n_bert / 1e6:.1f}M params) b2 x 77 tokens, card "
+        f"vs cpu: max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g}); attention launches "
+        f"by route {dict(bert_launches)} (expected {{'f32': 32}}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("BERTEmbedder on the card disagrees with its CPU run, or missed the kernel")
+    cls = {w.type: ClassEmbedder(CIN_CLASSES, CIN_CONTEXT, seed=3, device=w)(labels_f).cpu()
+           for w in (dev, torch.device("cpu"))}
+    if not torch.equal(cls["cuda"], cls["cpu"]) or cls["cpu"].shape != (CIN_LABELS, 1, CIN_CONTEXT):
+        fail("ClassEmbedder on the card differs from its CPU run")
+    log(f"ClassEmbedder({CIN_CLASSES}, {CIN_CONTEXT}) b{CIN_LABELS}: card equal to cpu")
+    del bert, out_bert, ctx_clip
+    # upscale: no full-width preset exists; a small concat-conditioned LDM
+    # (the LR image joins the latent along channels; a KL-f4 first stage),
+    # b2 from 32x32 to 128x128, 4 NFE, card vs cpu, for correctness only
+    ucfg_u = ADMConfig(image_size=32, in_channels=6, model_channels=64, out_channels=3,
+                       num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                       num_heads=1)
+    vcfg_u = VAEConfig(ch=64, ch_mult=(1, 2, 4), z_channels=3, embed_dim=3, resolution=128)
+    gu = torch.Generator().manual_seed(17)
+    nets_u = {"cpu": (init_random_(ADMUNet(ucfg_u, device="cpu"), gu).eval(),
+                      init_random_(AutoencoderKL(vcfg_u, device="cpu"), gu).eval())}
+    nets_u["cuda"] = (ADMUNet(ucfg_u, device=dev).eval(), AutoencoderKL(vcfg_u, device=dev).eval())
+    for mod, ref in zip(nets_u["cuda"], nets_u["cpu"]):
+        mod.load_state_dict(ref.state_dict())
+    lr = torch.rand(2, 32, 32, 3, generator=gu) * 2 - 1
+    x_T_u = torch.randn(2, 32, 32, 3, generator=gu)
+    up = {w: StableDiffusionPipeline(LatentDiffusion(u, a, scale_factor=1.0,
+                                                     conditioning_key="concat"), device=w)
+          .upscale(lr, steps=4, x_T=x_T_u, jit=False).cpu()
+          for w, (u, a) in nets_u.items()}
+    d, r = rel_err(up["cuda"], up["cpu"])
+    ok = up["cuda"].shape == (2, 128, 128, 3) and r <= SLICE_BOUND
+    log(f"upscale (concat LDM, 64 channels, KL-f4) b2 32 -> 128 px, 4 NFE, card vs cpu: "
+        f"max|d| {d:.3e}, /max|x| {r:.3e} (bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("upscale on the card disagrees with its CPU run")
+    del nets_u, up
+    torch.cuda.empty_cache()
+    log(f"  conditioners and upscale: {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. path C: classifier-guided ImageNet-256 -----------------------------
     t0 = time.perf_counter()
@@ -2025,6 +2497,17 @@ def main() -> int:
     log_walls("B", f"txt2img b{len(SD_PROMPTS)} {SD_SIZE}px {SD_STEPS} NFE", SD_TIMED_RUNS,
               (sd_wall * 1e3, runs[0][0] * 1e3, runs[-1][0] * 1e3),
               time_walls(lambda: sd_call(True), SD_TIMED_RUNS), "images/s", len(SD_PROMPTS))
+    # path G: img2img and inpaint, each both ways (the encode and decode eager)
+    for what, (call, steps) in g_calls.items():
+        log_walls(f"G {what}", f"{what} b{b_g} {SD_SIZE}px {steps} NFE", SD_TIMED_RUNS,
+                  time_walls(lambda: call(False), SD_TIMED_RUNS),
+                  time_walls(lambda: call(True), SD_TIMED_RUNS), "images/s", b_g)
+    # path F: class_conditional_sample both ways (the VQ decode eager)
+    log_walls("F", f"cin256 class_conditional_sample b{CIN_LABELS} 256px {CIN_STEPS} NFE",
+              CIN_TIMED_RUNS, time_walls(lambda: cin_call(False), CIN_TIMED_RUNS),
+              time_walls(lambda: cin_call(True), CIN_TIMED_RUNS), "images/s", CIN_LABELS)
+    del model_f, sampler_f, embedder_f, ckpt_f
+    torch.cuda.empty_cache()
 
     # path C: wall time, and the UNet-forward and classifier forward+backward
     # device spans by CUDA events (the classifier's ends at the hook on its
@@ -2143,6 +2626,8 @@ def main() -> int:
         unet(torch.randn(2 * len(SD_PROMPTS), lat, lat, 4, device=dev),
              torch.full((2 * len(SD_PROMPTS),), 500.0, device=dev), None, ctx),
         vae.decode(torch.randn(len(SD_PROMPTS), lat, lat, 4, device=dev))))
+    # path G's img2img call, its encode included, recorded whole
+    calls_g = record_sd_calls(unet, vae, lambda: g_calls["img2img"][0](False), encoder=True)
     del unet, vae, pipe
     torch.cuda.empty_cache()
     per_kernel_a = {"conv3x3": Counter({spec: n * STEPS for spec, n in conv_calls.items()}),
@@ -2198,6 +2683,7 @@ def main() -> int:
     log(f"the narrow route's path-B launches, device alone: {rec['device_alone_ms']:.4f} ms "
         f"against cuDNN's {rec['library_device_alone_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_ms'] / rec['device_alone_ms']:.3f} of the kernel's time)")
+
 
     # path C: the specs of one NFE (a UNet forward, a classifier forward and
     # backward), times the NFE count
@@ -2321,6 +2807,47 @@ def main() -> int:
     time_path("E", per_kernel_e, launches_e, f"one bits/dim call, DDPM++ deep b{LIK_BATCH}, "
               f"{nfe_e} NFE", torch.float32)
 
+    # path G's img2img call (15 UNet forwards at CFG b8, one VAE encode and
+    # one decode at b4, bf16), the "narrow" conv at its launches (the
+    # encoder's conv_in beside the decoder's two), then path F's call (20
+    # cin256 UNet forwards at CFG b16, one VQ decode at b8): recorded from
+    # the calls themselves
+    def per_kernel(recorded, fused_spec, steps, launches):
+        out = {name: Counter() for name in REPLACES}
+        for calls in recorded:
+            for (name, spec), n in calls.items():
+                out[name][spec] += n
+        out["fused_update"][fused_spec] = steps
+        for name, calls in out.items():
+            if sum(calls.values()) != launches[name]:
+                fail(f"{name}: the recorded shapes cover {sum(calls.values())} launches, "
+                     f"the call makes {launches[name]}")
+        return out
+
+    per_kernel_g = per_kernel(calls_g, ((b_g, lat, lat, 4),), steps_g, launches_g)
+    log(f"kernel times, path G (one img2img call: {steps_g} UNet forwards at b{2 * b_g}, one VAE "
+        f"encode and one decode at b{b_g}, bf16):")
+    time_path("G", per_kernel_g, launches_g, f"one img2img call, SD-2.1 {SD_SIZE}px b{b_g}")
+    narrow_g = Counter({spec: n for spec, n in per_kernel_g["conv3x3"].items()
+                        if spec[3] % 8 or spec[4] % 8})
+    if sum(narrow_g.values()) != routes_g["conv3x3"].get("narrow", 0):
+        fail(f"path G's narrow convs {dict(narrow_g)} are not its {routes_g['conv3x3']}")
+    log("kernel times, the \"narrow\" conv route at its path-G launches (bf16):")
+    timing["conv3x3"]["G narrow"] = dict(
+        time_kernel("conv3x3", narrow_g, randn, smi, "the narrow route's launches of one "
+                    f"img2img call, SD-2.1 {SD_SIZE}px b{b_g}"), launches=sum(narrow_g.values()))
+    per_kernel_f = per_kernel((unet_calls_f, vae_calls_f), ((CIN_LABELS, 64, 64, 3),),
+                              CIN_STEPS, launches_f)
+    log(f"kernel times, path F (one class_conditional_sample call: {CIN_STEPS} cin256 UNet "
+        f"forwards at b{2 * CIN_LABELS}, one VQ decode at b{CIN_LABELS}, bf16):")
+    time_path("F", per_kernel_f, launches_f, f"one cin256 class_conditional_sample call, "
+              f"b{CIN_LABELS}")
+    # the attention at cin256's sites alone, by spec (the new head dims)
+    log("kernel times, the attention forward at path F's sites, by spec (bf16):")
+    timing["token_attention"]["F by spec"] = time_kernel(
+        "token_attention", per_kernel_f["token_attention"], randn, smi,
+        "path F's attention launches", per_spec=True)
+
     # the dq and dk/dv kernels at each head dim and dtype they take, one
     # launch at each of BWD_SHAPES' sites (the ragged ones aside), beside the
     # plain twin (dq, dk and dv in one pass), SDPA's backward and their bound
@@ -2411,14 +2938,16 @@ def main() -> int:
     # runs it ("none": no path launches it), every path's times, and its
     # launches on every path
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
-             "e": launches_e, "sd1": launches_s1}
+             "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
-              "sd1": routes_s1}
+              "sd1": routes_s1, "f": routes_f, "g": routes_g}
 
     # the head dims each attention kernel takes, by dtype
-    head_dims = {name: {"float32": list(HEAD_DIMS), "bfloat16": list(HEAD_DIMS)}
-                 for name in ("token_attention", "attention_lse", "attention_dq",
-                              "attention_dkv", "attention_out_fused")}
+    head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
+                 for name, dims in (("token_attention", FWD_HEAD_DIMS),
+                                    ("attention_lse", FWD_HEAD_DIMS), ("attention_dq", HEAD_DIMS),
+                                    ("attention_dkv", HEAD_DIMS),
+                                    ("attention_out_fused", HEAD_DIMS))}
     ptxas_of = {"attention_dq": {k: v for k, v in bwd_ptxas.items() if "attn_dq" in k
                                  or "attn_bwd_f32" in k and k.endswith("dq")},
                 "attention_dkv": {k: v for k, v in bwd_ptxas.items() if "attn_dkv" in k
@@ -2429,12 +2958,16 @@ def main() -> int:
                 "conv3x3_dx": {k: v for k, v in f32_ptxas.items() if k.endswith(" dx")},
                 "attention_lse": {k: v for k, v in f32_ptxas.items()
                                   if k.startswith("attention_fwd_f32")},
+                "token_attention": {**fwd_ptxas, **{k: v for k, v in f32_ptxas.items()
+                                                    if k.startswith("attention_fwd_f32")}},
+                "ln_linear": ln_ptxas,
                 "attention_out_fused": out_ptxas}
 
     def newest(name):  # the newest path that timed the kernel ("none": no path runs it;
         # SD-1's forward only where no path does)
+        # (nor a sub-record: "B narrow", "G narrow", "F by spec")
         timed = list(timing[name])
-        return ([p for p in timed if p != "SD-1"] or timed)[-1]
+        return ([p for p in timed if p != "SD-1" and " " not in p] or timed)[-1]
 
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
                     **{f"launches_path_{p}": counts[name] for p, counts in paths.items()},

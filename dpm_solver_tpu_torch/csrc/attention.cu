@@ -60,7 +60,13 @@
 //   instance. The VAE's single 512-wide head is split into two 256-wide
 //   output halves (grid.z = 2), each of which recomputes the logits over all
 //   512 channels, with one consumer warpgroup and 32-key tiles to stay
-//   inside 227 KB of shared memory.
+//   inside 227 KB of shared memory. The class-conditional LDM's (cin256)
+//   single heads of 384, 576 and 960 run the same way in 192-column output
+//   slices (grid.z = 2, 3, 5; 192 divides all three in whole 64-column
+//   runs), with the widest key tile of 64, 32 or 16 whose two stages fit
+//   beside the resident 64-row q tile, which alone takes 120 KB at 960
+//   (wide_kv: 64, 32 and 16 keys). dh 96 and 192 (the ADM ImageNet-64 and
+//   -128 presets' heads) take the tiles of 80 and 160.
 // - fp32: `attention_fwd_f32`, exact on the CUDA cores (no TF32: bits/dim
 //   rides its rounding), register-tiled like the fp32 backward, whose
 //   blocks it shares (attention_f32.cuh). At path E's site (b8, T = S = 256,
@@ -79,8 +85,10 @@
 //   of V a column feed 4 FMAs each). Where a launch has fewer than 128
 //   row blocks (path E's 4x4 mid-block: T = 16, 8 blocks), the output
 //   columns split over grid.z in 64-column multiples, each block
-//   recomputing the small logits (32 blocks there). The tile (16 queries,
-//   the key tile, two buffers) and the column split are stated on the host
+//   recomputing the small logits (32 blocks there). At dh 960 two K/V
+//   buffers do not fit beside the queries: there one buffer, each tile's
+//   copy started after the previous tile's math. The tile (16 queries,
+//   the key tile, its buffers) and the column split are stated on the host
 //   (ops/attention.py::attention_plan and AttentionTile.grid) and checked
 //   here against the compiled instance.
 
@@ -104,17 +112,21 @@ struct Strides {
 
 using attn_f32::F32_ROWS;
 using attn_f32::F32_THREADS;
-constexpr int F32_STAGES = 2;  // K/V buffers a block: cp.async double buffering
+constexpr int F32_STAGES = 2;  // K/V buffers a block where they fit: cp.async double buffering
 
-// the shared streamed tile, and this kernel's shared-memory layout
+// the shared streamed tile, and this kernel's shared-memory layout: F32_STAGES
+// K/V buffers where they fit, else one (dh 960)
 template <int D>
 struct FwdF32 : attn_f32::Stream<D> {
   using S = attn_f32::Stream<D>;
   static constexpr int PT = S::TILE + 1;                     // logits / p pitch
   static constexpr int QS = F32_ROWS * S::PO;                // floats: the owned queries
   static constexpr int BUF = 2 * S::TILE * S::PS;            // a buffer: k and v rows
-  static constexpr size_t SMEM =
-      4 * (size_t)(QS + F32_STAGES * BUF + F32_ROWS * PT + 3 * F32_ROWS);
+  static constexpr size_t smem(int stages) {
+    return 4 * (size_t)(QS + stages * BUF + F32_ROWS * PT + 3 * F32_ROWS);
+  }
+  static constexpr int STAGES = smem(F32_STAGES) <= 232448 ? F32_STAGES : 1;
+  static constexpr size_t SMEM = smem(STAGES);
   static_assert(S::PARTS * (F32_ROWS / 4) * (S::TILE / 4) == F32_THREADS, "patches");
   static_assert(SMEM <= 232448, "227 KB of shared memory a block");
 };
@@ -129,8 +141,8 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int TILE = L::TILE, NC = L::NC;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // [16][PO] queries
-  float* bufs = qs + L::QS;                // [2][BUF]: k rows, then v rows (pitch PS)
-  float* ps = bufs + F32_STAGES * L::BUF;  // [16][PT] the tile's logits, then p
+  float* bufs = qs + L::QS;                // [STAGES][BUF]: k rows, then v rows (pitch PS)
+  float* ps = bufs + L::STAGES * L::BUF;   // [16][PT] the tile's logits, then p
   float* row_m = ps + F32_ROWS * L::PT;    // running max (base 2)
   float* row_l = row_m + F32_ROWS;         // running sum
   float* row_a = row_l + F32_ROWS;         // this tile's rescale factor
@@ -163,7 +175,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
+    if (L::STAGES == 2 && t + 1 < ntiles) {
       attn_f32::load_rows<D>(bufs + ((t + 1) & 1) * L::BUF, kb, st.kt, vb, st.vt,
                              (t + 1) * TILE, S, vec != 0);
       hopper::cp_async_commit();
@@ -172,9 +184,13 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       hopper::cp_async_wait<0>();
     }
     __syncthreads();  // tile t, the queries and the row stats visible
-    attn_f32::forward_tile<D>(acc, qs, bufs + (t & 1) * L::BUF, ps, row_m, row_l, row_a,
-                              t * TILE, S, qscale, col0, dv);
-    __syncthreads();  // the next iteration's copy reuses this buffer
+    attn_f32::forward_tile<D>(acc, qs, bufs + (L::STAGES == 2 ? (t & 1) : 0) * L::BUF, ps,
+                              row_m, row_l, row_a, t * TILE, S, qscale, col0, dv);
+    __syncthreads();  // the next copy reuses this buffer
+    if (L::STAGES == 1 && t + 1 < ntiles) {  // one buffer: the next tile after this one
+      attn_f32::load_rows<D>(bufs, kb, st.kt, vb, st.vt, (t + 1) * TILE, S, vec != 0);
+      hopper::cp_async_commit();
+    }
   }
 
   const long long otok = (long long)H * D;
@@ -210,9 +226,9 @@ struct AttnTile {
   static constexpr uint32_t V_BYTES = DCHV * KV_ * 128;
   static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
   // + 1024 to align the base to a swizzle atom, + the barriers
-  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + (size_t)STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
   static constexpr int THREADS = 128 * NWG + 32;
-  static_assert(DV_ % 8 == 0 && KV_ % 16 == 0 && SMEM <= 232448, "tile");
 };
 
 template <int D, int DV, int KV, int NWG, int STAGES>
@@ -222,6 +238,7 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                     float* __restrict__ lse, int Tq, int S, int H, float qscale) {
   using L = AttnTile<D, DV, KV, NWG, STAGES>;
+  static_assert(DV % 8 == 0 && DV <= 256 && KV % 16 == 0 && L::SMEM <= 232448, "tile");
   using namespace hopper;
   constexpr bool OVERLAP = D <= 64;  // the softmax / P.V overlap (header)
   extern __shared__ uint8_t smem_raw[];
@@ -379,7 +396,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   using L = FwdF32<D>;
   // the compiled tile; the output split in whole 64-column runs that divide D
   if (plan.block_q != F32_ROWS || plan.block_kv != L::TILE || plan.d_pad != D ||
-      plan.stages != F32_STAGES || plan.dv <= 0 || D % plan.dv != 0 ||
+      plan.stages != L::STAGES || plan.dv <= 0 || D % plan.dv != 0 ||
       (plan.dv != D && plan.dv % 64 != 0))
     return (int)cudaErrorInvalidValue;
   // 8-byte copies where every row of k and v starts 8-byte aligned
@@ -432,12 +449,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return (int)cudaGetLastError();
 }
 
+// the wide single heads past 256 but 512 (cin256's dh 384, 576 and 960): one
+// warpgroup, 192-column output slices, and the widest key tile of 64, 32 or
+// 16 whose two stages fit beside the 64-row q tile
+constexpr int WIDE_DV = 192;
+template <int D>
+constexpr int wide_kv() {
+  return AttnTile<D, WIDE_DV, 64, 1, 2>::SMEM <= 232448   ? 64
+         : AttnTile<D, WIDE_DV, 32, 1, 2>::SMEM <= 232448 ? 32
+                                                           : 16;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Tq,
            int S, int H, float qscale, Strides st, int dtype, Plan p, cudaStream_t s) {
   if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   if constexpr (D == 512) {
     return launch_wgmma<512, 256, 32, 1, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
+  } else if constexpr (D > 256) {
+    return launch_wgmma<D, WIDE_DV, wide_kv<D>(), 1, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st,
+                                                      p, s);
   } else if constexpr (D >= 160) {
     return launch_wgmma<D, D, 64, 2, 2>(q, k, v, o, lse, B, Tq, S, H, qscale, st, p, s);
   } else if constexpr (D >= 80) {
@@ -475,10 +506,15 @@ extern "C" int dpm_attention_fwd(const void* q, const void* k, const void* v, vo
     case 40: return launch<40>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 64: return launch<64>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 80: return launch<80>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 128: return launch<128>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 160: return launch<160>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 192: return launch<192>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 256: return launch<256>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 384: return launch<384>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     case 512: return launch<512>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 576: return launch<576>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
+    case 960: return launch<960>(q, k, v, o, lse, B, T, S, H, qscale, st, dtype, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

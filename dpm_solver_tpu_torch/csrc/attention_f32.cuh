@@ -14,7 +14,8 @@
 // 80, 64 at 128 and 160, 32 at 256, 16 at 512). Pitches: owned rows D + 2
 // (D + 4 at 16 slices), streamed rows D + 2, which keep a warp's reads on
 // distinct banks (its patches share a column block, so the streamed reads
-// broadcast and the owned ones spread). ops/attention.py states the same
+// broadcast and the owned ones spread). Past dh 640 (the forward's dh 960)
+// the parts stay 16 and a lane sums more than F32_SLICE columns. ops/attention.py states the same
 // rule (`F32_ROWS`, `F32_THREADS`, `F32_SLICE`, `_f32_parts`), and
 // tests/test_torch_kernel_plans.py holds the constants equal. The forward's
 // step over one streamed tile (`forward_tile`) is shared by the fp32
@@ -34,10 +35,12 @@ constexpr int F32_THREADS = 256;
 constexpr int F32_SLICE = 40;      // head-dim columns a patch lane sums, at most
 
 // head-dim slices a patch is split into: enough that a lane sums at most
-// F32_SLICE columns, at least 2
+// F32_SLICE columns, at least 2 and at most 16 (at the forward's dh 960 a
+// lane sums 60 columns: 16 parts keep a tile at 16 rows, the least that the
+// softmax's 16 threads a row cover)
 constexpr int f32_parts(int d) {
   int p = 2;
-  while (p * F32_SLICE < d) p *= 2;
+  while (p * F32_SLICE < d && p < 16) p *= 2;
   return p;
 }
 

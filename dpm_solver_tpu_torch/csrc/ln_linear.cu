@@ -59,13 +59,22 @@
 //   Where the row tiles alone leave the card short of blocks, the column
 //   tiles split into runs across blockIdx.y, each block renormalising its
 //   rows (x is read once per run, mostly from L2).
-// - "wmma" (bf16 with widths TMA cannot stride, or a row tile past the
-//   resident budget): `ln_linear_bf16_mma`, the first kernel: a 64-row tile
+//   Where the row tile is wider than the budget beside two W stages (64
+//   rows of d = 1,792, the retrieval LDM's middle block: 224 KB), the same
+//   kernel keeps it in segments of `seg` 64-column tiles (SEG): the
+//   consumers first take each row's statistics from device memory (x is
+//   read twice, mostly from L2), then for every output tile each segment
+//   is loaded by TMA, normalised in place and multiplied; an `aempty`
+//   barrier hands the segment's buffer back to the producer once every
+//   consumer warp's products on it are done. The resident form's code and
+//   layout are unchanged (SEG = false).
+// - "wmma" (bf16 with widths TMA cannot stride, d <= 1,536):
+//   `ln_linear_bf16_mma`, the first kernel: a 64-row tile
 //   normalised in padded shared memory, 64x64 output tiles from 4 warps of
 //   WMMA 16x16x16 fragments (`mma.sync`), W staged 32 deep, synchronously.
 // - "f32": `ln_linear_f32`, the exact form on the CUDA cores: 16 rows per
-//   block, normalised in fp32 shared memory, each thread four rows of one
-//   column.
+//   block, normalised in fp32 shared memory (d <= 3,632), each thread four
+//   rows of one column.
 
 #include <mma.h>
 #include <stdint.h>
@@ -314,24 +323,178 @@ __host__ __device__ inline size_t ln_smem(int bm, int d, int stages) {
   return 1024 + (size_t)bm * 128 * ((d + 63) / 64) + (size_t)stages * LN_STAGE + 8 + 16 * stages;
 }
 
+// the segmented form: `seg` 64-column tiles of the row tile resident, one
+// more barrier (the segment buffer's empty one)
+__host__ __device__ inline size_t ln_seg_smem(int bm, int seg, int stages) {
+  return 1024 + (size_t)bm * 128 * seg + (size_t)stages * LN_STAGE + 16 + 16 * stages;
+}
+
 // WM = 2: 128 rows, the warpgroups split them (m64n128k16 each); WM = 1: 64
 // rows, they split the 128 columns (m64n64k16 each), and two blocks may
 // share an SM where their shared memory fits (d <= 320)
-template <int WM>
+// the segmented form's producer and consumers (ln_linear_wgmma with SEG)
+template <int BM, int N, int WM>
+__device__ __forceinline__ void ln_linear_segments(
+    const CUtensorMap& xmap, const CUtensorMap& wmap, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ bias, bf16* __restrict__ out,
+    int M, int d, int n, int t0, int t1, int kch, int seg, int stages, float eps,
+    const bf16* __restrict__ x, uint8_t* A, uint8_t* ring, uint64_t* abar, uint64_t* aempty,
+    uint64_t* full, uint64_t* empty, int m0) {
+  using namespace hopper;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nseg = (kch + seg - 1) / seg;
+  if (warp == 8) {  // the producer warp: per output tile, each segment, then its W tiles
+    if (lane == 0) {
+      int it = 0, j = 0;
+      for (int t = t0; t < t1; ++t)
+        for (int h = 0; h < nseg; ++h, ++j) {
+          const int c0 = h * seg, c1 = min(kch, c0 + seg);
+          mbar_wait(aempty, (j & 1) ^ 1);  // every consumer is done with the last segment
+          mbar_expect_tx(abar, (uint32_t)BM * 128 * (c1 - c0));
+          for (int c = c0; c < c1; ++c) tma_load_2d(A + (c - c0) * BM * 128, &xmap, abar, 64 * c, m0);
+          for (int c = c0; c < c1; ++c, ++it) {
+            const int s = it % stages;
+            mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+            mbar_expect_tx(&full[s], LN_STAGE);
+            tma_load_2d(ring + s * LN_STAGE, &wmap, &full[s], 64 * c, t * LN_BN);
+          }
+        }
+    }
+    return;
+  }
+
+  // each row's statistics from device memory, by the eight lanes that
+  // normalise it (rows warp * 4 + lane / 8 + 32 i, as the resident form);
+  // rows past M (zero filled by TMA) take mean 0, as there
+  const int sub = lane % 8;
+  float mean[BM / 32], rstd[BM / 32];
+#pragma unroll
+  for (int i = 0; i < BM / 32; ++i) {
+    const int m = m0 + warp * 4 + lane / 8 + 32 * i;
+    const bf16* xr = x + (long long)min(m, M - 1) * d;
+    const bool in = m < M;
+    float s = 0.f;
+    for (int col = 8 * sub; in && col < d; col += 64) {  // d % 8 == 0
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + col);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        s += f.x + f.y;
+      }
+    }
+    mean[i] = row8_sum(s) / d;
+    float var = 0.f;
+    for (int col = 8 * sub; in && col < d; col += 64) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + col);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        var += (f.x - mean[i]) * (f.x - mean[i]) + (f.y - mean[i]) * (f.y - mean[i]);
+      }
+    }
+    rstd[i] = rsqrtf(row8_sum(var) / d + eps);
+  }
+
+  const int wg = warp / 4, wm = wg % WM, wn = wg / WM;
+  const int quad = lane % 4;
+  float acc[N / 2];
+  int it = 0, j = 0;
+  for (int t = t0; t < t1; ++t) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int h = 0; h < nseg; ++h, ++j) {
+      const int c0 = h * seg, c1 = min(kch, c0 + seg);
+      mbar_wait(abar, j & 1);
+      // the segment's tiles normalised in place (the resident form's step)
+#pragma unroll
+      for (int i = 0; i < BM / 32; ++i) {
+        const int r = warp * 4 + lane / 8 + 32 * i;
+        uint8_t* row = A + r * 128 + ((sub ^ (r % 8)) * 16);
+        for (int c = c0; c < c1; ++c) {
+          const int col = 64 * c + 8 * sub;
+          uint4* dst = reinterpret_cast<uint4*>(row + (c - c0) * BM * 128);
+          uint4 v = make_uint4(0, 0, 0, 0);  // columns past d: zero, for the padded K
+          if (col < d) {
+            v = *dst;
+            __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
+            const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
+            const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
+            const float4 b0 = *reinterpret_cast<const float4*>(beta + col);
+            const float4 b1 = *reinterpret_cast<const float4*>(beta + col + 4);
+            const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+            const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(hv[e]);
+              hv[e] = __floats2bfloat162_rn((f.x - mean[i]) * rstd[i] * gs[2 * e] + bs[2 * e],
+                                            (f.y - mean[i]) * rstd[i] * gs[2 * e + 1] + bs[2 * e + 1]);
+            }
+          }
+          *dst = v;
+        }
+      }
+      fence_proxy_async();
+      named_sync(1, 256);
+      for (int kc = c0; kc < c1; ++kc, ++it) {
+        const int s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+        const uint32_t a = smem_u32(A + (kc - c0) * BM * 128) + wm * 64 * 128;
+        const uint32_t bt = smem_u32(ring + s * LN_STAGE) + wn * N * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<N>::template ss<0>(acc, desc(a + kk * 32, 16, 1024), desc(bt + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (kc > c0 && lane == 0) mbar_arrive(&empty[(it - 1) % stages]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) {  // the last stage and the segment's buffer go back to the producer
+        mbar_arrive(&empty[(it - 1) % stages]);
+        mbar_arrive(aempty);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm * 64 + (warp % 4) * 16 + lane / 4 + 8 * r;
+      if (m >= M) continue;
+      bf16* dst = out + (long long)m * n;
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int c = t * LN_BN + wn * N + 8 * jj + 2 * quad;
+        if (c >= n) continue;  // n % 8 == 0: a pair is in or out as a whole
+        const float bb0 = bias != nullptr ? bias[c] : 0.f;
+        const float bb1 = bias != nullptr ? bias[c + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * r] + bb0, acc[4 * jj + 2 * r + 1] + bb1);
+      }
+    }
+  }
+}
+
+// SEG: the row tile in segments of `seg` 64-column tiles (the header), x
+// (the raw rows in device memory) read for the statistics; else resident
+template <int WM, bool SEG>
 __global__ void __launch_bounds__(LN_THREADS, WM == 1 ? 2 : 1)
 ln_linear_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
                 const float* __restrict__ bias, bf16* __restrict__ out, int M, int d, int n,
-                int run, int stages, float eps) {
+                int run, int stages, float eps, const bf16* __restrict__ x, int seg) {
   using namespace hopper;
   constexpr int BM = 64 * WM, WN = 2 / WM, N = LN_BN / WN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* A = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int kch = (d + 63) / 64;
-  const uint32_t a_bytes = (uint32_t)BM * 128 * kch;
+  const uint32_t a_bytes = (uint32_t)BM * 128 * (SEG ? seg : kch);
   uint8_t* ring = A + a_bytes;
   uint64_t* abar = reinterpret_cast<uint64_t*>(ring + (size_t)stages * LN_STAGE);
-  uint64_t* full = abar + 1;
+  uint64_t* aempty = abar + 1;  // SEG only
+  uint64_t* full = abar + (SEG ? 2 : 1);
   uint64_t* empty = full + stages;
 
   const int m0 = blockIdx.x * BM;
@@ -342,6 +505,7 @@ ln_linear_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
 
   if (threadIdx.x == 0) {
     mbar_init(abar, 1);
+    if (SEG) mbar_init(aempty, 8);  // lane 0 of every consumer warp
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
@@ -349,6 +513,12 @@ ln_linear_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     fence_barrier_init();
   }
   __syncthreads();
+
+  if constexpr (SEG) {
+    ln_linear_segments<BM, N, WM>(xmap, wmap, gamma, beta, bias, out, M, d, n, t0, t1, kch, seg,
+                                  stages, eps, x, A, ring, abar, aempty, full, empty, m0);
+    return;
+  }
 
   if (warp == 8) {  // the producer warp: the row tile once, then the W ring
     if (lane == 0) {
@@ -470,13 +640,15 @@ ln_linear_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   }
 }
 
-template <int WM>
+template <int WM, bool SEG>
 int launch_wgmma_rows(const void* x, const void* gamma, const void* beta, const void* w,
                       const void* bias, void* out, int M, int d, int n, int run, int stages,
-                      float eps, cudaStream_t stream) {
+                      int seg, float eps, cudaStream_t stream) {
   constexpr int BM = 64 * WM;
-  const size_t smem = ln_smem(BM, d, stages);
-  if (stages < 2 || smem > LN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int kch = (d + 63) / 64;
+  const size_t smem = SEG ? ln_seg_smem(BM, seg, stages) : ln_smem(BM, d, stages);
+  if (stages < 2 || smem > LN_SMEM_MAX || (SEG && (seg < 1 || seg >= kch)))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap xm, wm;
   const uint64_t xdims[2] = {(uint64_t)d, (uint64_t)M}, xstr[1] = {2ull * d};
   const uint64_t wdims[2] = {(uint64_t)d, (uint64_t)n}, wstr[1] = {2ull * d};
@@ -484,19 +656,20 @@ int launch_wgmma_rows(const void* x, const void* gamma, const void* beta, const 
   int code = hopper::make_map(&xm, x, 2, xdims, xstr, xbox);
   if (code == 0) code = hopper::make_map(&wm, w, 2, wdims, wstr, wbox);
   if (code != 0) return code;
-  cudaError_t err = hopper::set_smem_once<ln_linear_wgmma<WM>>(LN_SMEM_MAX);
+  cudaError_t err = hopper::set_smem_once<ln_linear_wgmma<WM, SEG>>(LN_SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + LN_BN - 1) / LN_BN;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((tiles + run - 1) / run));
-  ln_linear_wgmma<WM><<<grid, LN_THREADS, smem, stream>>>(
+  ln_linear_wgmma<WM, SEG><<<grid, LN_THREADS, smem, stream>>>(
       xm, wm, static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), M, d, n, run, stages, eps);
+      static_cast<const float*>(bias), static_cast<bf16*>(out), M, d, n, run, stages, eps,
+      static_cast<const bf16*>(x), seg);
   return (int)cudaGetLastError();
 }
 
 int launch_wgmma(const void* x, const void* gamma, const void* beta, const void* w,
                  const void* bias, void* out, int M, int d, int n, int rows, int run,
-                 int stages, float eps, cudaStream_t s) {
+                 int stages, int seg, float eps, cudaStream_t s) {
   // TMA: 16-byte aligned bases and byte strides; bf16 pairs stored whole;
   // gamma and beta read as float4
   const uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
@@ -504,8 +677,14 @@ int launch_wgmma(const void* x, const void* gamma, const void* beta, const void*
                         reinterpret_cast<uintptr_t>(beta);
   if (d % 8 != 0 || n % 8 != 0 || any % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if (run < 1) return (int)cudaErrorInvalidValue;
-  if (rows == 128) return launch_wgmma_rows<2>(x, gamma, beta, w, bias, out, M, d, n, run, stages, eps, s);
-  if (rows == 64) return launch_wgmma_rows<1>(x, gamma, beta, w, bias, out, M, d, n, run, stages, eps, s);
+  if (seg > 0) {  // the segmented form: 64 rows
+    if (rows != 64) return (int)cudaErrorInvalidValue;
+    return launch_wgmma_rows<1, true>(x, gamma, beta, w, bias, out, M, d, n, run, stages, seg, eps, s);
+  }
+  if (rows == 128)
+    return launch_wgmma_rows<2, false>(x, gamma, beta, w, bias, out, M, d, n, run, stages, 0, eps, s);
+  if (rows == 64)
+    return launch_wgmma_rows<1, false>(x, gamma, beta, w, bias, out, M, d, n, run, stages, 0, eps, s);
   return (int)cudaErrorInvalidValue;  // the host's tile is not a compiled one
 }
 
@@ -557,18 +736,19 @@ int launch_f32(const void* x, const void* gamma, const void* beta, const void* w
 // (bias may be null). All contiguous: x (M, d), w (n, d) (torch's Linear
 // layout), out (M, n). "wgmma" needs d % 8 == 0, n % 8 == 0 and 16-byte
 // aligned x, w, out, gamma and beta, and takes the host's tile: rows (128 or 64) a block,
-// run (128-column output tiles a block), stages (of the W ring); the other
-// routes ignore them. Returns the cudaError_t of the launch, or a
-// TMA-encoding error code (>= 10000).
+// run (128-column output tiles a block), stages (of the W ring), seg (0: the
+// row tile resident; else 64-column tiles of it a resident segment, 64
+// rows); the other routes ignore them. Returns the cudaError_t of the
+// launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_ln_linear_fwd(const void* x, const void* gamma, const void* beta,
                                  const void* w, const void* bias, void* out, int M, int d,
                                  int n, float eps, int route, int rows, int run, int stages,
-                                 void* stream) {
+                                 int seg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || d <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   if (route == 0) return launch_f32(x, gamma, beta, w, bias, out, M, d, n, eps, s);
   if (route == 1) return launch_wmma(x, gamma, beta, w, bias, out, M, d, n, eps, s);
   if (route == 2)
-    return launch_wgmma(x, gamma, beta, w, bias, out, M, d, n, rows, run, stages, eps, s);
+    return launch_wgmma(x, gamma, beta, w, bias, out, M, d, n, rows, run, stages, seg, eps, s);
   return (int)cudaErrorInvalidValue;
 }

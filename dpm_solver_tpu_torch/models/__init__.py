@@ -2,9 +2,15 @@ from dpm_solver_tpu_torch.models.adm_unet import (ADMClassifier, ADMConfig, ADMU
                                                   AttentionPool2d, layout, super_res_inputs)
 from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig, init_random_
 from dpm_solver_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
-from dpm_solver_tpu_torch.models.text_encoder import constant_context_encoder
+from dpm_solver_tpu_torch.models.clip import CLIPModel, CLIPTextModel, CLIPTowerConfig
+from dpm_solver_tpu_torch.models.clip_tokenizer import CLIPTokenizer
+from dpm_solver_tpu_torch.models.text_encoder import (BERTEmbedder, ClassEmbedder,
+                                                      FrozenCLIPEmbedder, FrozenCLIPImageEmbedder,
+                                                      FrozenCLIPTextJointEmbedder, SpatialRescaler,
+                                                      constant_context_encoder)
 from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
-from dpm_solver_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, VAEConfig
+from dpm_solver_tpu_torch.models.vae import (AutoencoderKL, DiagonalGaussian, VAEConfig,
+                                             VectorQuantizer, VQModel)
 
 __all__ = [
     "ADMClassifier",
@@ -12,13 +18,25 @@ __all__ = [
     "ADMUNet",
     "AttentionPool2d",
     "AutoencoderKL",
+    "BERTEmbedder",
+    "CLIPModel",
+    "CLIPTextModel",
+    "CLIPTokenizer",
+    "CLIPTowerConfig",
+    "ClassEmbedder",
     "DDPMUNet",
     "DDPMUNetConfig",
     "DiagonalGaussian",
+    "FrozenCLIPEmbedder",
+    "FrozenCLIPImageEmbedder",
+    "FrozenCLIPTextJointEmbedder",
     "NCSNpp",
     "NCSNppConfig",
+    "SpatialRescaler",
     "SpatialTransformer",
     "VAEConfig",
+    "VQModel",
+    "VectorQuantizer",
     "constant_context_encoder",
     "init_random_",
     "layout",

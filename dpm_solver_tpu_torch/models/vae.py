@@ -1,12 +1,16 @@
-"""AutoencoderKL, the Stable Diffusion first stage, NHWC.
+"""The latent-diffusion first stages, NHWC: AutoencoderKL (Stable Diffusion)
+and VQModel (the class-conditional ImageNet LDM, cin256).
 
-Port of `dpm_solver_tpu/models/vae.py` (the KL autoencoder; `VQModel` is not
-ported yet), twin of the reference ldm/modules/diffusionmodules/model.py
-(ResnetBlock :82-141, AttnBlock :150-207, Encoder :368-460, Decoder
-:462-569), ldm/models/autoencoder.py:285-343 and
+Port of `dpm_solver_tpu/models/vae.py`, twin of the reference
+ldm/modules/diffusionmodules/model.py (ResnetBlock :82-141, AttnBlock
+:150-207, Encoder :368-460, Decoder :462-569), ldm/models/autoencoder.py
+(VQModel :14-282, AutoencoderKL :285-343) and
 ldm/modules/distributions/distributions.py:24-62. Parameter names are the
 reference's state-dict keys (`decoder.up.3.block.0.conv1`,
-`encoder.mid.attn_1.q`, `post_quant_conv`, ...) in its layouts.
+`encoder.mid.attn_1.q`, `post_quant_conv`, `quantize.embedding.weight`, ...)
+in its layouts. The VQ quantizer's nearest-code search is one distance
+matrix product (`torch.matmul`, as the JAX package leaves it to XLA) and an
+argmin.
 
 Where the kernels run: every 3x3 stride-1 conv, `conv_in` and `conv_out`
 included (JAX `Conv3x3`), goes through `ops.conv3x3` (33 launches per SD
@@ -55,6 +59,14 @@ class VAEConfig:
     @staticmethod
     def sd_v1() -> "VAEConfig":
         return VAEConfig()
+
+    @staticmethod
+    def vq_cin256() -> "VAEConfig":
+        """f4 VQ first stage of the class-conditional ImageNet LDM
+        (configs/latent-diffusion/cin256-v2.yaml: z=3, ch_mult (1,2,4),
+        n_embed 8192, no attention, double_z false)."""
+        return VAEConfig(ch_mult=(1, 2, 4), z_channels=3, embed_dim=3,
+                         double_z=False, attn_resolutions=())
 
     @staticmethod
     def rdm_768() -> "VAEConfig":
@@ -299,3 +311,70 @@ class AutoencoderKL(nn.Module):
         posterior = self.encode(x)
         z = posterior.mode() if noise is None else posterior.sample(noise)
         return self.decode(z), posterior
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-codebook quantizer with the straight-through gradient (the
+    taming-transformers VectorQuantizer2 the reference VQModel imports,
+    autoencoder.py:6,39-41). z NHWC with channels == embed_dim; the codebook
+    is `embedding.weight` (n_embed, embed_dim). The distances
+    ||z||^2 - 2 z.E + ||E||^2, the argmin and the loss run in fp32."""
+
+    def __init__(self, n_embed: int, embed_dim: int, beta: float = 0.25):
+        super().__init__()
+        self.n_embed, self.embed_dim, self.beta = n_embed, embed_dim, beta
+        self.embedding = nn.Embedding(n_embed, embed_dim)
+        nn.init.uniform_(self.embedding.weight, -1.0 / n_embed, 1.0 / n_embed)
+
+    def indices(self, z: torch.Tensor) -> torch.Tensor:
+        """The nearest code of each position, (B, H, W) int64."""
+        flat = z.float().reshape(-1, self.embed_dim)
+        codebook = self.embedding.weight.float()
+        d = ((flat ** 2).sum(1, keepdim=True) - 2.0 * flat @ codebook.t()
+             + (codebook ** 2).sum(1)[None, :])
+        return d.argmin(1).reshape(z.shape[:-1])
+
+    def forward(self, z: torch.Tensor):
+        """(z_q, codebook loss, indices); z_q = z + (E[idx] - z), its
+        gradient passing straight through to z, fp32."""
+        idx = self.indices(z)
+        z = z.float()
+        z_q = self.embedding.weight.float()[idx]
+        loss = ((z_q.detach() - z) ** 2).mean() + self.beta * ((z_q - z.detach()) ** 2).mean()
+        return z + (z_q - z).detach(), loss, idx
+
+
+class VQModel(nn.Module):
+    """VQ first stage (autoencoder.py:14-282, the VQModelInterface
+    convention): `encode` returns the PRE-quant latent, `decode` quantises
+    unless `force_not_quantize`, `forward` returns (reconstruction, codebook
+    loss, indices). Built on `device`, the card by default (raises when
+    there is none); parameters fp32, cast to `compute_dtype` where used (the
+    quantizer stays fp32)."""
+
+    def __init__(self, config: VAEConfig, n_embed: int = 16384,
+                 compute_dtype: torch.dtype = torch.float32, device=DEFAULT_DEVICE):
+        super().__init__()
+        if config.double_z:
+            raise ValueError("the VQ first stage uses double_z=False")
+        dev = resolve_device(device)
+        cfg = self.config = config
+        self.n_embed = n_embed
+        self.encoder = VAEEncoder(cfg, compute_dtype, device=dev)
+        self.decoder = VAEDecoder(cfg, compute_dtype, device=dev)
+        with torch.device(dev):
+            self.quantize = VectorQuantizer(n_embed, cfg.embed_dim)
+            self.quant_conv = Conv1x1(cfg.z_channels, cfg.embed_dim, compute_dtype)
+            self.post_quant_conv = Conv1x1(cfg.embed_dim, cfg.z_channels, compute_dtype)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.quant_conv(self.encoder(x))
+
+    def decode(self, h: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
+        if not force_not_quantize:
+            h = self.quantize(h)[0]
+        return self.decoder(self.post_quant_conv(h))
+
+    def forward(self, x: torch.Tensor):
+        z_q, loss, idx = self.quantize(self.encode(x))
+        return self.decoder(self.post_quant_conv(z_q)), loss, idx

@@ -47,7 +47,7 @@ _SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _I, _P),
     "dpm_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                               _L, _L, _L, _L, _L, _L, _I, _P),
-    "dpm_ln_linear_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    "dpm_ln_linear_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "dpm_geglu_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dpm_attention_out_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P),

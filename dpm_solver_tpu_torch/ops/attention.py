@@ -9,8 +9,11 @@ Forward: one kernel, in `csrc/attention.cu`, stands in for all four Pallas
 forwards (`_forward`, `_flash_forward`, `_flash_forward_T`,
 `_panel_forward_T`), which compute the same function: in bf16 a TMA + `wgmma`
 kernel (route "wgmma"), in fp32 an exact CUDA-core one (route "f32"). It
-takes head dims 32, 40, 64, 80, 128, 160, 256 and 512 (40/80/160: SD-1's
-heads; 512: the VAE's single mid-block head). The tile each head dim runs
+takes every head dim of the presets (`FWD_HEAD_DIMS`): 32, 40, 64, 80, 96,
+128, 160, 192, 256, 384, 512, 576 and 960 (40/80/160: SD-1's heads; 96 and
+192: the ADM ImageNet-64 and -128 presets'; 512: the VAE's single mid-block
+head; 384, 576 and 960: the class-conditional LDM's single heads, cin256).
+The tile each head dim runs
 (queries a block, keys a tile, the reduction padded to whole 64-column
 swizzle tiles, output columns a block, ring stages) is chosen here,
 `attention_plan`, and handed to the kernel, which refuses any other. q, k
@@ -22,7 +25,8 @@ Backward (when autograd asks for it): the forward also writes each row's
 base-2 log-sum-exp (`attention_lse`, the port of the Pallas side pass `_lse`),
 and two kernels in `csrc/attention_bwd.cu` rebuild P from it:
 `attention_dq` and `attention_dkv`, the port of `_mha_backward`'s dq and dk/dv
-kernels, at every head dim the forward takes in both dtypes: in bf16 TMA +
+kernels, at the head dims of `HEAD_DIMS` in both dtypes (not yet at the
+forward's 96, 192, 384, 576 and 960, which no path differentiates): in bf16 TMA +
 `wgmma` kernels (route "wgmma"), in fp32 exact CUDA-core ones ("f32"). Their
 tiles per head dim and dtype are fixed in the C source; `attention_bwd_plan`
 states the same rule, for the shared-memory figure and the grid.
@@ -61,7 +65,14 @@ import torch
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims of every kernel: the forward, the backward and the fused
+# out-projection
 HEAD_DIMS = (32, 40, 64, 80, 128, 160, 256, 512)
+# the forward's (and its lse's): every head dim of the port's presets
+# (ADMConfig.*, DDPMUNetConfig.*, NCSNppConfig.*, the VAEs' mid-blocks, the
+# BERT embedder's 64)
+FWD_HEAD_DIMS = (32, 40, 64, 80, 96, 128, 160, 192, 256, 384, 512, 576, 960)
+WIDE_DV = 192  # output columns a bf16 block owns at the single heads past 256 but 512
 _LOG2E = math.log2(math.e)
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on the H100
 
@@ -75,10 +86,10 @@ class AttentionTile:
     register-tiled: csrc/attention_f32.cuh). block_q: queries a block;
     block_kv: keys a tile; d_pad: the q/k width as staged in shared memory
     (bf16: 64-column swizzle tiles: TMA fills columns past dh with zeros;
-    fp32: dh); dv: output columns one block owns (dh, or 256 of the
-    512-wide head: grid.z = dh / dv; fp32 splits further where a launch has
-    few blocks, `grid`); stages: K/V ring depth (fp32: two cp.async
-    buffers). The bf16 kernel overlaps each key tile's softmax with the
+    fp32: dh); dv: output columns one block owns (dh, 256 of the 512-wide
+    head, WIDE_DV of 384, 576 and 960: grid.z = dh / dv; fp32 splits further
+    where a launch has few blocks, `grid`); stages: K/V ring depth (fp32:
+    cp.async buffers, two where they fit, one at dh 960). The bf16 kernel overlaps each key tile's softmax with the
     previous tile's P.V product at dh <= 64 (csrc/attention.cu's header
     says why only there)."""
 
@@ -112,8 +123,8 @@ class AttentionTile:
         runs, twice the slices (path E's 4x4 mid-block, T = 16 at b8 with
         dh 256: 8 blocks -> 32; its 16x16 site's 128 blocks stay whole)."""
         blocks = -(-t // self.block_q) * b * heads
-        if self.route != "f32":
-            return blocks // (b * heads), b * heads, max(1, self.d_pad // self.dv)
+        if self.route != "f32":  # dv < dh only in whole 64-column runs (256, WIDE_DV)
+            return blocks // (b * heads), b * heads, self.d_pad // self.dv if self.dv % 64 == 0 else 1
         slices = 1
         while blocks * slices < F32_MIN_BLOCKS and self.dv % (128 * slices) == 0:
             slices *= 2
@@ -130,17 +141,25 @@ def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTil
     warpgroups) and 128-key tiles up to dh 128, 64-key tiles at 160 and 256
     (whose q and K/V stages would not fit 227 KB otherwise), and for the
     512-wide head one warpgroup, 32-key tiles and two 256-wide output
-    halves. fp32: 16 queries (F32_ROWS) and key tiles of F32_THREADS /
-    parts keys (128 up to dh 80, 64 at 128 and 160, 32 at 256, 16 at 512),
-    two cp.async buffers: the register-tiled rule the fp32 backward keeps
-    (csrc/attention_f32.cuh)."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {dh}")
+    halves; dh 96 and 192 as 80 and 160. The single heads of 384, 576 and
+    960: one warpgroup, WIDE_DV-column output slices and the widest key
+    tile of 64, 32 or 16 whose two stages fit beside the q tile (64, 32,
+    16). fp32: 16 queries (F32_ROWS) and key tiles of F32_THREADS / parts
+    keys (128 up to dh 80, 64 at 96 to 160, 32 at 192 and 256, 16 from
+    384), two cp.async buffers where they fit (one at dh 960): the
+    register-tiled rule the fp32 backward keeps (csrc/attention_f32.cuh)."""
+    if dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims {FWD_HEAD_DIMS}, got {dh}")
     if dtype == torch.float32:
-        return AttentionTile("f32", F32_ROWS, F32_THREADS // _f32_parts(dh), dh, dh, F32_STAGES)
+        tile = AttentionTile("f32", F32_ROWS, F32_THREADS // _f32_parts(dh), dh, dh, F32_STAGES)
+        return tile if tile.smem_bytes <= SMEM_PER_BLOCK else dataclasses.replace(tile, stages=1)
     d_pad = -(-dh // 64) * 64
     if dh == 512:
         return AttentionTile("wgmma", 64, 32, d_pad, 256, 2)
+    if dh > 256:
+        return next(tile for tile in (AttentionTile("wgmma", 64, kv, d_pad, WIDE_DV, 2)
+                                      for kv in (64, 32, 16))
+                    if tile.smem_bytes <= SMEM_PER_BLOCK)
     if dh >= 160:
         return AttentionTile("wgmma", 128, 64, d_pad, dh, 2)
     return AttentionTile("wgmma", 128, 128, d_pad, dh, 2 if dh >= 80 else 3)
@@ -164,7 +183,7 @@ SM_SMEM = 233472          # shared memory of one SM (1 KB of it kept per block)
 F32_ROWS = 16             # owned rows an fp32 block
 F32_THREADS = 256
 F32_SLICE = 40            # head-dim columns a phase-1 lane sums, at most
-F32_STAGES = 2            # the fp32 forward's K/V buffers (csrc/attention.cu)
+F32_STAGES = 2            # the fp32 forward's K/V buffers where they fit (csrc/attention.cu)
 F32_MIN_BLOCKS = 128      # the fp32 forward splits its output columns below this
 F32_REG_BUDGET = 128      # phase-1 partial sums + the output sums, registers a thread
 
@@ -188,9 +207,10 @@ def _bf16_smem(dh: int, tile: int, stages: int, dkv: bool) -> int:
 
 def _f32_parts(dh: int) -> int:
     """Head-dim slices of an fp32 phase-1 patch: a power of two >= 2 with
-    slices of at most F32_SLICE columns."""
+    slices of at most F32_SLICE columns, at most 16 (past dh 640 a slice is
+    wider: the forward's dh 960 sums 60 columns a lane)."""
     parts = 2
-    while parts * F32_SLICE < dh:
+    while parts * F32_SLICE < dh and parts < 16:
         parts *= 2
     return parts
 
@@ -381,8 +401,8 @@ def _check(q, k, v, num_heads):
     if t == 0 or k.shape[1] == 0:
         raise ValueError("token_attention needs at least one query and one key")
     dh = inner // num_heads
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {dh}")
+    if dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims {FWD_HEAD_DIMS}, got {dh}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q, k, v of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -11,16 +11,20 @@ w's dtype, an fp32 accumulator, the output in x's dtype. The kernels live in
 the H100 and how they are built.
 
 Routes (`ln_linear_plan`, decided here and handed to the C entry):
-- "wgmma": bf16 with d and n multiples of 8, 16-byte aligned tensors, and a
-  row tile that fits the block's shared memory beside a ring of at least
-  two W stages (every SD site): TMA + `wgmma` against the resident
-  normalised tile. The plan picks the rows a block (64 at d <= 320, where
-  two blocks share an SM; 128 at d <= 640 while that fills the card; else
-  64), the ring's depth and the run of 128-column output tiles a block
-  walks, so that the grid covers the card's 132 SMs where the tiles allow;
-- "wmma": other bf16 shapes: the `mma.sync` (WMMA) kernel with W staged
-  synchronously;
-- "f32": the exact CUDA-core kernel.
+- "wgmma": bf16 with d and n multiples of 8 and 16-byte aligned tensors:
+  TMA + `wgmma` against the normalised row tile, resident where it fits the
+  block's shared memory beside a ring of at least two W stages (every SD
+  and cin256 site), else (d > 1,536 at 64 rows: the retrieval LDM's middle
+  block, d = 1,792) resident in segments of `seg` 64-column tiles, each
+  loaded, normalised and multiplied in turn after the rows' statistics are
+  read from device memory. The plan picks the rows a block (64 at d <= 320,
+  where two blocks share an SM; 128 at d <= 640 while that fills the card;
+  else 64), the ring's depth, the segment and the run of 128-column output
+  tiles a block walks, so that the grid covers the card's 132 SMs where the
+  tiles allow;
+- "wmma": other bf16 shapes (d or n not a multiple of 8, unaligned): the
+  `mma.sync` (WMMA) kernel with W staged synchronously, d <= 1,536;
+- "f32": the exact CUDA-core kernel, d <= 3,632 (16 rows of fp32 resident).
 `ln_linear.launches` counts launches, `ln_linear.launches_by_route` counts
 them by route.
 
@@ -51,6 +55,8 @@ from dpm_solver_tpu_torch.ops import _build
 ROUTES = {"f32": 0, "wmma": 1, "wgmma": 2}   # the C entry's route codes
 # the "wmma" kernel keeps a 64-row tile of width d resident in shared memory
 MAX_D = 1536
+# the "f32" kernel keeps 16 fp32 rows of width d: 227 KB / 64 bytes a column
+F32_MAX_D = 3632
 SMS = 132              # streaming multiprocessors of one H100 SXM
 BLOCK_N = 128          # output columns of one "wgmma" tile
 STAGE_BYTES = BLOCK_N * 128   # one W stage: 128 rows x 64 along d, bf16
@@ -69,16 +75,25 @@ def wgmma_smem(rows: int, d: int, stages: int) -> int:
     return 1024 + rows * 128 * -(-d // 64) + stages * STAGE_BYTES + 8 + 16 * stages
 
 
+def wgmma_seg_smem(rows: int, seg: int, stages: int) -> int:
+    """The segmented form's (`ln_seg_smem`): `seg` 64-column tiles of the row
+    tile, the W ring, the segment's full and empty barriers and the ring's."""
+    return 1024 + rows * 128 * seg + stages * STAGE_BYTES + 16 + 16 * stages
+
+
 @dataclasses.dataclass(frozen=True)
 class LnLinearPlan:
     """route: "wgmma", "wmma" or "f32". For "wgmma": rows (128 or 64) a
     block, stages of its W ring, run: the 128-column output tiles one block
-    walks (blockIdx.y takes the runs). The other routes leave them 0."""
+    walks (blockIdx.y takes the runs), seg: 0 where the row tile is
+    resident, else the 64-column tiles of it a resident segment holds. The
+    other routes leave them 0."""
 
     route: str
     rows: int = 0
     stages: int = 0
     run: int = 0
+    seg: int = 0
 
     def blocks(self, m: int, n: int) -> int:
         col_tiles = -(-n // BLOCK_N)
@@ -99,8 +114,9 @@ def ln_linear_plan(m: int, d: int, n: int, dtype: torch.dtype,
     SM (d <= 320): one block's statistics and stores then run under the
     other's products. Else 128 rows at d <= 640 while those blocks, one
     column tile each, fill the card; else 64. The ring takes as many 16 KB
-    stages (up to 4) as fit beside the row tile; fewer than 2 leaves the
-    shape to "wmma".
+    stages (up to 4) as fit beside the row tile; where fewer than 2 fit,
+    the ring takes 4 and the row tile is kept in the fewest segments of
+    equal width that fit beside it (`seg` 64-column tiles each).
 
     The column tiles split into runs, one block each. Of the runs that give
     at least a block for every slot of the card (or as many blocks as the
@@ -119,9 +135,11 @@ def ln_linear_plan(m: int, d: int, n: int, dtype: torch.dtype,
         rows = 128
     else:
         rows = 64
-    stages = _stages(rows, d)
-    if stages < 2:
-        return LnLinearPlan("wmma")
+    stages, seg = _stages(rows, d), 0
+    if stages < 2:  # the row tile in segments, beside a full ring, in as few as fit, even
+        stages, kch = MAX_STAGES, -(-d // 64)
+        most = (SMEM_PER_BLOCK - wgmma_seg_smem(rows, 0, stages)) // (rows * 128)
+        seg = -(-kch // -(-kch // most))
     row_tiles = -(-m // rows)
     slots = SMS * per_sm
     least = min(slots, row_tiles * col_tiles)
@@ -132,7 +150,7 @@ def ln_linear_plan(m: int, d: int, n: int, dtype: torch.dtype,
 
     run = min((r for r in range(1, col_tiles + 1) if row_tiles * -(-col_tiles // r) >= least),
               key=cost)
-    return LnLinearPlan("wgmma", rows, stages, run)
+    return LnLinearPlan("wgmma", rows, stages, run, seg)
 
 
 def layer_norm_fp32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
@@ -194,8 +212,10 @@ def _check(x2, gamma, beta, w, bias, plan: LnLinearPlan = None):
         raise ValueError("ln_linear kernel needs contiguous x and w")
     if any(t is not None and t.device != x2.device for t in (gamma, beta, w, bias)):
         raise ValueError("ln_linear: x, gamma, beta, w and bias must share a device")
-    if (plan is None or plan.route != "wgmma") and d > MAX_D:
-        raise ValueError(f"ln_linear's wmma and f32 kernels take d <= {MAX_D}, got {d}")
+    limit = F32_MAX_D if plan is not None and plan.route == "f32" else MAX_D
+    if (plan is None or plan.route != "wgmma") and d > limit:
+        raise ValueError(f"ln_linear's {plan.route if plan else 'wmma'} kernel takes d <= "
+                         f"{limit}, got {d}")
     if m * max(d, n) >= 2**31 or d * n >= 2**31:
         raise ValueError("ln_linear kernel takes fewer than 2**31 elements per tensor")
 
@@ -213,7 +233,8 @@ def ln_linear_launch(x2, gamma, beta, w, bias, eps, plan: LnLinearPlan) -> torch
     code = _build.library().dpm_ln_linear_fwd(
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, d, n, float(eps),
-        ROUTES[plan.route], plan.rows, plan.run, plan.stages, _build.stream_ptr(x2.device))
+        ROUTES[plan.route], plan.rows, plan.run, plan.stages, plan.seg,
+        _build.stream_ptr(x2.device))
     _build.check(code, "ln_linear")
     ln_linear.launches += 1
     ln_linear.launches_by_route[plan.route] += 1

@@ -13,6 +13,11 @@ into the port's models with a plain `load_state_dict`:
   classifier=True)`, for `models.ADMClassifier` and its four pooling heads;
 - `autoencoder_kl_state_dict_from_flax`: of `dpm_solver_tpu/models/vae.py::
   convert_autoencoder_kl`, for `models.AutoencoderKL`;
+- `vq_model_state_dict_from_flax`: of `convert_vq_model`, for
+  `models.VQModel`;
+- `bert_embedder_state_dict_from_flax`: of `dpm_solver_tpu/models/
+  text_encoder.py::convert_bert_embedder`, for `models.BERTEmbedder` (the
+  reference x_transformer keys);
 - `ncsnpp_state_dict_from_flax`: of `dpm_solver_tpu/models/ncsnpp_convert.py::
   params_from_torch`, for `models.NCSNpp` (the reference score_sde layout).
 
@@ -289,6 +294,38 @@ def autoencoder_kl_state_dict_from_flax(flax_params: Mapping, config) -> Dict[st
     half("decoder", p["decoder"], decoder=True)
     w.conv("quant_conv", p["quant_conv"])
     w.conv("post_quant_conv", p["post_quant_conv"])
+    return w.sd
+
+
+def vq_model_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """VQModel flax params -> the torch state dict of `models.VQModel(config)`:
+    the AutoencoderKL layout and the codebook `quantize.embedding.weight`."""
+    p = flax_params.get("params", flax_params)
+    sd = autoencoder_kl_state_dict_from_flax(p, config)
+    sd["quantize.embedding.weight"] = torch.from_numpy(
+        np.array(p["quantize"]["embedding"], dtype=np.float32))
+    return sd
+
+
+def bert_embedder_state_dict_from_flax(flax_params: Mapping,
+                                       n_layer: int) -> Dict[str, torch.Tensor]:
+    """BERTEmbedder flax params -> the torch state dict of
+    `models.BERTEmbedder`, under the reference x_transformer keys (the
+    inverse of `convert_bert_embedder`)."""
+    p = flax_params.get("params", flax_params)
+    w = _Writer()
+    w.put("transformer.token_emb.weight", p["token_emb"]["embedding"])
+    w.put("transformer.pos_emb.emb.weight", p["pos_emb"]["embedding"])
+    w.affine("transformer.norm", p["final_norm"])
+    for i in range(n_layer):
+        a = f"transformer.attn_layers.layers.{2 * i}"
+        f = f"transformer.attn_layers.layers.{2 * i + 1}"
+        w.affine(a + ".0", p[f"attn_norm_{i}"])
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            w.dense(f"{a}.1.{name}", p[f"{name}_{i}"])
+        w.affine(f + ".0", p[f"ff_norm_{i}"])
+        w.dense(f + ".1.net.0.0", p[f"ff_in_{i}"])
+        w.dense(f + ".1.net.2", p[f"ff_out_{i}"])
     return w.sd
 
 

@@ -2,7 +2,8 @@
 
 - An AST scan: no file under dpm_solver_tpu_torch/, and not chip_smoke.py,
   imports jax, flax or dpm_solver_tpu (a `sys.modules` check cannot show it:
-  the test process imports jax anyway).
+  the test process imports jax anyway), nor transformers, regex, ftfy or
+  safetensors: the port depends on PyTorch alone.
 - On the CPU every wrapper takes its plain version and launches nothing:
   the launch counters stay at 0 through a whole tiny sampling run, a tiny
   txt2img run, a tiny classifier-guided run (whose backward takes the
@@ -26,12 +27,14 @@ import torch
 import dpm_solver_tpu_torch as P
 from dpm_solver_tpu_torch import ops
 from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, AutoencoderKL,
-                                         DDPMUNet, DDPMUNetConfig, NCSNpp, NCSNppConfig,
-                                         SpatialTransformer, VAEConfig, constant_context_encoder,
-                                         init_random_)
+                                         BERTEmbedder, ClassEmbedder, DDPMUNet, DDPMUNetConfig,
+                                         NCSNpp, NCSNppConfig, SpatialRescaler,
+                                         SpatialTransformer, VAEConfig, VQModel,
+                                         constant_context_encoder, init_random_)
 from dpm_solver_tpu_torch.score import get_noise_fn
 from dpm_solver_tpu_torch.sde import VPSDE
-from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
+from dpm_solver_tpu_torch.pipelines import (LatentDiffusion, StableDiffusionPipeline,
+                                            load_sd_checkpoint)
 
 # the modules themselves: `ops` re-exports functions of the same names
 attention, conv3x3, fused_update, geglu, ln_linear = (
@@ -44,7 +47,10 @@ NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear
                "geglu_ff": 0, "attention_lse": 0, "attention_dq": 0, "attention_dkv": 0,
                "conv3x3_dx": 0, "fused_bias_act": 0, "fused_bias_act_bwd": 0,
                "attention_out_fused": 0}
-FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu")
+# jax and the JAX package; and the packages the port replaces with its own CLIP,
+# tokenizer and checkpoint reading (torch.load), so that it needs PyTorch alone
+FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu", "transformers", "regex", "ftfy",
+             "safetensors")
 
 
 def _imported_roots(tree):
@@ -91,6 +97,36 @@ def test_cpu_txt2img_takes_plain_path_and_launches_nothing():
     img = pipe.txt2img(["a", "b"], steps=2, height=16, width=16,
                        generator=torch.Generator().manual_seed(1))
     assert img.shape == (2, 16, 16, 3) and torch.isfinite(img).all()
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_ldm_surface_takes_plain_path_and_launches_nothing(tmp_path):
+    """img2img, inpaint, the VQ first stage, class-conditional sampling and
+    the BERT and CLIP conditioners: on the CPU, no kernel launches."""
+    from dpm_solver_tpu_torch.models import BERTEmbedder, ClassEmbedder, VQModel
+    from dpm_solver_tpu_torch.pipelines import class_conditional_sample
+
+    g = torch.Generator().manual_seed(0)
+    ucfg = ADMConfig(image_size=8, in_channels=3, model_channels=32, out_channels=3,
+                     num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     num_heads=1, use_spatial_transformer=True, context_dim=16)
+    vq = VQModel(VAEConfig.tiny(ch_mult=(1, 2), z_channels=3, embed_dim=3, double_z=False,
+                                resolution=16, attn_resolutions=()), n_embed=32, device="cpu")
+    ldm = LatentDiffusion(init_random_(ADMUNet(ucfg, device="cpu"), g).eval(),
+                          init_random_(vq, g).eval(), text_encode=constant_context_encoder(16),
+                          scale_factor=1.0)
+    pipe = StableDiffusionPipeline(ldm, device="cpu")
+    image = torch.rand(2, 16, 16, 3, generator=g) * 2 - 1
+    ops.reset_launch_counts()
+    out = [pipe.img2img(image, ["a", "b"], steps=3, generator=g),
+           pipe.inpaint(image, (torch.rand(2, 16, 16, generator=g) > 0.5).float(), ["a", "b"],
+                        steps=2, generator=g),
+           class_conditional_sample(ldm, ClassEmbedder(5, 16, device="cpu"), [1, 2], steps=2,
+                                    guidance_scale=2.0, uncond_label=4, generator=g)]
+    with torch.no_grad():
+        bert = BERTEmbedder(64, 1, vocab_size=50, device="cpu")(torch.tensor([[1, 2, 3]]))
+    assert all(o.shape == (2, 16, 16, 3) and torch.isfinite(o).all() for o in out)
+    assert bert.shape == (1, 3, 64)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -166,8 +202,15 @@ def test_cpu_likelihood_and_ode_sampler_launch_nothing():
     lambda: SpatialTransformer(32, 2, 16, context_dim=24),
     lambda: StableDiffusionPipeline(LatentDiffusion(
         ADMUNet(ADMConfig.tiny(), device="cpu"), AutoencoderKL(VAEConfig.tiny(), device="cpu"))),
+    lambda: VQModel(VAEConfig.tiny(double_z=False)),
+    lambda: BERTEmbedder(64, 1),
+    lambda: ClassEmbedder(10, 8),
+    lambda: SpatialRescaler(out_channels=4),
+    lambda: load_sd_checkpoint({"model.diffusion_model.x": torch.zeros(1)},
+                               unet_config=ADMConfig.tiny()),
 ], ids=["NCSNpp", "DDPMUNet", "ADMUNet", "ADMClassifier", "AutoencoderKL", "SpatialTransformer",
-        "StableDiffusionPipeline"])
+        "StableDiffusionPipeline", "VQModel", "BERTEmbedder", "ClassEmbedder", "SpatialRescaler",
+        "load_sd_checkpoint"])
 def test_default_device_is_the_card_and_raises_without_one(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

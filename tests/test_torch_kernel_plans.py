@@ -58,7 +58,7 @@ from dpm_solver_tpu_torch.ops.conv3x3 import (PATCH_PIXELS, WGMMA_BLOCK_N, WGMMA
                                               conv3x3_patch, conv3x3_plan, f32_steps)
 from dpm_solver_tpu_torch.ops import geglu as geglu_mod
 from dpm_solver_tpu_torch.ops.geglu import geglu_plan
-from dpm_solver_tpu_torch.ops.ln_linear import ln_linear_plan
+from dpm_solver_tpu_torch.ops.ln_linear import LnLinearPlan, ln_linear_plan
 
 ln_linear_mod = importlib.import_module("dpm_solver_tpu_torch.ops.ln_linear")
 attention_mod = importlib.import_module("dpm_solver_tpu_torch.ops.attention")
@@ -299,8 +299,47 @@ def test_attention_tile_fits(dh, dtype):
     assert dh % tile.dv == 0 and tile.dv % 8 == 0 and tile.dv <= 256
 
 
+NEW_FWD_DIMS = [dh for dh in attention_mod.FWD_HEAD_DIMS if dh not in HEAD_DIMS]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("dh", NEW_FWD_DIMS)
+def test_attention_forward_tile_at_the_wide_preset_head_dims(dh, dtype):
+    """dh 96 and 192 (the ADM ImageNet presets) and cin256's single heads of
+    384, 576 and 960: a tile that fits, whole 64-column output slices."""
+    assert NEW_FWD_DIMS == [96, 192, 384, 576, 960]
+    tile = attention_plan(dh, dtype)
+    assert tile.smem_bytes <= SMEM_PER_BLOCK
+    if dtype == torch.float32:
+        parts = attention_mod._f32_parts(dh)
+        # 16 parts at most (a 16-row tile, the softmax's 16 threads a row);
+        # one K/V buffer only where two do not fit (dh 960)
+        assert tile == AttentionTile("f32", 16, 256 // parts, dh, dh, 1 if dh == 960 else 2)
+        assert parts <= 16 and dh % parts == 0
+        return
+    if dh <= 256:  # the tiles of dh 80 and 160
+        assert (tile.block_q, tile.block_kv, tile.dv) == (128, 128 if dh < 160 else 64, dh)
+        return
+    # one warpgroup, WIDE_DV-column slices, the widest key tile that fits
+    assert (tile.block_q, tile.dv, tile.stages) == (64, attention_mod.WIDE_DV, 2)
+    assert dh % tile.dv == 0 and tile.dv % 64 == 0
+    wider = dataclasses.replace(tile, block_kv=2 * tile.block_kv)
+    assert tile.block_kv == 64 or wider.smem_bytes > SMEM_PER_BLOCK
+    assert tile.grid(16, 1024, 1) == (16, 16, dh // attention_mod.WIDE_DV)
+
+
+def test_cin256_attention_tiles():
+    """cin256's transformer heads (dh 384 at 32x32, 576 at 16x16, 960 at 8x8;
+    self-attention and S = 1 cross-attention share the tile): 64-, 32- and
+    16-key tiles, 2, 3 and 5 output slices; fp32 16-key tiles."""
+    got = {dh: attention_plan(dh) for dh in (384, 576, 960)}
+    assert {dh: (t.block_kv, dh // t.dv) for dh, t in got.items()} == {
+        384: (64, 2), 576: (32, 3), 960: (16, 5)}
+    assert {attention_plan(dh, torch.float32).block_kv for dh in got} == {16}
+
+
 def test_attention_plan_refuses_other_head_dims():
-    for dh in (16, 48, 96, 1024):
+    for dh in (16, 48, 88, 1024):  # 96 is a preset's head dim since the forward took them all
         with pytest.raises(ValueError, match="head dims"):
             attention_plan(dh)
 
@@ -484,9 +523,62 @@ def test_ragged_widths_take_wmma(m, d, inner):
 
 
 def test_ln_linear_row_tile_past_the_budget_takes_wmma():
-    """64 rows of width d must fit beside two W stages; past that, "wmma"."""
-    assert ln_linear_plan(4096, 1536, 1536, torch.bfloat16).route == "wgmma"
-    assert ln_linear_plan(4096, 1600, 1600, torch.bfloat16).route == "wmma"
+    """64 rows of width d fit beside two W stages up to d = 1,536; past that
+    the row tile was left to "wmma" (which takes d <= 1,536 too, so such a
+    width raised on the card) and is now kept in segments on "wgmma"."""
+    resident = ln_linear_plan(4096, 1536, 1536, torch.bfloat16)
+    assert resident.route == "wgmma" and resident.seg == 0
+    past = ln_linear_plan(4096, 1600, 1600, torch.bfloat16)
+    assert past.route == "wgmma" and past.seg == 13 and past.rows == 64
+
+
+@pytest.mark.parametrize("d", [1600, 1792, 2560, 3584])
+def test_ln_linear_segments_fit_and_cover_the_row(d):
+    """Past the resident budget: 64 rows, a 4-stage ring, and the fewest
+    segments of equal width (64-column tiles) that fit 227 KB beside it."""
+    plan = ln_linear_plan(72, d, 3 * d, torch.bfloat16)
+    kch = -(-d // 64)
+    assert (plan.route, plan.rows, plan.stages) == ("wgmma", 64, ln_linear_mod.MAX_STAGES)
+    assert 0 < plan.seg < kch
+    assert ln_linear_mod.wgmma_seg_smem(64, plan.seg, plan.stages) <= SMEM_PER_BLOCK
+    nseg = -(-kch // plan.seg)
+    wider = ln_linear_mod.wgmma_seg_smem(64, -(-kch // (nseg - 1)), plan.stages)
+    assert nseg == 1 or wider > SMEM_PER_BLOCK      # no fewer segments fit
+    assert plan.seg * (nseg - 1) < kch <= plan.seg * nseg
+
+
+@pytest.mark.parametrize("preset", ["cin256", "rdm_768", "sd_v1", "sd_v2_1"])
+def test_ln_linear_and_geglu_take_wgmma_at_every_transformer_width(preset):
+    """Every SpatialTransformer width of the LDM presets (cin256's 384, 576
+    and 960; the retrieval LDM's 448 to 1,792) runs the "wgmma" kernels in
+    bf16 and "f32" in fp32; none raises."""
+    cfg = getattr(ADMConfig, preset)()
+    plan, ch, widths = layout(cfg), None, set()
+    for spec in chain(*plan["input_blocks"], plan["middle"], *plan["output_blocks"]):
+        ch = spec.get("out_ch", ch)
+        if spec["kind"] == "xattn":
+            widths.add(spec["heads"] * spec["dim_head"])
+    assert widths
+    for d in sorted(widths):
+        for n in (3 * d, d):
+            assert ln_linear_plan(8 * 36, d, n, torch.bfloat16).route == "wgmma"
+            assert ln_linear_plan(8 * 36, d, n, torch.float32).route == "f32"
+            x2, w = torch.zeros(8, d), torch.zeros(n, d)
+            ln_linear_mod._check(x2, torch.zeros(d), torch.zeros(d), w, None,
+                                 ln_linear_plan(8, d, n, torch.float32))
+        assert geglu_mod.geglu_plan(8 * 36, d, 4 * d, torch.bfloat16).route == "wgmma"
+
+
+def test_ln_linear_checks_take_each_routes_widths():
+    """"f32" keeps 16 fp32 rows (d <= 3,632), "wmma" 64 bf16 rows (d <= 1,536)."""
+    x, g = torch.zeros(2, 1792), torch.zeros(1792)
+    ln_linear_mod._check(x, g, g, torch.zeros(8, 1792), None, LnLinearPlan("f32"))
+    with pytest.raises(ValueError, match="wmma kernel takes d <= 1536"):
+        ln_linear_mod._check(x.bfloat16(), g, g, torch.zeros(8, 1792).bfloat16(), None,
+                             LnLinearPlan("wmma"))
+    big, gb = torch.zeros(2, 3640), torch.zeros(3640)
+    with pytest.raises(ValueError, match="f32 kernel takes d <= 3632"):
+        ln_linear_mod._check(big, gb, gb, torch.zeros(8, 3640), None, LnLinearPlan("f32"))
 
 
 def _cu_constant(source: str, name: str) -> int:
@@ -521,6 +613,7 @@ def _cu_constant(source: str, name: str) -> int:
     ("attention.cu", "F32_THREADS", attention_mod.F32_THREADS),
     ("attention.cu", "F32_SLICE", attention_mod.F32_SLICE),
     ("attention.cu", "F32_STAGES", attention_plan(256, torch.float32).stages),
+    ("attention.cu", "WIDE_DV", attention_plan(960).dv),
     ("conv3x3.cu", "F32_BM", conv_mod.F32_BLOCK_M),
     ("conv3x3.cu", "F32_BN", conv_mod.F32_BLOCK_N),
     ("conv3x3.cu", "F32_BK", conv_mod.F32_BLOCK_K),
