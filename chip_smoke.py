@@ -24,8 +24,11 @@ and nothing of JAX. Phases, each fatal on failure:
    on qkv slices; at each, the forward's o and lse are checked first on the
    same inputs); the forward and its lse at the wide presets' head dims
    (cin256's 384, 576 and 960 at CFG b8 with S = 1, 96 and 192, ragged and
-   on qkv slices), each launch on its route; LayerNorm->Linear and GEGLU at
-   cin256's widths too
+   on qkv slices), each launch on its route; the backward (dq and dk/dv) at
+   those head dims too, both dtypes, at the training paths' b8 sites, with
+   one key (S = 1: dq and dk held to an absolute bound, S1_BOUND * max|dO|
+   * max|v|, being rounding noise on both sides) and ragged, each launch on
+   its route; LayerNorm->Linear and GEGLU at cin256's widths too
    and conv3x3's input gradient; the bf16 "narrow" conv route (forward and
    dx) at the SD VAE's conv_in and conv_out, at C in {1, 3, 4, 5, 12} x CO in
    {3, 4, 6, 20, 512} on a 7x9 map and at C = CO = 64 off a 16-byte
@@ -157,6 +160,35 @@ and nothing of JAX. Phases, each fatal on failure:
    RK45 take thousands of NFE) in fp32, card against CPU, bits/dim and the
    black-box `ode_sampler` (with its denoising step): the same NFE, bits/dim
    within 1e-3, z and the samples within 5e-3 of their max;
+7c. path H, score-model training: `run_lib.train` on
+   `score_sde_cifar10_ve_ncsnpp_continuous` (benchmarks/train_bench.py's
+   configuration: NCSN++ continuous VE, b128 of synthetic 32x32 8-bit
+   images from TRAIN_SEED, bf16 compute, dropout 0.1 live, Adam after the
+   config's warmup, clipping, EMA) for H_STEPS steps: launches (and by
+   route) against the config's counts per step (each conv3x3 with its dx,
+   each attention with its lse, dq and dk/dv at dh 256), every step's loss
+   and grad norm finite, the median step after a warm one, images/s and
+   peak memory (cuDNN's default algorithm choice, as a user's run); then,
+   under cuDNN's deterministic algorithms, a run killed after H_RESUME_AT
+   steps and restarted from its meta checkpoint ends within SLICE_BOUND of
+   an uninterrupted H_RESTART_STEPS-step run; `cifar10_ddpm` through the
+   DDPM eps-MSE branch (continuous off) for H_DDPM_STEPS steps, counted and
+   timed the same way; then one fp32 step at reduced width (a small NCSN++
+   VE, the continuous VE loss; a small DDPM UNet, the eps-MSE), card
+   against CPU through the step functions themselves, from the same random
+   weights (every layer live) and draws: the step's loss and grad norm,
+   Adam's first moment after the step (the clipped gradient times 1 - b1)
+   leaf by leaf, and the parameters after the step (in units of the
+   learning rate);
+7d. path I, latent-diffusion training: `run_lib.train_latent` on "sd_v2_1"
+   (b4 at 768 px through the frozen KL-VAE encode, v target, a random 77 x
+   1024 context, Adam), the same with adafactor and remat, and on "cin256"
+   (b8 at 256 px through the VQ-f4 encode, one class token a sample: the
+   backward at dh 384, 576 and 960 and at S = 1), each counted, timed and
+   checked as path H; one fp32 `make_latent_train_step` at reduced width
+   (v target, CFG dropout, a small KL-VAE's encode), card against CPU as
+   path H's; a
+   restarted small `train_latent` run against an uninterrupted one;
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
@@ -183,7 +215,13 @@ and nothing of JAX. Phases, each fatal on failure:
    path's launches captured in one CUDA graph); path G's img2img call's
    kernels (the VAE encoder's included, and the "narrow" route at its
    three launches) and path F's call's, recorded from the calls, with the
-   attention at F's sites by spec.
+   attention at F's sites by spec; the attention kernels (lse, dq, dk/dv)
+   of path H's run and of path I's cin256 run, the latter by site; the dq
+   and dk/dv kernels at WIDE_BWD's sites too.
+
+Paths H and I print their steps' walls, images/s, peak memory, losses and
+grad norms, the card-vs-CPU step checks and the restart checks as one JSON
+line (`{"training": ...}`) before the kernels' record.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -210,8 +248,10 @@ import dataclasses
 import importlib
 import io
 import json
+import logging
 import re
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -284,9 +324,33 @@ BWD_SHAPES = [(8, 256, 256, 1, 256, True), (8, 256, 256, 1, 256, False),
               (3, 33, 129, 4, 128, False), (2, 256, 256, 4, 128, False),
               (1, 1024, 1024, 1, 512, False),
               (1, 77, 77, 1, 512, True)]
+# the backward at the head dims the forward took for the wide presets (the
+# training paths' cin256 heads at b8: self-attention on qkv slices and the
+# one-key cross-attention; the ADM ImageNet-64/-128 heads 96 and 192) and
+# ragged ones, both dtypes; with one key (S = 1) ds is 0 up to rounding, so
+# dq and dk are held to S1_BOUND * max|dO| * max|v| absolute
+# (tests/test_torch_attention_bwd_wide.py), dv to BWD_BOUND
+WIDE_BWD = [(8, 1024, 1024, 1, 384, True), (8, 1024, 1, 1, 384, False),
+            (8, 256, 256, 1, 576, True), (8, 256, 1, 1, 576, False),
+            (8, 64, 64, 1, 960, True), (8, 64, 1, 1, 960, False),
+            (8, 256, 256, 4, 96, False), (8, 256, 256, 4, 192, False),
+            (8, 64, 77, 4, 192, False), (3, 100, 70, 1, 960, False),
+            (2, 77, 33, 2, 96, "odd"), (3, 33, 1, 1, 576, False)]
+S1_BOUND = 2.0 ** -12
 # fp32 trajectories, kernels on the card vs plain ops on the CPU, relative to
 # max|x|: the repo's trajectory parity bound (tests/test_solver_parity.py:70-75)
 SLICE_BOUND = 1e-4
+# paths H and I, training (phases 7c and 7d): the seed of the weights, the
+# data and every step's draws; H: the timed steps of `run_lib.train` at the
+# config's batch (NCSN++ continuous VE b128, 32x32), the restart check's
+# steps and the step its killed run resumes from, the DDPM eps-MSE steps;
+# I: `run_lib.train_latent` steps on sd_v2_1 (b4, 768 px) and cin256 (b8,
+# 256 px), and the adafactor + remat steps; the learning rate of the fp32
+# card-vs-CPU steps
+TRAIN_SEED = 13
+H_STEPS, H_RESTART_STEPS, H_RESUME_AT, H_DDPM_STEPS = 6, 3, 2, 4
+I_SD_BATCH, I_SD_STEPS, I_CIN_BATCH, I_CIN_STEPS, I_REMAT_STEPS = 4, 4, 8, 4, 2
+CHECK_LR = 2e-4
 # fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
 # relative to max|x|: the same kernels on the same inputs
 GRAPH_BOUND = 1e-6
@@ -310,8 +374,8 @@ REPLACES = {
                  "dpm_solver_tpu/ops/geglu.py:125"),
     "attention_lse": ("cuda", "dpm_solver_tpu_torch/csrc/attention.cu",
                       "dpm_solver_tpu/ops/attention.py:187 (_lse, _lse_kernel :157)"),
-    # rows 8-9 take HEAD_DIMS in both dtypes, the forward FWD_HEAD_DIMS: the
-    # JSON record's "head_dims" (ops/attention.py)
+    # rows 8-9 and the forward take FWD_HEAD_DIMS in both dtypes: the JSON
+    # record's "head_dims" (ops/attention.py)
     "attention_dq": ("cuda", "dpm_solver_tpu_torch/csrc/attention_bwd.cu",
                      "dpm_solver_tpu/ops/attention.py:375 (_mha_backward dq: _dq_kernel :226, "
                      "_dq_kernel_T :245)"),
@@ -534,12 +598,13 @@ def make_case(name: str, spec: tuple, randn, route: str = None, dtype=None) -> C
                         lambda: ops.attention_plain(q, k, v, num_heads=heads),
                         lambda: F.scaled_dot_product_attention(qh, kh, vh),
                         *work(fwd_ops, 5 * b * heads * t * s), fwd_bytes)
-        if name == "attention_lse":  # the library: flash attention (bf16) or
-            # memory-efficient attention (fp32), which return the output and
-            # each row's natural-log lse (ours times ln 2)
+        if name == "attention_lse":  # the library: flash attention (bf16 up to
+            # dh 256) or memory-efficient attention (fp32, and the wider bf16
+            # heads), which return the output and each row's natural-log lse
+            # (ours times ln 2)
             aten = torch.ops.aten
             library = ((lambda: aten._scaled_dot_product_flash_attention(qh, kh, vh))
-                       if bf == torch.bfloat16 else
+                       if bf == torch.bfloat16 and dh <= 256 else
                        (lambda: aten._scaled_dot_product_efficient_attention(qh, kh, vh, None,
                                                                              True)))
             return Case(lambda: ops.attention_lse(q, k, v, num_heads=heads),
@@ -836,6 +901,44 @@ def plan_launches(cfg, plan) -> dict:
     out = {name: evals * n for name, n in ncsnpp_launches(cfg).items()}
     out["fused_update"] = rows
     return {name: out.get(name, 0) for name in REPLACES}
+
+
+def train_launches(fwd: Counter, again: Optional[Counter] = None) -> dict:
+    """Kernel launches of one training step whose network forward makes
+    `fwd` (and whose backward recomputes `again` under remat): each conv3x3
+    runs its dx, each attention keeps its lse (counted under attention_lse)
+    and runs one dq and one dk/dv; LayerNorm->Linear and GEGLU differentiate
+    through their plain twins (no launch)."""
+    again = again or Counter()
+    out = {name: 0 for name in REPLACES}
+    out.update(conv3x3=fwd["conv3x3"] + again["conv3x3"], conv3x3_dx=fwd["conv3x3"],
+               attention_lse=fwd["token_attention"] + again["token_attention"],
+               attention_dq=fwd["token_attention"], attention_dkv=fwd["token_attention"],
+               ln_linear=fwd["ln_linear"] + again["ln_linear"],
+               geglu_ff=fwd["geglu_ff"] + again["geglu_ff"])
+    return out
+
+
+def adm_remat_launches(cfg) -> Counter:
+    """What one ADMUNet backward recomputes under `cfg.remat`: the forward
+    launches of its res blocks and spatial transformers (`layout()`)."""
+    from dpm_solver_tpu_torch.models import layout
+
+    plan = layout(cfg)
+    n = Counter()
+    for spec in chain(*plan["input_blocks"], plan["middle"], *plan["output_blocks"]):
+        if spec["kind"] == "res":
+            n["conv3x3"] += 2
+        elif spec["kind"] == "xattn":
+            n.update({"token_attention": 2 * spec["depth"], "ln_linear": 2 * spec["depth"],
+                      "geglu_ff": spec["depth"]})
+    return n
+
+
+def scaled(counts: dict, k: int, extra: Optional[Counter] = None) -> dict:
+    """k times `counts`, plus `extra` (launches made outside the k repeats)."""
+    extra = extra or Counter()
+    return {name: k * counts.get(name, 0) + extra[name] for name in REPLACES}
 
 
 def check_routes(what: str, launches: dict, routes: dict, narrow_convs: int = 0) -> None:
@@ -1148,10 +1251,26 @@ def main() -> int:
                ops.attention_lse_plain(qf, kf, num_heads=heads), BOUND[str(dt)[6:]])
         want = ops.attention_backward_plain(qf, kf, vf, o.float(), lse, g_out.float(), heads, scale)
         args = (q, k, v, g_out, lse, attention_delta(o, g_out, heads))
-        report("attention_dq", shape, dt, ops.attention_dq(*args, num_heads=heads, scale=scale),
-               want[0], bound)
-        dk, dv = ops.attention_dkv(*args, num_heads=heads, scale=scale)
-        report("attention_dkv", shape + ("dk",), dt, dk, want[1], bound)
+        dq, route = routed(ops.attention_dq,
+                           lambda: ops.attention_dq(*args, num_heads=heads, scale=scale))
+        (dk, dv), route_kv = routed(ops.attention_dkv,
+                                    lambda: ops.attention_dkv(*args, num_heads=heads, scale=scale))
+        if {route, route_kv} != {"f32" if dt == torch.float32 else "wgmma"}:
+            fail(f"attention backward {shape} {dt} took {route!r} / {route_kv!r}")
+        if s > 1:
+            report("attention_dq", shape, dt, dq, want[0], bound)
+            report("attention_dkv", shape + ("dk",), dt, dk, want[1], bound)
+        else:  # one key: dq and dk are rounding noise on both sides
+            lim = S1_BOUND * float(g_out.float().abs().max()) * float(vf.abs().max())
+            for name, got, ref in (("attention_dq", dq, want[0]), ("attention_dkv", dk, want[1])):
+                torch.cuda.synchronize()
+                d = float((got.float() - ref).abs().max())
+                max_abs[name] = max(max_abs[name], d)
+                ok = d <= lim and bool(torch.isfinite(got).all())
+                log(f"  {name} {shape} {str(dt)[6:]} S = 1: max|d| {d:.3e} (absolute bound "
+                    f"{S1_BOUND:g} * max|dO| * max|v| = {lim:.3e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} {shape} {dt} at S = 1 exceeds its absolute bound")
         report("attention_dkv", shape + ("dv",), dt, dv, want[2], bound)
 
     t0 = time.perf_counter()
@@ -1250,6 +1369,14 @@ def main() -> int:
     # fp32 rows 4 bytes off an 8-byte boundary: the fp32 kernel's 4-byte
     # copies (every other check takes its 8-byte ones)
     check_attention_bwd((3, 33, 129, 4, 128, "odd"), torch.float32, BWD_BOUND["float32"])
+    # the head dims the forward took for the wide presets: 96 and 192 on the
+    # tiles of whole 64-column runs, 384 and 576 in WIDE_DV-column slices,
+    # 960 chunked (bf16) and on 8-row tiles (fp32), each also at S = 1
+    for spec in WIDE_BWD:
+        for dt in (torch.float32, torch.bfloat16):
+            if spec[5] != "odd" or dt == torch.float32:
+                check_attention_bwd(spec, dt, BWD_BOUND[str(dt)[6:]])
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     coef = randn(4, 8)
     # paths A-D's sizes (C's takes 3 blocks a program, D's 2: one wave) and a ragged one
@@ -2428,6 +2555,441 @@ def main() -> int:
     del result, tnet_e
     torch.cuda.empty_cache()
 
+    # ---- 7c. path H: score-model training (run_lib.train) -------------------------
+    from dpm_solver_tpu_torch import configs as port_configs
+    from dpm_solver_tpu_torch import run_lib
+    from dpm_solver_tpu_torch.pipelines.stable_diffusion import make_ldm_betas
+    from dpm_solver_tpu_torch.training import latent as tlatent
+    from dpm_solver_tpu_torch.training import losses as tlosses
+    from dpm_solver_tpu_torch.training import train as ttrain
+    from dpm_solver_tpu_torch.training.checkpoints import CheckpointManager
+
+    torch.set_grad_enabled(True)
+    # the timed runs take cuDNN's defaults, as a user's run does; the
+    # restart checks turn its deterministic algorithms on
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    train_walls = {}
+    metrics_log = []
+
+    class MetricsLog(logging.Handler):
+        """The loops' per-step log lines: (step, loss, grad norm)."""
+
+        def emit(self, record):
+            if record.msg.startswith("step %d loss"):
+                metrics_log.append(record.args)
+
+    log_handler = MetricsLog()
+    run_log = logging.getLogger("dpm_solver_tpu_torch")
+    run_log.addHandler(log_handler)
+    run_log.setLevel(logging.INFO)
+
+    class TimedBatches:
+        """A training loop's batches; the host clock, after a synchronize,
+        each time the loop asks for one (a step's wall is the gap to the next)."""
+
+        def __init__(self, batches):
+            self.batches, self.stamps = iter(batches), []
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            return next(self.batches)
+
+        def step_ms(self) -> list:
+            torch.cuda.synchronize()
+            stamps = self.stamps + [time.perf_counter()]
+            return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    def train_run(what, run, batches, per_step, steps, images, narrow_convs=0):
+        """One counted, timed training run: launches (and by route) against
+        `per_step` x steps, the loss and grad norm of every step finite, the
+        median step after the first (warm) one, images/s, peak memory."""
+        timed = TimedBatches(batches)
+        metrics_log.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        ops.reset_launch_counts()
+        state = run(timed)
+        torch.cuda.synchronize()
+        launches, routes = ops.launch_counts(), ops.launch_routes()
+        expected = scaled(per_step, steps)
+        log(f"  launches {launches} (expected {expected})")
+        if launches != expected:
+            fail(f"{what}: launch counts {launches} != {expected}")
+        check_routes(what, launches, routes, narrow_convs=narrow_convs * steps)
+        if len(metrics_log) != steps or not all(math.isfinite(v) for m in metrics_log
+                                                for v in m[1:]):
+            fail(f"{what}: the steps' loss and grad norm {metrics_log} are not {steps} finite")
+        ms = timed.step_ms()
+        med = statistics.median(ms[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_walls[what] = dict(step_ms=med, step_ms_all=ms, images_per_s=images / med * 1e3,
+                                 peak_gib=peak, peak_above_start_gib=peak - base, steps=steps,
+                                 loss=[m[1] for m in metrics_log],
+                                 grad_norm=[m[2] for m in metrics_log])
+        log(f"  {what} on {smi}: median step {med:.2f} ms of {steps - 1} after a warm one "
+            f"(all {[round(v, 2) for v in ms]}) -> {images / med * 1e3:.2f} images/s; peak "
+            f"memory {peak:.2f} GiB ({peak - base:.2f} above the {base:.2f} held before the "
+            f"run); loss {[round(m[1], 5) for m in metrics_log]}, grad "
+            f"norm {[round(m[2], 4) for m in metrics_log]}")
+        return state, launches, routes
+
+    def step_card_vs_cpu(what, build, make_step, zero_leaves=None):
+        """One fp32 training step at reduced width on the card (kernels) and
+        on the CPU (plain twins), through the step function itself
+        (`make_step(net, tx, device)` returns step(state)), from the same
+        random weights (`init_random_`: no layer left at zero) and draws.
+        Held: the step's loss and grad norm within SLICE_BOUND; Adam's first
+        moment after the step, (1 - b1) times the clipped gradient, leaf by
+        leaf within SLICE_BOUND of the leaf's largest element. The leaves
+        whose gradient is 0 in exact arithmetic (`zero_leaves`, a regex: a
+        key bias under the softmax, a per-channel constant before a
+        GroupNorm of one channel a group) must be exactly those under 1e-6
+        of the model's largest on the CPU; being rounding noise on both
+        sides, they are held within SLICE_BOUND / 100 of the model's largest.
+        The parameters after the step, in units of the learning rate, over
+        the other leaves: 99.9% of the elements within 1e-3, and every
+        element whose moment is at least 1e-3 of its leaf's largest within
+        0.1 (Adam's first update is lr g / (|g| + eps): with the moment
+        held, such an element's update differs by at most lr / 40, where a
+        flipped sign moves it by up to 2 lr)."""
+        res = {}
+        base = None
+        for where in (torch.device("cpu"), dev):
+            t1 = time.perf_counter()
+            net_ = build(where)
+            if base is None:
+                init_random_(net_, torch.Generator().manual_seed(TRAIN_SEED))
+                base = {k: v.clone() for k, v in net_.state_dict().items()}
+            else:
+                net_.load_state_dict(base)
+            state, tx = ttrain.make_train_state(net_, lr=CHECK_LR, warmup=0)
+            _, metrics = make_step(net_, tx, where)(state)
+            res[where.type] = ({k: float(v) for k, v in metrics.items()},
+                               {k: m.cpu() for k, m in state.opt_state["mu"].items()},
+                               {k: p.detach().cpu() for k, p in state.params.items()})
+            log(f"  {what}: fp32 step on {where}: loss {res[where.type][0]['loss']:.6f}, grad "
+                f"norm {res[where.type][0]['grad_norm']:.6f} ({time.perf_counter() - t1:.1f} s)")
+        (mc, muc, pc), (mp, mup, pp) = res["cuda"], res["cpu"]
+        r_metrics = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp)
+        top = max(float(m.abs().max()) for m in mup.values())
+        zero = {k for k in mup if zero_leaves and re.search(zero_leaves, k)}
+        noise = {k for k, m in mup.items() if float(m.abs().max()) < 1e-6 * top}
+        worst_mu = max(float((muc[k] - m).abs().max())
+                       / (SLICE_BOUND / 100 * top if k in zero
+                          else SLICE_BOUND * float(m.abs().max())) for k, m in mup.items())
+        least = min(float(m.abs().max()) / top for k, m in mup.items() if k not in zero)
+        unit = {k: (pc[k] - pp[k]).abs().flatten() / CHECK_LR for k in pp if k not in zero}
+        q999 = float(torch.quantile(torch.cat(list(unit.values())), 0.999))
+        sure = torch.cat([u[(mup[k].abs() >= 1e-3 * mup[k].abs().max()).flatten()]
+                          for k, u in unit.items()])
+        worst_p = float(sure.max())
+        ok = (noise == zero and r_metrics <= SLICE_BOUND and worst_mu <= 1.0 and q999 <= 1e-3
+              and worst_p <= 0.1)
+        log(f"  {what}, card vs CPU: loss and grad norm /|x| {r_metrics:.3e} (bound "
+            f"{SLICE_BOUND:g}); first moments at {worst_mu:.3f} of their bound ({len(mup)} "
+            f"leaves; zero by construction {sorted(zero)}, the CPU's rounding-noise leaves "
+            f"{'the same' if noise == zero else sorted(noise)}; the least other leaf at "
+            f"{least:.3e} of the largest); "
+            f"parameters after the step in lr units: 99.9% {q999:.3e} (bound 1e-3), max over "
+            f"the {sure.numel()} of {sum(u.numel() for u in unit.values())} elements with a "
+            f"moment >= 1e-3 of their leaf's {worst_p:.3e} (bound 0.1) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what}: the fp32 training step on the card disagrees with the CPU's")
+        return dict(metrics_rel=r_metrics, mu_bound_share=worst_mu, least_leaf=least,
+                    zero_leaves=len(zero), params_lr_q999=q999, params_lr_max_sure=worst_p)
+
+    def params_close(what, a, b):
+        """A restarted run's parameters and EMA against an uninterrupted
+        run's, within SLICE_BOUND of each tensor's largest element."""
+        worst = 0.0
+        for tree_a, tree_b in ((a.params, b.params), (a.ema_params, b.ema_params)):
+            for k, v in tree_a.items():
+                scale = max(float(v.detach().abs().max()), 1e-30)
+                worst = max(worst, float((v.detach() - tree_b[k].detach()).abs().max()) / scale)
+        ok = a.step == b.step and worst <= SLICE_BOUND
+        log(f"  {what}: resumed vs uninterrupted at step {a.step}: max|d| / max|p| {worst:.3e} "
+            f"(bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what}: the resumed run disagrees with the uninterrupted one")
+        return worst
+
+    t0 = time.perf_counter()
+    h_cfg = port_configs.get_config("score_sde_cifar10_ve_ncsnpp_continuous")
+    h_mc, h_tc = h_cfg.model_config, h_cfg.training
+    if h_mc.dropout != 0.1 or h_tc.batch_size != 128 or not h_tc.continuous:
+        fail(f"path H's config is not the train bench's: {h_mc}, {h_tc}")
+    h_rng = np.random.default_rng(TRAIN_SEED)
+    # synthetic 8-bit CIFAR-sized images, uncentred (the VE config's data)
+    h_batches = (h_rng.integers(0, 256, (H_STEPS, h_tc.batch_size, 32, 32, 3))
+                 / 255.0).astype(np.float32)
+    h_params = run_lib.build_model(h_cfg, device="meta")[0]
+    log(f"path H: run_lib.train, {h_cfg.name}: NCSN++ continuous VE "
+        f"({sum(p.numel() for p in h_params.parameters()) / 1e6:.2f}M params, bf16 compute, "
+        f"dropout {h_mc.dropout} live), b{h_tc.batch_size} at 32x32, Adam lr {h_tc.lr} after a "
+        f"{h_tc.warmup}-step warmup, clip {h_tc.grad_clip}, EMA {h_tc.ema_rate}")
+    del h_params
+    h_per_step = train_launches(ncsnpp_launches(h_mc))
+    h_dir = Path(tempfile.mkdtemp(prefix="path_h_"))
+
+    def h_train(workdir, max_steps, preempt, cfg=h_cfg):
+        tc = dataclasses.replace(cfg.training, log_freq=1, snapshot_freq=10 ** 9,
+                                 snapshot_freq_for_preemption=preempt)
+        return lambda data: run_lib.train(dataclasses.replace(cfg, training=tc), data,
+                                          workdir=str(workdir), max_steps=max_steps,
+                                          compute_dtype=torch.bfloat16, device=dev)
+
+    launches_h, routes_h = train_run(
+        "H", h_train(h_dir / "timed", H_STEPS, 10 ** 9), h_batches, h_per_step, H_STEPS,
+        h_tc.batch_size)[1:]
+    # the restart check, under cuDNN's deterministic algorithms for the
+    # library convs and their weight gradients (the port's kernels have no
+    # atomics): an uninterrupted run of H_RESTART_STEPS steps, and a run
+    # killed after H_RESUME_AT steps (its meta checkpoint at loop index
+    # H_RESUME_AT - 1), then restarted: it resumes there and ends where the
+    # uninterrupted run ends
+    torch.backends.cudnn.deterministic = True
+    whole_h = h_train(h_dir / "whole", H_RESTART_STEPS, 10 ** 9)(iter(h_batches))
+    h_train(h_dir / "killed", H_RESUME_AT, H_RESUME_AT - 1)(iter(h_batches))
+    meta_h = CheckpointManager(str(h_dir / "killed" / "checkpoints-meta"))
+    if meta_h.all_steps() != [H_RESUME_AT - 1]:
+        fail(f"path H: meta checkpoints {meta_h.all_steps()}, expected [{H_RESUME_AT - 1}]")
+    resumed_h = h_train(h_dir / "killed", H_RESTART_STEPS,
+                        H_RESUME_AT - 1)(iter(h_batches[H_RESUME_AT:]))
+    h_resume = params_close("path H", resumed_h, whole_h)
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(h_dir, ignore_errors=True)
+    del whole_h, resumed_h
+    # the attention specs of one step's forward (for the timing phase: each
+    # keeps its lse and runs one dq and one dk/dv), read by hooks from one
+    # forward of the same network at the batch
+    h_specs = Counter()
+    with torch.no_grad():
+        h_net = NCSNpp(h_mc, compute_dtype=torch.bfloat16, device=dev)
+        hooks = [m.register_forward_pre_hook(lambda m, a: h_specs.update(
+            [(a[0].shape[0], a[0].shape[1] * a[0].shape[2], a[0].shape[1] * a[0].shape[2], 1,
+              a[0].shape[3], True)])) for m in h_net.modules() if isinstance(m, SelfAttention2D)]
+        h_net(torch.zeros(h_tc.batch_size, 32, 32, 3, device=dev),
+              torch.ones(h_tc.batch_size, device=dev))
+        for hk in hooks:
+            hk.remove()
+    del h_net
+    per_kernel_h = {name: Counter({spec: n * H_STEPS for spec, n in h_specs.items()})
+                    for name in ("attention_lse", "attention_dq", "attention_dkv")}
+    if sum(per_kernel_h["attention_dq"].values()) != launches_h["attention_dq"]:
+        fail(f"path H: the recorded attention specs {dict(h_specs)} do not cover its launches")
+    torch.cuda.empty_cache()
+
+    # cifar10_ddpm through the DDPM eps-MSE branch (training.continuous off:
+    # the entry's own default is the continuous VP loss), dropout 0.1 live
+    d_cfg = port_configs.get_config("cifar10_ddpm")
+    d_cfg = dataclasses.replace(d_cfg, training=dataclasses.replace(d_cfg.training,
+                                                                    continuous=False))
+    if run_lib.uses_legacy_discrete_loss(d_cfg) or d_cfg.training.continuous:
+        fail("cifar10_ddpm with continuous=False must take the DDPM eps-MSE branch")
+    log(f"path H: run_lib.train, cifar10_ddpm (DDPM UNet, eps-MSE with antithetic times, "
+        f"dropout {d_cfg.model_config.dropout} live), b{d_cfg.training.batch_size}, bf16")
+    d_dir = Path(tempfile.mkdtemp(prefix="path_h_ddpm_"))
+    d_batches = (h_rng.uniform(-1.0, 1.0, (H_DDPM_STEPS, d_cfg.training.batch_size, 32, 32, 3))
+                 .astype(np.float32))
+    launches_hd = train_run(
+        "H cifar10_ddpm", h_train(d_dir, H_DDPM_STEPS, 10 ** 9, cfg=d_cfg), d_batches,
+        train_launches(Counter(conv3x3=47, token_attention=6)), H_DDPM_STEPS,
+        d_cfg.training.batch_size)[1]
+    shutil.rmtree(d_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # fp32 card vs CPU, reduced width: the continuous VE loss on a small
+    # NCSN++ VE (FIR, residual input pyramid, Fourier features), and the
+    # DDPM eps-MSE on a small DDPM UNet; dropout off, the same draws
+    from dpm_solver_tpu_torch.sde import VESDE
+
+    h_small = NCSNppConfig.tiny(fir=True, progressive_input="residual", embedding_type="fourier",
+                                num_res_blocks=1)
+    x_small = torch.tensor(h_rng.uniform(0.0, 1.0, (4, 16, 16, 3)), dtype=torch.float32)
+    ve_draws = dict(t=torch.tensor(h_rng.uniform(1e-5, 1.0, 4), dtype=torch.float32),
+                    z=torch.tensor(h_rng.standard_normal((4, 16, 16, 3)), dtype=torch.float32))
+
+    def ve_step(net_, tx, where):
+        score = get_score_fn(VESDE(sigma_max=50.0), lambda x, t: net_(x, t), continuous=True)
+        step = tlosses.make_score_train_step(
+            tlosses.sde_loss_fn(VESDE(sigma_max=50.0), score, reduce_mean=False), tx)
+        d = {k: v.to(where) for k, v in ve_draws.items()}
+        return lambda st: step(st, x_small.to(where), TRAIN_SEED, **d)
+
+    # NIN_1: the attention's key projection (its bias shifts every logit of
+    # a query alike)
+    h_check = {"NCSN++ VE": step_card_vs_cpu(
+        "path H, small NCSN++ VE, continuous VE loss",
+        lambda where: NCSNpp(h_small, device=where).train(), ve_step, r"\.NIN_1\.b$")}
+    ddpm_small = DDPMUNetConfig.tiny(resolution=16)
+    ddpm_draws = dict(t=torch.tensor(h_rng.integers(0, 1000, 4)),
+                      eps=torch.tensor(h_rng.standard_normal((4, 16, 16, 3)), dtype=torch.float32))
+
+    def ddpm_step(net_, tx, where):
+        step = ttrain.make_train_step(lambda x, t: net_(x, t), P.NoiseScheduleVP.discrete(
+            betas=np.linspace(1e-4, 0.02, 1000)), tx)
+        d = {k: v.to(where) for k, v in ddpm_draws.items()}
+        return lambda st: step(st, x_small.to(where), TRAIN_SEED, **d)
+
+    # the key biases, and at the first level (32 channels, GroupNorm's 32
+    # groups: one channel a group) what adds a per-channel constant right
+    # before a norm: conv1's bias and the time embedding's projection
+    # (before norm2), and the last block's conv2 and shortcut biases (before
+    # norm_out)
+    h_check["DDPM"] = step_card_vs_cpu(
+        "path H, small DDPM UNet, eps-MSE", lambda where: DDPMUNet(ddpm_small, device=where),
+        ddpm_step, r"\.k\.bias$|^(down|up)\.0\.block\.\d\.(conv1\.bias|temb_proj\.)"
+        r"|^up\.0\.block\.1\.(conv2|nin_shortcut)\.bias$")
+    log(f"path H done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7d. path I: latent-diffusion training (run_lib.train_latent) -------------
+    # (cuDNN's own algorithm choice for the timed runs; deterministic again
+    # for the restart check at the end)
+    torch.backends.cudnn.deterministic = False
+    t0 = time.perf_counter()
+    i_rng = np.random.default_rng(TRAIN_SEED + 1)
+    sd_ucfg, sd_vcfg = ADMConfig.sd_v2_1(), VAEConfig.sd_v1()
+    sd_lat = SD_SIZE // 8
+    i_dir = Path(tempfile.mkdtemp(prefix="path_i_"))
+    # images in [-1, 1] and a 77 x 1024 random context (OpenCLIP ViT-H's width)
+    sd_batches = [(i_rng.uniform(-1.0, 1.0, (I_SD_BATCH, SD_SIZE, SD_SIZE, 3)).astype(np.float32),
+                   i_rng.standard_normal((I_SD_BATCH, 77, 1024)).astype(np.float32))
+                  for _ in range(I_SD_STEPS)]
+
+    def latent_train(preset, workdir, steps, **kw):
+        return lambda data: run_lib.train_latent(
+            preset, data, workdir=str(workdir), max_steps=steps, log_freq=1,
+            snapshot_freq=10 ** 9, snapshot_freq_for_preemption=10 ** 9, seed=TRAIN_SEED,
+            compute_dtype=torch.bfloat16, device=dev, **kw)
+
+    enc = Counter(vae_encoder_launches(sd_vcfg))  # the frozen encode: forwards only
+    i_per_step = scaled(train_launches(adm_unet_launches(sd_ucfg)), 1, enc)
+    log(f"path I: run_lib.train_latent('sd_v2_1'): the SD-2.1 UNet (865.9M params, bf16 "
+        f"compute, v target), Adam, b{I_SD_BATCH} at {SD_SIZE} px through the frozen KL-VAE "
+        f"encode (posterior sample x 0.18215), a random 77 x 1024 context")
+    launches_i, routes_i = train_run(
+        "I sd_v2_1", latent_train("sd_v2_1", i_dir / "sd", I_SD_STEPS), sd_batches, i_per_step,
+        I_SD_STEPS, I_SD_BATCH, narrow_convs=1)[1:]
+    torch.cuda.empty_cache()
+    log("path I: the same with adafactor and per-block remat (one warm step, one timed)")
+    i_remat = scaled(train_launches(adm_unet_launches(sd_ucfg),
+                                    adm_remat_launches(sd_ucfg)), 1, enc)
+    launches_ir = train_run(
+        "I sd_v2_1 adafactor remat", latent_train("sd_v2_1", i_dir / "sd_af", I_REMAT_STEPS,
+                                                  optimizer="adafactor", remat=True),
+        sd_batches, i_remat, I_REMAT_STEPS, I_SD_BATCH, narrow_convs=1)[1]
+    del sd_batches
+    torch.cuda.empty_cache()
+
+    # cin256 at b8, 256 px through the VQ-f4 encode, a class-token context
+    # (ClassEmbedder, one token): the only path of the dq and dk/dv kernels
+    # at dh 384, 576 and 960 and at S = 1
+    cin_ucfg, cin_vcfg = ADMConfig.cin256(), VAEConfig.vq_cin256()
+    embedder_i = ClassEmbedder(CIN_CLASSES, CIN_CONTEXT, seed=TRAIN_SEED, device=dev)
+    cin_batches = []
+    for _ in range(I_CIN_STEPS):
+        labels = torch.tensor(i_rng.integers(0, CIN_CLASSES - 1, I_CIN_BATCH), device=dev)
+        with torch.no_grad():
+            ctx = embedder_i(labels).float().cpu().numpy()
+        cin_batches.append((i_rng.uniform(-1.0, 1.0, (I_CIN_BATCH, 256, 256, 3))
+                            .astype(np.float32), ctx))
+    cin_enc = Counter(vae_encoder_launches(cin_vcfg))
+    log(f"path I: run_lib.train_latent('cin256'): the cin256 UNet (400.9M params, bf16, eps "
+        f"target), Adam, b{I_CIN_BATCH} at 256 px through the frozen VQ-f4 encode, one "
+        f"class token a sample (context {cin_batches[0][1].shape})")
+    launches_ic, routes_ic = train_run(
+        "I cin256", latent_train("cin256", i_dir / "cin", I_CIN_STEPS), cin_batches,
+        scaled(train_launches(adm_unet_launches(cin_ucfg)), 1, cin_enc), I_CIN_STEPS,
+        I_CIN_BATCH, narrow_convs=2)[1:]
+    # the attention specs of one step's UNet forward (for the timing phase),
+    # by hooks on one forward of the same UNet at the batch: the head dims
+    # 384, 576 and 960, self-attention and the one-key cross-attention
+    with torch.no_grad():
+        cin_net = ADMUNet(cin_ucfg, compute_dtype=torch.bfloat16, device=dev)
+        cin_lat = torch.zeros(I_CIN_BATCH, 64, 64, cin_ucfg.in_channels, device=dev)
+        cin_calls, _ = record_sd_calls(cin_net, None, lambda: cin_net(
+            cin_lat, torch.ones(I_CIN_BATCH, device=dev), None,
+            torch.tensor(cin_batches[0][1], device=dev)))
+    del cin_net, cin_lat, cin_batches
+    per_kernel_ic = {name: Counter() for name in ("attention_lse", "attention_dq",
+                                                  "attention_dkv")}
+    for (name, spec), n in cin_calls.items():
+        if name == "token_attention":
+            for k in per_kernel_ic:
+                per_kernel_ic[k][spec] += n * I_CIN_STEPS
+    if sum(per_kernel_ic["attention_dq"].values()) != launches_ic["attention_dq"]:
+        fail("path I cin256: the recorded attention specs do not cover its launches")
+    cin_dims = sorted({(spec[4], spec[2] == 1) for spec in per_kernel_ic["attention_dq"]})
+    log(f"  cin256's attention head dims (dh, S = 1): {cin_dims}")
+    if {dh for dh, _ in cin_dims} != {384, 576, 960} or len(cin_dims) != 6:
+        fail(f"path I cin256 must run the backward at dh 384, 576 and 960 with and without "
+             f"S = 1, ran {cin_dims}")
+    torch.cuda.empty_cache()
+
+    # fp32 card vs CPU, reduced width: make_latent_train_step (v target, CFG
+    # dropout against a null context, drop mask given) on a small SD-2.x-like
+    # UNet (linear transformers, 32-wide heads) through a small KL-VAE's
+    # encode (the posterior's mode: the same latents on both sides)
+    i_small = ADMConfig(image_size=8, in_channels=4, model_channels=64, out_channels=4,
+                        num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=-1, num_head_channels=32, use_spatial_transformer=True,
+                        transformer_depth=1, context_dim=64, use_linear_in_transformer=True)
+    vae_small = VAEConfig.tiny(resolution=16)
+    vae_base = init_random_(AutoencoderKL(vae_small, device="cpu"),
+                            torch.Generator().manual_seed(TRAIN_SEED)).eval().state_dict()
+    img_small = torch.tensor(i_rng.uniform(-1, 1, (4, 16, 16, 3)), dtype=torch.float32)
+    ctx_small = torch.tensor(i_rng.standard_normal((4, 5, 64)), dtype=torch.float32)
+    lat_ch = vae_small.embed_dim
+    i_draws = dict(t=torch.tensor(i_rng.integers(0, 1000, 4)),
+                   eps=torch.tensor(i_rng.standard_normal((4, 8, 8, lat_ch)), dtype=torch.float32),
+                   drop=torch.tensor([True, False, False, True]))
+    betas = make_ldm_betas(1000)
+
+    def latent_step(net_, tx, where):
+        vae_ = AutoencoderKL(vae_small, device=where).eval().requires_grad_(False)
+        vae_.load_state_dict(vae_base)
+        step = tlatent.make_latent_train_step(
+            lambda z, t, c: net_(z, t, None, c), tx, betas,
+            encode_fn=tlatent.vae_encode_fn(vae_, sample=False), parameterization="v",
+            cond_dropout=0.5, uncond_context=torch.zeros(1, 64, device=where))
+        d = {k: v.to(where) for k, v in i_draws.items()}
+        return lambda st: step(st, img_small.to(where), ctx_small.to(where), TRAIN_SEED, **d)
+
+    i_check = step_card_vs_cpu("path I, small SD-2.x UNet, v target, CFG dropout",
+                               lambda where: ADMUNet(i_small, device=where), latent_step)
+
+    # resume, at reduced width (a full SD-2.1 state with Adam is 14 GB a
+    # checkpoint): train_latent on the small UNet and VAE, killed after 3
+    # steps and restarted, against an uninterrupted 4-step run
+    torch.backends.cudnn.deterministic = True
+    small_batches = [(i_rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32),
+                      i_rng.standard_normal((2, 5, 64)).astype(np.float32)) for _ in range(4)]
+    whole_i = run_lib.train_latent(
+        "sd_v2_1", iter(small_batches), workdir=str(i_dir / "whole"), unet_config=i_small,
+        vae_config=vae_small, max_steps=4, log_freq=10 ** 9, seed=TRAIN_SEED, cond_dropout=0.5,
+        device=dev)
+    run_lib.train_latent(
+        "sd_v2_1", iter(small_batches), workdir=str(i_dir / "killed"), unet_config=i_small,
+        vae_config=vae_small, max_steps=3, snapshot_freq_for_preemption=2, log_freq=10 ** 9,
+        seed=TRAIN_SEED, cond_dropout=0.5, device=dev)
+    resumed_i = run_lib.train_latent(
+        "sd_v2_1", iter(small_batches[3:]), workdir=str(i_dir / "killed"), unet_config=i_small,
+        vae_config=vae_small, max_steps=4, log_freq=10 ** 9, seed=TRAIN_SEED, cond_dropout=0.5,
+        device=dev)
+    i_resume = params_close("path I (small UNet)", resumed_i, whole_i)
+    shutil.rmtree(i_dir, ignore_errors=True)
+    del whole_i, resumed_i
+    run_log.removeHandler(log_handler)
+    torch.backends.cudnn.deterministic = False
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    log(f"path I done in {time.perf_counter() - t0:.1f} s")
+
     # ---- 8. timing -------------------------------------------------------------
     # paths A, B and D both ways in this one call: eager (jit=False, the
     # plain sampler) and replayed from the CUDA graph captured in phases 4,
@@ -2848,11 +3410,25 @@ def main() -> int:
         "token_attention", per_kernel_f["token_attention"], randn, smi,
         "path F's attention launches", per_spec=True)
 
+    # the training paths' attention kernels (the lse forward, dq, dk/dv) at
+    # their sites and counted launches: H's NCSN++ (dh 256) and I's cin256
+    # (dh 384, 576, 960, self-attention and S = 1)
+    log(f"kernel times, path H (the attention of {H_STEPS} training steps, NCSN++ VE "
+        f"b{h_tc.batch_size}, bf16):")
+    time_path("H", per_kernel_h, launches_h, f"path H's {H_STEPS} run_lib.train steps")
+    log(f"kernel times, path I cin256 (the attention of {I_CIN_STEPS} train_latent steps, "
+        f"b{I_CIN_BATCH}, bf16):")
+    for name, calls in per_kernel_ic.items():  # with each site's times ("by_spec")
+        timing[name]["I"] = dict(time_kernel(
+            name, calls, randn, smi, f"path I's {I_CIN_STEPS} cin256 train_latent steps",
+            per_spec=True), launches=launches_ic[name])
+
     # the dq and dk/dv kernels at each head dim and dtype they take, one
-    # launch at each of BWD_SHAPES' sites (the ragged ones aside), beside the
-    # plain twin (dq, dk and dv in one pass), SDPA's backward and their bound
+    # launch at each of BWD_SHAPES' and WIDE_BWD's sites (the ragged ones
+    # aside), beside the plain twin (dq, dk and dv in one pass), SDPA's
+    # backward and their bound
     bwd_by_dh = []
-    for b, t, s, heads, dh, fused in BWD_SHAPES:
+    for b, t, s, heads, dh, fused in BWD_SHAPES + WIDE_BWD:
         if t % 64:   # a ragged check shape, not a site
             continue
         for dt in (torch.float32, torch.bfloat16):
@@ -2938,15 +3514,19 @@ def main() -> int:
     # runs it ("none": no path launches it), every path's times, and its
     # launches on every path
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
-             "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g}
+             "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
+             "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
+             "i_cin256": launches_ic}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
-              "sd1": routes_s1, "f": routes_f, "g": routes_g}
+              "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
+              "i": routes_i, "i_cin256": routes_ic}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
                  for name, dims in (("token_attention", FWD_HEAD_DIMS),
-                                    ("attention_lse", FWD_HEAD_DIMS), ("attention_dq", HEAD_DIMS),
-                                    ("attention_dkv", HEAD_DIMS),
+                                    ("attention_lse", FWD_HEAD_DIMS),
+                                    ("attention_dq", FWD_HEAD_DIMS),
+                                    ("attention_dkv", FWD_HEAD_DIMS),
                                     ("attention_out_fused", HEAD_DIMS))}
     ptxas_of = {"attention_dq": {k: v for k, v in bwd_ptxas.items() if "attn_dq" in k
                                  or "attn_bwd_f32" in k and k.endswith("dq")},
@@ -2983,6 +3563,8 @@ def main() -> int:
                        if name in ptxas_of else {}))
                for name, (route, src, rep) in REPLACES.items()]
     log(json.dumps({"walls": walls_by_path, "card": smi}))
+    log(json.dumps({"training": train_walls, "card": smi, "card_vs_cpu": dict(
+        h_check, i=i_check), "resume": {"h": h_resume, "i_small": i_resume}}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@
 // flops per head against 2 bytes * D * (4*T + 4*S) of bf16 inputs and
 // outputs, hundreds of flops per byte once T = S >= 64, so the products
 // bound it and belong on the tensor cores. Two forms by dtype, at every head
-// dim the forward takes (32, 40, 64, 80, 128, 160, 256, 512):
+// dim the forward takes (32, 40, 64, 80, 96, 128, 160, 192, 256, 384, 512,
+// 576, 960):
 //
 // - bf16: `attn_dq_wgmma` and `attn_dkv_wgmma`, FlashAttention-3's backward
 //   in shape. A block is one producer warp and one consumer warpgroup that
@@ -52,21 +53,40 @@
 //     or one of them; cols: the output columns of the block), the logits and
 //     dp of one tile (tile / 2 each) and the bf16 fragments of p and ds
 //     (tile / 4 each): kept within BF16_REG_BUDGET. So the streamed tile is
-//     64 rows where that fits, else 32 (dh 256; dk/dv at dh 128), else 16
-//     (dh 512, where shared memory decides); dk/dv accumulates both outputs
-//     in one block up to dh 128, and from dh 160 on one output a block, the
-//     other in a second block of the grid (grid.z), which recomputes the
-//     logits (dv's block skips dp): 1.25x the flops of one pass. The
-//     512-wide head splits its output columns into two 256-wide slices
-//     (grid.z), each block recomputing the logits over all 512 channels:
-//     dq 1.67x and dk/dv 2x the flops of one pass.
-//   * Shared memory: the owned 64-row operands (2 x 64 KB at dh 512) and the
-//     ring; at dh 512 the streamed tiles are 16 rows, three stages.
+//     64 rows where that fits, else 32 (dh 192, 256 and 384; dk/dv at dh 96
+//     and 128), else 16 (dh 512 and 576, where shared memory decides);
+//     dk/dv accumulates both outputs in one block up to dh 128, and from dh
+//     160 on one output a block, the other in a second block of the grid
+//     (grid.z), which recomputes the logits (dv's block skips dp): 1.25x the
+//     flops of one pass. The 512-wide head splits its output columns into
+//     two 256-wide slices and the single heads of 384, 576 and 960 into
+//     WIDE_DV = 192-column slices (grid.z; 192 divides all three in whole
+//     64-column tiles, as in the forward), each block recomputing the
+//     logits over the whole head: at dh 960 5x the logits of one pass.
+//     dh 96 and 192 run as 80 and 160 do: the tiles are whole 64-column
+//     runs (128 and 192 columns) and TMA zero-fills the columns past dh.
+//   * Shared memory: the owned 64-row operands (2 x 64 KB at dh 512, 2 x 72
+//     KB at 576) and the ring; at dh 512 and 576 the streamed tiles are 16
+//     rows, three and two stages (576: 222,248 bytes of 232,448).
+//   * dh 960 ("chunked"): the two owned 64-row operands alone take 240 KB,
+//     more than a block may use, so the block owns no operand. It streams
+//     both sides through one ring of BF16_CHUNK_STAGES stages, a stage one
+//     64-column chunk c of the owned rows' two operands (64 x 64 each) and
+//     of the streamed tile's two (TILE x 64 each): for each streamed tile
+//     the consumer sums the logits and dp chunk by chunk over the DCH = 15
+//     chunk stages, then takes one more stage that holds the tile's
+//     operand of the second product at the block's output columns (dq: K,
+//     dk: Q, dv: dO; COLS / 64 chunks) and accumulates from it. The owned
+//     rows are re-read from L2 once per streamed tile; the ring is 100 KB.
 // - fp32: `attn_bwd_f32`, exact on the CUDA cores (no TF32), one kernel for
 //   both outputs (its operand roles swap): a block of 256 threads owns 16
-//   rows and streams tiles of 256 / PARTS rows (128 up to dh 80, 64 at 128
-//   and 160, 32 at 256, 16 at 512), double-buffered with cp.async, so the
-//   next tile's load overlaps this tile's math. Each tile goes in three
+//   rows and streams tiles of 256 / PARTS rows (128 up to dh 80, 64 at 96
+//   to 160, 32 at 192 and 256, 16 at 384 to 576), double-buffered with
+//   cp.async, so the next tile's load overlaps this tile's math. At dh 960
+//   16-row tiles do not fit even one buffer beside the owned rows (243 KB),
+//   so there PARTS = 32 (a warp sums one patch, 30 columns a lane) and the
+//   tiles are 8 rows, one buffer (186 KB): after the butterfly a lane holds
+//   one of a pair (z, dp), which its neighbour lane hands it. Each tile goes in three
 //   register-tiled phases. (1) z and dp: each thread computes a 4x4 patch of
 //   both over one of PARTS interleaved slices of the head dim (at most
 //   F32_SLICE columns), so 16 shared-memory reads feed 32 FMAs; a butterfly
@@ -74,7 +94,9 @@
 //   share of the patch. (2) p and ds from it, into shared memory. (3) The
 //   sums: a thread owns 4 rows x ceil(dh/64) columns of dq (or of dk and of
 //   dv), so 4 (+4) broadcast reads and ceil(dh/64) (x2) row reads feed 4x
-//   as many FMAs. The pitches (dh + 2, or + 4 at 16 slices) keep phase 1's
+//   as many FMAs. Where dk's and dv's sums do not fit F32_REG_BUDGET beside
+//   phase 1's (dh 960: 32 + 4 x 15 x 2 = 152 registers), dk and dv take a
+//   block each (grid.z), as in bf16. The pitches (dh + 2, or + 4 at 16 slices) keep phase 1's
 //   reads on distinct banks. 16 rows a block keep path E's site (b8, T = S
 //   = 256, one head) at 128 blocks on the 132 SMs. The tile rule, the
 //   streamed copies, phase 1's patch products and the butterfly are
@@ -107,39 +129,52 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
 constexpr int BF16_ROWS = 64;          // owned rows a block: one consumer warpgroup
 constexpr int BF16_THREADS = 160;      // the warpgroup and one producer warp
 constexpr int BF16_MAX_COLS = 256;     // output columns a block: dh 512 in two slices
+constexpr int WIDE_DV = 192;           // output columns a block at dh 384, 576 and 960
 constexpr int BF16_REG_BUDGET = 176;   // sums + logits + fragments, registers a thread
 constexpr int BF16_MAX_STAGES = 3;     // ring depth, where it costs no block an SM
+constexpr int BF16_CHUNK_STAGES = 4;   // the chunked ring's depth (dh 960)
 constexpr int BF16_BLOCKS_PER_SM = 2;  // what the register budget lets share an SM
 constexpr int SM_SMEM = 233472;       // shared memory of one SM (1 KB of it kept a block)
 
 constexpr int pad64(int d) { return (d + 63) / 64 * 64; }
-constexpr int bf16_cols(int d) { return d < BF16_MAX_COLS ? d : BF16_MAX_COLS; }
+constexpr int bf16_cols(int d) {
+  return d <= BF16_MAX_COLS ? d : d % BF16_MAX_COLS == 0 ? BF16_MAX_COLS : WIDE_DV;
+}
 // fp32 registers a thread: the sums, the logits and dp, the p and ds fragments
 constexpr int bf16_regs(int outs, int cols, int tile) { return outs * cols / 2 + 3 * tile / 2; }
-constexpr long long bf16_smem(int d, int tile, int stages, bool dkv) {
-  // + 1024 to align to a swizzle atom; the owned operands, the ring, (dk/dv)
-  // the stages' lse and delta rows, the owned, full and empty barriers
-  return 1024 + 2LL * BF16_ROWS * pad64(d) * 2 + (long long)stages * 2 * tile * pad64(d) * 2 +
-         (dkv ? (long long)stages * 2 * tile * 4 : 0) + 8LL * (1 + 2 * stages);
+constexpr long long bf16_smem(int d, int tile, int stages, bool dkv, bool chunked = false) {
+  // + 1024 to align to a swizzle atom; the owned operands and the ring
+  // (chunked: the ring of chunk stages, each a 64-column chunk of the two
+  // owned and the two streamed operands), (dk/dv) the stages' lse and delta
+  // rows, the owned, full and empty barriers
+  const long long body = chunked ? (long long)stages * 2 * (BF16_ROWS + tile) * 128
+                                 : 2LL * BF16_ROWS * pad64(d) * 2 +
+                                       (long long)stages * 2 * tile * pad64(d) * 2;
+  return 1024 + body + (dkv ? (long long)stages * 2 * tile * 4 : 0) + 8LL * (1 + 2 * stages);
 }
 // dk/dv takes both outputs in one block where their sums fit beside a 32-row tile
 constexpr int bf16_outs(int d, bool dkv) {
   return dkv && bf16_regs(2, d, 32) <= BF16_REG_BUDGET ? 2 : 1;
 }
-// the widest streamed tile within the register budget whose two stages fit
-constexpr int bf16_tile(int d, bool dkv) {
+// the widest streamed tile within the register budget (owned: and whose two
+// stages fit beside the owned operands)
+constexpr int bf16_fit_tile(int d, bool dkv, bool owned) {
   for (int t = 64; t >= 16; t /= 2)
     if (bf16_regs(bf16_outs(d, dkv), bf16_cols(d), t) <= BF16_REG_BUDGET &&
-        bf16_smem(d, t, 2, dkv) <= SMEM_LIMIT)
+        (!owned || bf16_smem(d, t, 2, dkv) <= SMEM_LIMIT))
       return t;
   return 0;
 }
+// no tile fits beside the owned operands: stream them too, in chunks
+constexpr bool bf16_chunked(int d, bool dkv) { return bf16_fit_tile(d, dkv, true) == 0; }
+constexpr int bf16_tile(int d, bool dkv) { return bf16_fit_tile(d, dkv, !bf16_chunked(d, dkv)); }
 constexpr long long bf16_blocks(long long smem) {
   return SM_SMEM / (smem + 1024) < BF16_BLOCKS_PER_SM ? SM_SMEM / (smem + 1024)
                                                       : BF16_BLOCKS_PER_SM;
 }
 // the deeper ring where it fits and keeps as many blocks an SM as two stages
 constexpr int bf16_stages(int d, bool dkv) {
+  if (bf16_chunked(d, dkv)) return BF16_CHUNK_STAGES;
   const int t = bf16_tile(d, dkv);
   const long long deep = bf16_smem(d, t, BF16_MAX_STAGES, dkv);
   return deep <= SMEM_LIMIT && bf16_blocks(deep) >= bf16_blocks(bf16_smem(d, t, 2, dkv))
@@ -150,21 +185,30 @@ constexpr int bf16_stages(int d, bool dkv) {
 template <int D, bool DKV>
 struct Bf16Tile {
   static constexpr int OUTS = bf16_outs(D, DKV), COLS = bf16_cols(D);
+  static constexpr bool CHUNKED = bf16_chunked(D, DKV);
   static constexpr int TILE = bf16_tile(D, DKV), STAGES = bf16_stages(D, DKV);
   static constexpr int SLICES = D / COLS;              // grid.z: output column slices
   static constexpr int PASSES = DKV ? 2 / OUTS : 1;    // x grid.z: dv's block, dk's block
   static constexpr int DCH = pad64(D) / 64;            // 64-column tiles of a row
   static constexpr int KSTEPS = (D + 15) / 16;         // k16 steps over the head dim
-  static constexpr uint32_t OWN_BYTES = DCH * BF16_ROWS * 128;  // one owned operand
-  static constexpr uint32_t TILE_BYTES = DCH * TILE * 128;      // one streamed operand
-  static constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr uint32_t OWN_CHUNK = BF16_ROWS * 128;  // 64 columns of the owned rows
+  static constexpr uint32_t TILE_CHUNK = TILE * 128;      // 64 columns of a streamed tile
+  static constexpr uint32_t OWN_BYTES = CHUNKED ? 0 : DCH * OWN_CHUNK;  // one owned operand
+  static constexpr uint32_t TILE_BYTES = DCH * TILE_CHUNK;              // one streamed operand
+  // a stage: the streamed tile's two operands; chunked: one chunk of all four
+  static constexpr uint32_t STAGE_BYTES = CHUNKED ? 2 * (OWN_CHUNK + TILE_CHUNK) : 2 * TILE_BYTES;
+  // chunked: the stage of a tile's operand at the block's output columns
+  static constexpr uint32_t SLICE_BYTES = COLS / 64 * TILE_CHUNK;
   static constexpr size_t ROWS_OFF = 2 * (size_t)OWN_BYTES + (size_t)STAGES * STAGE_BYTES;
   static constexpr size_t BAR_OFF = ROWS_OFF + (DKV ? (size_t)STAGES * 2 * TILE * 4 : 0);
   static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
-  static_assert(TILE >= 16 && SMEM == (size_t)bf16_smem(D, TILE, STAGES, DKV) &&
+  static_assert(TILE >= 16 && SMEM == (size_t)bf16_smem(D, TILE, STAGES, DKV, CHUNKED) &&
                     (long long)SMEM <= SMEM_LIMIT,
                 "tile");
   static_assert(COLS % 8 == 0 && D % COLS == 0 && (SLICES == 1 || COLS % 64 == 0), "slices");
+  static_assert(!CHUNKED || (D % 64 == 0 && COLS % 64 == 0 && OUTS == 1 &&
+                             SLICE_BYTES <= STAGE_BYTES),
+                "chunks");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -192,6 +236,18 @@ __device__ __forceinline__ void logits(float (&acc)[N / 2], uint32_t a, uint32_t
     hopper::Wgmma<N>::template ss<0>(acc, hopper::desc(a + c * BF16_ROWS * 128 + kk * 32, 16, 1024),
                                      hopper::desc(b + c * N * 128 + kk * 32, 16, 1024), ks > 0);
   }
+}
+
+// acc (64 x N) (+)= A (64 rows at `a`) . B^T (N rows at `b`) over one
+// 64-column chunk, both K-major; unless `add`, the first step overwrites acc.
+// No commit.
+template <int N>
+__device__ __forceinline__ void logits_chunk(float (&acc)[N / 2], uint32_t a, uint32_t b,
+                                             bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::Wgmma<N>::template ss<0>(acc, hopper::desc(a + kk * 32, 16, 1024),
+                                     hopper::desc(b + kk * 32, 16, 1024), add || kk > 0);
 }
 
 // acc (64 x COLS) += F (64 x TILE, register fragments) . X (TILE streamed
@@ -261,7 +317,28 @@ attn_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   __syncthreads();
 
   if (warp == 4) {  // the producer warp: one lane starts every load
-    if (lane == 0) {
+    if (lane == 0 && L::CHUNKED) {
+      // per key tile: DCH stages of (q, dO, k, v) chunk c, then K's columns
+      // [col0, col0 + COLS)
+      for (int t = 0, u = 0; t < ntiles; ++t)
+        for (int c = 0; c <= L::DCH; ++c, ++u) {
+          const int s = u % STAGES;
+          mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+          uint8_t* st = ring + s * L::STAGE_BYTES;
+          if (c < L::DCH) {
+            mbar_expect_tx(&full[s], L::STAGE_BYTES);
+            tma_load_4d(st, &qmap, &full[s], 64 * c, h, q0, b);
+            tma_load_4d(st + L::OWN_CHUNK, &gmap, &full[s], 64 * c, h, q0, b);
+            tma_load_4d(st + 2 * L::OWN_CHUNK, &kmap, &full[s], 64 * c, h, t * TILE, b);
+            tma_load_4d(st + 2 * L::OWN_CHUNK + L::TILE_CHUNK, &vmap, &full[s], 64 * c, h,
+                        t * TILE, b);
+          } else {
+            mbar_expect_tx(&full[s], L::SLICE_BYTES);
+            for (int i = 0; i < COLS / 64; ++i)
+              tma_load_4d(st + i * L::TILE_CHUNK, &kmap, &full[s], col0 + 64 * i, h, t * TILE, b);
+          }
+        }
+    } else if (lane == 0) {
       mbar_expect_tx(obar, 2 * L::OWN_BYTES);
       for (int c = 0; c < L::DCH; ++c) {
         tma_load_4d(qs + c * BF16_ROWS * 128, &qmap, obar, 64 * c, h, q0, b);
@@ -297,19 +374,44 @@ attn_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   float sacc[TILE / 2], pacc[TILE / 2];
   uint32_t dsa[TILE / 16][4];
   const uint32_t q_addr = smem_u32(qs), g_addr = smem_u32(gs), ring_addr = smem_u32(ring);
-  mbar_wait(obar, 0);
+  if (!L::CHUNKED) mbar_wait(obar, 0);
 
   for (int t = 0; t < ntiles; ++t) {
-    const int s = t % STAGES;
-    const uint32_t k_addr = ring_addr + s * L::STAGE_BYTES, v_addr = k_addr + L::TILE_BYTES;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-    wgmma_fence();
-    logits<L, TILE>(sacc, q_addr, k_addr);   // S = Q.K^T
-    logits<L, TILE>(pacc, g_addr, v_addr);   // dP = dO.V^T
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sacc);
-    fence_regs(pacc);
+    int s;            // the stage that holds K (chunked: K's output columns)
+    uint32_t k_addr;
+    if constexpr (L::CHUNKED) {
+      for (int c = 0; c < L::DCH; ++c) {
+        const int u = t * (L::DCH + 1) + c;
+        s = u % STAGES;
+        const uint32_t a = ring_addr + s * L::STAGE_BYTES;
+        mbar_wait(&full[s], (u / STAGES) & 1);
+        wgmma_fence();
+        logits_chunk<TILE>(sacc, a, a + 2 * L::OWN_CHUNK, c > 0);   // S += Q_c.K_c^T
+        logits_chunk<TILE>(pacc, a + L::OWN_CHUNK, a + 2 * L::OWN_CHUNK + L::TILE_CHUNK,
+                           c > 0);                                   // dP += dO_c.V_c^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(pacc);
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      const int u = t * (L::DCH + 1) + L::DCH;
+      s = u % STAGES;
+      k_addr = ring_addr + s * L::STAGE_BYTES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+    } else {
+      s = t % STAGES;
+      k_addr = ring_addr + s * L::STAGE_BYTES;
+      const uint32_t v_addr = k_addr + L::TILE_BYTES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      wgmma_fence();
+      logits<L, TILE>(sacc, q_addr, k_addr);   // S = Q.K^T
+      logits<L, TILE>(pacc, g_addr, v_addr);   // dP = dO.V^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(pacc);
+    }
     // p and ds in registers; k-step j of dS.K takes accumulator columns
     // [16j, 16j + 16): sacc[8j .. 8j + 8) in pairs
     const int key0 = t * TILE + 2 * quad;
@@ -325,7 +427,7 @@ attn_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     fence_frags(dsa);
     fence_regs(acc);
     wgmma_fence();
-    accumulate<L>(acc, dsa, k_addr, col0);   // dQ += dS.K
+    accumulate<L>(acc, dsa, k_addr, L::CHUNKED ? 0 : col0);   // dQ += dS.K
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -376,6 +478,44 @@ attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   }
   __syncthreads();
 
+  if (warp == 4 && L::CHUNKED) {
+    // per query tile: DCH stages of (k, v, q, dO) chunk c (v and dO only for
+    // dk), then the tile's Q (dk) or dO (dv) at columns [col0, col0 + COLS)
+    // and its lse and delta rows; every lane arrives on every stage
+    const uint32_t chunk_bytes = (want_dk ? 2 : 1) * (L::OWN_CHUNK + L::TILE_CHUNK);
+    for (int t = 0, u = 0; t < ntiles; ++t)
+      for (int c = 0; c <= L::DCH; ++c, ++u) {
+        const int s = u % STAGES;
+        mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+        uint8_t* st = ring + s * L::STAGE_BYTES;
+        if (c == L::DCH) {
+          float* rs = rows + s * 2 * TILE;
+          for (int i = lane; i < TILE; i += 32) {
+            const int q = t * TILE + i;
+            rs[i] = q < Tq ? lse[(long long)bh * Tq + q] : 0.f;
+            rs[TILE + i] = q < Tq ? delta[(long long)bh * Tq + q] : 0.f;
+          }
+        }
+        if (lane != 0) {
+          mbar_arrive(&full[s]);
+        } else if (c < L::DCH) {
+          mbar_expect_tx(&full[s], chunk_bytes);
+          tma_load_4d(st, &kmap, &full[s], 64 * c, h, k0, b);
+          tma_load_4d(st + 2 * L::OWN_CHUNK, &qmap, &full[s], 64 * c, h, t * TILE, b);
+          if (want_dk) {
+            tma_load_4d(st + L::OWN_CHUNK, &vmap, &full[s], 64 * c, h, k0, b);
+            tma_load_4d(st + 2 * L::OWN_CHUNK + L::TILE_CHUNK, &gmap, &full[s], 64 * c, h,
+                        t * TILE, b);
+          }
+        } else {
+          mbar_expect_tx(&full[s], L::SLICE_BYTES);
+          for (int i = 0; i < COLS / 64; ++i)
+            tma_load_4d(st + i * L::TILE_CHUNK, want_dk ? &qmap : &gmap, &full[s],
+                        col0 + 64 * i, h, t * TILE, b);
+        }
+      }
+    return;
+  }
   if (warp == 4) {  // the producer warp: lane 0 starts the loads, all copy the rows
     if (lane == 0) {
       mbar_expect_tx(obar, (want_dk ? 2 : 1) * L::OWN_BYTES);
@@ -420,20 +560,45 @@ attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   // dsa: dS^T, or P^T in a block that takes dv alone; pa: P^T beside dS^T
   uint32_t pa[OUTS == 2 ? TILE / 16 : 1][4], dsa[TILE / 16][4];
   const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs), ring_addr = smem_u32(ring);
-  mbar_wait(obar, 0);
+  if (!L::CHUNKED) mbar_wait(obar, 0);
 
   for (int t = 0; t < ntiles; ++t) {
-    const int s = t % STAGES;
-    const uint32_t q_addr = ring_addr + s * L::STAGE_BYTES, g_addr = q_addr + L::TILE_BYTES;
+    int s;  // the stage that holds Q and dO (chunked: the one output's operand)
+    uint32_t q_addr, g_addr;
+    if constexpr (L::CHUNKED) {
+      for (int c = 0; c < L::DCH; ++c) {
+        const int u = t * (L::DCH + 1) + c;
+        s = u % STAGES;
+        const uint32_t a = ring_addr + s * L::STAGE_BYTES;
+        mbar_wait(&full[s], (u / STAGES) & 1);
+        wgmma_fence();
+        logits_chunk<TILE>(sacc, a, a + 2 * L::OWN_CHUNK, c > 0);   // S^T += K_c.Q_c^T
+        if (want_dk)                                                 // dP^T += V_c.dO_c^T
+          logits_chunk<TILE>(pacc, a + L::OWN_CHUNK, a + 2 * L::OWN_CHUNK + L::TILE_CHUNK, c > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(pacc);
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      const int u = t * (L::DCH + 1) + L::DCH;
+      s = u % STAGES;
+      q_addr = g_addr = ring_addr + s * L::STAGE_BYTES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+    } else {
+      s = t % STAGES;
+      q_addr = ring_addr + s * L::STAGE_BYTES;
+      g_addr = q_addr + L::TILE_BYTES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      wgmma_fence();
+      logits<L, TILE>(sacc, k_addr, q_addr);                // S^T = K.Q^T
+      if (want_dk) logits<L, TILE>(pacc, v_addr, g_addr);   // dP^T = V.dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(pacc);
+    }
     const float* rl = rows + s * 2 * TILE;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-    wgmma_fence();
-    logits<L, TILE>(sacc, k_addr, q_addr);                // S^T = K.Q^T
-    if (want_dk) logits<L, TILE>(pacc, v_addr, g_addr);   // dP^T = V.dO^T
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sacc);
-    fence_regs(pacc);
     // P^T and dS^T in registers: accumulator column c is query t*TILE + c
 #pragma unroll
     for (int j = 0; j < TILE / 16; ++j)
@@ -461,7 +626,7 @@ attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       accumulate<L>(acc0, pa, g_addr, col0);    // dV += P^T.dO
       accumulate<L>(acc1, dsa, q_addr, col0);   // dK += dS^T.Q
     } else {   // dK += dS^T.Q, or dV += P^T.dO
-      accumulate<L>(acc0, dsa, want_dk ? q_addr : g_addr, col0);
+      accumulate<L>(acc0, dsa, want_dk ? q_addr : g_addr, L::CHUNKED ? 0 : col0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -484,11 +649,28 @@ attn_dkv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 
 using attn_f32::F32_ROWS;
 using attn_f32::F32_THREADS;
+constexpr int F32_REG_BUDGET = 128;  // phase-1 partial sums + the output sums, registers a thread
+
+// floats of a block's shared memory at P slices a patch and B buffers: the
+// owned rows (pitch PO), B buffers of two streamed tiles (pitch PS) and
+// their lse and delta, p and ds (pitch TILE + 1), the owned rows' lse and delta
+template <int D, int P>
+constexpr long long f32_smem(int bufs) {
+  using S = attn_f32::Stream<D, P>;
+  return 4LL * (2 * F32_ROWS * S::PO + bufs * (2 * S::TILE * S::PS + 2 * S::TILE) +
+                2 * F32_ROWS * (S::TILE + 1) + 2 * F32_ROWS);
+}
+// the forward's slices (attention_f32.cuh), or 32 where even one buffer of
+// its tiles does not fit (dh 960)
+template <int D>
+constexpr int f32_bwd_parts() {
+  return f32_smem<D, attn_f32::f32_parts(D)>(1) <= SMEM_LIMIT ? attn_f32::f32_parts(D) : 32;
+}
 
 // the shared streamed tile (attention_f32.cuh), and this kernel's layout
-template <int D>
-struct F32Tile : attn_f32::Stream<D> {
-  using S = attn_f32::Stream<D>;
+template <int D, bool DKV>
+struct F32Tile : attn_f32::Stream<D, f32_bwd_parts<D>()> {
+  using S = attn_f32::Stream<D, f32_bwd_parts<D>()>;
   static constexpr int PATCHES = (F32_ROWS / 4) * (S::TILE / 4);  // of z and dp per PARTS lanes
   static constexpr int VALS = 32 / S::PARTS;                      // sums a lane keeps
   static constexpr int PT = S::TILE + 1;                          // p and ds pitch
@@ -496,20 +678,25 @@ struct F32Tile : attn_f32::Stream<D> {
   static constexpr int BUF = 2 * S::TILE * S::PS + 2 * S::TILE;   // a buffer: 2 tiles, lse, delta
   static constexpr int PDS = 2 * F32_ROWS * PT;                   // p and ds
   static constexpr int OROWS = 2 * F32_ROWS;                      // the owned rows' lse and delta
-  static constexpr size_t SMEM = 4 * (size_t)(OWN + 2 * BUF + PDS + OROWS);
+  static constexpr int BUFS = f32_smem<D, S::PARTS>(2) <= SMEM_LIMIT ? 2 : 1;
+  // dk/dv: both outputs in one block where their sums fit the budget
+  static constexpr int OUTS = DKV && 32 + 8 * S::NC <= F32_REG_BUDGET ? 2 : 1;
+  static constexpr int PASSES = DKV ? 2 / OUTS : 1;               // grid.z
+  static constexpr size_t SMEM = 4 * (size_t)(OWN + BUFS * BUF + PDS + OROWS);
   static_assert(S::PARTS * PATCHES == F32_THREADS, "parts");
-  static_assert((long long)SMEM <= SMEM_LIMIT, "227 KB of shared memory a block");
+  static_assert((long long)SMEM == f32_smem<D, S::PARTS>(BUFS) && (long long)SMEM <= SMEM_LIMIT,
+                "227 KB of shared memory a block");
 };
 
 // start copying streamed rows [r0, r0 + TILE) of x and y (rows sx, sy apart;
 // rows >= n read as 0) into a buffer, 8 bytes a copy when `vec`; with `lse`,
 // their lse and delta too
-template <int D>
+template <int D, bool DKV>
 __device__ __forceinline__ void load_tile(float* buf, const float* x, long long sx,
                                           const float* y, long long sy, int r0, int n, bool vec,
                                           const float* lse, const float* delta) {
-  using L = F32Tile<D>;
-  attn_f32::load_rows<D>(buf, x, sx, y, sy, r0, n, vec);
+  using L = F32Tile<D, DKV>;
+  attn_f32::load_rows<D, L::PARTS>(buf, x, sx, y, sy, r0, n, vec);
   if (lse != nullptr)
     for (int i = threadIdx.x; i < L::TILE; i += F32_THREADS) {
       const bool ok = r0 + i < n;
@@ -518,8 +705,9 @@ __device__ __forceinline__ void load_tile(float* buf, const float* x, long long 
     }
 }
 
-// DKV false: dq (o1). DKV true: dk (o1) and dv (o2). The block owns rows
-// [r0, r0 + 16) of q and dO (dq) or of k and v (dk/dv) and streams the others.
+// DKV false: dq (o1). DKV true: dk (o1) and dv (o2); with one output a block
+// (OUTS 1), grid.z 0 takes dv and 1 dk. The block owns rows [r0, r0 + 16) of
+// q and dO (dq) or of k and v (dk/dv) and streams the others.
 template <int D, bool DKV>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -527,17 +715,20 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ o1, float* __restrict__ o2, int Tq, int S, int H, float qscale,
              float scale, Strides st, int vec) {
-  using L = F32Tile<D>;
-  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
+  using L = F32Tile<D, DKV>;
+  constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC, BUFS = L::BUFS;
+  constexpr bool BOTH = DKV && L::OUTS == 2;   // dv and dk in this block
   extern __shared__ __align__(16) float smem[];
   float* own = smem;                  // [2][16][PO]: q, dO (dq) or k, v (dk/dv)
-  float* bufs = own + L::OWN;         // [2][BUF]: streamed k, v (dq) or q, dO, lse, delta
-  float* pds = bufs + 2 * L::BUF;     // [2][16][PT]: p (dk/dv), ds
+  float* bufs = own + L::OWN;         // [BUFS][BUF]: streamed k, v (dq) or q, dO, lse, delta
+  float* pds = bufs + BUFS * L::BUF;  // [2][16][PT]: p (dk/dv), ds
   float* orow = pds + L::PDS;         // [2][16]: lse, delta of the owned rows (dq)
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int r0 = blockIdx.x * F32_ROWS;
+  // dq and dk take ds (and the second streamed operand's partner), dv p
+  const bool want_dk = !DKV || BOTH || blockIdx.z == 1;
   const long long tok = (long long)H * D;
   const float* qb = q + b * st.qb + (long long)h * D;
   const float* kb = k + b * st.kb + (long long)h * D;
@@ -555,8 +746,11 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* delta_bh = delta + (long long)bh * Tq;
   const int ntiles = (n_str + TILE - 1) / TILE;
 
-  load_tile<D>(bufs, x0, sx0, x1, sx1, 0, n_str, vec != 0, DKV ? lse_bh : nullptr, delta_bh);
-  hopper::cp_async_commit();
+  if constexpr (BUFS == 2) {
+    load_tile<D, DKV>(bufs, x0, sx0, x1, sx1, 0, n_str, vec != 0, DKV ? lse_bh : nullptr,
+                      delta_bh);
+    hopper::cp_async_commit();
+  }
   for (int e = tid; e < F32_ROWS * D; e += F32_THREADS) {
     const int r = e / D, d = e % D, row = r0 + r;
     own[r * L::PO + d] = row < n_own ? a0[row * sa0 + d] : 0.f;
@@ -573,45 +767,61 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
   // phase 3: owned rows [4rg, 4rg + 4), columns ct + 64 i
   const int rg = tid / 64, ct = tid % 64;
-  float out0[4][NC], out1[4][NC];   // dq, or dv and dk
+  float out0[4][NC], out1[4][BOTH ? NC : 1];   // dq, or dv (or the one output) and dk
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int i = 0; i < NC; ++i) out0[r][i] = out1[r][i] = 0.f;
+    for (int i = 0; i < NC; ++i) out0[r][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (BOTH ? NC : 1); ++i) out1[r][i] = 0.f;
+  }
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load_tile<D>(bufs + ((t + 1) & 1) * L::BUF, x0, sx0, x1, sx1, (t + 1) * TILE, n_str,
-                   vec != 0, DKV ? lse_bh : nullptr, delta_bh);
+    if constexpr (BUFS == 1) {  // one buffer: load tile t, then use it
+      load_tile<D, DKV>(bufs, x0, sx0, x1, sx1, t * TILE, n_str, vec != 0,
+                        DKV ? lse_bh : nullptr, delta_bh);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
+    } else if (t + 1 < ntiles) {
+      load_tile<D, DKV>(bufs + ((t + 1) & 1) * L::BUF, x0, sx0, x1, sx1, (t + 1) * TILE, n_str,
+                        vec != 0, DKV ? lse_bh : nullptr, delta_bh);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
     } else {
       hopper::cp_async_wait<0>();
     }
     __syncthreads();  // tile t and the owned rows visible
-    const float* xs = bufs + (t & 1) * L::BUF;   // [2][TILE][PS], lse, delta
+    const float* xs = bufs + (BUFS == 2 ? (t & 1) * L::BUF : 0);   // [2][TILE][PS], lse, delta
 
     // (1) z = A0.X0^T and dp = A1.X1^T on the patch, over this lane's slice
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    attn_f32::patch_products<D, 2>(acc, own, F32_ROWS * L::PO, xs, TILE * L::PS, rb, cb, part);
+    attn_f32::patch_products<D, 2, PARTS>(acc, own, F32_ROWS * L::PO, xs, TILE * L::PS, rb, cb,
+                                          part);
     // sum the PARTS slices: lane `part` ends with acc[0 .. VALS) = values
     // [part * VALS, + VALS)
     attn_f32::fold<PARTS, 32>(acc, part);
-    // (2) p and ds of this lane's elements (value pairs: z, dp)
-#pragma unroll
-    for (int m = 0; m < L::VALS / 2; ++m) {
-      const int e = part * (L::VALS / 2) + m, row = 4 * rb + e / 4, col = 4 * cb + e % 4;
+    // (2) p and ds of element e from its pair (z, dp)
+    auto p_ds = [&](int e, float z, float dp) {
+      const int row = 4 * rb + e / 4, col = 4 * cb + e % 4;
       const bool ok = r0 + row < n_own && t * TILE + col < n_str;
       const float l = DKV ? xs[2 * TILE * L::PS + col] : orow[row];
       const float dl = DKV ? xs[2 * TILE * L::PS + TILE + col] : orow[F32_ROWS + row];
-      const float p = ok ? exp2f(acc[2 * m] * qscale - l) : 0.f;
-      pds[(F32_ROWS + row) * L::PT + col] = p * (acc[2 * m + 1] - dl);
+      const float p = ok ? exp2f(z * qscale - l) : 0.f;
+      pds[(F32_ROWS + row) * L::PT + col] = p * (dp - dl);
       if (DKV) pds[row * L::PT + col] = p;
+    };
+    if constexpr (L::VALS >= 2) {
+#pragma unroll
+      for (int m = 0; m < L::VALS / 2; ++m)
+        p_ds(part * (L::VALS / 2) + m, acc[2 * m], acc[2 * m + 1]);
+    } else {  // 32 slices: lane `part` holds value `part`; the even lane takes the pair
+      const float mate = __shfl_xor_sync(0xffffffffu, acc[0], 1);
+      if (part % 2 == 0) p_ds(part / 2, acc[0], mate);
     }
     __syncthreads();
-    // (3) dq += ds.K, or dv += p.dO and dk += ds.Q
+    // (3) dq += ds.K, or dv += p.dO and dk += ds.Q (one of them: OUTS 1)
 #pragma unroll 4
     for (int j = 0; j < TILE; ++j) {
       float ds[4], p[4];
@@ -628,9 +838,11 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float y = DKV ? xs[(TILE + j) * L::PS + c] : 0.f;
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            if constexpr (DKV) {
+            if constexpr (BOTH) {
               out0[r][i] = fmaf(p[r], y, out0[r][i]);
               out1[r][i] = fmaf(ds[r], x, out1[r][i]);
+            } else if constexpr (DKV) {
+              out0[r][i] = want_dk ? fmaf(ds[r], x, out0[r][i]) : fmaf(p[r], y, out0[r][i]);
             } else {
               out0[r][i] = fmaf(ds[r], x, out0[r][i]);
             }
@@ -641,6 +853,7 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the next iteration's load reuses this buffer
   }
 
+  // dq, dk (scaled) and dv
   float* ob = o1 + (long long)b * n_own * tok + (long long)h * D;
   float* vb_out = DKV ? o2 + (long long)b * n_own * tok + (long long)h * D : nullptr;
 #pragma unroll
@@ -651,11 +864,13 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < NC; ++i) {
       const int c = ct + 64 * i;
       if (D % 64 != 0 && c >= D) continue;
-      if constexpr (DKV) {
-        ob[row * tok + c] = out1[r][i] * scale;   // dk
-        vb_out[row * tok + c] = out0[r][i];       // dv
+      if constexpr (BOTH) {
+        ob[row * tok + c] = out1[r][i] * scale;          // dk
+        vb_out[row * tok + c] = out0[r][i];              // dv
+      } else if (want_dk) {
+        ob[row * tok + c] = out0[r][i] * scale;          // dq or dk
       } else {
-        ob[row * tok + c] = out0[r][i] * scale;   // dq
+        vb_out[row * tok + c] = out0[r][i];              // dv
       }
     }
   }
@@ -667,18 +882,20 @@ template <int D>
 int launch_f32(bool dkv, const void* q, const void* k, const void* v, const void* g,
                const float* lse, const float* delta, void* o1, void* o2, int B, int Tq, int S,
                int H, float qscale, float scale, Strides st, cudaStream_t s) {
-  using L = F32Tile<D>;
+  using LQ = F32Tile<D, false>;
+  using LK = F32Tile<D, true>;
   // 8-byte copies where every row of q, k, v and dO starts 8-byte aligned
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
   const long long strides = st.qb | st.qt | st.kb | st.kt | st.vb | st.vt;
   const int vec = any % 8 == 0 && strides % 2 == 0;
-  cudaError_t err = dkv ? hopper::set_smem_once<attn_bwd_f32<D, true>>(L::SMEM)
-                        : hopper::set_smem_once<attn_bwd_f32<D, false>>(L::SMEM);
+  cudaError_t err = dkv ? hopper::set_smem_once<attn_bwd_f32<D, true>>(LK::SMEM)
+                        : hopper::set_smem_once<attn_bwd_f32<D, false>>(LQ::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(((dkv ? S : Tq) + F32_ROWS - 1) / F32_ROWS), (unsigned)(B * H));
+  dim3 grid((unsigned)(((dkv ? S : Tq) + F32_ROWS - 1) / F32_ROWS), (unsigned)(B * H),
+            (unsigned)(dkv ? LK::PASSES : 1));
   auto* kernel = dkv ? attn_bwd_f32<D, true> : attn_bwd_f32<D, false>;
-  kernel<<<grid, F32_THREADS, L::SMEM, s>>>(
+  kernel<<<grid, F32_THREADS, dkv ? LK::SMEM : LQ::SMEM, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(g), lse, delta, static_cast<float*>(o1),
       static_cast<float*>(o2), Tq, S, H, qscale, scale, st, vec);
@@ -750,8 +967,9 @@ int entry(bool dkv, const void* q, const void* k, const void* v, const void* g,
                                        scale, st, s)                                        \
                       : launch_bf16<DH>(dkv, q, k, v, g, l, dl, o1, o2, B, T, S, H, qscale, \
                                         scale, st, s);
-    DPM_BWD_CASE(32) DPM_BWD_CASE(40) DPM_BWD_CASE(64) DPM_BWD_CASE(80)
-    DPM_BWD_CASE(128) DPM_BWD_CASE(160) DPM_BWD_CASE(256) DPM_BWD_CASE(512)
+    DPM_BWD_CASE(32) DPM_BWD_CASE(40) DPM_BWD_CASE(64) DPM_BWD_CASE(80) DPM_BWD_CASE(96)
+    DPM_BWD_CASE(128) DPM_BWD_CASE(160) DPM_BWD_CASE(192) DPM_BWD_CASE(256)
+    DPM_BWD_CASE(384) DPM_BWD_CASE(512) DPM_BWD_CASE(576) DPM_BWD_CASE(960)
 #undef DPM_BWD_CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -763,8 +981,9 @@ int entry(bool dkv, const void* q, const void* k, const void* v, const void* g,
 // bf16 pointers 16-byte aligned, bf16 strides multiples of 8). q, k, v take
 // the forward's strides (elements; channel stride 1); dout, dq, dk and dv are
 // contiguous (B, T|S, H*D); lse (the forward's, base 2) and delta are float32
-// (B*H, T). qscale = scale * log2(e). D is one of 32, 40, 64, 80, 128, 160,
-// 256 and 512; the tile is the compiled one of (D, dtype). Each returns the
+// (B*H, T). qscale = scale * log2(e). D is one of 32, 40, 64, 80, 96, 128,
+// 160, 192, 256, 384, 512, 576 and 960; the tile is the compiled one of (D,
+// dtype). Each returns the
 // cudaError_t of its launch, or a TMA-encoding error code (>= 10000).
 extern "C" int dpm_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,

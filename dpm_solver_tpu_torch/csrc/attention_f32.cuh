@@ -44,24 +44,26 @@ constexpr int f32_parts(int d) {
   return p;
 }
 
-// the streamed tile of head dim D and how the block's threads cover it
-template <int D>
+// the streamed tile of head dim D and how the block's threads cover it, at
+// P head-dim slices a patch (the backward takes P = 32 at dh 960: a warp a
+// patch, 8-row tiles)
+template <int D, int P = f32_parts(D)>
 struct Stream {
-  static constexpr int PARTS = f32_parts(D);
+  static constexpr int PARTS = P;
   static constexpr int TILE = F32_THREADS / PARTS;       // streamed rows a tile
   static constexpr int PO = D + (PARTS == 16 ? 4 : 2);   // owned pitch (banks)
   static constexpr int PS = D + 2;                       // streamed pitch (banks, 8-byte rows)
   static constexpr int NC = (D + 63) / 64;               // output columns a thread: ct + 64 i
-  static_assert(D % PARTS == 0 && D % 2 == 0 && TILE % 16 == 0, "parts");
+  static_assert(D % PARTS == 0 && D % 2 == 0 && TILE % 8 == 0, "parts");
 };
 
 // start copying rows [r0, r0 + TILE) of x and y (rows sx, sy elements
 // apart; rows >= n read as 0) into buf: x's rows at buf, y's TILE * PS
 // floats on; 8 bytes a copy when `vec` (every row 8-byte aligned)
-template <int D>
+template <int D, int P = f32_parts(D)>
 __device__ __forceinline__ void load_rows(float* buf, const float* x, long long sx,
                                           const float* y, long long sy, int r0, int n, bool vec) {
-  using L = Stream<D>;
+  using L = Stream<D, P>;
   if (vec) {
     for (int e = threadIdx.x; e < L::TILE * D / 2; e += F32_THREADS) {
       const int j = e / (D / 2), c = 2 * (e % (D / 2));
@@ -86,11 +88,11 @@ __device__ __forceinline__ void load_rows(float* buf, const float* x, long long 
 // + c][d], where operand p of the owned rows starts p * own_next floats
 // into `own` (pitch PO) and of the streamed rows p * xs_next into `xs`
 // (pitch PS). The sums of one element run in increasing d.
-template <int D, int N>
+template <int D, int N, int P = f32_parts(D)>
 __device__ __forceinline__ void patch_products(float (&acc)[16 * N], const float* own,
                                                int own_next, const float* xs, int xs_next,
                                                int rb, int cb, int part) {
-  using L = Stream<D>;
+  using L = Stream<D, P>;
 #pragma unroll 4
   for (int k = 0; k < D / L::PARTS; ++k) {
     const int d = part + L::PARTS * k;
@@ -150,6 +152,7 @@ __device__ __forceinline__ void forward_tile(float (&acc)[4][Stream<D>::NC], con
   using L = Stream<D>;
   constexpr int TILE = L::TILE, PARTS = L::PARTS, NC = L::NC;
   constexpr int VALS = 16 / PARTS, PT = TILE + 1;  // logits a lane keeps; logits pitch
+  static_assert(TILE % 16 == 0, "16 threads a row cover a tile");
   const int tid = threadIdx.x;
   const int part = tid % PARTS, patch = tid / PARTS, rb = patch % 4, cb = patch / 4;
   const int srow = tid / 16, slane = tid % 16;

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dpm_solver_tpu_torch.models.ddpm_unet import Conv1x1, Conv2d, GroupNorm32, Linear
 from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
@@ -69,6 +70,11 @@ class ADMConfig:
     context_dim: Optional[int] = None
     use_linear_in_transformer: bool = False  # SD-2.x variant
     legacy: bool = True
+    # gradient checkpointing for training (the reference's use_checkpoint
+    # flag): with grad on, each res block and spatial transformer
+    # recomputes its forward in the backward (torch.utils.checkpoint,
+    # non-reentrant)
+    remat: bool = False
     # EncoderUNetModel (ADMClassifier) only:
     pool: str = "adaptive"  # adaptive | attention | spatial | spatial_v2
 
@@ -234,14 +240,15 @@ class ADMResBlock(nn.Module):
     emb_layers.1, out_layers.{0,3}, skip_connection."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, use_scale_shift_norm: bool = False,
-                 direction: Optional[str] = None, compute_dtype: torch.dtype = torch.float32):
+                 direction: Optional[str] = None, compute_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         dt = compute_dtype
         self.use_scale_shift_norm, self.direction = use_scale_shift_norm, direction
         self.in_layers = nn.ModuleList([_adm_norm(in_ch), nn.SiLU(), Conv3x3(in_ch, out_ch, dt)])
         emb_width = 2 * out_ch if use_scale_shift_norm else out_ch
         self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_ch, emb_width, dt)])
-        self.out_layers = nn.ModuleList([_adm_norm(out_ch), nn.SiLU(), nn.Dropout(0.0),
+        self.out_layers = nn.ModuleList([_adm_norm(out_ch), nn.SiLU(), nn.Dropout(dropout),
                                          Conv3x3(out_ch, out_ch, dt)])
         if in_ch != out_ch:
             # unlike the BigGAN block, ADM keeps an identity skip whenever the
@@ -260,8 +267,8 @@ class ADMResBlock(nn.Module):
             h = self.out_layers[0](h) * (1.0 + scale) + shift
         else:
             h = self.out_layers[0](h + e)
-        # dropout is a no-op when sampling
-        h = self.out_layers[3](F.silu(h))
+        # live under .train(), off under .eval() (the JAX deterministic flag)
+        h = self.out_layers[3](self.out_layers[2](F.silu(h)))
         if hasattr(self, "skip_connection"):
             x = self.skip_connection(x)
         return x + h
@@ -399,7 +406,9 @@ class _ADMBase(nn.Module):
     """Encoder machinery shared by ADMUNet and ADMClassifier: the time
     embedding, the input blocks and the middle block of `layout(cfg)`.
 
-    Built on `device`, the card by default (raises when there is none).
+    Built on `device`, the card by default (raises when there is none), in
+    eval mode (dropout off, the JAX default deterministic=True); `.train()`
+    makes dropout live at `config.dropout`.
     Parameters are fp32 and cast to `compute_dtype` where they are used.
     """
 
@@ -410,6 +419,7 @@ class _ADMBase(nn.Module):
         self.config, self.compute_dtype = config, compute_dtype
         with torch.device(dev):
             self._construct(dev)
+        self.eval()
 
     def _construct(self, dev: torch.device):
         raise NotImplementedError
@@ -429,7 +439,8 @@ class _ADMBase(nn.Module):
                 return Conv2d(ch, spec["out_ch"], dt), spec["out_ch"]
             if kind == "res":
                 return ADMResBlock(ch, spec["out_ch"], emb_ch, cfg.use_scale_shift_norm,
-                                   spec.get("direction"), compute_dtype=dt), spec["out_ch"]
+                                   spec.get("direction"), compute_dtype=dt,
+                                   dropout=cfg.dropout), spec["out_ch"]
             if kind == "attn":
                 return ADMAttention(ch, spec["heads"], cfg.use_new_attention_order, dt), ch
             if kind == "xattn":
@@ -461,13 +472,18 @@ class _ADMBase(nn.Module):
         emb = self.time_embed[0](adm_timestep_embedding(t, self.config.model_channels))
         return self.time_embed[2](F.silu(emb))
 
-    @staticmethod
-    def _run(mods: nn.ModuleList, h, emb, context=None):
+    def _run(self, mods: nn.ModuleList, h, emb, context=None):
+        # remat as the JAX model's nn.remat: res blocks and transformers,
+        # where autograd records; the checkpoint keeps the default
+        # generators' state, so a block's dropout mask is drawn again on
+        # recompute
+        remat = self.config.remat and torch.is_grad_enabled()
         for mod in mods:
             if isinstance(mod, ADMResBlock):
-                h = mod(h, emb)
+                h = checkpoint(mod, h, emb, use_reentrant=False) if remat else mod(h, emb)
             elif isinstance(mod, SpatialTransformer):
-                h = mod(h, context=context)
+                h = (checkpoint(mod, h, context, use_reentrant=False) if remat
+                     else mod(h, context=context))
             else:
                 h = mod(h)
         return h

@@ -152,7 +152,7 @@ class Conv2d(nn.Conv2d):
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         dt = compute_dtype
         self.norm1 = GroupNorm32(in_channels)
@@ -160,6 +160,7 @@ class ResnetBlock(nn.Module):
         if temb_channels is not None:
             self.temb_proj = Linear(temb_channels, out_channels, dt)
         self.norm2 = GroupNorm32(out_channels)
+        self.dropout = nn.Dropout(dropout)
         self.conv2 = Conv3x3(out_channels, out_channels, dt)
         if in_channels != out_channels:
             self.nin_shortcut = Conv1x1(in_channels, out_channels, dt)
@@ -168,8 +169,8 @@ class ResnetBlock(nn.Module):
         h = self.conv1(swish(self.norm1(x)))
         if temb is not None:  # unconditional nets pass None (ref ddpm.py:78)
             h = h + self.temb_proj(swish(temb))[:, None, None, :]
-        # dropout is a no-op when sampling (the JAX model's deterministic=True)
-        h = self.conv2(swish(self.norm2(h)))
+        # live under .train(), off under .eval() (the JAX deterministic flag)
+        h = self.conv2(self.dropout(swish(self.norm2(h))))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -222,7 +223,9 @@ class Upsample(nn.Module):
 class DDPMUNet(nn.Module):
     """eps-prediction UNet; x NHWC (B, H, W, C), t of shape (B,) (continuous labels ok).
 
-    Built on `device`, the card by default (raises when there is none).
+    Built on `device`, the card by default (raises when there is none), in
+    eval mode (dropout off, the JAX default deterministic=True); `.train()`
+    makes dropout live at `config.dropout`.
     """
 
     def __init__(self, config: DDPMUNetConfig, compute_dtype: torch.dtype = torch.float32,
@@ -230,6 +233,7 @@ class DDPMUNet(nn.Module):
         super().__init__()
         with torch.device(resolve_device(device)):
             self._construct(config, compute_dtype)
+        self.eval()
 
     def _construct(self, config: DDPMUNetConfig, compute_dtype: torch.dtype):
         cfg = self.config = config
@@ -252,7 +256,7 @@ class DDPMUNet(nn.Module):
             block_in = cfg.ch * in_mult[i_level]
             block_out = cfg.ch * cfg.ch_mult[i_level]
             for _ in range(cfg.num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out, temb_ch, dt))
+                level.block.append(ResnetBlock(block_in, block_out, temb_ch, dt, cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     level.attn.append(AttnBlock(block_in, dt))
@@ -262,9 +266,9 @@ class DDPMUNet(nn.Module):
             self.down.append(level)
 
         self.mid = nn.Module()
-        self.mid.block_1 = ResnetBlock(block_in, block_in, temb_ch, dt)
+        self.mid.block_1 = ResnetBlock(block_in, block_in, temb_ch, dt, cfg.dropout)
         self.mid.attn_1 = AttnBlock(block_in, dt)
-        self.mid.block_2 = ResnetBlock(block_in, block_in, temb_ch, dt)
+        self.mid.block_2 = ResnetBlock(block_in, block_in, temb_ch, dt, cfg.dropout)
 
         up = []
         for i_level in reversed(range(num_res)):
@@ -275,7 +279,8 @@ class DDPMUNet(nn.Module):
             for i_block in range(cfg.num_res_blocks + 1):
                 if i_block == cfg.num_res_blocks:
                     skip_in = cfg.ch * in_mult[i_level]
-                level.block.append(ResnetBlock(block_in + skip_in, block_out, temb_ch, dt))
+                level.block.append(ResnetBlock(block_in + skip_in, block_out, temb_ch, dt,
+                                               cfg.dropout))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     level.attn.append(AttnBlock(block_in, dt))

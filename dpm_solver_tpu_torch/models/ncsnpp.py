@@ -25,8 +25,10 @@ every SelfAttention2D through `ops.token_attention` (one head, dh = C, q/k/v
 read in place from one fused projection). What the JAX model leaves to XLA
 stays a library op: conv_in, conv_out, the pyramid and stride-2 convs are
 `F.conv2d`, the 1x1 shortcuts and NIN projections matmuls, and the FIR
-resamples `ops/resample.py`'s depthwise convs. Dropout is a no-op: the
-port samples, as the JAX model does with deterministic=True.
+resamples `ops/resample.py`'s depthwise convs. The model starts in eval
+mode (dropout off, the JAX default deterministic=True); `.train()` makes each
+block's dropout live at `config.dropout`; `config.remat` recomputes each
+block in the backward (`torch.utils.checkpoint`) wherever autograd records.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dpm_solver_tpu_torch.models.ddpm_unet import (Conv1x1, Conv2d, GroupNorm32, Linear,
                                                    swish, timestep_embedding)
@@ -82,6 +85,8 @@ class NCSNppConfig:
     sigma_min: float = 0.01
     sigma_max: float = 50.0
     num_scales: int = 1000
+    # recompute each res block in the backward (where autograd records)
+    remat: bool = False
 
     def __post_init__(self):
         assert self.resblock_type in ("biggan", "ddpm")
@@ -281,10 +286,12 @@ class ResBlockpp(nn.Module):
                  direction: Optional[str] = None, act_name: str = "swish",
                  temb_dim: Optional[int] = None, skip_rescale: bool = True, fir: bool = False,
                  fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         out_ch = out_ch or in_ch
         dt = self.compute_dtype = compute_dtype
+        self.remat = remat
         self.variant, self.direction, self.act_name = variant, direction, act_name
         self.skip_rescale, self.fir, self.fir_kernel = skip_rescale, fir, fir_kernel
         self.GroupNorm_0 = GroupNorm(in_ch)
@@ -292,6 +299,7 @@ class ResBlockpp(nn.Module):
         if temb_dim is not None:
             self.Dense_0 = Linear(temb_dim, out_ch, dt)
         self.GroupNorm_1 = GroupNorm(out_ch)
+        self.Dropout_0 = nn.Dropout(dropout)
         self.Conv_1 = Conv3x3(out_ch, out_ch, dt)
         if in_ch != out_ch or direction is not None:
             if variant == "biggan":
@@ -310,6 +318,13 @@ class ResBlockpp(nn.Module):
         return rs.mean_downsample_2d(v)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            # the checkpoint keeps the default generators' state, so the
+            # recompute draws the same dropout mask
+            return checkpoint(self._forward, x, temb, use_reentrant=False)
+        return self._forward(x, temb)
+
+    def _forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
         act, dt = get_act(self.act_name), self.compute_dtype
         h = act(self.GroupNorm_0(x)).to(dt)
         if self.variant == "biggan":
@@ -318,7 +333,7 @@ class ResBlockpp(nn.Module):
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(act(temb))[:, None, None, :]
-        h = self.Conv_1(act(self.GroupNorm_1(h)))
+        h = self.Conv_1(self.Dropout_0(act(self.GroupNorm_1(h))))
         for shortcut in ("Conv_2", "NIN_0"):
             if hasattr(self, shortcut):
                 x = getattr(self, shortcut)(x)
@@ -344,13 +359,14 @@ class NCSNpp(nn.Module):
     """NCSN++/DDPM++ UNet; x NHWC (B, H, W, C), time_cond of shape (B,):
     labels for `positional` embedding (t * 999 on continuous VP), sigmas for
     `fourier` (ref ncsnpp.py:41-243). Built on `device`, the card by default
-    (raises when there is none)."""
+    (raises when there is none), in eval mode."""
 
     def __init__(self, config: NCSNppConfig, compute_dtype: torch.dtype = torch.float32,
                  device=DEFAULT_DEVICE):
         super().__init__()
         with torch.device(resolve_device(device)):
             self._construct(config, compute_dtype)
+        self.eval()
 
     def _construct(self, cfg: NCSNppConfig, dt: torch.dtype):
         self.config, self.compute_dtype = cfg, dt
@@ -362,7 +378,8 @@ class NCSNpp(nn.Module):
         block = functools.partial(
             ResBlockpp, variant=cfg.resblock_type, act_name=cfg.nonlinearity,
             temb_dim=4 * nf if cfg.conditional else None, skip_rescale=cfg.skip_rescale,
-            fir=cfg.fir, fir_kernel=cfg.fir_kernel, compute_dtype=dt)
+            fir=cfg.fir, fir_kernel=cfg.fir_kernel, compute_dtype=dt, dropout=cfg.dropout,
+            remat=cfg.remat)
         attn = functools.partial(SelfAttention2D, skip_rescale=cfg.skip_rescale,
                                  compute_dtype=dt)
         resample = functools.partial(Resample, fir=cfg.fir, fir_kernel=cfg.fir_kernel,

@@ -25,9 +25,10 @@ Backward (when autograd asks for it): the forward also writes each row's
 base-2 log-sum-exp (`attention_lse`, the port of the Pallas side pass `_lse`),
 and two kernels in `csrc/attention_bwd.cu` rebuild P from it:
 `attention_dq` and `attention_dkv`, the port of `_mha_backward`'s dq and dk/dv
-kernels, at the head dims of `HEAD_DIMS` in both dtypes (not yet at the
-forward's 96, 192, 384, 576 and 960, which no path differentiates): in bf16 TMA +
-`wgmma` kernels (route "wgmma"), in fp32 exact CUDA-core ones ("f32"). Their
+kernels, at every head dim of the forward (`FWD_HEAD_DIMS`) in both dtypes:
+in bf16 TMA + `wgmma` kernels (route "wgmma"; at dh 960, whose two owned
+64-row operands do not fit a block, streaming both sides in 64-column
+chunks), in fp32 exact CUDA-core ones ("f32"). Their
 tiles per head dim and dtype are fixed in the C source; `attention_bwd_plan`
 states the same rule, for the shared-memory figure and the grid.
 `delta = rowsum(dO * O)` is a torch op, as the JAX package leaves it outside
@@ -65,10 +66,10 @@ import torch
 from dpm_solver_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims of every kernel: the forward, the backward and the fused
-# out-projection
+# the head dims of the fused out-projection (and the forward's and the
+# backward's first set)
 HEAD_DIMS = (32, 40, 64, 80, 128, 160, 256, 512)
-# the forward's (and its lse's): every head dim of the port's presets
+# the forward's (its lse's, the backward's): every head dim of the port's presets
 # (ADMConfig.*, DDPMUNetConfig.*, NCSNppConfig.*, the VAEs' mid-blocks, the
 # BERT embedder's 64)
 FWD_HEAD_DIMS = (32, 40, 64, 80, 96, 128, 160, 192, 256, 384, 512, 576, 960)
@@ -170,14 +171,26 @@ def attention_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionTil
 # together). bf16: one consumer warpgroup owns 64 rows a block and streams
 # the widest tile (64, 32 or 16 rows) whose registers stay within the budget
 # and whose two stages fit a block; a third stage where it costs no block an
-# SM. fp32: 16 owned rows; 256 threads make 4x4 patches of z and dp, each
-# patch split over the head dim into `parts` slices of at most F32_SLICE
-# columns, so a streamed tile is 256 / parts rows; two cp.async buffers.
+# SM. Output columns: the whole head up to 256, 256-column slices of 512,
+# WIDE_DV-column slices of the single heads 384, 576 and 960. Where the two
+# owned 64-row operands and two stages of the narrowest tile do not fit
+# (dh 960: 240 KB for the owned operands alone) the block owns no operand:
+# it streams both sides in 64-column chunks ("chunked": a ring of
+# BF16_CHUNK_STAGES stages of one chunk of the owned rows and of the
+# streamed tile, and, after a tile's chunks, one stage of the tile's output
+# columns). fp32: 16 owned rows; 256 threads make 4x4 patches of z and dp,
+# each patch split over the head dim into `parts` slices of at most
+# F32_SLICE columns (16 at most), so a streamed tile is 256 / parts rows;
+# two cp.async buffers where they fit, else one; where even one does not
+# (dh 960), 32 parts (a warp a patch) and 8-row tiles. dk/dv keeps both
+# outputs in a block where their sums fit the register budget, else one
+# output a block (grid.z).
 BF16_ROWS = 64            # owned rows a bf16 block (its consumer warpgroup)
 BF16_THREADS = 160        # the warpgroup and one producer warp
 BF16_MAX_COLS = 256       # output columns a block: dh 512 in two slices
 BF16_REG_BUDGET = 176     # sums + logits + fragments, registers a thread
 BF16_MAX_STAGES = 3
+BF16_CHUNK_STAGES = 4     # the chunked ring's depth (dh 960)
 BF16_BLOCKS_PER_SM = 2    # what the register budget lets share an SM
 SM_SMEM = 233472          # shared memory of one SM (1 KB of it kept per block)
 F32_ROWS = 16             # owned rows an fp32 block
@@ -192,17 +205,27 @@ def _pad64(d: int) -> int:
     return -(-d // 64) * 64
 
 
+def _bf16_cols(dh: int) -> int:
+    """Output columns a bf16 block accumulates."""
+    return dh if dh <= BF16_MAX_COLS else BF16_MAX_COLS if dh % BF16_MAX_COLS == 0 else WIDE_DV
+
+
 def _bf16_regs(outs: int, cols: int, tile: int) -> int:
     """fp32 registers a thread: the sums, the logits and dp, the p and ds fragments."""
     return outs * cols // 2 + 3 * tile // 2
 
 
-def _bf16_smem(dh: int, tile: int, stages: int, dkv: bool) -> int:
+def _bf16_smem(dh: int, tile: int, stages: int, dkv: bool, chunked: bool = False) -> int:
     """A bf16 block's dynamic shared memory: + 1024 to align a swizzle atom;
-    the two owned operands, the ring, (dk/dv) each stage's lse and delta
-    rows, the owned, full and empty barriers."""
-    return (1024 + 2 * BF16_ROWS * _pad64(dh) * 2 + stages * 2 * tile * _pad64(dh) * 2
-            + (stages * 2 * tile * 4 if dkv else 0) + 8 * (1 + 2 * stages))
+    the two owned operands and the ring of streamed tiles (chunked: the ring
+    of chunk stages, each a 64-column chunk of two owned and two streamed
+    operands), (dk/dv) each stage's lse and delta rows, the owned, full and
+    empty barriers."""
+    if chunked:
+        body = stages * 2 * (BF16_ROWS + tile) * 128
+    else:
+        body = 2 * BF16_ROWS * _pad64(dh) * 2 + stages * 2 * tile * _pad64(dh) * 2
+    return 1024 + body + (stages * 2 * tile * 4 if dkv else 0) + 8 * (1 + 2 * stages)
 
 
 def _f32_parts(dh: int) -> int:
@@ -213,6 +236,17 @@ def _f32_parts(dh: int) -> int:
     while parts * F32_SLICE < dh and parts < 16:
         parts *= 2
     return parts
+
+
+def _f32_bwd_smem(dh: int, parts: int, bufs: int) -> int:
+    """An fp32 backward block's dynamic shared memory: the owned rows (pitch
+    dh + 2 | 4), `bufs` buffers of two streamed tiles (pitch dh + 2) and
+    their lse and delta, p and ds (pitch tile + 1), the owned rows' lse and
+    delta."""
+    tile = F32_THREADS // parts
+    po, ps = dh + (4 if parts == 16 else 2), dh + 2
+    return 4 * (2 * F32_ROWS * po + bufs * (2 * tile * ps + 2 * tile)
+                + 2 * F32_ROWS * (tile + 1) + 2 * F32_ROWS)
 
 
 def _bf16_blocks(smem: int) -> int:
@@ -226,10 +260,11 @@ class BwdKernelTile:
     kernel: "dq" (a block owns queries and streams keys) or "dkv" (owns
     keys, streams queries). rows: the rows a block owns; tile: the rows a
     streamed tile holds; cols: the output columns a block accumulates (dh,
-    or 256 of the 512-wide head); outs: the outputs a dk/dv block
-    accumulates (2: dk and dv; 1: one, the other in a second block of the
-    grid, which recomputes the logits); stages: the ring's depth ("f32": two
-    cp.async buffers)."""
+    256 of the 512-wide head, WIDE_DV of 384, 576 and 960); outs: the
+    outputs a dk/dv block accumulates (2: dk and dv; 1: one, the other in a
+    second block of the grid, which recomputes the logits); stages: the
+    ring's depth ("f32": cp.async buffers); chunked: bf16 streams the owned
+    rows too, in 64-column chunks (dh 960)."""
 
     route: str
     kernel: str
@@ -239,6 +274,7 @@ class BwdKernelTile:
     cols: int
     outs: int
     stages: int
+    chunked: bool = False
 
     @property
     def slices(self) -> int:
@@ -249,6 +285,11 @@ class BwdKernelTile:
     def passes(self) -> int:
         """Blocks that split one dk/dv row tile's two outputs (grid.z)."""
         return 2 // self.outs if self.kernel == "dkv" else 1
+
+    @property
+    def parts(self) -> int:
+        """fp32: head-dim slices of a phase-1 patch (F32_THREADS / tile)."""
+        return F32_THREADS // self.tile
 
     def col_slices(self) -> list:
         """[start, stop) of each block's output columns."""
@@ -270,13 +311,9 @@ class BwdKernelTile:
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one block (csrc/attention_bwd.cu's layout)."""
-        if self.route == "f32":  # owned rows (pitch dh + 2 | 4), two buffers of two
-            # streamed tiles (pitch dh + 2) and their lse and delta, p and ds
-            # (pitch tile + 1), the owned rows' lse and delta
-            po, ps = self.dh + (4 if _f32_parts(self.dh) == 16 else 2), self.dh + 2
-            return 4 * (2 * F32_ROWS * po + 2 * (2 * self.tile * ps + 2 * self.tile)
-                        + 2 * F32_ROWS * (self.tile + 1) + 2 * F32_ROWS)
-        return _bf16_smem(self.dh, self.tile, self.stages, self.kernel == "dkv")
+        if self.route == "f32":
+            return _f32_bwd_smem(self.dh, self.parts, self.stages)
+        return _bf16_smem(self.dh, self.tile, self.stages, self.kernel == "dkv", self.chunked)
 
     def grid(self, b: int, t: int, s: int, heads: int) -> tuple:
         """(row tiles, B*H, slices x passes) at queries t, keys s."""
@@ -297,12 +334,21 @@ class AttentionBwdTile:
 def _bwd_kernel_tile(dh: int, dtype: torch.dtype, kernel: str) -> BwdKernelTile:
     dkv = kernel == "dkv"
     if dtype == torch.float32:
-        tile = F32_THREADS // _f32_parts(dh)
-        return BwdKernelTile("f32", kernel, dh, F32_ROWS, tile, dh, 2 if dkv else 1, 2)
-    cols = min(dh, BF16_MAX_COLS)
+        parts = _f32_parts(dh)
+        if _f32_bwd_smem(dh, parts, 1) > SMEM_PER_BLOCK:
+            parts = 32
+        outs = 2 if dkv and 32 + 8 * -(-dh // 64) <= F32_REG_BUDGET else 1
+        bufs = 2 if _f32_bwd_smem(dh, parts, 2) <= SMEM_PER_BLOCK else 1
+        return BwdKernelTile("f32", kernel, dh, F32_ROWS, F32_THREADS // parts, dh,
+                             outs if dkv else 1, bufs)
+    cols = _bf16_cols(dh)
     outs = 2 if dkv and _bf16_regs(2, dh, 32) <= BF16_REG_BUDGET else 1
-    tile = next(t for t in (64, 32, 16) if _bf16_regs(outs, cols, t) <= BF16_REG_BUDGET
-                and _bf16_smem(dh, t, 2, dkv) <= SMEM_PER_BLOCK)
+    fits = [t for t in (64, 32, 16) if _bf16_regs(outs, cols, t) <= BF16_REG_BUDGET]
+    owned = [t for t in fits if _bf16_smem(dh, t, 2, dkv) <= SMEM_PER_BLOCK]
+    if not owned:
+        return BwdKernelTile("wgmma", kernel, dh, BF16_ROWS, fits[0], cols, outs,
+                             BF16_CHUNK_STAGES, chunked=True)
+    tile = owned[0]
     deep = _bf16_smem(dh, tile, BF16_MAX_STAGES, dkv)
     stages = (BF16_MAX_STAGES if deep <= SMEM_PER_BLOCK and _bf16_blocks(deep)
               >= _bf16_blocks(_bf16_smem(dh, tile, 2, dkv)) else 2)
@@ -312,15 +358,18 @@ def _bwd_kernel_tile(dh: int, dtype: torch.dtype, kernel: str) -> BwdKernelTile:
 @functools.lru_cache(maxsize=None)
 def attention_bwd_plan(dh: int, dtype: torch.dtype = torch.bfloat16) -> AttentionBwdTile:
     """The dq and dk/dv kernels' tiles at head dim `dh`, every head dim of
-    the forward in both dtypes. bf16 ("wgmma"): 64 owned rows, streamed
-    tiles of 64 rows up to dh 160 (dk/dv: up to 80, and 160), 32 at dh 256
-    (and dk/dv at 128), 16 at dh 512; dk/dv takes both outputs in one block
-    up to dh 128 and one a block from dh 160 on; the 512-wide head runs two
-    256-column slices. fp32 ("f32"): 16 owned rows, 128-row tiles up to dh
-    80, 64 at 128 and 160, 32 at 256, 16 at 512. The kernels pick the same
+    the forward (`FWD_HEAD_DIMS`) in both dtypes. bf16 ("wgmma"): 64 owned
+    rows, streamed tiles of 64 rows up to dh 160 (dk/dv: up to 96, and
+    160), 32 at dh 192, 256 and 384 (and dk/dv at 128), 16 at 512 and 576;
+    dk/dv takes both outputs in one block up to dh 128 and one a block from
+    dh 160 on; the 512-wide head runs two 256-column slices, 384, 576 and
+    960 WIDE_DV-column slices; dh 960 streams its owned rows in 64-column
+    chunks (32-row tiles). fp32 ("f32"): 16 owned rows, 128-row tiles up to
+    dh 80, 64 at 96 to 160, 32 at 192 and 256, 16 at 384 to 576, 8 at 960
+    (one buffer, dk and dv in separate blocks). The kernels pick the same
     tiles themselves (csrc/attention_bwd.cu)."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention backward kernels take head dims {HEAD_DIMS}, got {dh}")
+    if dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"attention backward kernels take head dims {FWD_HEAD_DIMS}, got {dh}")
     if dtype not in _DTYPES:
         raise TypeError(f"attention backward kernels take float32 or bfloat16, got {dtype}")
     dq, dkv = (_bwd_kernel_tile(dh, dtype, kernel) for kernel in ("dq", "dkv"))

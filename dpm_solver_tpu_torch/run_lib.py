@@ -1,0 +1,304 @@
+"""Training orchestration (the reference's run_lib layer), the training part.
+
+Counterpart of `dpm_solver_tpu/run_lib.py`'s `build_model`,
+`score_net_apply`, `uses_legacy_discrete_loss`, `legacy_loss_fn`,
+`_make_sde`, `train` (score_sde_jax/run_lib.py:51-214) and `train_latent`
+(the LDM p_losses loop): preemption-safe loops that restore the newest meta
+checkpoint or start afresh, a meta checkpoint every
+`snapshot_freq_for_preemption` steps and a full one every `snapshot_freq`.
+`evaluate` and the autoencoder loop are not ported yet.
+
+The loops run on `device` (the card by default; "cpu" for the tests). Each
+step's randomness is `StepRng(seed, step)` (training/train.py): a restarted
+run repeats the draws of an uninterrupted one. `compute_dtype` is the
+networks' (parameters, gradients, optimiser state and EMA stay fp32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from dpm_solver_tpu_torch.configs import Config, PendingModelConfig
+from dpm_solver_tpu_torch.training.checkpoints import CheckpointManager, restore_or_init
+from dpm_solver_tpu_torch.training.train import TrainState, make_optimizer, make_train_state
+from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+log = logging.getLogger("dpm_solver_tpu_torch")
+
+# the streams of the models' initial weights
+_INIT_STREAM, _FIRST_STAGE_STREAM = 0, 1
+
+
+def _init_generator(seed: int, stream: int, device) -> torch.Generator:
+    """The generator a run draws its initial weights from (apart from every
+    step's: a key of two words where a step's has three)."""
+    key = np.random.SeedSequence([seed % 2 ** 63, stream]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key >> np.uint64(1)))
+
+
+def build_model(config: Config, *, compute_dtype: torch.dtype = torch.float32,
+                device=DEFAULT_DEVICE) -> Tuple[nn.Module, Callable]:
+    """Config -> (module on `device`, init_fn(generator) -> the module with
+    the JAX model's training initialisers drawn, `models/init.py`)."""
+    from dpm_solver_tpu_torch import models
+    from dpm_solver_tpu_torch.models.init import init_train_
+
+    family, mc = config.model_family, config.model_config
+    if isinstance(mc, PendingModelConfig) or family == "ncsnv2":
+        module = mc.module if isinstance(mc, PendingModelConfig) else "models/ncsnv2.py"
+        raise NotImplementedError(f"config {config.name!r}: the {family!r} family "
+                                  f"({module}) is not ported to dpm_solver_tpu_torch yet")
+    dev = resolve_device(device)
+    if family == "ddpm_unet":
+        model = models.DDPMUNet(mc, compute_dtype, device=dev)
+    elif family == "ncsnpp":
+        model = models.NCSNpp(mc, compute_dtype, device=dev)
+    elif family in ("adm", "sd"):
+        model = models.ADMUNet(mc, compute_dtype, device=dev)
+    else:
+        raise ValueError(f"unknown model family {family!r}")
+
+    def init_fn(generator: torch.Generator) -> nn.Module:
+        return init_train_(model, generator)
+
+    return model, init_fn
+
+
+def score_net_apply(model: nn.Module, family: str, *, train: bool = False) -> Callable:
+    """apply_fn(x, labels) with the family's label convention (NCSN++ and
+    DDPM UNets take float labels), the model in train mode (dropout live)
+    when `train`, else in eval mode."""
+    if family == "ncsnv2":
+        raise NotImplementedError("the 'ncsnv2' family (models/ncsnv2.py) is not ported "
+                                  "to dpm_solver_tpu_torch yet")
+
+    def apply_fn(x, labels):
+        if model.training != train:
+            model.train(train)
+        return model(x, labels.float())
+
+    return apply_fn
+
+
+def uses_legacy_discrete_loss(config: Config) -> bool:
+    """Discretely-labelled score nets train with the legacy SMLD / DDPM
+    objectives (ref losses.py:124-178) instead of the continuous score
+    matching loss or the ddpm example's eps-MSE."""
+    if config.training.continuous:
+        return False
+    return (config.model_family in ("ncsnpp", "ncsnv2")
+            or (config.model_family == "ddpm_unet" and config.training.sde == "vesde"))
+
+
+def _make_sde(config: Config):
+    from dpm_solver_tpu_torch.sde import VESDE, VPSDE, SubVPSDE
+
+    t = config.training
+    if t.sde == "vesde":
+        return VESDE(sigma_min=t.sigma_min, sigma_max=t.sigma_max, N=t.num_scales)
+    cls = {"vpsde": VPSDE, "subvpsde": SubVPSDE}[t.sde]
+    return cls(beta_0=t.beta_min, beta_1=t.beta_max, N=t.num_scales)
+
+
+def legacy_loss_fn(config: Config, model: nn.Module, *, train: bool = False) -> Callable:
+    """The SMLD / legacy-DDPM loss for a `uses_legacy_discrete_loss` config,
+    with the family's label convention and, when training, live dropout."""
+    from dpm_solver_tpu_torch.training.losses import ddpm_loss_fn, smld_loss_fn
+
+    if config.training.sde == "subvpsde":
+        # as the reference: sub-VP has no discrete objective
+        raise ValueError("discrete training is undefined for the sub-VP SDE")
+    sde = _make_sde(config)
+    apply_fn = score_net_apply(model, config.model_family, train=train)
+    make = smld_loss_fn if config.training.sde == "vesde" else ddpm_loss_fn
+    return make(sde, apply_fn, reduce_mean=config.training.reduce_mean, model_rng=train)
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    """A batch (numpy or torch) as an fp32 tensor on `device`."""
+    x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    return x.to(device, torch.float32)
+
+
+def _log_step(step: int, metrics: dict) -> None:
+    """The loops' log line (reading the metrics waits for the step)."""
+    log.info("step %d loss %.5g grad_norm %.5g", step, float(metrics["loss"]),
+             float(metrics["grad_norm"]))
+
+
+def _managers(workdir: str) -> Tuple[CheckpointManager, CheckpointManager]:
+    return (CheckpointManager(os.path.join(workdir, "checkpoints"), max_to_keep=5),
+            CheckpointManager(os.path.join(workdir, "checkpoints-meta"), max_to_keep=1))
+
+
+def _snapshot(step: int, state: TrainState, ckpts, meta, preempt_freq: int,
+              freq: int) -> None:
+    """The loop's checkpoints after loop index `step` (state.step = step + 1)."""
+    if step and step % preempt_freq == 0:
+        meta.save(step, state)
+    if step and step % freq == 0:
+        ckpts.save(step, state)
+
+
+def train(config: Config, data_iter: Iterator, *, workdir: Optional[str] = None,
+          max_steps: Optional[int] = None, compute_dtype: torch.dtype = torch.float32,
+          device=DEFAULT_DEVICE) -> TrainState:
+    """Preemption-safe training (ref run_lib.py:51-214): the continuous SDE
+    loss, the legacy discrete SMLD / DDPM loss, or the DDPM eps-MSE with
+    antithetic times, by the config. `data_iter` yields (devices,
+    per_device, H, W, C) or (B, H, W, C) batches (numpy or torch) in model
+    space."""
+    workdir = workdir or config.workdir
+    tcfg = config.training
+    dev = resolve_device(device)
+    model, init_fn = build_model(config, compute_dtype=compute_dtype, device=dev)
+    init_fn(_init_generator(config.seed, _INIT_STREAM, dev))
+    tx = make_optimizer(tcfg.lr, tcfg.warmup, tcfg.grad_clip)
+    state, _ = make_train_state(model, ema_rate=tcfg.ema_rate, tx=tx)
+    ckpts, meta = _managers(workdir)
+    state = restore_or_init(meta, state)
+    start = state.step
+    log.info("training from step %d", start)
+
+    if tcfg.continuous:
+        from dpm_solver_tpu_torch.score import get_score_fn
+        from dpm_solver_tpu_torch.training.losses import make_score_train_step, sde_loss_fn
+
+        sde = _make_sde(config)
+        score_fn = get_score_fn(sde, score_net_apply(model, config.model_family, train=True),
+                                continuous=True)
+        loss_fn = sde_loss_fn(sde, score_fn, reduce_mean=tcfg.reduce_mean,
+                              likelihood_weighting=tcfg.likelihood_weighting, score_rng=True)
+        step_fn = make_score_train_step(loss_fn, tx)
+    elif uses_legacy_discrete_loss(config):
+        from dpm_solver_tpu_torch.training.losses import make_score_train_step
+
+        step_fn = make_score_train_step(legacy_loss_fn(config, model, train=True), tx)
+    else:
+        from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
+        from dpm_solver_tpu_torch.training.train import make_train_step
+
+        ns = NoiseScheduleVP.discrete(betas=config.diffusion.betas())
+        step_fn = make_train_step(score_net_apply(model, config.model_family, train=True),
+                                  ns, tx, dropout_rng=True)
+
+    total = max_steps if max_steps is not None else tcfg.n_iters
+    for step in range(start, total):
+        batch = _tensor(next(data_iter), dev)
+        state, metrics = step_fn(state, batch.reshape((-1,) + tuple(batch.shape[-3:])),
+                                 config.seed)
+        if step % tcfg.log_freq == 0:
+            _log_step(step, metrics)
+        _snapshot(step, state, ckpts, meta, tcfg.snapshot_freq_for_preemption,
+                  tcfg.snapshot_freq)
+    return state
+
+
+def train_latent(preset: str, data_iter: Iterator, *, workdir: str, unet_config=None,
+                 vae_config=None, init_model=None, parameterization: Optional[str] = None,
+                 cond_dropout: float = 0.0, uncond_context=None, lr: float = 1e-4,
+                 warmup: int = 0, grad_clip: float = 1.0, ema_rate: float = 0.9999,
+                 optimizer: str = "adam", remat: bool = False, max_steps: int = 1000,
+                 log_freq: int = 50, snapshot_freq: int = 10_000,
+                 snapshot_freq_for_preemption: int = 1_000, seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 device=DEFAULT_DEVICE) -> TrainState:
+    """The latent-diffusion loop: a frozen first stage, the UNet trains
+    (the JAX `train_latent`, the LDM p_losses objective).
+
+    preset: sd_v1 | sd_v2_1 | cin256 | rdm_768 (`pipelines.stable_diffusion`'s
+    presets); `unet_config` / `vae_config` override its geometry.
+    data_iter yields image batches (B, H, W, 3) in [-1, 1], or (images,
+    context) pairs. init_model: a `LatentDiffusion` bundle (e.g. from
+    `load_sd_checkpoint`) to fine-tune: its UNet trains, its first stage is
+    the frozen encoder. parameterization: eps | x0 | v; None: the preset's
+    (v for SD-2.x's linear-transformer geometry, else eps). cond_dropout /
+    uncond_context: classifier-free-guidance training. optimizer: adam |
+    adafactor (optax 0.2.6's, `training/optim.py`). remat: per-block
+    checkpointing in the UNet. The UNet runs as the JAX loop runs it, with
+    dropout off (deterministic=True).
+    """
+    from dpm_solver_tpu_torch.models import ADMUNet, AutoencoderKL, VQModel
+    from dpm_solver_tpu_torch.models.init import init_train_
+    from dpm_solver_tpu_torch.pipelines.stable_diffusion import _LDM_PRESETS, make_ldm_betas
+    from dpm_solver_tpu_torch.training.latent import make_latent_train_step, vae_encode_fn
+    from dpm_solver_tpu_torch.training.optim import Adafactor, flax_layouts, linear_schedule
+
+    if preset not in _LDM_PRESETS:
+        raise ValueError(f"unknown preset {preset!r}; one of {sorted(_LDM_PRESETS)}")
+    if optimizer not in ("adam", "adafactor"):
+        raise ValueError(f"unknown optimizer {optimizer!r}; one of ('adam', 'adafactor')")
+    dev = resolve_device(device)
+    u_default, v_default, beta_kw, scale = _LDM_PRESETS[preset]
+    unet_config = unet_config or (init_model.unet.config if init_model else u_default())
+    vae_config = vae_config or (init_model.vae.config if init_model else v_default())
+    if parameterization is None:
+        parameterization = (init_model.parameterization if init_model
+                            else "v" if unet_config.use_linear_in_transformer else "eps")
+    if remat and not unet_config.remat:
+        unet_config = dataclasses.replace(unet_config, remat=True)
+    betas = init_model.betas if init_model else make_ldm_betas(1000, **beta_kw)
+
+    if init_model is not None:
+        vae, unet = init_model.vae, init_model.unet
+        if unet.config != unet_config:  # remat, or an explicit override
+            sd = unet.state_dict()
+            unet = ADMUNet(unet_config, compute_dtype, device=dev)
+            unet.load_state_dict(sd)
+    else:
+        is_vq = preset == "cin256"
+        vae = (VQModel(vae_config, compute_dtype=compute_dtype, device=dev) if is_vq
+               else AutoencoderKL(vae_config, compute_dtype, device=dev))
+        init_train_(vae, _init_generator(seed, _FIRST_STAGE_STREAM, dev))
+        unet = init_train_(ADMUNet(unet_config, compute_dtype, device=dev),
+                           _init_generator(seed, _INIT_STREAM, dev))
+    vae.eval().requires_grad_(False)
+    unet.eval()  # dropout off, as the JAX loop's deterministic=True
+    if isinstance(vae, VQModel):
+        def encode_fn(images, _generator):
+            return scale * vae.encode(images).float()
+    else:
+        encode_fn = vae_encode_fn(vae, scale_factor=scale)
+
+    sched = linear_schedule(0.0, lr, warmup) if warmup else lr
+    tx = (make_optimizer(lr, warmup, grad_clip) if optimizer == "adam"
+          else Adafactor(sched, grad_clip, layouts=flax_layouts(unet)))
+    state, _ = make_train_state(unet, ema_rate=ema_rate, tx=tx)
+    ckpts, meta = _managers(workdir)
+    state = restore_or_init(meta, state)
+    start = state.step
+    log.info("latent training (%s, %s) from step %d", preset, parameterization, start)
+
+    uc = None if uncond_context is None else torch.as_tensor(
+        np.asarray(uncond_context), dtype=torch.float32, device=dev)
+    if cond_dropout and uc is None and unet_config.context_dim is not None:
+        # the null context for CFG training: zeros (the empty prompt's
+        # embedding where a text encoder is wired)
+        uc = torch.zeros((1, unet_config.context_dim), device=dev)
+    step_fn = make_latent_train_step(lambda z, t, c: unet(z, t, None, c), tx, betas,
+                                     encode_fn=encode_fn, parameterization=parameterization,
+                                     cond_dropout=cond_dropout, uncond_context=uc)
+
+    for step in range(start, max_steps):
+        batch = next(data_iter)
+        images, context = batch if isinstance(batch, (tuple, list)) else (batch, None)
+        images = _tensor(images, dev)
+        if context is not None:
+            context = _tensor(context, dev)
+        elif unet_config.context_dim is not None:
+            # unconditional training of a conditional UNet: every sample gets
+            # the null-context row
+            row = uc if uc is not None else torch.zeros((1, unet_config.context_dim), device=dev)
+            context = row[None].expand((images.shape[0],) + tuple(row.shape))
+        state, metrics = step_fn(state, images, context, seed)
+        if step % log_freq == 0:
+            _log_step(step, metrics)
+        _snapshot(step, state, ckpts, meta, snapshot_freq_for_preemption, snapshot_freq)
+    return state

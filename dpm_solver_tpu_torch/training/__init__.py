@@ -1,0 +1,13 @@
+"""Training: the score-model and latent-diffusion steps, optimisers with
+optax's semantics, checkpoints (the counterpart of `dpm_solver_tpu.training`;
+first-stage training is not ported yet)."""
+
+from dpm_solver_tpu_torch.training.latent import make_latent_train_step, vae_encode_fn
+from dpm_solver_tpu_torch.training.optim import Adafactor, Adam, flax_layouts
+from dpm_solver_tpu_torch.training.train import (StepRng, TrainState, ema_update,
+                                                 make_multi_step, make_optimizer,
+                                                 make_train_state, make_train_step)
+
+__all__ = ["Adafactor", "Adam", "StepRng", "TrainState", "ema_update", "flax_layouts",
+           "make_latent_train_step", "make_multi_step", "make_optimizer", "make_train_state",
+           "make_train_step", "vae_encode_fn"]

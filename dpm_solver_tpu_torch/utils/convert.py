@@ -431,3 +431,49 @@ def ncsnpp_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch
         w.affine(slot(), p["norm_out"])
         w.conv(slot(), p["conv_out"])
     return w.sd
+
+
+# --------------------------------------------------------------------------- #
+# a JAX training state
+# --------------------------------------------------------------------------- #
+
+
+def _find_adam(tree):
+    """optax's ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if all(hasattr(tree, f) for f in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            found = _find_adam(item)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(flax_state, to_state_dict, model: torch.nn.Module, tx):
+    """A JAX `TrainState` (`dpm_solver_tpu/training/train.py`: step,
+    params, opt_state of an optax chain holding Adam's state, ema_params,
+    ema_rate) as the port's `training.TrainState` over `model`.
+
+    `to_state_dict` is this file's Flax -> torch converter of the model
+    (e.g. `lambda p: ncsnpp_state_dict_from_flax(p, cfg)`): the params go
+    through it into `model`, and so do the EMA and Adam's first and second
+    moments, whose trees are the params'; Adam's count and the step carry
+    over. `tx` is the port's `training.optim.Adam` the run continues with."""
+    from dpm_solver_tpu_torch.training.train import make_train_state
+
+    model.load_state_dict(to_state_dict(flax_state.params))
+    state, _ = make_train_state(model, ema_rate=float(flax_state.ema_rate), tx=tx)
+    adam = _find_adam(flax_state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the JAX optimiser state")
+    keys = list(state.params)
+    with torch.no_grad():
+        for dst, tree in ((state.ema_params, flax_state.ema_params),
+                          (state.opt_state["mu"], adam.mu), (state.opt_state["nu"], adam.nu)):
+            sd = to_state_dict(tree)
+            for k in keys:
+                dst[k].copy_(sd[k])
+    state.opt_state["count"] = int(np.asarray(adam.count))
+    state.step = int(np.asarray(flax_state.step))
+    return state

@@ -1,7 +1,8 @@
 """The port stands alone, and its kernel wrappers hide no device.
 
-- An AST scan: no file under dpm_solver_tpu_torch/, and not chip_smoke.py,
-  imports jax, flax or dpm_solver_tpu (a `sys.modules` check cannot show it:
+- An AST scan: no file under dpm_solver_tpu_torch/ (the training package,
+  configs.py and run_lib.py among them), and not chip_smoke.py, imports
+  jax, flax, optax, orbax or dpm_solver_tpu (a `sys.modules` check cannot show it:
   the test process imports jax anyway), nor transformers, regex, ftfy or
   safetensors: the port depends on PyTorch alone.
 - On the CPU every wrapper takes its plain version and launches nothing:
@@ -36,6 +37,18 @@ from dpm_solver_tpu_torch.sde import VPSDE
 from dpm_solver_tpu_torch.pipelines import (LatentDiffusion, StableDiffusionPipeline,
                                             load_sd_checkpoint)
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU runs (they check launch
+    counts, not values): the suite runs several workers at once, and a
+    host loop of small ops slows most under oversubscribed thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the modules themselves: `ops` re-exports functions of the same names
 attention, conv3x3, fused_update, geglu, ln_linear = (
     importlib.import_module(f"dpm_solver_tpu_torch.ops.{m}")
@@ -47,10 +60,11 @@ NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear
                "geglu_ff": 0, "attention_lse": 0, "attention_dq": 0, "attention_dkv": 0,
                "conv3x3_dx": 0, "fused_bias_act": 0, "fused_bias_act_bwd": 0,
                "attention_out_fused": 0}
-# jax and the JAX package; and the packages the port replaces with its own CLIP,
-# tokenizer and checkpoint reading (torch.load), so that it needs PyTorch alone
-FORBIDDEN = ("jax", "jaxlib", "flax", "dpm_solver_tpu", "transformers", "regex", "ftfy",
-             "safetensors")
+# jax and the JAX package, and the JAX training stack (the port's optimisers
+# and checkpoints are its own); and the packages the port replaces with its own
+# CLIP, tokenizer and checkpoint reading (torch.load), so that it needs PyTorch alone
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dpm_solver_tpu", "transformers",
+             "regex", "ftfy", "safetensors")
 
 
 def _imported_roots(tree):

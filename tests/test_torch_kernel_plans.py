@@ -344,7 +344,8 @@ def test_attention_plan_refuses_other_head_dims():
             attention_plan(dh)
 
 
-BWD_CASES = [(dh, dt) for dt in (torch.bfloat16, torch.float32) for dh in HEAD_DIMS]
+BWD_CASES = [(dh, dt) for dt in (torch.bfloat16, torch.float32)
+             for dh in attention_mod.FWD_HEAD_DIMS]
 BWD_IDS = [f"{dh}-{str(dt)[6:]}" for dh, dt in BWD_CASES]
 # (b, t, s, heads, dh): path C's classifier attentions (32x32, 16x16, 8x8
 # and the attention pool, bf16 dh 64) and path E's single head (b8, 16x16,
@@ -366,14 +367,18 @@ def test_attention_bwd_tile_fits(dh, dtype):
     for kt in (tile.dq, tile.dkv):
         assert kt.smem_bytes <= SMEM_PER_BLOCK and kt.dh == dh
         if dtype == torch.float32:
-            assert (kt.route, kt.rows, kt.cols, kt.stages) == ("f32", 16, dh, 2)
+            # two cp.async buffers but at dh 960, where one fits
+            assert (kt.route, kt.rows, kt.cols) == ("f32", 16, dh)
+            assert kt.stages == (1 if dh == 960 else 2)
             # 256 threads: (16 / 4) x (tile / 4) patches x slices of <= 40 columns
             parts = 256 // kt.tile
             assert parts >= 2 and dh % parts == 0 and dh / parts <= 40
             assert parts == 2 or dh / (parts // 2) > 40
             continue
         assert (kt.route, kt.rows) == ("wgmma", 64) and kt.tile in (16, 32, 64)
-        assert kt.stages in (2, 3) and kt.cols % 8 == 0 and kt.cols <= 256
+        assert kt.cols % 8 == 0 and kt.cols <= 256
+        # the owned-operand ring (2 or 3 stages) but at dh 960 (chunked, 4)
+        assert (kt.chunked, kt.stages) == (True, 4) if dh == 960 else kt.stages in (2, 3)
     if dtype == torch.bfloat16:
         assert tile.dkv.outs == (2 if dh <= 128 else 1) and tile.dq.outs == 1
 
@@ -414,10 +419,47 @@ def test_attention_bwd_plan_takes_bf16_512_and_refuses_other_head_dims():
     assert tile.dkv.grid(1, 1024, 1024, 1) == (16, 1, 4)
     assert max(tile.dq.smem_bytes, tile.dkv.smem_bytes) <= SMEM_PER_BLOCK
     assert attention_bwd_plan(512, torch.float32).dq.smem_bytes == 200192
-    for dh in (16, 48, 96, 1024):
+    for dh in (16, 48, 88, 1024):  # 96: a preset's head dim since the backward took them all
         for dtype in (torch.float32, torch.bfloat16):
             with pytest.raises(ValueError, match="head dims"):
                 attention_bwd_plan(dh, dtype)
+
+
+# cin256's single heads at train_latent's b8 (32x32 at 384, 16x16 at 576,
+# 8x8 at 960; self-attention and the one-key cross-attention), the ADM
+# ImageNet-64 and -128 heads
+WIDE_BWD_SITES = [(8, 1024, 1024, 1, 384), (8, 1024, 1, 1, 384), (8, 256, 256, 1, 576),
+                  (8, 256, 1, 1, 576), (8, 64, 64, 1, 960), (8, 64, 1, 1, 960),
+                  (8, 256, 256, 4, 96), (8, 256, 256, 4, 192)]
+
+
+@pytest.mark.parametrize("site", WIDE_BWD_SITES, ids=str)
+def test_attention_bwd_plan_at_the_wide_heads(site):
+    """The new head dims: bf16 slices 384, 576 and 960 into WIDE_DV-column
+    output blocks (dk and dv a block each); 576 keeps its two owned 64-row
+    operands beside two 16-row stages (222,248 bytes of 232,448); 960 streams
+    them in 64-column chunks through a 4-stage ring; fp32 960 takes 8-row
+    tiles (32 slices a patch), one buffer, dk and dv a block each; 96 and 192
+    run on the tiles of whole 64-column runs (128, 192) as 80 and 160 do."""
+    b, t, s, heads, dh = site
+    bf, f32 = attention_bwd_plan(dh, torch.bfloat16), attention_bwd_plan(dh, torch.float32)
+    for kt in (bf.dq, bf.dkv, f32.dq, f32.dkv):
+        assert kt.smem_bytes <= SMEM_PER_BLOCK and kt.regs <= kt.reg_budget
+        owned = s if kt.kernel == "dkv" else t
+        assert kt.grid(b, t, s, heads) == (-(-owned // kt.rows), b * heads,
+                                           kt.slices * kt.passes)
+    if dh > 256:
+        assert bf.dq.col_slices() == [(i, i + 192) for i in range(0, dh, 192)]
+        assert bf.dkv.outs == 1 and bf.dkv.passes == 2
+    if dh == 576:
+        assert (bf.dq.tile, bf.dq.stages, bf.dq.smem_bytes) == (16, 2, 222248)
+    if dh == 960:
+        assert bf.dq.chunked and bf.dkv.chunked and bf.dq.tile == 32
+        assert bf.dq.smem_bytes == 1024 + 4 * 2 * (64 + 32) * 128 + 8 * 9
+        assert (f32.dq.tile, f32.dq.stages, f32.dkv.outs) == (8, 1, 1)
+        assert f32.dq.smem_bytes == 186048
+    if dh in (96, 192):
+        assert bf.dq.cols == dh and not bf.dq.chunked
 
 
 @pytest.mark.parametrize("cfg,want", [("sd_v1", {40, 80, 160}), ("sd_v2_1", {64})])
@@ -609,6 +651,9 @@ def _cu_constant(source: str, name: str) -> int:
     ("attention_bwd.cu", "F32_ROWS", attention_bwd_plan(64, torch.float32).dq.rows),
     ("attention_bwd.cu", "F32_SLICE", attention_mod.F32_SLICE),
     ("attention_bwd.cu", "F32_THREADS", attention_mod.F32_THREADS),
+    ("attention_bwd.cu", "F32_REG_BUDGET", attention_bwd_plan(64, torch.float32).dq.reg_budget),
+    ("attention_bwd.cu", "WIDE_DV", attention_bwd_plan(960).dq.cols),
+    ("attention_bwd.cu", "BF16_CHUNK_STAGES", attention_bwd_plan(960).dq.stages),
     ("attention.cu", "F32_ROWS", attention_plan(256, torch.float32).block_q),
     ("attention.cu", "F32_THREADS", attention_mod.F32_THREADS),
     ("attention.cu", "F32_SLICE", attention_mod.F32_SLICE),
