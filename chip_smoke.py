@@ -189,6 +189,42 @@ and nothing of JAX. Phases, each fatal on failure:
    (v target, CFG dropout, a small KL-VAE's encode), card against CPU as
    path H's; a
    restarted small `train_latent` run against an uninterrupted one;
+7e. paths J-N, the rest of the sampling surface, at full width with seeded
+   random weights, steps cut (`sampling_surface`; each run's launches and
+   routes against its configuration and NFE, its wall logged): J,
+   `samplers.get_pc_sampler` on `score_sde_cifar10_ve_ncsnpp_continuous`
+   (reverse diffusion + Langevin at snr 0.16, the config's fields; b64,
+   bf16, N cut from 1,000 to J_STEPS; NFE 2N); J', annealed Langevin on
+   `score_sde_cifar10_ve_ncsnv2` (NCSNv2 cifar10, fp32 on F.conv2d: no
+   kernel launches; J2_SCALES of the 232-scale ladder, 5 steps each, b64),
+   then J2_TRAIN_STEPS steps of `run_lib.train` on that config (finite
+   losses); K, `controllable` inpaint (one seeded rectangle a mask: the
+   known pixels kept), colorize (the luma kept, within 1e-5 of max|x|: it
+   is read back through the fp32 basis change) and the class-conditional
+   sampler (the WRN-28-10 gradient by autograd at every NFE) on J's
+   network, b16, N cut to K_STEPS; L, DDIM (eta 0 and 1) and PLMS at
+   L_STEPS and ancestral DDPM cut to L_DDPM_STEPS on path A's DDPM UNet,
+   b64, bf16 (launches exact per NFE; PLMS one NFE more); M,
+   `CascadePipeline` 64 -> 256 (base `ADMConfig.imagenet64_iddpm()`,
+   DPM-Solver++ 2M; the upsampler from guided-diffusion's
+   64_256_upsampler.pt flags, 4 heads, SDE-DPM-Solver++ 2M at aug_level M_AUG;
+   M_STEPS each, b4, graphed: the first call counts each stage twice and
+   captures twice, a repeat call replays); N, `knn2img` on
+   `load_sd_checkpoint(preset="rdm_768")` (a state dict synthesised on the
+   card) with `FrozenCLIPTextJointEmbedder` at ViT-L/14's text width and a
+   `Searcher` over a seeded N_DB x 768 fp32 database on the card (4
+   prompts, k N_K, 768 px, CFG N_SCALE, N_STEPS steps, graphed): the top-k
+   indices against a float64 NumPy top-k on the host wherever the scores
+   are more than 1e-5 apart, the search's time logged. Then each path in
+   fp32 at small width, batch and steps, the same explicit noise on both
+   sides, card against CPU within SLICE_BOUND of max|x| (K's classifier
+   gradient: WRN-28-1 in fp32 and WRN-28-10 in float64; N's neighbours
+   equal). Forward pre-hooks on the networks' modules record the spec of
+   every conv3x3, attention, LayerNorm->Linear and GEGLU launch of the
+   counted runs (`record_kernel_specs`; they must account for every
+   launch), and each kernel is then held against its plain version at
+   each of those specs in bf16, the paths' dtype, within the phase-3
+   bounds; the fused update at M's and N's solver states, both dtypes;
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
@@ -221,7 +257,8 @@ and nothing of JAX. Phases, each fatal on failure:
 
 Paths H and I print their steps' walls, images/s, peak memory, losses and
 grad norms, the card-vs-CPU step checks and the restart checks as one JSON
-line (`{"training": ...}`) before the kernels' record.
+line (`{"training": ...}`) before the kernels' record; paths J-N their
+walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -245,6 +282,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -351,6 +389,25 @@ TRAIN_SEED = 13
 H_STEPS, H_RESTART_STEPS, H_RESUME_AT, H_DDPM_STEPS = 6, 3, 2, 4
 I_SD_BATCH, I_SD_STEPS, I_CIN_BATCH, I_CIN_STEPS, I_REMAT_STEPS = 4, 4, 8, 4, 2
 CHECK_LR = 2e-4
+# paths J-N (phase 7e), at full width with steps cut (PERF.md section 4):
+# J, PC sampling on NCSN++ VE (N cut from 1,000; NFE 2N) at score_sde's VE
+# sampling eps; J', ALD on NCSNv2 (J2_SCALES of the 232-scale ladder, the
+# config's 5 steps a scale) and J2_TRAIN_STEPS steps of run_lib.train; K,
+# inpaint, colorize and the class-conditional sampler (N cut to K_STEPS);
+# L, DDIM and PLMS at L_STEPS, ancestral DDPM cut to L_DDPM_STEPS; M, the
+# 64 -> 256 cascade, M_STEPS each stage, the upsampler built from
+# guided-diffusion's README flags for 64_256_upsampler.pt (`--num_heads 4`:
+# heads of 96 at 32x32, of 192 at 16x16 and 8x8); N, knn2img on
+# rdm_768 over an N_DB-row database
+J_BATCH, J_STEPS, J2_SCALES, J2_TRAIN_STEPS, VE_EPS = 64, 100, 20, 2, 1e-5
+K_BATCH, K_STEPS = 16, 30
+L_BATCH, L_STEPS, L_DDPM_STEPS = 64, 10, 100
+M_BATCH, M_STEPS, M_AUG = 4, 10, 0.25
+M_UPSAMPLER = dict(image_size=256, in_channels=6, model_channels=192, out_channels=6,
+                   num_res_blocks=2, attention_resolutions=(8, 16, 32),
+                   channel_mult=(1, 1, 2, 2, 4, 4), num_classes=1000, num_heads=4,
+                   use_scale_shift_norm=True, resblock_updown=True)
+N_DB, N_K, N_STEPS, N_SIZE, N_SCALE = 1_000_000, 10, 10, 768, 5.0
 # fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
 # relative to max|x|: the same kernels on the same inputs
 GRAPH_BOUND = 1e-6
@@ -399,6 +456,9 @@ NO_PATH = ("fused_bias_act", "fused_bias_act_bwd", "attention_out_fused")
 # kernels that no one library call computes: timed beside the bf16
 # composition of library calls, and beside their "wmma" route (the fused WMMA kernel)
 COMPOSED = ("ln_linear", "geglu_ff")
+# the kernels whose specs paths J-N record from their modules' inputs
+# (record_kernel_specs), each spec then checked in bf16 against its plain version
+HOOKED = ("conv3x3", "token_attention", "ln_linear", "geglu_ff")
 
 
 def fail(msg: str) -> None:
@@ -835,23 +895,39 @@ def inpaint_masks(b: int, size: int, seed: int):
     return mask
 
 
-def write_clip_text_dir(directory: Path, seed: int) -> Path:
+def write_clip_text_dir(directory: Path, seed: int, joint: bool = False) -> Path:
     """An HF-format CLIP text directory at ViT-L/14's text width (12 layers,
     768 wide, 12 heads, vocab 49,408, 77 positions): config.json, seeded
     random weights as pytorch_model.bin under transformers' names, and a
-    synthetic vocab.json and merges.txt (no pretrained CLIP is in the repo)."""
+    synthetic vocab.json and merges.txt (no pretrained CLIP is in the repo).
+    `joint`: a CLIPModel (the joint space, 768 wide, for
+    `FrozenCLIPTextJointEmbedder`) of that text tower and a one-layer
+    64-wide vision tower, which the text features never run."""
     import torch
 
     from dpm_solver_tpu_torch.models import init_random_
-    from dpm_solver_tpu_torch.models.clip import CLIPTextModel, CLIPTowerConfig
+    from dpm_solver_tpu_torch.models.clip import CLIPModel, CLIPTextModel, CLIPTowerConfig
     from dpm_solver_tpu_torch.models.clip_tokenizer import write_synthetic_vocab
 
     cfg = CLIPTowerConfig.vit_l14_text()
     write_synthetic_vocab(directory)
-    (directory / "config.json").write_text(json.dumps(dict(
-        dataclasses.asdict(cfg), architectures=["CLIPTextModel"], model_type="clip_text_model",
-        bos_token_id=49406, pad_token_id=1)))
-    model = init_random_(CLIPTextModel(cfg), torch.Generator().manual_seed(seed))
+    text = dict(dataclasses.asdict(cfg), bos_token_id=49406, pad_token_id=1)
+    if joint:
+        vision = CLIPTowerConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=1,
+                                 num_attention_heads=2)
+        config = dict(architectures=["CLIPModel"], model_type="clip", projection_dim=768,
+                      text_config=text, vision_config=dataclasses.asdict(vision))
+        model = CLIPModel(cfg, vision, 768)
+        parts = (model.text_model, model.vision_model, model.text_projection,
+                 model.visual_projection)   # the scalar logit_scale keeps its init
+    else:
+        config = dict(text, architectures=["CLIPTextModel"], model_type="clip_text_model")
+        model = CLIPTextModel(cfg)
+        parts = (model,)
+    (directory / "config.json").write_text(json.dumps(config))
+    g = torch.Generator().manual_seed(seed)
+    for part in parts:
+        init_random_(part, g)
     torch.save(model.state_dict(), directory / "pytorch_model.bin")
     return directory
 
@@ -889,17 +965,22 @@ def ncsnpp_launches(cfg) -> Counter:
     return Counter({"conv3x3": 2 * resblocks + up_convs, "token_attention": attn})
 
 
-def plan_launches(cfg, plan) -> dict:
-    """Kernel launches of one sample call of `plan` over an NCSNpp of `cfg`:
-    per model evaluation one forward, per row of the plan one fused update."""
-    evals = plan.n_nfe + plan.denoise_final
+def plan_rows(plan) -> int:
+    """The fused updates of one sample call of `plan`: one a row."""
     rows = sum(g.n_seg * len(g.eval_after) for g in plan.seg_scans)
     for tab in (plan.scan_rows, plan.tail_rows):
         rows += 0 if tab is None else tab.n_ops
     if plan.scan_rows is not None and plan.scan_rows.b_corr is not None:
         rows += plan.scan_rows.n_ops
+    return rows
+
+
+def plan_launches(cfg, plan) -> dict:
+    """Kernel launches of one sample call of `plan` over an NCSNpp of `cfg`:
+    per model evaluation one forward, per row of the plan one fused update."""
+    evals = plan.n_nfe + plan.denoise_final
     out = {name: evals * n for name, n in ncsnpp_launches(cfg).items()}
-    out["fused_update"] = rows
+    out["fused_update"] = plan_rows(plan)
     return {name: out.get(name, 0) for name in REPLACES}
 
 
@@ -1045,6 +1126,75 @@ def record_sd_calls(unet, vae, run, encoder: bool = False) -> tuple:
     return (calls["unet"], calls["vae"]) + ((calls["encoder"],) if encoder else ())
 
 
+def record_kernel_specs(nets, run, specs: Counter):
+    """run(), adding to `specs` one per launch of the kernels that the
+    modules of `nets` make, keyed by (kernel, spec) as read from the
+    modules' inputs by forward pre-hooks: conv3x3 (b, h, w, c, co);
+    token_attention (b, t, s, heads, dh, q/k/v as column slices of one
+    fused projection); ln_linear (m, d, n); geglu_ff (m, d, inner).
+    Returns run()'s result."""
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models.adm_unet import ADMAttention
+    from dpm_solver_tpu_torch.models.ddpm_unet import AttnBlock
+    from dpm_solver_tpu_torch.models.ncsnpp import SelfAttention2D
+    from dpm_solver_tpu_torch.models.transformer import CrossAttention, GEGLUFeedForward
+    from dpm_solver_tpu_torch.models.vae import VAEAttnBlock
+
+    def pre(mod, args, kwargs):
+        x = args[0]
+        if isinstance(mod, ops.Conv3x3):
+            specs["conv3x3", (*x.shape, mod.weight.shape[0])] += 1
+        elif isinstance(mod, CrossAttention):
+            b, t, d = x.shape
+            ctx = kwargs.get("context")
+            s = t if ctx is None else ctx.shape[1]
+            inner = mod.heads * mod.dim_head
+            specs["token_attention", (b, t, s, mod.heads, mod.dim_head, ctx is None)] += 1
+            specs["ln_linear", (b * t, d, 3 * inner if ctx is None else inner)] += 1
+        elif isinstance(mod, GEGLUFeedForward):
+            b, t, d = x.shape
+            specs["geglu_ff", (b * t, d, mod.net[2].weight.shape[1])] += 1
+        else:   # one head over the map's pixels, or ADM's heads
+            b, h, w, c = x.shape
+            heads = getattr(mod, "num_heads", 1)
+            # q/k/v: column slices of one projection, but for the separate
+            # 1x1 convs of AttnBlock and the head-major copies of ADM's
+            # legacy order
+            fused = mod.new_order if isinstance(mod, ADMAttention) else not isinstance(
+                mod, AttnBlock)
+            specs["token_attention", (b, h * w, h * w, heads, c // heads, fused)] += 1
+
+    kinds = (ops.Conv3x3, CrossAttention, GEGLUFeedForward, ADMAttention, AttnBlock,
+             SelfAttention2D, VAEAttnBlock)
+    handles = [m.register_forward_pre_hook(pre, with_kwargs=True)
+               for net in nets for m in net.modules() if isinstance(m, kinds)]
+    try:
+        return run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def step_metrics():
+    """The training loops' per-step log lines, (step, loss, grad norm), in
+    the list it yields, for as long as the block runs."""
+    records = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("step %d loss"):
+                records.append(record.args)
+
+    handler, run_log = Handler(), logging.getLogger("dpm_solver_tpu_torch")
+    run_log.addHandler(handler)
+    run_log.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        run_log.removeHandler(handler)
+
+
 def span_hooks(spans: dict, where: str) -> tuple:
     """Forward pre- and post-hooks that record a CUDA event pair per call
     into spans[where]."""
@@ -1060,6 +1210,572 @@ def span_hooks(spans: dict, where: str) -> tuple:
         ev.record()
         spans[where][-1].append(ev)
     return pre, post
+
+
+# --------------------------------------------------------------------------- #
+# paths J-N: the rest of the sampling surface
+# --------------------------------------------------------------------------- #
+
+
+def counted(fn, box: list):
+    """fn, adding one to box[0] at each call (a sampler's network evaluations)."""
+    def call(*args, **kwargs):
+        box[0] += 1
+        return fn(*args, **kwargs)
+    return call
+
+
+def per_forward(forward: Counter, nfe: int, rows: int = 0) -> dict:
+    """The launches of nfe network forwards of `forward` and `rows` fused updates."""
+    out = {name: nfe * forward.get(name, 0) for name in REPLACES}
+    out["fused_update"] += rows
+    return out
+
+
+def summed(dicts) -> dict:
+    """Launch counts (or launches by route) of several runs, added."""
+    dicts = list(dicts)
+    out = {}
+    for name in dicts[0]:
+        if isinstance(dicts[0][name], dict):
+            out[name] = dict(sum((Counter(d[name]) for d in dicts), Counter()))
+        else:
+            out[name] = sum(d[name] for d in dicts)
+    return out
+
+
+def narrow_convs(*nets) -> int:
+    """The Conv3x3 modules of `nets` whose C or CO is not a multiple of 8 (the
+    bf16 conv's "narrow" route)."""
+    from dpm_solver_tpu_torch import ops
+
+    return sum(1 for net in nets for m in net.modules() if isinstance(m, ops.Conv3x3)
+               and (m.weight.shape[0] % 8 or m.weight.shape[1] % 8))
+
+
+def host_top_k_agrees(db, q: "np.ndarray", got: "np.ndarray", k: int, gap: float) -> tuple:
+    """The exact top-k of the normalised queries `q` against the normalised
+    rows of `db` (a tensor on the card, read to the host in chunks), by a
+    float64 NumPy product; `got` (Q, k) agrees where the scores are apart:
+    a position whose score is more than `gap` from both neighbours holds the
+    host's index, and where the k-th and (k+1)-th scores differ by more than
+    `gap` the two sets are equal. Returns (positions compared, sets
+    compared, mismatches)."""
+    import numpy as np
+
+    q = q.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scores = np.empty((q.shape[0], db.shape[0]))
+    for i in range(0, db.shape[0], 100_000):
+        rows = db[i:i + 100_000].cpu().numpy().astype(np.float64)
+        rows /= np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), 1e-12)
+        scores[:, i:i + 100_000] = q @ rows.T
+    positions = sets = bad = 0
+    for row, want_scores, mine in zip(range(q.shape[0]), scores, got):
+        top = np.argpartition(-want_scores, k + 1)[:k + 1]
+        top = top[np.argsort(-want_scores[top])]
+        s = want_scores[top]
+        for j in range(k):
+            left = s[j - 1] - s[j] if j else np.inf
+            if left > gap and s[j] - s[j + 1] > gap:
+                positions += 1
+                bad += int(mine[j] != top[j])
+        if s[k - 1] - s[k] > gap:
+            sets += 1
+            bad += int(set(mine.tolist()) != set(top[:k].tolist()))
+    return positions, sets, bad
+
+
+def sampling_surface(dev, smi: str) -> dict:
+    """Paths J-N (phase 7e): full width, seeded random weights, steps cut
+    (PERF.md section 4). Each run's launches (and by route) against what
+    its configuration and NFE imply; then each path in fp32 at small width,
+    batch and steps, the same explicit noise on both sides, the card
+    (kernels) against the CPU (plain) within SLICE_BOUND of max|x|.
+    Returns each path's launches, routes and walls, the (kernel, spec)
+    pairs of its launches (`specs`) and the solver states of its fused
+    updates (`updates`), for main to check each kernel there."""
+    import numpy as np
+    import torch
+
+    import dpm_solver_tpu_torch as P
+    from dpm_solver_tpu_torch import configs as port_configs
+    from dpm_solver_tpu_torch import ops, run_lib
+    from dpm_solver_tpu_torch.controllable import (decouple, get_pc_colorizer,
+                                                   get_pc_conditional_sampler, get_pc_inpainter)
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
+                                             DDPMUNetConfig, FrozenCLIPTextJointEmbedder, NCSNpp,
+                                             NCSNppConfig, VAEConfig, WideResNetClassifier,
+                                             init_random_, super_res_inputs)
+    from dpm_solver_tpu_torch.models.wideresnet import get_classifier_grad_fn, get_logit_fn
+    from dpm_solver_tpu_torch.pipelines import (CascadePipeline, CascadeStage, LatentDiffusion,
+                                                Searcher, knn2img, load_sd_checkpoint)
+    from dpm_solver_tpu_torch.samplers import (ddim_sampler, ddpm_ancestral_sampler,
+                                               get_pc_sampler, pc_draws, plms_sampler)
+    from dpm_solver_tpu_torch.score import get_score_fn
+    from dpm_solver_tpu_torch.sde import VESDE
+    from dpm_solver_tpu_torch.solver.sample import make_plan
+
+    bf16 = torch.bfloat16
+    launches, routes, walls = {}, {}, {}
+    specs = Counter()   # (kernel, spec) -> launches, over the counted runs
+    cpu = torch.device("cpu")
+    places = {"cuda": dev, "cpu": cpu}   # the card (kernels), the CPU (plain)
+
+    def gen(seed, where=dev):
+        return torch.Generator(device=where).manual_seed(seed)
+
+    def run(what, call, expected, narrow=0, captures=None, nets=()):
+        """One counted call: launches (and by route) against `expected`, and
+        the CUDA-graph captures it makes against `captures` (None: not
+        checked). The specs of the launches that the modules of `nets` make
+        are recorded into `specs` (record_kernel_specs), and must account
+        for every launch of the kernels HOOKED. Returns (result, launches,
+        routes, wall s)."""
+        ops.reset_launch_counts()
+        made, seen = P.GraphedSampler.captures, Counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = record_kernel_specs(nets, call, seen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, by_route = ops.launch_counts(), ops.launch_routes()
+        made = P.GraphedSampler.captures - made
+        log(f"  {what}: {wall:.2f} s on {smi}; launches {got} (expected {expected})"
+            + ("" if captures is None else f", {made} capture(s) (expected {captures})"))
+        if got != expected or (captures is not None and made != captures):
+            fail(f"{what}: launches {got} != {expected}, or {made} captures")
+        check_routes(what, got, by_route, narrow_convs=narrow)
+        for name in HOOKED:
+            n = sum(k for (kernel, _), k in seen.items() if kernel == name)
+            if n != got[name]:
+                fail(f"{what}: the hooks recorded {n} {name} launches of its {got[name]}")
+        specs.update(seen)
+        return out, got, by_route, wall
+
+    def finite(what, x, shape):
+        if tuple(x.shape) != tuple(shape) or not torch.isfinite(x).all():
+            fail(f"{what}: {tuple(x.shape)} is not finite of shape {tuple(shape)}")
+        log(f"    {what}: {tuple(x.shape)} finite, max|x| {x.abs().max().item():.4g}")
+
+    def card_vs_cpu(what, results, bound=SLICE_BOUND):
+        """results: {"cuda": tensor, "cpu": tensor}."""
+        d, r = rel_err(results["cuda"].cpu(), results["cpu"])
+        ok = r <= bound and bool(torch.isfinite(results["cuda"]).all())
+        log(f"  {what}, kernels (card) vs plain (cpu): max|d| {d:.3e}, /max|x| {r:.3e} "
+            f"(bound {bound:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what}: the card disagrees with the plain path on the CPU")
+
+    def twins(build, seed):
+        """`build(device)` on the card and on the CPU, fp32, frozen, with the
+        same random weights (`init_random_` from `seed`)."""
+        state = init_random_(build(cpu), gen(seed, cpu)).state_dict()
+        out = {}
+        for key, where in places.items():
+            net = build(where)
+            net.load_state_dict(state)
+            out[key] = net.eval().requires_grad_(False)
+        return out
+
+    def each(nets, fn):
+        """fn(net, device) for the card's and the CPU's twin."""
+        return {key: fn(net, places[key]) for key, net in nets.items()}
+
+    tiny_ve = NCSNppConfig.tiny(fir=True, progressive_input="residual", embedding_type="fourier",
+                                num_res_blocks=1)
+    tiny_ve_nets = twins(lambda where: NCSNpp(tiny_ve, device=where), 41)
+
+    # ---- J: PC sampling on NCSN++ VE (score_sde_cifar10_ve_ncsnpp_continuous) --
+    t_path = time.perf_counter()
+    cfg_j = port_configs.get_config("score_sde_cifar10_ve_ncsnpp_continuous")
+    sde_full = run_lib._make_sde(cfg_j)
+    sde_j = dataclasses.replace(sde_full, N=J_STEPS)
+    net_j = init_random_(NCSNpp(cfg_j.model_config, compute_dtype=bf16, device=dev),
+                         gen(42)).eval().requires_grad_(False)
+    fwd_j = ncsnpp_launches(cfg_j.model_config)
+    s = cfg_j.sampling
+    pc_kw = dict(predictor=s.predictor, corrector=s.corrector, snr=s.snr,
+                 n_corrector_steps=s.n_steps_each, eps=VE_EPS)
+    nfe = [0]
+    pc = get_pc_sampler(sde_j, get_score_fn(sde_j, counted(net_j, nfe), continuous=True), **pc_kw)
+    side = cfg_j.data.image_size
+    g = gen(43)
+    x_T = sde_j.prior_sampling((J_BATCH, side, side, 3), generator=g)
+    log(f"path J: PC sampling ({s.predictor} + {s.corrector}, snr {s.snr}), NCSN++ VE "
+        f"continuous ({sum(p.numel() for p in net_j.parameters()) / 1e6:.2f}M params, bf16), "
+        f"b{J_BATCH}, N cut from {sde_full.N} to {J_STEPS}, eps {VE_EPS:g}")
+    (x0, nfe_j), launches["j"], routes["j"], walls["j"] = run(
+        "path J", lambda: pc(x_T, generator=g), per_forward(fwd_j, 2 * J_STEPS),
+        nets=[net_j])
+    if not nfe[0] == nfe_j == 2 * J_STEPS:
+        fail(f"path J: {nfe[0]} network evaluations, the sampler says {nfe_j}, not {2 * J_STEPS}")
+    finite("path J samples", x0, x_T.shape)
+    sde_t = VESDE(N=4)
+    noise = torch.randn((pc_draws(sde_t, s.predictor, s.corrector, 1), 2, 16, 16, 3),
+                        generator=gen(44, cpu))
+    xt = sde_t.prior_sampling((2, 16, 16, 3), generator=gen(45, cpu))
+    card_vs_cpu("path J (fp32, tiny VE NCSN++, b2, N 4)", each(tiny_ve_nets, lambda net, where: (
+        get_pc_sampler(sde_t, get_score_fn(sde_t, net, continuous=True), **pc_kw)(
+            xt.to(where), noise=noise.to(where))[0])))
+    log(f"path J done in {time.perf_counter() - t_path:.1f} s")
+
+    # ---- J': annealed Langevin on NCSNv2 (score_sde_cifar10_ve_ncsnv2) ---------
+    t_path = time.perf_counter()
+    cfg_v = port_configs.get_config("score_sde_cifar10_ve_ncsnv2")
+    net_v, init_v = run_lib.build_model(cfg_v, device=dev)
+    init_v(gen(46))
+    sde_v = run_lib._make_sde(cfg_v)
+    sde_vc = dataclasses.replace(sde_v, N=J2_SCALES)
+    sv = cfg_v.sampling
+    nfe = [0]
+    # the labels index the config's ladder of sde_v.N scales; the loop visits
+    # J2_SCALES of them (the grid of sde_vc)
+    score_v = get_score_fn(sde_v, counted(run_lib.score_net_apply(net_v, "ncsnv2"), nfe),
+                           continuous=False)
+    ald = get_pc_sampler(sde_vc, score_v, predictor=sv.predictor, corrector=sv.corrector,
+                         snr=sv.snr, n_corrector_steps=sv.n_steps_each, eps=VE_EPS)
+    g = gen(47)
+    xv = sde_vc.prior_sampling((J_BATCH, side, side, 3), generator=g)
+    log(f"path J': ALD ({sv.predictor} + {sv.corrector}, snr {sv.snr}, {sv.n_steps_each} steps a "
+        f"scale), NCSNv2 cifar10 ({sum(p.numel() for p in net_v.parameters()) / 1e6:.2f}M params, "
+        f"fp32, F.conv2d), b{J_BATCH}, {J2_SCALES} of the {sde_v.N} scales")
+    (xv0, nfe_v), launches["j_ald"], routes["j_ald"], walls["j_ald"] = run(
+        "path J'", lambda: ald(xv, generator=g), {name: 0 for name in REPLACES})
+    if not nfe[0] == nfe_v == J2_SCALES * sv.n_steps_each:
+        fail(f"path J': {nfe[0]} network evaluations, the sampler says {nfe_v}")
+    finite("path J' samples", xv0, xv.shape)
+    # the same NCSNv2 (tiny), card vs CPU
+    from dpm_solver_tpu_torch.models import NCSNv2, NCSNv2Config
+
+    tv = NCSNv2Config.tiny()
+    tv_nets = twins(lambda where: NCSNv2(tv, device=where), 48)
+    sde_tv = VESDE(sigma_max=tv.sigma_max, N=tv.num_scales)
+    sde_tvc = dataclasses.replace(sde_tv, N=4)
+    noise = torch.randn((pc_draws(sde_tvc, "none", "ald", 2), 2, 16, 16, 3),
+                        generator=gen(49, cpu))
+    xt = sde_tvc.prior_sampling((2, 16, 16, 3), generator=gen(50, cpu))
+    card_vs_cpu("path J' (fp32, tiny NCSNv2, b2, 4 scales x 2 steps)", each(
+        tv_nets, lambda net, where: get_pc_sampler(
+            sde_tvc, get_score_fn(sde_tv, run_lib.score_net_apply(net, "ncsnv2"), continuous=False),
+            predictor="none", corrector="ald", snr=sv.snr, n_corrector_steps=2, eps=VE_EPS)(
+            xt.to(where), noise=noise.to(where))[0]))
+    # two steps of run_lib.train on the config (the legacy SMLD loss)
+    batches = [np.random.default_rng(51 + i).uniform(
+        0.0, 1.0, (cfg_v.training.batch_size, side, side, 3)).astype(np.float32)
+        for i in range(J2_TRAIN_STEPS)]
+    workdir = tempfile.mkdtemp(prefix="ncsnv2_train_")
+    try:
+        with torch.enable_grad(), step_metrics() as losses:
+            t0 = time.perf_counter()
+            run_lib.train(dataclasses.replace(cfg_v, workdir=workdir, training=dataclasses.replace(
+                cfg_v.training, log_freq=1)), iter(batches), max_steps=J2_TRAIN_STEPS, device=dev)
+            torch.cuda.synchronize()
+            walls["j_ald_train"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  path J' run_lib.train, b{cfg_v.training.batch_size}, {J2_TRAIN_STEPS} steps: "
+        f"{walls['j_ald_train']:.2f} s; (step, loss, grad norm) {losses}")
+    if len(losses) != J2_TRAIN_STEPS or not all(math.isfinite(v) for m in losses for v in m[1:]):
+        fail(f"path J' training: the steps' loss and grad norm {losses} are not finite")
+    del net_v, tv_nets
+    log(f"path J' done in {time.perf_counter() - t_path:.1f} s")
+
+    # ---- K: controllable generation on NCSN++ VE + WRN-28-10 ---------------------
+    t_path = time.perf_counter()
+    sde_k = dataclasses.replace(sde_full, N=K_STEPS)
+    nfe = [0]
+    score_k = get_score_fn(sde_k, counted(net_j, nfe), continuous=True)
+    wrn = init_random_(WideResNetClassifier(device=dev), gen(52)).eval().requires_grad_(False)
+    with torch.no_grad():   # init_random_ sets a vector to ones: W is a normal(16) draw
+        wrn.fourier.W.copy_(torch.randn(wrn.fourier.W.shape, generator=gen(53), device=dev) * 16)
+    grad_fn = get_classifier_grad_fn(get_logit_fn(wrn))
+
+    def classifier_grad(sde):
+        return lambda x, t, y: grad_fn(x, sde.marginal_prob(torch.zeros_like(x), t)[1], y)
+
+    g = gen(54)
+    data = torch.rand((K_BATCH, side, side, 3), generator=g, device=dev)
+    known = 1.0 - inpaint_masks(K_BATCH, side, 55)[..., None].expand(-1, -1, -1, 3).to(dev)
+    gray = data.mean(dim=-1, keepdim=True).expand(-1, -1, -1, 3).contiguous()
+    labels = torch.from_numpy(np.random.default_rng(56).integers(0, 10, K_BATCH)).to(dev)
+    log(f"path K: controllable generation on path J's NCSN++ VE (bf16) and WRN-28-10 "
+        f"({sum(p.numel() for p in wrn.parameters()) / 1e6:.2f}M params, fp32, frozen), "
+        f"b{K_BATCH}, N cut from {sde_full.N} to {K_STEPS}, reverse diffusion + Langevin")
+    fwd_k = per_forward(fwd_j, 2 * K_STEPS)
+    calls_k = {"inpaint": lambda: get_pc_inpainter(sde_k, score_k)(data, known, generator=g),
+               "colorize": lambda: get_pc_colorizer(sde_k, score_k)(gray, generator=g),
+               "conditional": lambda: get_pc_conditional_sampler(
+                   sde_k, score_k, classifier_grad(sde_k))(data.shape, labels, generator=g)}
+    outs_k, runs_k = {}, []
+    for what, call in calls_k.items():
+        nfe[0] = 0
+        outs_k[what], got, by_route, wall = run(f"path K {what}", call, fwd_k, nets=[net_j])
+        runs_k.append((got, by_route))
+        walls[f"k_{what}"] = wall
+        if nfe[0] != 2 * K_STEPS:
+            fail(f"path K {what}: {nfe[0]} network evaluations, not {2 * K_STEPS}")
+        finite(f"path K {what}", outs_k[what], data.shape)
+    launches["k"], routes["k"] = summed(r[0] for r in runs_k), summed(r[1] for r in runs_k)
+    kept = ((outs_k["inpaint"] - data) * known).abs().max().item()
+    ok = kept <= 1e-5 * data.abs().max().item()
+    log(f"  inpaint keeps the known pixels: max|x - data| there {kept:.3e} (bound 1e-5 of "
+        f"max|data| {data.abs().max().item():.4f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path K: inpainting moved the known pixels")
+    # the luma is pinned in the decoupled space and coupled back: read again,
+    # it carries the fp32 rounding of the basis change at the output's scale
+    luma = (decouple(outs_k["colorize"])[..., 0] - decouple(gray)[..., 0]).abs().max().item()
+    scale = outs_k["colorize"].abs().max().item()
+    ok = luma <= 1e-5 * scale
+    log(f"  colorize keeps the gray image's luma: max|d| {luma:.3e} (bound 1e-5 of max|x| "
+        f"{scale:.4g}; /max|data| {luma / data.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path K: colorization moved the luma")
+    # card vs CPU: the classifier gradient at b2, of WRN-28-1 in fp32 and of
+    # WRN-28-10 in float64: at these random weights WRN-28-10's input
+    # gradient is ill-conditioned in fp32 (logged: its fp32 gradient against
+    # float64 on the CPU, and fp32 card against CPU); then the three tasks on
+    # the tiny VE NCSN++ and a tiny WRN, b2, N 3, fp32
+    xs = torch.rand((2, side, side, 3), generator=gen(57, cpu))
+    sig = torch.tensor([0.05, 20.0])
+
+    def wrn_grad(net, where, dtype):
+        return get_classifier_grad_fn(get_logit_fn(net.to(dtype)))(
+            xs.to(where, dtype), sig.to(where, dtype), labels[:2].to(where))
+
+    card_vs_cpu("path K classifier gradient (WRN-28-1, fp32, b2)", each(
+        twins(lambda where: WideResNetClassifier(4, 1, device=where), 52),
+        lambda net, where: wrn_grad(net, where, torch.float32)))
+    nets = twins(lambda where: WideResNetClassifier(device=where), 52)
+    g32 = each(nets, lambda net, where: wrn_grad(net, where, torch.float32))
+    g64 = each(nets, lambda net, where: wrn_grad(net, where, torch.float64))
+    card_vs_cpu("path K classifier gradient (WRN-28-10, float64, b2)", g64)
+    log(f"  WRN-28-10's fp32 gradient (not held): against float64 on the CPU, /max "
+        f"{rel_err(g32['cpu'].double(), g64['cpu'])[1]:.3e}; card against CPU, /max "
+        f"{rel_err(g32['cuda'].cpu(), g32['cpu'])[1]:.3e}")
+    del nets
+    tiny_wrn = twins(lambda where: WideResNetClassifier(1, 1, device=where), 58)
+    sde_t = VESDE(N=3)
+    from dpm_solver_tpu_torch.controllable import task_draws
+
+    for what in ("inpaint", "colorize", "conditional"):
+        noise = torch.randn((task_draws(sde_t, constrained=what != "conditional"), 2, 16, 16, 3),
+                            generator=gen(59, cpu))
+        small = torch.rand((2, 16, 16, 3), generator=gen(60, cpu))
+        mask = 1.0 - inpaint_masks(2, 16, 61)[..., None].expand(-1, -1, -1, 3)
+        res = {}
+        for key, net in tiny_ve_nets.items():
+            score, where = get_score_fn(sde_t, net, continuous=True), places[key]
+            nz = noise.to(where)
+            if what == "inpaint":
+                res[key] = get_pc_inpainter(sde_t, score)(small.to(where), mask.to(where), noise=nz)
+            elif what == "colorize":
+                res[key] = get_pc_colorizer(sde_t, score)(
+                    small.mean(-1, keepdim=True).expand(-1, -1, -1, 3).to(where), noise=nz)
+            else:
+                gfn = get_classifier_grad_fn(get_logit_fn(tiny_wrn[key]))
+                res[key] = get_pc_conditional_sampler(
+                    sde_t, score, lambda x, t, y: gfn(x, sde_t.marginal_prob(x, t)[1], y))(
+                    small.shape, labels[:2].to(where), noise=nz)
+        card_vs_cpu(f"path K {what} (fp32, tiny VE NCSN++, tiny WRN, b2, N 3)", res)
+    del wrn, net_j
+    log(f"path K done in {time.perf_counter() - t_path:.1f} s")
+
+    # ---- L: DDIM, PLMS and ancestral DDPM on path A's DDPM UNet -----------------
+    t_path = time.perf_counter()
+    cfg_l = DDPMUNetConfig.cifar10()
+    net_l = DDPMUNet(cfg_l, compute_dtype=bf16, device=dev).eval()
+    net_l.load_state_dict(init_random_(DDPMUNet(cfg_l, device="cpu"),
+                                       gen(0, cpu)).state_dict())   # path A's weights
+    ns_l = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    fwd_l = Counter(conv3x3=47, token_attention=6)   # one CIFAR-10 forward (path A)
+    g = gen(62)
+    x_l = torch.randn((L_BATCH, 32, 32, 3), generator=g, device=dev)
+    samplers_l = {"ddim_eta0": (lambda m: ddim_sampler(m, ns_l, steps=L_STEPS, eta=0.0), L_STEPS),
+                  "ddim_eta1": (lambda m: ddim_sampler(m, ns_l, steps=L_STEPS, eta=1.0), L_STEPS),
+                  "plms": (lambda m: plms_sampler(m, ns_l, steps=L_STEPS), L_STEPS + 1),
+                  "ddpm": (lambda m: ddpm_ancestral_sampler(m, ns_l, steps=L_DDPM_STEPS),
+                           L_DDPM_STEPS)}
+    log(f"path L: DDIM (eta 0, 1) and PLMS at {L_STEPS} steps, ancestral DDPM cut from 1,000 to "
+        f"{L_DDPM_STEPS} steps, on path A's CIFAR-10 DDPM UNet (bf16), b{L_BATCH}")
+    runs_l = []
+    for what, (make, n) in samplers_l.items():
+        nfe = [0]
+        out, got, by_route, walls[f"l_{what}"] = run(
+            f"path L {what}", lambda: make(counted(net_l, nfe))(x_l, generator=g),
+            per_forward(fwd_l, n), nets=[net_l])
+        if nfe[0] != n:
+            fail(f"path L {what}: {nfe[0]} network evaluations, not {n}")
+        finite(f"path L {what}", out, x_l.shape)
+        runs_l.append((got, by_route))
+    launches["l"], routes["l"] = summed(r[0] for r in runs_l), summed(r[1] for r in runs_l)
+    tl = DDPMUNetConfig.tiny()
+    tl_nets = twins(lambda where: DDPMUNet(tl, device=where), 63)
+    xt = torch.randn((2, 16, 16, 3), generator=gen(64, cpu))
+    noise = torch.randn((3, 2, 16, 16, 3), generator=gen(65, cpu))
+    for what, make in (("ddim_eta1", lambda m: ddim_sampler(m, ns_l, steps=3, eta=1.0)),
+                       ("plms", lambda m: plms_sampler(m, ns_l, steps=3)),
+                       ("ddpm", lambda m: ddpm_ancestral_sampler(m, ns_l, steps=3))):
+        card_vs_cpu(f"path L {what} (fp32, tiny DDPM UNet, b2, 3 steps)", each(
+            tl_nets, lambda net, where: make(net)(
+                xt.to(where), noise=None if what == "plms" else noise.to(where))))
+    del net_l, tl_nets
+    log(f"path L done in {time.perf_counter() - t_path:.1f} s")
+
+    # ---- M: the 64 -> 256 cascade (ImageNet-64 iDDPM + the 64->256 upsampler) ---
+    t_path = time.perf_counter()
+    base_cfg = ADMConfig.imagenet64_iddpm()
+    up_cfg = ADMConfig(**M_UPSAMPLER)
+    g = gen(66)
+    base = init_random_(ADMUNet(base_cfg, compute_dtype=bf16, device=dev), g).eval()
+    up = init_random_(ADMUNet(up_cfg, compute_dtype=bf16, device=dev), g).eval()
+    base_ns = P.NoiseScheduleVP.discrete(
+        betas=port_configs.DiffusionConfig(beta_schedule="cosine").betas())
+    up_ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    labels_m = torch.from_numpy(np.random.default_rng(67).integers(0, 1000, M_BATCH)).to(dev)
+
+    def cascade(base_net, up_net, steps, base_res=64, up_res=256):
+        """Guided-diffusion's learned-sigma models: the eps half of the output."""
+        return CascadePipeline([
+            CascadeStage(model=lambda x, t, c, low: base_net(x, t)[..., :3],
+                         noise_schedule=base_ns, resolution=base_res, steps=steps, order=2),
+            CascadeStage(model=lambda x, t, c, low: up_net(super_res_inputs(x, low), t, c)[..., :3],
+                         noise_schedule=up_ns, resolution=up_res, steps=steps, order=2,
+                         algorithm_type="sde-dpmsolver++", aug_level=M_AUG)])
+
+    pipe_m = cascade(base, up, M_STEPS)
+    rows = [plan_rows(make_plan(st.noise_schedule, steps=M_STEPS, order=2, method="multistep",
+                                skip_type="time_uniform", t_end=1e-3,
+                                algorithm_type=st.algorithm_type)) for st in pipe_m.stages]
+    sampler_m = summed([per_forward(adm_unet_launches(base_cfg), M_STEPS, rows[0]),
+                        per_forward(adm_unet_launches(up_cfg), M_STEPS, rows[1])])
+    n_base, n_up = (sum(p.numel() for p in net.parameters()) for net in (base, up))
+    log(f"path M: cascade 64 -> 256, base ImageNet-64 iDDPM ({n_base / 1e6:.2f}M params) "
+        f"DPM-Solver++ 2M, upsampler (guided-diffusion's 64_256 flags, {n_up / 1e6:.2f}M params) "
+        f"SDE-DPM-Solver++ 2M, aug_level {M_AUG}, {M_STEPS} steps each, bf16, b{M_BATCH}, graphed")
+    narrow_m = narrow_convs(base, up) * M_STEPS
+    outs_m, launches["m"], routes["m"], walls["m_first"] = run(
+        "path M, first call (warm call + capture, each stage)",
+        lambda: pipe_m.sample(labels_m, batch=M_BATCH, generator=gen(68), return_all_stages=True),
+        {name: 2 * n for name, n in sampler_m.items()}, narrow=2 * narrow_m, captures=2,
+        nets=[base, up])
+    finite("path M base", outs_m[0], (M_BATCH, 64, 64, 3))
+    finite("path M upsampled", outs_m[1], (M_BATCH, 256, 256, 3))
+    again, _, _, walls["m"] = run(
+        "path M, repeat call (replays)",
+        lambda: pipe_m.sample(labels_m, batch=M_BATCH, generator=gen(68), return_all_stages=True),
+        {name: 0 for name in REPLACES}, captures=0, nets=[base, up])
+    d, r = rel_err(again[1], outs_m[1])
+    log(f"    replayed vs first call: max|d| {d:.3e}, /max|x| {r:.3e}")
+    if not r <= GRAPH_BOUND:
+        fail("path M: the replayed cascade disagrees with its first call")
+    del base, up, pipe_m
+    small = dict(model_channels=32, num_res_blocks=1, attention_resolutions=(2,),
+                 channel_mult=(1, 2), num_head_channels=32)
+    tb_cfg = dataclasses.replace(base_cfg, image_size=8, **small)
+    tu_cfg = dataclasses.replace(up_cfg, image_size=16, **small)
+    tb = twins(lambda where: ADMUNet(tb_cfg, device=where), 69)
+    tu = twins(lambda where: ADMUNet(tu_cfg, device=where), 70)
+    draws = [cascade(None, None, 4, 8, 16).stage_noise(i, 2, gen(71, cpu)) for i in range(2)]
+    card_vs_cpu("path M (fp32, tiny two-stage cascade, b2, 4 steps each, the card's graphed)", {
+        key: cascade(tb[key], tu[key], 4, 8, 16).sample(
+            labels_m[:2].to(where), batch=2,
+            noise=[{k: v.to(where) for k, v in d.items()} for d in draws])
+        for key, where in places.items()})
+    log(f"path M done in {time.perf_counter() - t_path:.1f} s")
+
+    # ---- N: knn2img on rdm_768 over a 10^6 x 768 database -----------------------
+    t_path = time.perf_counter()
+    ucfg_n, vcfg_n = ADMConfig.rdm_768(), VAEConfig.rdm_768()
+    gh = gen(72)   # the state dict drawn on the card: 1.3G parameters
+    ckpt = {f"model.diffusion_model.{k}": v for k, v in
+            init_random_(ADMUNet(ucfg_n, device=dev), gh).state_dict().items()}
+    ckpt.update({f"first_stage_model.{k}": v for k, v in
+                 init_random_(AutoencoderKL(vcfg_n, device=dev), gh).state_dict().items()})
+    model_n = load_sd_checkpoint(ckpt, preset="rdm_768", compute_dtype=bf16, device=dev)
+    del ckpt
+    clip_tmp = Path(tempfile.mkdtemp(prefix="clip_joint_"))
+    try:
+        embedder = FrozenCLIPTextJointEmbedder(write_clip_text_dir(clip_tmp, 73, joint=True),
+                                               device=dev)
+    finally:
+        shutil.rmtree(clip_tmp, ignore_errors=True)
+    db = torch.randn((N_DB, ucfg_n.context_dim), generator=gen(74), device=dev)
+    searcher = Searcher({"embedding": db, "img_id": torch.arange(N_DB, device=dev)}, device=dev)
+    torch.cuda.synchronize()
+    n_unet, n_vae = (sum(p.numel() for p in net.parameters())
+                     for net in (model_n.unet, model_n.vae))
+    log(f"path N: knn2img on rdm_768 (UNet {n_unet / 1e6:.2f}M params, KL-f16 "
+        f"{n_vae / 1e6:.2f}M, bf16, "
+        f"load_sd_checkpoint on a synthesised state dict), FrozenCLIPTextJointEmbedder at "
+        f"ViT-L/14's text width, a seeded {N_DB} x {ucfg_n.context_dim} fp32 database "
+        f"({db.numel() * 4 / 1e9:.2f} GB on the card), {len(SD_PROMPTS)} prompts, k {N_K}, "
+        f"{N_SIZE} px, CFG {N_SCALE}, {N_STEPS} steps, graphed")
+    sampler_nl = per_forward(adm_unet_launches(ucfg_n), N_STEPS, N_STEPS)
+    decode_n = per_forward(vae_decoder_launches(vcfg_n), 1)
+    narrow_n = narrow_convs(model_n.vae.decoder)
+
+    def knn_call():
+        return knn2img(model_n, SD_PROMPTS, text_embedder=embedder, searcher=searcher, knn=N_K,
+                       steps=N_STEPS, guidance_scale=N_SCALE, height=N_SIZE, width=N_SIZE,
+                       generator=gen(75), return_nn_info=True)
+
+    (img_n, info), launches["n"], routes["n"], walls["n_first"] = run(
+        "path N, first call (warm call + capture)", knn_call,
+        {name: 2 * sampler_nl[name] + decode_n[name] for name in REPLACES}, narrow=narrow_n,
+        captures=1, nets=[model_n.unet, model_n.vae])
+    finite("path N images", img_n, (len(SD_PROMPTS), N_SIZE, N_SIZE, 3))
+    (img_n2, _), _, _, walls["n"] = run("path N, repeat call (replay)", knn_call, decode_n,
+                                        narrow=narrow_n, captures=0,
+                                        nets=[model_n.unet, model_n.vae])
+    d, r = rel_err(img_n2, img_n)
+    log(f"    replayed vs first call: max|d| {d:.3e}, /max|x| {r:.3e}")
+    if not r <= GRAPH_BOUND:
+        fail("path N: the replayed knn2img disagrees with its first call")
+    times = [searcher.search(info["q_embeddings"], N_K)["exec_time"] for _ in range(5)]
+    walls["n_search_s"] = statistics.median(times)
+    log(f"  Searcher.search over {N_DB} rows, {len(SD_PROMPTS)} queries, k {N_K} on {smi}: median "
+        f"{walls['n_search_s'] * 1e3:.3f} ms of 5 (all {[round(t * 1e3, 3) for t in times]}; "
+        f"the first, in knn2img: {info['exec_time'] * 1e3:.3f} ms), host clock, product, top-k "
+        f"and the read of the indices")
+    t0 = time.perf_counter()
+    positions, sets, bad = host_top_k_agrees(db, info["queries"], info["nns"], N_K, 1e-5)
+    log(f"  top-{N_K} indices vs a float64 NumPy top-k on the host ({time.perf_counter() - t0:.1f}"
+        f" s): {positions} positions and {sets} sets whose scores are more than 1e-5 apart, "
+        f"{bad} mismatches")
+    if bad or not positions:
+        fail(f"path N: the card's top-k disagrees with the host's ({bad} mismatches)")
+    del searcher, db, model_n
+    gc.collect()   # the model and the sampler knn2img keeps on it hold each other
+    torch.cuda.empty_cache()
+    # a tiny RDM-shaped LDM in fp32, card vs CPU: the images and the neighbours
+    z = 6
+    tu_n = ADMConfig(image_size=8, in_channels=z, model_channels=32, out_channels=z,
+                     num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     num_heads=1, use_spatial_transformer=True, transformer_depth=1,
+                     context_dim=16)
+    tv_n = VAEConfig.tiny(resolution=16, attn_resolutions=(), z_channels=z, embed_dim=z)
+    tun = twins(lambda where: ADMUNet(tu_n, device=where), 76)
+    tvn = twins(lambda where: AutoencoderKL(tv_n, device=where), 77)
+    small_db = {"embedding": np.random.default_rng(78).standard_normal((64, 16)).astype(np.float32)}
+    ctx = np.random.default_rng(79).standard_normal((2, 1, 16)).astype(np.float32)
+    xt = torch.randn((2, 8, 8, z), generator=gen(80, cpu))
+    res, nns = {}, {}
+    for key, where in places.items():
+        res[key], info = knn2img(
+            LatentDiffusion(tun[key], tvn[key]), ["a", "b"], text_embedder=lambda p: ctx,
+            searcher=Searcher(small_db, device=where), knn=4, steps=4, guidance_scale=N_SCALE,
+            height=16, width=16, x_T=xt.to(where), return_nn_info=True)
+        nns[key] = info["nns"]
+    if not np.array_equal(nns["cuda"], nns["cpu"]):
+        fail("path N: the card's and the CPU's Searcher pick different neighbours")
+    card_vs_cpu("path N (fp32, tiny RDM knn2img, b2, 4 steps, k 4)", res)
+    log(f"path N done in {time.perf_counter() - t_path:.1f} s")
+    f = 2 ** (len(vcfg_n.ch_mult) - 1)
+    updates = [(M_BATCH, 64, 64, 3), (M_BATCH, 256, 256, 3),
+               (len(SD_PROMPTS), N_SIZE // f, N_SIZE // f, vcfg_n.z_channels)]
+    return dict(launches=launches, routes=routes, walls=walls, specs=specs, updates=updates)
 
 
 def main() -> int:
@@ -1227,6 +1943,20 @@ def main() -> int:
                    twice("conv3x3_dx", spec, dt, lambda: ops.conv3x3_dx(g_out, wt)),
                    want.permute(0, 2, 3, 1), BOUND[str(dt)[6:]])
 
+    def check_attention(spec, dt):
+        """token_attention at `spec` (b, t, s, heads, dh, q/k/v as column
+        slices of one fused projection) against the plain version within BOUND."""
+        b, t, s, heads, dh, fused = spec
+        inner = heads * dh
+        if fused:
+            q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
+        else:
+            q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
+        report("token_attention", (b, t, s, heads, dh) + (("qkv",) if fused else ()), dt,
+               ops.token_attention(q, k, v, num_heads=heads),
+               ops.attention_plain(q.float(), k.float(), v.float(), num_heads=heads),
+               BOUND[str(dt)[6:]])
+
     def check_attention_bwd(spec, dt, bound):
         """attention_lse at `spec` (b, t, s, heads, dh, qkv slices; "odd": q,
         k, v each one element into a wider row): its o and lse against the
@@ -1307,16 +2037,7 @@ def main() -> int:
             # the guided UNet at 32x32, 16x16 and 8x8
             (8, 1024, 1024, 8, 64, False), (8, 256, 256, 16, 64, False), (8, 64, 64, 16, 64, False)]:
         for dt in (torch.float32, torch.bfloat16):
-            inner = heads * dh
-            if fused:
-                q, k, v = randn(b, t, 3 * inner).to(dt).split(inner, dim=-1)
-            else:
-                q, k, v = (randn(b, n, inner).to(dt) for n in (t, s, s))
-            report("token_attention", (b, t, s, heads, dh) + (("qkv",) if fused else ()), dt,
-                   ops.token_attention(q, k, v, num_heads=heads),
-                   ops.attention_plain(q.float(), k.float(), v.float(), num_heads=heads),
-                   BOUND[str(dt)[6:]])
-            del q, k, v
+            check_attention((b, t, s, heads, dh, fused), dt)
     def routed(fn, call):
         """call(); the route `fn` counted it under."""
         before = Counter(fn.launches_by_route)
@@ -1379,9 +2100,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     coef = randn(4, 8)
-    # paths A-D's sizes (C's takes 3 blocks a program, D's 2: one wave) and a ragged one
-    for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4),
-                  (GUIDED_BATCH, GUIDED_SIZE, GUIDED_SIZE, 3), (SCORE_BATCH, 32, 32, 3)]:
+
+    def check_fused(shape):
+        """fused_update on a state of `shape`, both dtypes, with and without
+        the SDE noise term, against the plain version within FUSED_BOUND."""
         for dt in (torch.float32, torch.bfloat16):
             xs = [randn(*shape).to(dt) for _ in range(5)]
             for z in (None, xs[4]):
@@ -1390,6 +2112,11 @@ def main() -> int:
                        ops.fused_update_plain(coef, 2, *[u.float() for u in xs[:4]],
                                               None if z is None else z.float()),
                        FUSED_BOUND[str(dt)[6:]])
+
+    # paths A-D's sizes (C's takes 3 blocks a program, D's 2: one wave) and a ragged one
+    for shape in [(BATCH, 32, 32, 3), (1000,), (4, 96, 96, 4),
+                  (GUIDED_BATCH, GUIDED_SIZE, GUIDED_SIZE, 3), (SCORE_BATCH, 32, 32, 3)]:
+        check_fused(shape)
     # LayerNorm -> Linear and GEGLU at every transformer site of SD-2.1 at
     # 768 px (CFG b8) and SD-1 at 512 px (CFG b2): (m, d) = (batch * tokens,
     # width); M not a multiple of the row tiles; tiny, and ragged (d % 8 != 0:
@@ -1445,45 +2172,52 @@ def main() -> int:
         del x, g_out, got, got_dx, want
     torch.cuda.empty_cache()
 
+    def check_ln_linear(m, d, n, dt, bias):
+        """ln_linear at (m, d, n) on its plan's route (and, where that is
+        "wgmma" and the row tile fits, on "wmma" too) against the plain version."""
+        x, w = randn(m, d).to(dt), (randn(n, d) * d ** -0.5).to(dt)
+        gam, bet = 1 + 0.1 * randn(d), 0.1 * randn(d)
+        bb = randn(n) * 0.1 if bias else None
+        want = ops.ln_linear_plain(x.float(), gam, bet, w.float(), bb)
+        got, route = routed(ops.ln_linear, lambda: ops.ln_linear(x, gam, bet, w, bb))
+        if route != expected_route(d, dt):
+            fail(f"ln_linear {(m, d, n)} {dt} took {route!r}")
+        seg = LN.ln_linear_plan(m, d, n, dt).seg if route == "wgmma" else 0
+        report("ln_linear", (m, d, n, route) + ((f"seg {seg}",) if seg else ()), dt, got,
+               want, BOUND[str(dt)[6:]])
+        if route == "wgmma" and d <= LN.MAX_D:  # "wmma" keeps 64 rows resident
+            plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, dt), route="wmma")
+            report("ln_linear", (m, d, n, "wmma"), dt,
+                   LN.ln_linear_launch(x, gam, bet, w, bb, 1e-5, plan), want,
+                   BOUND[str(dt)[6:]])
+
+    def check_geglu(m, d, inner, dt):
+        """geglu_ff at (m, d, inner), as check_ln_linear."""
+        x, w1 = randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt)
+        w2 = (randn(d, inner) * inner ** -0.5).to(dt)
+        b1, b2 = randn(2 * inner) * 0.1, randn(d) * 0.1
+        want = ops.geglu_plain(x, w1, b1, w2, b2)
+        got, route = routed(ops.geglu_ff, lambda: ops.geglu_ff(x, w1, b1, w2, b2))
+        if route != expected_route(d, dt):
+            fail(f"geglu_ff {(m, d, inner)} {dt} took {route!r}")
+        plan = GE.geglu_plan(m, d, inner, dt)
+        tiles = (f"rows {plan.gate_rows}/{plan.down_rows} split {plan.splits}",) \
+            if route == "wgmma" else ()
+        report("geglu_ff", (m, d, inner, route) + tiles, dt, got, want, BOUND[str(dt)[6:]])
+        if route == "wgmma" and d <= GE.MAX_D:  # "wmma" keeps 64 rows resident
+            report("geglu_ff", (m, d, inner, "wmma"), dt,
+                   GE.geglu_launch(x, w1, b1, w2, b2, dataclasses.replace(plan, route="wmma")),
+                   want, BOUND[str(dt)[6:]])
+
     for (m, d), bias in chain(((r, False) for r in sd_rows + sd1_rows + cin_rows),
                               ((r, True) for r in odd_rows + [(100, 32), (1000, ragged_d)])):
         for n in (3 * d, d) if d > 40 else (96 if d == 32 else 70,):
             for dt in (torch.float32, torch.bfloat16):
-                x, w = randn(m, d).to(dt), (randn(n, d) * d ** -0.5).to(dt)
-                gam, bet = 1 + 0.1 * randn(d), 0.1 * randn(d)
-                bb = randn(n) * 0.1 if bias else None
-                want = ops.ln_linear_plain(x.float(), gam, bet, w.float(), bb)
-                got, route = routed(ops.ln_linear, lambda: ops.ln_linear(x, gam, bet, w, bb))
-                if route != expected_route(d, dt):
-                    fail(f"ln_linear {(m, d, n)} {dt} took {route!r}")
-                seg = LN.ln_linear_plan(m, d, n, dt).seg if route == "wgmma" else 0
-                report("ln_linear", (m, d, n, route) + ((f"seg {seg}",) if seg else ()), dt, got,
-                       want, BOUND[str(dt)[6:]])
-                if route == "wgmma" and d <= LN.MAX_D:  # "wmma" keeps 64 rows resident
-                    plan = dataclasses.replace(LN.ln_linear_plan(m, d, n, dt), route="wmma")
-                    report("ln_linear", (m, d, n, "wmma"), dt,
-                           LN.ln_linear_launch(x, gam, bet, w, bb, 1e-5, plan), want,
-                           BOUND[str(dt)[6:]])
-                del x, w, got, want
+                check_ln_linear(m, d, n, dt, bias)
     for m, d, inner in [(m, d, 4 * d) for m, d in sd_rows + sd1_rows + cin_rows + odd_rows] \
             + [(100, 32, 128), (300, ragged_d, 100)]:
         for dt in (torch.float32, torch.bfloat16):
-            x, w1 = randn(m, d).to(dt), (randn(2 * inner, d) * d ** -0.5).to(dt)
-            w2 = (randn(d, inner) * inner ** -0.5).to(dt)
-            b1, b2 = randn(2 * inner) * 0.1, randn(d) * 0.1
-            want = ops.geglu_plain(x, w1, b1, w2, b2)
-            got, route = routed(ops.geglu_ff, lambda: ops.geglu_ff(x, w1, b1, w2, b2))
-            if route != expected_route(d, dt):
-                fail(f"geglu_ff {(m, d, inner)} {dt} took {route!r}")
-            plan = GE.geglu_plan(m, d, inner, dt)
-            tiles = (f"rows {plan.gate_rows}/{plan.down_rows} split {plan.splits}",) \
-                if route == "wgmma" else ()
-            report("geglu_ff", (m, d, inner, route) + tiles, dt, got, want, BOUND[str(dt)[6:]])
-            if route == "wgmma" and d <= GE.MAX_D:  # "wmma" keeps 64 rows resident
-                report("geglu_ff", (m, d, inner, "wmma"), dt,
-                       GE.geglu_launch(x, w1, b1, w2, b2, dataclasses.replace(plan, route="wmma")),
-                       want, BOUND[str(dt)[6:]])
-            del x, w1, w2, got, want
+            check_geglu(m, d, inner, dt)
     # gradients on the card: the autograd Functions of ln_linear and geglu_ff
     # (their forward on the kernels, their backward the recompute VJP of the
     # plain twin) against autograd of the plain twin on the same inputs, at
@@ -2569,19 +3303,9 @@ def main() -> int:
     # restart checks turn its deterministic algorithms on
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     train_walls = {}
-    metrics_log = []
-
-    class MetricsLog(logging.Handler):
-        """The loops' per-step log lines: (step, loss, grad norm)."""
-
-        def emit(self, record):
-            if record.msg.startswith("step %d loss"):
-                metrics_log.append(record.args)
-
-    log_handler = MetricsLog()
-    run_log = logging.getLogger("dpm_solver_tpu_torch")
-    run_log.addHandler(log_handler)
-    run_log.setLevel(logging.INFO)
+    # the loops' per-step (step, loss, grad norm), until path I ends
+    training_logs = contextlib.ExitStack()
+    metrics_log = training_logs.enter_context(step_metrics())
 
     class TimedBatches:
         """A training loop's batches; the host clock, after a synchronize,
@@ -2984,11 +3708,35 @@ def main() -> int:
     i_resume = params_close("path I (small UNet)", resumed_i, whole_i)
     shutil.rmtree(i_dir, ignore_errors=True)
     del whole_i, resumed_i
-    run_log.removeHandler(log_handler)
+    training_logs.close()
     torch.backends.cudnn.deterministic = False
     torch.set_grad_enabled(False)
     torch.cuda.empty_cache()
     log(f"path I done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7e. paths J-N: the rest of the sampling surface ----------------------------
+    t0 = time.perf_counter()
+    surface = sampling_surface(dev, smi)
+    torch.cuda.empty_cache()
+    # each kernel at each spec the paths gave it, in their dtype (bf16),
+    # against its plain version at the phase-3 bounds; the fused update at
+    # M's and N's solver states
+    t1 = time.perf_counter()
+    log(f"paths J-N's kernels at their {len(surface['specs'])} specs, bf16, vs plain:")
+    for name, spec in sorted(surface["specs"], key=str):
+        if name == "conv3x3":
+            check_conv(spec, torch.bfloat16, dx=False)
+        elif name == "token_attention":
+            check_attention(spec, torch.bfloat16)
+        elif name == "ln_linear":
+            check_ln_linear(*spec, torch.bfloat16, bias=False)
+        else:
+            check_geglu(*spec, torch.bfloat16)
+    for shape in surface["updates"]:
+        check_fused(shape)
+    torch.cuda.empty_cache()
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
+    log(f"paths J-N done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. timing -------------------------------------------------------------
     # paths A, B and D both ways in this one call: eager (jit=False, the
@@ -3516,10 +4264,10 @@ def main() -> int:
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
-             "i_cin256": launches_ic}
+             "i_cin256": launches_ic, **surface["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
-              "i": routes_i, "i_cin256": routes_ic}
+              "i": routes_i, "i_cin256": routes_ic, **surface["routes"]}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
@@ -3562,7 +4310,7 @@ def main() -> int:
                                   for k, (r, b) in ptxas_of[name].items()}}
                        if name in ptxas_of else {}))
                for name, (route, src, rep) in REPLACES.items()]
-    log(json.dumps({"walls": walls_by_path, "card": smi}))
+    log(json.dumps({"walls": walls_by_path, "walls_j_to_n_s": surface["walls"], "card": smi}))
     log(json.dumps({"training": train_walls, "card": smi, "card_vs_cpu": dict(
         h_check, i=i_check), "resume": {"h": h_resume, "i_small": i_resume}}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")

@@ -13,7 +13,7 @@ the reference sample.sh files.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,44 +150,6 @@ class Config:
     classifier_ckpt_path: Optional[str] = None
     workdir: str = "./workdir"
     seed: int = 42
-
-
-@dataclasses.dataclass(frozen=True)
-class PendingModelConfig:
-    """The model config of a family the port does not have yet: which JAX
-    module builds it and the preset and overrides the JAX entry applies
-    (`run_lib.build_model` raises with this)."""
-
-    family: str
-    module: str
-    preset: str
-    overrides: Tuple[Tuple[str, object], ...] = ()
-
-    def replace(self, **changes) -> "PendingModelConfig":
-        return dataclasses.replace(self, overrides=self.overrides + tuple(sorted(changes.items())))
-
-
-class _PendingNCSNv2:
-    """Stands in for `NCSNv2Config`'s presets (models/ncsnv2.py, Slice D)."""
-
-    @staticmethod
-    def cifar10() -> PendingModelConfig:
-        return PendingModelConfig("ncsnv2", "dpm_solver_tpu/models/ncsnv2.py", "cifar10")
-
-    @staticmethod
-    def px128() -> PendingModelConfig:
-        return PendingModelConfig("ncsnv2", "dpm_solver_tpu/models/ncsnv2.py", "px128")
-
-    @staticmethod
-    def tiny() -> PendingModelConfig:
-        return PendingModelConfig("ncsnv2", "dpm_solver_tpu/models/ncsnv2.py", "tiny")
-
-
-def _replace(cfg, **changes):
-    """dataclasses.replace, for a pending model config too."""
-    if isinstance(cfg, PendingModelConfig):
-        return cfg.replace(**changes)
-    return dataclasses.replace(cfg, **changes)
 
 
 _REGISTRY: Dict[str, Callable[[], Config]] = {}
@@ -376,9 +338,7 @@ def _score_sde_config(name, *, sde, model_preset, continuous, dataset,
                       corrector="none", snr=0.16, n_steps_each=1,
                       reduce_mean=False, ema_rate=0.9999):
     def make() -> Config:
-        from dpm_solver_tpu_torch.models import DDPMUNetConfig, NCSNppConfig
-
-        NCSNv2Config = _PendingNCSNv2
+        from dpm_solver_tpu_torch.models import DDPMUNetConfig, NCSNppConfig, NCSNv2Config
 
         presets = {
             "ddpmpp": lambda: NCSNppConfig.cifar10_ddpmpp(),
@@ -396,20 +356,20 @@ def _score_sde_config(name, *, sde, model_preset, continuous, dataset,
             "ncsnpp_px1024": NCSNppConfig.px1024,
             "ddpm": DDPMUNetConfig.cifar10,
             "ddpm_lsun256": DDPMUNetConfig.lsun256,
-            "ncsn_v1": lambda: _replace(
+            "ncsn_v1": lambda: dataclasses.replace(
                 NCSNv2Config.cifar10(), conditional_norm=True,
                 scale_by_sigma=False, num_scales=10, sigma_max=1.0),
             # NCSN v1 net under the improved-technique sigma ladders
             # (ve/ncsn/{cifar10,celeba}_{124,1245}.py: num_scales
             # 232/500, sigma_max back to the dataset default)
-            "ncsn_v1_t124": lambda: _replace(
+            "ncsn_v1_t124": lambda: dataclasses.replace(
                 NCSNv2Config.cifar10(), conditional_norm=True,
                 scale_by_sigma=False, num_scales=232, sigma_max=50.0),
-            "ncsn_v1_celeba": lambda: _replace(
+            "ncsn_v1_celeba": lambda: dataclasses.replace(
                 NCSNv2Config.cifar10(), conditional_norm=True,
                 scale_by_sigma=False, image_size=64, num_scales=10,
                 sigma_max=1.0),
-            "ncsn_v1_celeba_t124": lambda: _replace(
+            "ncsn_v1_celeba_t124": lambda: dataclasses.replace(
                 NCSNv2Config.cifar10(), conditional_norm=True,
                 scale_by_sigma=False, image_size=64, num_scales=500,
                 sigma_max=90.0),
@@ -418,10 +378,10 @@ def _score_sde_config(name, *, sde, model_preset, continuous, dataset,
             "ddpm_unconditional": lambda: dataclasses.replace(
                 DDPMUNetConfig.cifar10(), conditional=False),
             "ncsnv2_cifar10": NCSNv2Config.cifar10,
-            "ncsnv2_celeba": lambda: _replace(
+            "ncsnv2_celeba": lambda: dataclasses.replace(
                 NCSNv2Config.cifar10(), image_size=64, num_scales=500,
                 sigma_max=90.0),
-            "ncsnv2_bedroom": lambda: _replace(
+            "ncsnv2_bedroom": lambda: dataclasses.replace(
                 NCSNv2Config.px128(), num_scales=1086, sigma_max=190.0),
         }
         mc = presets[model_preset]()
@@ -627,7 +587,8 @@ def _tiny_test() -> Config:
 def _tiny_ve_ncsnv2() -> Config:
     """Small NCSNv2 under a 10-scale VE ladder: smoke tests for the legacy
     annealed-Langevin (PC) sampling path."""
-    NCSNv2Config = _PendingNCSNv2
+    from dpm_solver_tpu_torch.models import NCSNv2Config
+
     return Config(
         name="tiny_ve_ncsnv2", model_family="ncsnv2",
         model_config=NCSNv2Config.tiny(),

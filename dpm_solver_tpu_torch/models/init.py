@@ -18,6 +18,10 @@ tests compare the distributions, tensor by tensor):
   attention's output projection and the convs to the image; the fused
   q|k|v projection's fans are those of the JAX model's one (C, 3C) Dense;
   the frozen Fourier features normal(fourier_scale).
+- NCSNv2 / NCSNv1: every conv variance_scaling(1/3, fan_in, uniform)
+  (`ncsn_conv`'s `_ncsn_init`) with zero biases; InstanceNorm++'s alpha and
+  gamma normal(0.02) + 1, beta zeros; the conditional norms' embedding
+  table the same by its (gamma | alpha | beta) thirds.
 
 Fans follow Flax's rule on the port's layouts: a Linear weight (out, in), a
 conv weight (out, in, kh, kw), NCSN++'s NIN weight `W` (in, out).
@@ -128,18 +132,46 @@ def _ncsnpp_(model: nn.Module, generator: torch.Generator) -> None:
                            in_out=name == "W")
 
 
+@torch.no_grad()
+def _ncsnv2_(model: nn.Module, generator: torch.Generator) -> None:
+    from dpm_solver_tpu_torch.models.ncsnv2 import (CondInstanceNormPlus, InstanceNormPlus,
+                                                    NCSNConv)
+
+    def normal_plus_one_(p):
+        p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * 0.02 + 1.0)
+
+    for mod in model.modules():
+        if isinstance(mod, NCSNConv):
+            variance_scaling_(mod.weight, 1.0 / 3.0, "fan_in", "uniform", fans(mod.weight),
+                              generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, InstanceNormPlus):
+            normal_plus_one_(mod.alpha)
+            normal_plus_one_(mod.gamma)
+            if mod.beta is not None:
+                mod.beta.zero_()
+        elif isinstance(mod, CondInstanceNormPlus):
+            table = mod.embed.weight
+            normal_plus_one_(table[:, :2 * mod.channels])
+            table[:, 2 * mod.channels:].zero_()
+
+
 def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every parameter of a DDPMUNet, ADMUNet, NCSNpp, AutoencoderKL or
-    VQModel from the JAX model's initialisers (module docstring), from
+    """Draw every parameter of a DDPMUNet, ADMUNet, NCSNpp, NCSNv2,
+    AutoencoderKL or VQModel from the JAX model's initialisers (module docstring), from
     `generator` (on its device). Returns the model."""
     from dpm_solver_tpu_torch.models.adm_unet import ADMAttention, ADMResBlock, ADMUNet
     from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet
     from dpm_solver_tpu_torch.models.ncsnpp import NCSNpp
+    from dpm_solver_tpu_torch.models.ncsnv2 import NCSNv2
     from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
     from dpm_solver_tpu_torch.models.vae import AutoencoderKL, VectorQuantizer, VQModel
 
     if isinstance(model, NCSNpp):
         _ncsnpp_(model, generator)
+    elif isinstance(model, NCSNv2):
+        _ncsnv2_(model, generator)
     elif isinstance(model, (DDPMUNet, AutoencoderKL, VQModel)):
         _defaults_(model, generator, set())
         for mod in model.modules():
@@ -158,6 +190,6 @@ def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 zero.add(mod.proj_out)
         _defaults_(model, generator, zero)
     else:
-        raise TypeError(f"init_train_ takes DDPMUNet, ADMUNet, NCSNpp, AutoencoderKL or "
-                        f"VQModel, got {type(model).__name__}")
+        raise TypeError(f"init_train_ takes DDPMUNet, ADMUNet, NCSNpp, NCSNv2, AutoencoderKL "
+                        f"or VQModel, got {type(model).__name__}")
     return model

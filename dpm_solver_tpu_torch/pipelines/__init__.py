@@ -1,3 +1,4 @@
+from dpm_solver_tpu_torch.pipelines.cascade import CascadePipeline, CascadeStage
 from dpm_solver_tpu_torch.pipelines.diffedit import compute_edit_mask, diffedit
 from dpm_solver_tpu_torch.pipelines.stable_diffusion import (
     DPMSolverSampler,
@@ -8,8 +9,14 @@ from dpm_solver_tpu_torch.pipelines.stable_diffusion import (
     load_sd_checkpoint,
     make_ldm_betas,
 )
+from dpm_solver_tpu_torch.pipelines.retrieval import Searcher, build_image_database, knn2img
 
 __all__ = [
+    "CascadePipeline",
+    "CascadeStage",
+    "Searcher",
+    "build_image_database",
+    "knn2img",
     "DPMSolverSampler",
     "LatentDiffusion",
     "MaskedBlend",

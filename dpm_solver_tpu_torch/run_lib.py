@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dpm_solver_tpu_torch.configs import Config, PendingModelConfig
+from dpm_solver_tpu_torch.configs import Config
 from dpm_solver_tpu_torch.training.checkpoints import CheckpointManager, restore_or_init
 from dpm_solver_tpu_torch.training.train import TrainState, make_optimizer, make_train_state
 from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -51,15 +51,14 @@ def build_model(config: Config, *, compute_dtype: torch.dtype = torch.float32,
     from dpm_solver_tpu_torch.models.init import init_train_
 
     family, mc = config.model_family, config.model_config
-    if isinstance(mc, PendingModelConfig) or family == "ncsnv2":
-        module = mc.module if isinstance(mc, PendingModelConfig) else "models/ncsnv2.py"
-        raise NotImplementedError(f"config {config.name!r}: the {family!r} family "
-                                  f"({module}) is not ported to dpm_solver_tpu_torch yet")
     dev = resolve_device(device)
     if family == "ddpm_unet":
         model = models.DDPMUNet(mc, compute_dtype, device=dev)
     elif family == "ncsnpp":
         model = models.NCSNpp(mc, compute_dtype, device=dev)
+    elif family == "ncsnv2":
+        # fp32 whatever compute_dtype says: the JAX model has no compute dtype
+        model = models.NCSNv2(mc, device=dev)
     elif family in ("adm", "sd"):
         model = models.ADMUNet(mc, compute_dtype, device=dev)
     else:
@@ -72,17 +71,15 @@ def build_model(config: Config, *, compute_dtype: torch.dtype = torch.float32,
 
 
 def score_net_apply(model: nn.Module, family: str, *, train: bool = False) -> Callable:
-    """apply_fn(x, labels) with the family's label convention (NCSN++ and
-    DDPM UNets take float labels), the model in train mode (dropout live)
-    when `train`, else in eval mode."""
-    if family == "ncsnv2":
-        raise NotImplementedError("the 'ncsnv2' family (models/ncsnv2.py) is not ported "
-                                  "to dpm_solver_tpu_torch yet")
+    """apply_fn(x, labels) with the family's label convention (NCSNv2/NCSN
+    take integer sigma-ladder indices, truncated as the JAX astype(int32);
+    NCSN++ and DDPM UNets float labels), the model in train mode (dropout
+    live) when `train`, else in eval mode."""
 
     def apply_fn(x, labels):
         if model.training != train:
             model.train(train)
-        return model(x, labels.float())
+        return model(x, labels.long() if family == "ncsnv2" else labels.float())
 
     return apply_fn
 

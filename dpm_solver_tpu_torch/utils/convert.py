@@ -19,7 +19,10 @@ into the port's models with a plain `load_state_dict`:
   text_encoder.py::convert_bert_embedder`, for `models.BERTEmbedder` (the
   reference x_transformer keys);
 - `ncsnpp_state_dict_from_flax`: of `dpm_solver_tpu/models/ncsnpp_convert.py::
-  params_from_torch`, for `models.NCSNpp` (the reference score_sde layout).
+  params_from_torch`, for `models.NCSNpp` (the reference score_sde layout);
+- `ncsnv2_state_dict_from_flax` and `wideresnet_state_dict_from_flax`: the
+  JAX `NCSNv2` and `WideResNetClassifier` params, for `models.NCSNv2` and
+  `models.WideResNetClassifier`, whose modules carry the Flax names.
 
 They read nested dicts of arrays (numpy, or anything `np.asarray` takes) and
 import nothing of JAX. The DDPM layout rules, the converter's in reverse:
@@ -431,6 +434,42 @@ def ncsnpp_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch
         w.affine(slot(), p["norm_out"])
         w.conv(slot(), p["conv_out"])
     return w.sd
+
+
+def _flax_named_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a port module whose submodules carry the Flax module
+    names: each path joined by dots; a conv kernel (kH, kW, I, O) -> weight
+    (O, I, kH, kW), a dense kernel (I, O) -> weight (O, I), an embedding or a
+    GroupNorm scale -> weight, a per-channel (1, 1, 1, C) parameter -> (C,)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(flax_params.get("params", flax_params)):
+        arr, leaf = np.asarray(val), path[-1]
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.transpose(1, 0)
+            leaf = "weight"
+        elif leaf in ("embedding", "scale"):
+            leaf = "weight"
+        elif leaf != "W":
+            arr = arr.reshape(-1)
+        out[".".join(path[:-1] + (leaf,))] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def ncsnv2_state_dict_from_flax(flax_params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """JAX `NCSNv2` params -> the state dict of `models.NCSNv2(config)`, the
+    `sigmas` buffer the config's ladder."""
+    from dpm_solver_tpu_torch.models.ncsnv2 import get_sigmas
+
+    out = _flax_named_state_dict(flax_params)
+    out["sigmas"] = torch.tensor(get_sigmas(config.sigma_min, config.sigma_max,
+                                            config.num_scales))
+    return out
+
+
+def wideresnet_state_dict_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `WideResNetClassifier` params -> the state dict of
+    `models.WideResNetClassifier` of the same blocks and widths."""
+    return _flax_named_state_dict(flax_params)
 
 
 # --------------------------------------------------------------------------- #

@@ -30,6 +30,17 @@ SHAPE = (3, 2, 4, 4)
 BETAS = np.linspace(1e-4, 0.02, 1000, dtype=np.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU work, the module fixtures' too:
+    these small shapes gain nothing from more, and the suite runs several
+    workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def toy_jax(x, t_in):
     t = jnp.reshape(t_in, (-1,) + (1,) * (x.ndim - 1))
     return jnp.sin(3.0 * x) * jnp.cos(0.01 * t) + 0.1 * x * (1.0 + 0.001 * t)

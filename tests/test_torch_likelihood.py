@@ -57,6 +57,17 @@ Z_TOL = 5e-3          # of max|z|: tests/test_solver_parity.py:286
 NET_KW = dict(fir=True, progressive_input="residual", num_res_blocks=1, conditional=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU work, the module fixtures' too:
+    these small shapes gain nothing from more, and the suite runs several
+    workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _vjp_divergence(fn, x, t, eps):
     """The score_sde reference's divergence form (one vjp), in JAX."""
     primal, pull = jax.vjp(lambda xi: fn(xi, t), x)

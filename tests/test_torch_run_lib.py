@@ -5,14 +5,16 @@ configs.py, run_lib.py) against the JAX package's, on the CPU.
   entry's fields equal the JAX entry's: sampling, training, diffusion,
   data, eval and the rest, and the model config's fields (but the JAX
   ADMConfig's `quant`, the serving int8 switch of ops/quant.py, not
-  ported). An entry of a family the port lacks (NCSNv2) keeps the preset
-  and overrides it would build, and `build_model` raises naming the
-  missing module.
-- `build_model` builds every other entry (on the meta device, no memory),
-  with the JAX model's parameter count at the configurations the paths and
-  the benchmarks train (NCSN++ continuous VE, the CIFAR-10 DDPM, the tiny
-  test config).
-- `run_lib.train` drives all three branches (continuous SDE with live
+  ported); the NCSNv2 / NCSN entries' `NCSNv2Config` too.
+- `build_model` builds every entry (on the meta device, no memory), with
+  the JAX model's parameter count at the configurations the paths and the
+  benchmarks train (NCSN++ continuous VE, the CIFAR-10 DDPM, the tiny test
+  config, NCSNv2 and NCSNv1 on CIFAR-10).
+- `score_net_apply` on an NCSNv2 truncates float labels to the integer
+  sigma index, as the JAX one (astype(int32)): the same scores as the JAX
+  model through the converter, within 2e-5 of max|out|.
+- `run_lib.train` takes steps on `tiny_ve_ncsnv2` (the legacy SMLD loss on
+  an NCSNv2), and drives all three branches (continuous SDE with live
   dropout, the legacy discrete loss, the DDPM eps-MSE) and writes meta
   checkpoints at `snapshot_freq_for_preemption` (keeping one) and full ones
   at `snapshot_freq`; the JAX package's own resume test's semantics
@@ -74,19 +76,13 @@ def test_config_fields_equal_the_jax_entry(name):
         if jm is None:
             assert pm is None
             continue
-        if isinstance(pm, pconfigs.PendingModelConfig):
-            assert p.model_family == "ncsnv2" and type(jm).__name__ == "NCSNv2Config"
-            with pytest.raises(NotImplementedError, match="models/ncsnv2.py"):
-                run_lib.build_model(p, device="meta")
-            continue
         assert type(pm).__name__ == type(jm).__name__
         skip = NOT_PORTED.get(type(jm).__name__, set())
         jmf = {k: v for k, v in _fields(jm).items() if k not in skip}
         assert _fields(pm) == jmf, key
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES
-                                  if pconfigs.get_config(n).model_family != "ncsnv2"])
+@pytest.mark.parametrize("name", NAMES)
 def test_build_model_builds_every_ported_family(name):
     model, init_fn = run_lib.build_model(pconfigs.get_config(name), device="meta")
     assert sum(p.numel() for p in model.parameters()) > 0 and callable(init_fn)
@@ -102,7 +98,8 @@ def _jax_param_count(cfg):
 
 
 @pytest.mark.parametrize("name", ["score_sde_cifar10_ve_ncsnpp_continuous", "cifar10_ddpm",
-                                  "tiny_test"])
+                                  "tiny_test", "score_sde_cifar10_ve_ncsnv2",
+                                  "score_sde_cifar10_ve_ncsn"])
 def test_build_model_matches_the_jax_parameter_count(name):
     model, _ = run_lib.build_model(pconfigs.get_config(name), device="meta")
     assert sum(p.numel() for p in model.parameters()) == _jax_param_count(
@@ -153,12 +150,9 @@ def test_train_checkpoints_and_resumes_from_the_meta_checkpoint(branch, tmp_path
 
 
 def test_build_model_refuses_families_it_does_not_have():
-    cfg = pconfigs.get_config("tiny_ve_ncsnv2")
-    assert isinstance(cfg.model_config, pconfigs.PendingModelConfig)
-    with pytest.raises(NotImplementedError, match="ncsnv2"):
-        run_lib.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ncsnv2"):
-        run_lib.score_net_apply(torch.nn.Identity(), "ncsnv2")
+    with pytest.raises(ValueError, match="unknown model family"):
+        run_lib.build_model(dataclasses.replace(pconfigs.get_config("tiny_test"),
+                                                model_family="nope"), device="meta")
     with pytest.raises(ValueError, match="sub-VP"):
         run_lib.legacy_loss_fn(dataclasses.replace(
             pconfigs.get_config("score_sde_cifar10_vp_ddpm"),
@@ -175,3 +169,34 @@ def test_jax_param_count_helper_is_exact_at_the_tiny_config():
     params = init_fn(jax.random.PRNGKey(0))
     assert _jax_param_count(cfg) == sum(int(np.prod(np.shape(x)))
                                         for x in jax.tree_util.tree_leaves(params))
+
+
+def test_score_net_apply_takes_ncsnv2_labels_as_the_jax_one():
+    from dpm_solver_tpu.run_lib import build_model as jbuild
+    from dpm_solver_tpu.run_lib import score_net_apply as japply
+    from dpm_solver_tpu_torch.utils.convert import ncsnv2_state_dict_from_flax
+
+    jcfg, pcfg = jconfigs.get_config("tiny_ve_ncsnv2"), pconfigs.get_config("tiny_ve_ncsnv2")
+    jmodel, init_fn = jbuild(jcfg)
+    params = init_fn(jax.random.PRNGKey(0))
+    model, _ = run_lib.build_model(pcfg, device="cpu")
+    model.load_state_dict(ncsnv2_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, params), pcfg.model_config))
+    x = np.random.default_rng(3).uniform(0.0, 1.0, (2, 16, 16, 3)).astype(np.float32)
+    labels = np.asarray([3.7, 8.2], np.float32)   # truncated to 3 and 8
+    want = np.asarray(jax.jit(japply(jmodel, "ncsnv2"))(params, x, labels))
+    with torch.no_grad():
+        got = run_lib.score_net_apply(model, "ncsnv2")(torch.tensor(x),
+                                                       torch.tensor(labels)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * np.abs(want).max())
+
+
+def test_train_takes_steps_on_tiny_ve_ncsnv2(tmp_path):
+    config = dataclasses.replace(pconfigs.get_config("tiny_ve_ncsnv2"), workdir=str(tmp_path))
+    assert run_lib.uses_legacy_discrete_loss(config)
+    batches = np.random.default_rng(0).uniform(0.0, 1.0, (3, 4, 16, 16, 3)).astype(np.float32)
+    state = run_lib.train(config, iter(batches), max_steps=3, device="cpu")
+    assert state.step == 3
+    assert all(torch.isfinite(p).all() for p in state.params.values())
+    # the meta checkpoint of loop index 2 (snapshot_freq_for_preemption 2)
+    assert CheckpointManager(os.path.join(str(tmp_path), "checkpoints-meta")).all_steps() == [2]
