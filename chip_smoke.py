@@ -225,6 +225,33 @@ and nothing of JAX. Phases, each fatal on failure:
    launch), and each kernel is then held against its plain version at
    each of those specs in bf16, the paths' dtype, within the phase-3
    bounds; the fused update at M's and N's solver states, both dtypes;
+7f. paths O and P (`first_stage_and_eval`), first-stage training and
+   evaluation, at full width with seeded random weights, steps and rounds
+   cut; run inside phase 8, after its wall timings, once the earlier
+   paths' networks and CUDA graphs are freed (O's KL step takes 62 GiB): O, `run_lib.train_autoencoder(kind="kl")` on KL-f8 (`VAEConfig.sd_v1()`,
+   256 px, fp32, `KLLossConfig()`: the adversarial term and the adaptive
+   weight from step 0, a random-init LPIPS, `NLayerDiscriminator(64, 3)`
+   with BatchNorm), b O_KL_BATCH, a warm step and O_KL_STEPS timed (ms a
+   step, images/s, peak GiB); launches against the config's counts
+   (conv3x3 and its dx at the VAE's 256 px sites, the mid attention's lse,
+   dq and dk/dv at fp32 dh 512, T = S = 1,024), all on "f32"; a run killed
+   after its meta checkpoint and restarted, bitwise equal to an
+   uninterrupted one (cuDNN's deterministic algorithms); `kind="vq"` on
+   VQ-f4 (`vq_cin256`, 8,192 codes, T = S = 4,096 in the middle), b
+   O_VQ_BATCH; then one KL and one VQ step (b2, full width at O_CHECK_SIZE
+   px) card against CPU: parameters and logvar, BatchNorm statistics,
+   Adam's mu and sqrt(nu), each group within SLICE_BOUND of its largest,
+   and the logs. P, `run_lib.train` on cifar10_ddpm writes checkpoints 1
+   and 2, then `run_lib.evaluate` over both, P_ROUNDS rounds each at the
+   config's eval batch: DPM-Solver++ 3M 10 NFE graphed on the EMA
+   parameters (bf16), `FIDInceptionV3` at 299 px from
+   `random_feature_params`, the eps-MSE loss, FID against the statistics
+   of seeded images (seconds a round, sampling and features apart); a run
+   stopped by its hook after checkpoint 2's first round resumes to the
+   same IS and FID; Inception's features card against CPU (b4, fp32).
+   A global forward pre-hook records every launch's spec
+   (`record_training_specs`, which must account for all); each spec is
+   then checked against its plain version in its run's dtype;
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
@@ -253,12 +280,15 @@ and nothing of JAX. Phases, each fatal on failure:
    three launches) and path F's call's, recorded from the calls, with the
    attention at F's sites by spec; the attention kernels (lse, dq, dk/dv)
    of path H's run and of path I's cin256 run, the latter by site; the dq
-   and dk/dv kernels at WIDE_BWD's sites too.
+   and dk/dv kernels at WIDE_BWD's sites too; path O's fp32 kernels at the KL
+   run's launches, the VQ run's attention (dh 512, T = 4,096), and path
+   P's bf16 sampler at the eval batch.
 
 Paths H and I print their steps' walls, images/s, peak memory, losses and
 grad norms, the card-vs-CPU step checks and the restart checks as one JSON
 line (`{"training": ...}`) before the kernels' record; paths J-N their
-walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line.
+walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line; paths
+O and P theirs and their checks as `{"first_stage_and_eval": ...}`.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -408,6 +438,21 @@ M_UPSAMPLER = dict(image_size=256, in_channels=6, model_channels=192, out_channe
                    channel_mult=(1, 1, 2, 2, 4, 4), num_classes=1000, num_heads=4,
                    use_scale_shift_norm=True, resblock_updown=True)
 N_DB, N_K, N_STEPS, N_SIZE, N_SCALE = 1_000_000, 10, 10, 768, 5.0
+# paths O and P (phase 7f), at full width with steps and rounds cut (PERF.md
+# section 4): O, `run_lib.train_autoencoder` on KL-f8 (sd_v1, 256 px) at
+# O_KL_BATCH (latent-diffusion's autoencoder_kl_32x32x4.yaml trains at 12), a
+# warm step and O_KL_STEPS timed; the restart check's O_RESTART_STEPS steps,
+# killed after O_RESUME_AT; VQ-f4 (vq_cin256, O_CODES codes) at O_VQ_BATCH, a
+# warm step and O_VQ_STEPS timed; the trainer's lr; the card-vs-CPU steps at
+# b2, full width, O_CHECK_SIZE px. P, `run_lib.train` on cifar10_ddpm for
+# P_TRAIN_STEPS steps (a checkpoint after each of the last two), then
+# `run_lib.evaluate`: P_ROUNDS rounds a checkpoint at the config's eval batch,
+# Inception in chunks of P_CHUNK images, the eps-MSE loss at P_LOSS_BATCH, the
+# FID's reference statistics from P_REF_IMAGES seeded images (more than the
+# 2,048 features, so that their covariance has full rank)
+O_KL_BATCH, O_KL_STEPS, O_VQ_BATCH, O_VQ_STEPS, O_CODES = 12, 4, 8, 2, 8192
+O_RESTART_STEPS, O_RESUME_AT, O_CHECK_SIZE, O_LR = 3, 2, 64, 4.5e-6
+P_TRAIN_STEPS, P_ROUNDS, P_CHUNK, P_LOSS_BATCH, P_REF_IMAGES = 3, 2, 250, 128, 2500
 # fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
 # relative to max|x|: the same kernels on the same inputs
 GRAPH_BOUND = 1e-6
@@ -1776,6 +1821,521 @@ def sampling_surface(dev, smi: str) -> dict:
     updates = [(M_BATCH, 64, 64, 3), (M_BATCH, 256, 256, 3),
                (len(SD_PROMPTS), N_SIZE // f, N_SIZE // f, vcfg_n.z_channels)]
     return dict(launches=launches, routes=routes, walls=walls, specs=specs, updates=updates)
+
+
+# --------------------------------------------------------------------------- #
+# paths O and P: first-stage training and evaluation
+# --------------------------------------------------------------------------- #
+
+
+def record_training_specs(run) -> tuple:
+    """run() under a global forward pre-hook (the runs build their modules
+    inside themselves): (its result, Counter of (kernel, spec) -> launches).
+    A Conv3x3 forward is one conv3x3 launch at (b, h, w, c, co), and one
+    conv3x3_dx in the backward where grad mode is on and its input requires
+    grad; a single-head VAE or DDPM attention at (b, t, t, 1, c, q/k/v as
+    column slices of one projection) is one token_attention launch, or, with
+    grad on and its parameters trained, attention_lse, attention_dq and
+    attention_dkv one each."""
+    import torch
+
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models.ddpm_unet import AttnBlock
+    from dpm_solver_tpu_torch.models.vae import VAEAttnBlock
+
+    seen = Counter()
+
+    def pre(mod, args):
+        if isinstance(mod, ops.Conv3x3):
+            x = args[0]
+            spec = (*x.shape, mod.weight.shape[0])
+            seen["conv3x3", spec] += 1
+            if torch.is_grad_enabled() and x.requires_grad:
+                seen["conv3x3_dx", spec] += 1
+        elif isinstance(mod, (VAEAttnBlock, AttnBlock)):
+            b, h, w, c = args[0].shape
+            spec = (b, h * w, h * w, 1, c, isinstance(mod, VAEAttnBlock))
+            if torch.is_grad_enabled() and any(p.requires_grad for p in mod.parameters()):
+                for name in ("attention_lse", "attention_dq", "attention_dkv"):
+                    seen[name, spec] += 1
+            else:
+                seen["token_attention", spec] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(pre)
+    try:
+        return run(), seen
+    finally:
+        handle.remove()
+
+
+def first_stage_and_eval(dev, smi: str) -> dict:
+    """Paths O and P (phase 7f): full width, seeded random weights, steps
+    and rounds cut (PERF.md section 4). O: `run_lib.train_autoencoder` on
+    KL-f8 and VQ-f4, each counted (launches against the configs, by route
+    "f32"), timed and hooked; the KL run's restart bitwise equal to an
+    uninterrupted one; one KL and one VQ step, card against CPU. P:
+    `run_lib.train` writes two checkpoints, `run_lib.evaluate` runs the
+    DPM-Solver++ sampling hook, the FID Inception, the eps-MSE loss and
+    FID/IS over both; a run stopped after the second checkpoint's first
+    round resumes to the uninterrupted run's IS and FID; Inception's
+    features card against CPU. Returns each run's launches, routes, walls
+    and kernel specs, and the checks' numbers."""
+    import numpy as np
+    import torch
+
+    import dpm_solver_tpu_torch as P
+    from dpm_solver_tpu_torch import configs as port_configs
+    from dpm_solver_tpu_torch import ops, run_lib
+    from dpm_solver_tpu_torch.eval.inception import FIDInceptionV3, random_feature_params
+    from dpm_solver_tpu_torch.models import (AutoencoderKL, DDPMUNet, VAEConfig, VQModel,
+                                             init_random_)
+    from dpm_solver_tpu_torch.models.discriminator import NLayerDiscriminator
+    from dpm_solver_tpu_torch.models.init import init_train_
+    from dpm_solver_tpu_torch.models.lpips import LPIPS
+    from dpm_solver_tpu_torch.training import autoencoder as tae
+    from dpm_solver_tpu_torch.training import perceptual as tper
+    from dpm_solver_tpu_torch.training.checkpoints import (CheckpointManager, EvalMeta,
+                                                           save_eval_meta)
+    from dpm_solver_tpu_torch.training.train import antithetic_times
+
+    launches, routes, walls, specs, checks = {}, {}, {}, {}, {}
+    cpu = torch.device("cpu")
+    torch.set_grad_enabled(True)
+    log_lines = []
+
+    class Steps(logging.Handler):   # the first-stage loop's per-step log lines
+        def emit(self, record):
+            if record.msg.startswith("step %d nll"):
+                log_lines.append(record.args)
+
+    handler, run_log = Steps(), logging.getLogger("dpm_solver_tpu_torch")
+    run_log.addHandler(handler)
+    run_log.setLevel(logging.INFO)
+
+    def counted(what, call, expected, route=None, captures=None):
+        """One counted call: its launches against `expected` (and, with
+        `route`, every launch on it; bf16 takes check_routes), the CUDA-graph
+        captures against `captures`, the hooks' specs against its launches.
+        Returns (result, launches, routes, specs)."""
+        ops.reset_launch_counts()
+        made = P.GraphedSampler.captures
+        out, seen = record_training_specs(call)
+        torch.cuda.synchronize()
+        got, by_route = ops.launch_counts(), ops.launch_routes()
+        made = P.GraphedSampler.captures - made
+        log(f"  {what}: launches {got} (expected {expected})"
+            + ("" if captures is None else f", {made} capture(s) (expected {captures})"))
+        if got != expected or (captures is not None and made != captures):
+            fail(f"{what}: launches {got} != {expected}, or {made} captures")
+        if route is None:
+            check_routes(what, got, by_route)
+        else:
+            want = {k: ({route: got[k]} if got[k] else {}) for k in by_route}
+            log(f"  launches by route {by_route} (expected {want})")
+            if by_route != want:
+                fail(f"{what}: launches by route {by_route} != {want}")
+        for name in set(REPLACES) - {"fused_update"}:
+            n = sum(k for (kernel, _), k in seen.items() if kernel == name)
+            if n != got[name]:
+                fail(f"{what}: the hooks recorded {n} {name} launches of its {got[name]}")
+        return out, got, by_route, seen
+
+    def ae_step_launches(cfg) -> dict:
+        """One adversarial step (fp32): the encoder, the decoder trunk and
+        conv_out forward once, conv_out again for the adaptive weight (on
+        the detached trunk: no dx); a dx for every conv but the encoder's
+        conv_in (its input, the images, takes no gradient) and that second
+        conv_out; each attention keeps its lse and runs one dq and one
+        dk/dv. LPIPS and the discriminator are library convs."""
+        enc, dec = vae_encoder_launches(cfg), vae_decoder_launches(cfg)
+        attn = enc["token_attention"] + dec["token_attention"]
+        out = {name: 0 for name in REPLACES}
+        out.update(conv3x3=enc["conv3x3"] + dec["conv3x3"] + 1,
+                   conv3x3_dx=enc["conv3x3"] - 1 + dec["conv3x3"], attention_lse=attn,
+                   attention_dq=attn, attention_dkv=attn)
+        return out
+
+    def batches(rng, n, b, size):
+        return [torch.tensor(rng.uniform(-1.0, 1.0, (b, size, size, 3)), dtype=torch.float32)
+                for _ in range(n)]
+
+    class Timed:
+        """The loop's batches, with the host clock (after a synchronize) each
+        time the loop asks for one: a step's wall is the gap to the next."""
+
+        def __init__(self, items):
+            self.items, self.stamps = iter(items), []
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            return next(self.items)
+
+        def step_ms(self):
+            torch.cuda.synchronize()
+            s = self.stamps + [time.perf_counter()]
+            return [(b - a) * 1e3 for a, b in zip(s, s[1:])]
+
+    o_rng = np.random.default_rng(TRAIN_SEED + 2)
+    o_dir = Path(tempfile.mkdtemp(prefix="path_o_"))
+
+    def train_ae(kind, cfg, data, workdir, max_steps, preempt=10 ** 9, **kw):
+        return run_lib.train_autoencoder(
+            data, workdir=str(workdir), kind=kind, vae_config=cfg, n_embed=O_CODES,
+            lr=O_LR, max_steps=max_steps, log_freq=1, snapshot_freq=10 ** 9,
+            snapshot_freq_for_preemption=preempt, seed=TRAIN_SEED, device=dev, **kw)
+
+    def timed_ae(what, kind, cfg, b, steps):
+        """A warm step and `steps` timed ones, counted: ms a step (the median
+        after the warm one), images/s, peak memory."""
+        data = Timed(batches(o_rng, steps + 1, b, cfg.resolution))
+        log_lines.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        state, got, by_route, seen = counted(
+            what, lambda: train_ae(kind, cfg, data, o_dir / kind, steps + 1),
+            scaled(ae_step_launches(cfg), steps + 1), route="f32")
+        ms = data.step_ms()
+        med = statistics.median(ms[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(math.isfinite(v) for line in log_lines for v in line[1:])
+        if state.step != steps + 1 or len(log_lines) != steps + 1 or not finite or not all(
+                torch.isfinite(p).all() for p in state.gen_params.values()):
+            fail(f"{what}: {state.step} steps, logs {log_lines}: not {steps + 1} finite steps")
+        walls[what] = dict(step_ms=med, step_ms_all=ms, images_per_s=b / med * 1e3,
+                           peak_gib=peak, peak_above_start_gib=peak - base, batch=b,
+                           steps=steps, nll=[line[1] for line in log_lines],
+                           disc=[line[2] for line in log_lines])
+        log(f"  {what} on {smi}: median step {med:.2f} ms of {steps} after a warm one (all "
+            f"{[round(v, 2) for v in ms]}) -> {b / med * 1e3:.3f} images/s; peak memory "
+            f"{peak:.2f} GiB ({peak - base:.2f} above the {base:.2f} held before); nll "
+            f"{[round(v, 4) for v in walls[what]['nll']]}, disc loss "
+            f"{[round(v, 4) for v in walls[what]['disc']]}")
+        return state, got, by_route, seen
+
+    # ---- O: KL-f8 (sd_v1, 256 px), b12, KLLossConfig(): disc_start 0 ----------
+    t_path = time.perf_counter()
+    kl_cfg = VAEConfig.sd_v1()
+    n_ae = sum(p.numel() for p in AutoencoderKL(kl_cfg, device="meta").parameters())
+    n_disc = sum(p.numel() for p in NLayerDiscriminator(device="meta").parameters())
+    n_lpips = sum(p.numel() for p in LPIPS(device="meta").parameters())
+    log(f"path O: run_lib.train_autoencoder(kind='kl') on KL-f8 (VAEConfig.sd_v1(), "
+        f"{n_ae / 1e6:.2f}M params, {kl_cfg.resolution} px, fp32), KLLossConfig() (disc_start "
+        f"0), LPIPS ({n_lpips / 1e6:.2f}M, random init) and NLayerDiscriminator(64, 3) "
+        f"({n_disc / 1e6:.2f}M, BatchNorm); Adam(lr {O_LR:g}, b1 0.5, b2 0.9) both; "
+        f"b{O_KL_BATCH}, a warm step and {O_KL_STEPS} timed")
+    _, launches["o"], routes["o"], specs["o"] = timed_ae("O kl", "kl", kl_cfg, O_KL_BATCH,
+                                                         O_KL_STEPS)
+    torch.cuda.empty_cache()
+    # the restart: under cuDNN's deterministic algorithms (the library convs
+    # of LPIPS, the discriminator and the conv weight gradients), an
+    # uninterrupted O_RESTART_STEPS-step run, and a run killed after
+    # O_RESUME_AT steps (its meta checkpoint at loop index O_RESUME_AT - 1),
+    # restarted: bitwise equal at the end
+    torch.backends.cudnn.deterministic = True
+    data = batches(o_rng, O_RESTART_STEPS, O_KL_BATCH, kl_cfg.resolution)
+
+    def on_host(st):   # the state's tensors by name, copied to the host
+        out = {f"{g}.{k}": v.detach().cpu() for g in ("gen_params", "disc_params",
+                                                      "disc_batch_stats")
+               for k, v in getattr(st, g).items()}
+        out.update({f"{g}.{m}.{k}": v.cpu() for g in ("gen_opt", "disc_opt") for m in ("mu", "nu")
+                    for k, v in getattr(st, g)[m].items()})
+        return st.step, st.gen_opt["count"], out
+
+    whole = on_host(train_ae("kl", kl_cfg, iter(data), o_dir / "whole", O_RESTART_STEPS))
+    torch.cuda.empty_cache()
+    train_ae("kl", kl_cfg, iter(data), o_dir / "killed", O_RESUME_AT, O_RESUME_AT - 1)
+    meta = CheckpointManager(str(o_dir / "killed" / "checkpoints-meta"))
+    if meta.all_steps() != [O_RESUME_AT - 1]:
+        fail(f"path O: meta checkpoints {meta.all_steps()}, expected [{O_RESUME_AT - 1}]")
+    resumed = on_host(train_ae("kl", kl_cfg, iter(data[O_RESUME_AT:]), o_dir / "killed",
+                               O_RESTART_STEPS, O_RESUME_AT - 1))
+    torch.backends.cudnn.deterministic = False
+    differ = [k for k, v in whole[2].items() if not torch.equal(v, resumed[2][k])]
+    log(f"  path O restart: resumed vs uninterrupted at step {whole[0]}: {len(whole[2])} "
+        f"tensors (parameters, logvar, both Adam states, BatchNorm statistics), "
+        f"{len(differ)} differ {'ok' if not differ else 'FAIL ' + str(differ[:5])}")
+    if whole[:2] != resumed[:2] or set(whole[2]) != set(resumed[2]) or differ:
+        fail("path O: the resumed first-stage run is not bitwise equal to the uninterrupted one")
+    checks["o_restart_tensors"] = len(whole[2])
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+    # ---- O: VQ-f4 (vq_cin256, 8192 codes, 256 px), b8, VQLossConfig() ----------
+    vq_cfg = VAEConfig.vq_cin256()
+    log(f"path O: run_lib.train_autoencoder(kind='vq') on VQ-f4 (VAEConfig.vq_cin256(), "
+        f"{O_CODES} codes, {vq_cfg.resolution} px, fp32), VQLossConfig(); b{O_VQ_BATCH}, a "
+        f"warm step and {O_VQ_STEPS} timed")
+    _, launches["o_vq"], routes["o_vq"], specs["o_vq"] = timed_ae(
+        "O vq", "vq", vq_cfg, O_VQ_BATCH, O_VQ_STEPS)
+    shutil.rmtree(o_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- O: one KL and one VQ step, card (kernels) vs CPU (plain), fp32 ---------
+    def ae_twins(kind, cfg, seed):
+        """The autoencoder, discriminator and LPIPS on the card and on the CPU
+        with the same weights: `init_random_` for the autoencoder (no layer
+        left at zero) and the discriminator, LPIPS' Flax-default init."""
+        build = {"kl": lambda w: AutoencoderKL(cfg, device=w),
+                 "vq": lambda w: VQModel(cfg, n_embed=O_CODES, device=w)}[kind]
+        g = torch.Generator().manual_seed(seed)
+        parts = [init_random_(build(cpu), g), init_random_(NLayerDiscriminator(device=cpu), g),
+                 init_train_(LPIPS(device=cpu), g)]
+        out = {"cpu": parts}
+        out["cuda"] = [build(dev), NLayerDiscriminator(device=dev), LPIPS(device=dev)]
+        for a, c in zip(out["cuda"], parts):
+            a.load_state_dict(c.state_dict())
+        return out
+
+    def state_of(st):
+        g = {f"gen.{k}": v.detach().cpu() for k, v in st.gen_params.items()}
+        g.update({f"disc.{k}": v.detach().cpu() for k, v in st.disc_params.items()})
+        stats = {k: v.cpu() for k, v in st.disc_batch_stats.items()}
+        mom = {}
+        for o in ("gen_opt", "disc_opt"):
+            for m in ("mu", "nu"):
+                for k, v in getattr(st, o)[m].items():
+                    mom[f"{o}.{m}.{k}"] = (v.sqrt() if m == "nu" else v).cpu()
+        return g, stats, mom
+
+    def ae_card_vs_cpu(what, kind, cfg, loss_cfg, seed):
+        """One adversarial step at b2 on both sides from the same weights and
+        draws: each group (parameters and logvar; BatchNorm statistics; Adam's
+        mu and sqrt(nu), the gradient's units) within SLICE_BOUND of the
+        group's largest element, and the logs within SLICE_BOUND. Leaves whose
+        gradient is 0 by construction (the attention's key biases) are
+        rounding noise on both sides: held absolutely (their moments within
+        SLICE_BOUND / 100 of the largest, their parameters within 4 lr)."""
+        nets = ae_twins(kind, cfg, seed)
+        x = torch.tensor(o_rng.uniform(-1, 1, (2, cfg.resolution, cfg.resolution, 3)),
+                         dtype=torch.float32)
+        f = 2 ** (len(cfg.ch_mult) - 1)
+        noise = torch.randn(2, cfg.resolution // f, cfg.resolution // f, cfg.embed_dim,
+                            generator=torch.Generator().manual_seed(seed + 1))
+        res = {}
+        for key, where in (("cpu", cpu), ("cuda", dev)):
+            t1 = time.perf_counter()
+            ae, disc, lp = nets[key]
+            state, tx = tae.make_adversarial_state(ae, disc, lr=O_LR)
+            fns = tae.bind_autoencoder(ae, disc, lp)
+            if kind == "kl":
+                step = tae.make_kl_train_step(loss_cfg, tx=tx, **fns)
+                state, logs = step(state, x.to(where), TRAIN_SEED, noise=noise.to(where))
+            else:
+                step = tae.make_vq_train_step(loss_cfg, tx=tx, n_embed=O_CODES, **fns)
+                state, logs = step(state, x.to(where), TRAIN_SEED)
+            res[key] = (state_of(state), {k: float(v) for k, v in logs.items()})
+            log(f"  {what}: step on {where} ({time.perf_counter() - t1:.1f} s)")
+        (pc, sc, mc), lc = res["cuda"]
+        (pp, sp, mp), lp_ = res["cpu"]
+        out, zero = {}, 0
+        for group, got, want in (("params", pc, pp), ("statistics", sc, sp), ("moments", mc, mp)):
+            top = max(float(v.abs().max()) for v in want.values())
+            worst = 0.0
+            for k, v in want.items():
+                d = float((got[k] - v).abs().max())
+                if re.search(r"\.k\.bias$", k):   # zero by construction
+                    zero += group == "params"
+                    lim = 4 * O_LR if group == "params" else SLICE_BOUND / 100 * top
+                else:
+                    lim = SLICE_BOUND * top
+                worst = max(worst, d / lim)
+            out[group] = worst
+        r_logs = max(abs(lc[k] - lp_[k]) / max(abs(lp_[k]), 1e-6) for k in lp_)
+        ok = all(v <= 1.0 for v in out.values()) and r_logs <= SLICE_BOUND and set(lc) == set(lp_)
+        log(f"  {what}, card vs CPU: parameters at {out['params']:.3f}, BatchNorm statistics "
+            f"at {out['statistics']:.3f}, Adam moments at {out['moments']:.3f} of their bound "
+            f"(SLICE_BOUND {SLICE_BOUND:g} of each group's largest; the {zero} key biases, "
+            f"zero-gradient leaves, held absolutely); logs /|x| {r_logs:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what}: the fp32 adversarial step on the card disagrees with the CPU's")
+        out["logs_rel"] = r_logs
+        return out
+
+    small_kl = dataclasses.replace(kl_cfg, resolution=O_CHECK_SIZE)
+    small_vq = dataclasses.replace(vq_cfg, resolution=O_CHECK_SIZE)
+    checks["o_kl_card_vs_cpu"] = ae_card_vs_cpu(
+        f"path O, KL-f8 at full width, {O_CHECK_SIZE} px, b2", "kl", small_kl,
+        tper.KLLossConfig(), TRAIN_SEED + 3)
+    # the VQ step without LPIPS: the encoder's gradient reaches LPIPS' ReLUs
+    # through the straight-through estimator, where a pre-activation at 0
+    # moves it in steps (tests/test_torch_autoencoder_train.py's LOSS)
+    checks["o_vq_card_vs_cpu"] = ae_card_vs_cpu(
+        f"path O, VQ-f4 at full width, {O_CHECK_SIZE} px, b2, {O_CODES} codes, no LPIPS", "vq",
+        small_vq, tper.VQLossConfig(perceptual_weight=0.0), TRAIN_SEED + 4)
+    walls["o_s"] = time.perf_counter() - t_path
+    log(f"path O done in {walls['o_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- P: run_lib.train writes two checkpoints; run_lib.evaluate over them -------
+    t_path = time.perf_counter()
+    p_cfg = port_configs.get_config("cifar10_ddpm")
+    p_dir = Path(tempfile.mkdtemp(prefix="path_p_"))
+    p_cfg = dataclasses.replace(
+        p_cfg, workdir=str(p_dir), training=dataclasses.replace(
+            p_cfg.training, continuous=False, log_freq=10 ** 9, snapshot_freq=1,
+            snapshot_freq_for_preemption=10 ** 9))
+    b_eval, b_train = p_cfg.eval.batch_size, p_cfg.training.batch_size
+    side = p_cfg.data.image_size
+    p_rng = np.random.default_rng(TRAIN_SEED + 5)
+    log(f"path P: run_lib.train on cifar10_ddpm (eps-MSE, b{b_train}, bf16) for "
+        f"{P_TRAIN_STEPS} steps (checkpoints at loop indices 1 and 2); run_lib.evaluate over "
+        f"both, {P_ROUNDS} rounds each at the config's eval batch {b_eval}: DPM-Solver++ "
+        f"{ORDER}M {STEPS} NFE graphed on the EMA parameters (bf16), FIDInceptionV3 at 299 px "
+        f"from random_feature_params (fp32, in chunks of {P_CHUNK}), the eps-MSE loss at "
+        f"b{P_LOSS_BATCH}, FID against seeded images' statistics")
+    data = p_rng.uniform(-1.0, 1.0, (P_TRAIN_STEPS, b_train, side, side, 3)).astype(np.float32)
+    _, launches["p_train"], routes["p_train"], specs["p_train"] = counted(
+        "path P, run_lib.train", lambda: run_lib.train(p_cfg, iter(data),
+                                                       max_steps=P_TRAIN_STEPS,
+                                                       compute_dtype=torch.bfloat16, device=dev),
+        scaled(train_launches(Counter(conv3x3=47, token_attention=6)), P_TRAIN_STEPS))
+    if CheckpointManager(str(p_dir / "checkpoints")).all_steps() != [1, 2]:
+        fail("path P: run_lib.train did not write checkpoints 1 and 2")
+    torch.set_grad_enabled(False)
+
+    net = DDPMUNet(p_cfg.model_config, compute_dtype=torch.bfloat16, device=dev).eval()
+    ns = P.NoiseScheduleVP.discrete(betas=p_cfg.diffusion.betas())
+    solver = P.DPM_Solver(P.model_wrapper(net, ns, model_type="noise"), ns,
+                          algorithm_type="dpmsolver++")
+    sample_kw = dict(steps=STEPS, order=ORDER, method="multistep", skip_type="logSNR")
+    inception = FIDInceptionV3(device=dev).eval()
+    inception.load_state_dict(random_feature_params(TRAIN_SEED))
+    spans = {"sample": [], "features": []}
+    params = dict(net.named_parameters())
+
+    def sample_fn(state, generator):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for k, v in state.ema_params.items():
+            params[k].copy_(v)
+        x = torch.randn(b_eval, side, side, 3, generator=generator, device=dev)
+        out = (solver.sample(x, jit=True, **sample_kw).clamp(-1.0, 1.0) + 1.0) / 2.0
+        torch.cuda.synchronize()
+        spans["sample"].append(time.perf_counter() - t1)
+        return out
+
+    def feature_fn(images):
+        t1 = time.perf_counter()
+        feats, logits = zip(*(inception(images[i:i + P_CHUNK])
+                              for i in range(0, len(images), P_CHUNK)))
+        out = torch.cat(feats), torch.cat(logits)
+        torch.cuda.synchronize()
+        spans["features"].append(time.perf_counter() - t1)
+        return out
+
+    def loss_fn(state, generator):
+        for k, v in state.ema_params.items():
+            params[k].copy_(v)
+        x0 = torch.rand(P_LOSS_BATCH, side, side, 3, generator=generator, device=dev) * 2 - 1
+        t = antithetic_times(generator, P_LOSS_BATCH, 1000)
+        eps = torch.randn(x0.shape, generator=generator, device=dev)
+        ab = torch.cumprod(1.0 - torch.tensor(p_cfg.diffusion.betas(), device=dev), 0).float()
+        a = ab[t].sqrt()[:, None, None, None]
+        xt = a * x0 + (1.0 - ab[t]).sqrt()[:, None, None, None] * eps
+        return torch.mean(torch.sum((eps - net(xt, t.float()).float()) ** 2, dim=(1, 2, 3)))
+
+    # the reference statistics: the features of seeded images in [0, 1]
+    ref = torch.rand(P_REF_IMAGES, side, side, 3, generator=torch.Generator(device=dev)
+                     .manual_seed(TRAIN_SEED + 6), device=dev)
+    ref_feats = feature_fn(ref)[0].double().cpu().numpy()
+    spans["features"].clear()
+    stats_path = p_dir / "ref_stats.npz"
+    np.savez(stats_path, mu=ref_feats.mean(0), sigma=np.cov(ref_feats, rowvar=False))
+    e_cfg = dataclasses.replace(p_cfg, eval=dataclasses.replace(p_cfg.eval,
+                                                                fid_stats_path=str(stats_path)))
+    hooks = dict(sample_fn=sample_fn, feature_fn=feature_fn, loss_fn=loss_fn)
+    sampler = per_forward(Counter(conv3x3=47, token_attention=6), STEPS, STEPS)
+    loss_fwd = per_forward(Counter(conv3x3=47, token_attention=6), 1)
+    # deterministic cuDNN for Inception's convs: the resumed run's features
+    # must be the uninterrupted run's bits
+    torch.backends.cudnn.deterministic = True
+    t1 = time.perf_counter()
+    whole, launches["p"], routes["p"], specs["p"] = counted(
+        "path P, run_lib.evaluate (2 checkpoints x 2 rounds)",
+        lambda: run_lib.evaluate(e_cfg, rounds=P_ROUNDS, device=dev, **hooks),
+        {name: 2 * sampler[name] + 2 * loss_fwd[name] for name in REPLACES}, captures=1)
+    walls["p_evaluate_s"] = time.perf_counter() - t1
+    rounds_s = [a + b for a, b in zip(spans["sample"][1:], spans["features"][1:])]
+    walls.update(p_round_s=statistics.median(rounds_s),
+                 p_sample_s=statistics.median(spans["sample"][1:]),
+                 p_features_s=statistics.median(spans["features"][1:]),
+                 p_first_round_s=spans["sample"][0] + spans["features"][0],
+                 p_sample_all_s=list(spans["sample"]), p_features_all_s=list(spans["features"]))
+    log(f"  path P on {smi}: {walls['p_evaluate_s']:.2f} s for the evaluation; a round "
+        f"{walls['p_round_s']:.3f} s (median of the {len(rounds_s)} after the first, which "
+        f"captures the sampler: {walls['p_first_round_s']:.3f} s): sampling "
+        f"{walls['p_sample_s']:.3f} s ({b_eval / walls['p_sample_s']:.1f} samples/s), features "
+        f"{walls['p_features_s']:.3f} s ({b_eval / walls['p_features_s']:.1f} images/s); "
+        f"results {whole}")
+    if sorted(whole) != [1, 2] or not all(
+            math.isfinite(e[k]) for e in whole.values() for k in ("loss", "inception_score",
+                                                                   "fid")):
+        fail(f"path P: evaluate returned {whole}, not finite loss, IS and FID for 1 and 2")
+    # the same evaluation stopped by its hook after checkpoint 2's first
+    # round, then resumed from its EvalMeta: the same IS and FID. It starts
+    # where a run stands once checkpoint 1 is done (the EvalMeta evaluate
+    # writes then; checkpoint 2's round files gone), so that checkpoint 1's
+    # FID, the host's 2,048 x 2,048 square root, is not computed again
+    for f in (p_dir / "eval").glob("stats_ckpt2_*"):
+        f.unlink()
+    save_eval_meta(EvalMeta(ckpt_id=2), str(p_dir / "eval"))
+
+    class Stop(Exception):
+        pass
+
+    def stopping(state, generator):
+        if int(state.step) == 3 and len(spans["sample"]) == 1:
+            raise Stop
+        return sample_fn(state, generator)
+
+    spans["sample"].clear()
+    try:
+        run_lib.evaluate(e_cfg, rounds=P_ROUNDS, device=dev, **dict(hooks, sample_fn=stopping))
+        fail("path P: the stopping hook did not stop the evaluation")
+    except Stop:
+        pass
+    meta = json.loads((p_dir / "eval" / "eval_meta_host0.json").read_text())
+    resumed, launches["p_resume"], _, _ = counted(
+        "path P, resumed run_lib.evaluate", lambda: run_lib.evaluate(
+            e_cfg, rounds=P_ROUNDS, device=dev, **hooks), loss_fwd, captures=0)
+    torch.backends.cudnn.deterministic = False
+    same = {k: resumed[2][k] == whole[2][k] for k in ("inception_score", "fid", "loss")}
+    log(f"  path P resume: stopped at {meta}; resumed checkpoint 2: IS "
+        f"{resumed[2]['inception_score']!r} vs {whole[2]['inception_score']!r}, FID "
+        f"{resumed[2]['fid']!r} vs {whole[2]['fid']!r} "
+        f"{'equal' if all(same.values()) else 'DIFFERENT'}")
+    if list(resumed) != [2] or (meta["ckpt_id"], meta["sampling_round_id"]) != (2, 0) \
+            or not all(same.values()):
+        fail("path P: the resumed evaluation disagrees with the uninterrupted one")
+    checks["p_results"] = {str(k): v for k, v in whole.items()}
+    # Inception's features, card vs CPU, fp32 (TF32 off): b4 at 32 px
+    x4 = torch.rand(4, side, side, 3, generator=torch.Generator().manual_seed(TRAIN_SEED + 7))
+    cpu_inc = FIDInceptionV3(device=cpu).eval()
+    cpu_inc.load_state_dict(inception.state_dict())
+    errs = []
+    for got, want in zip(inception(x4.to(dev)), cpu_inc(x4)):
+        errs.append(rel_err(got.cpu(), want)[1])
+    ok = max(errs) <= SLICE_BOUND
+    log(f"  path P: FIDInceptionV3 features and logits, card vs CPU, fp32, b4 at {side} px: "
+        f"/max|x| {errs[0]:.3e}, {errs[1]:.3e} (bound {SLICE_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path P: Inception's features on the card disagree with the CPU's")
+    checks["p_inception_rel"] = errs
+    shutil.rmtree(p_dir, ignore_errors=True)
+    del net, solver, inception, cpu_inc
+    torch.cuda.empty_cache()
+    walls["p_s"] = time.perf_counter() - t_path
+    log(f"path P done in {walls['p_s']:.1f} s")
+    run_log.removeHandler(handler)
+    return dict(launches=launches, routes=routes, walls=walls, specs=specs, checks=checks,
+                eval_batch=b_eval)
 
 
 def main() -> int:
@@ -4008,6 +4568,48 @@ def main() -> int:
     unet_c, clf_c = record_guided_calls(gunet, clf, one_nfe)
     del gunet, clf, sample_c, timed_c
     torch.cuda.empty_cache()
+
+    # ---- 7f. paths O and P: first-stage training and evaluation ------------------
+    # (here, once the walls above are timed and the earlier paths' networks
+    # and CUDA graphs are freed: O's KL-f8 step at b12 takes 62 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7f starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    fse = first_stage_and_eval(dev, smi)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    # each kernel at each spec the runs gave it, in the run's dtype (O fp32,
+    # P bf16), against its plain version: conv3x3 (with its dx where the run
+    # took one) at the phase-3 bounds, the attention forward with its lse and
+    # its dq and dk/dv at BWD_BOUND; the fused update at P's solver state
+    t1 = time.perf_counter()
+    fse_dtype = {"o": torch.float32, "o_vq": torch.float32, "p_train": torch.bfloat16,
+                 "p": torch.bfloat16}
+    fse_checks = set()
+    for run, seen in fse["specs"].items():
+        dt = fse_dtype[run]
+        for name, spec in seen:
+            if name == "conv3x3":
+                fse_checks.add(("conv", spec, dt, ("conv3x3_dx", spec) in seen))
+            elif name == "attention_lse":
+                fse_checks.add(("bwd", spec, dt, True))
+            elif name == "token_attention":
+                fse_checks.add(("attn", spec, dt, False))
+    log(f"paths O and P's kernels at their {len(fse_checks)} specs, each in its run's dtype, "
+        f"vs plain:")
+    for what, spec, dt, dx in sorted(fse_checks, key=str):
+        if what == "conv":
+            check_conv(spec, dt, dx=dx)
+        elif what == "bwd":
+            check_attention_bwd(spec, dt, BWD_BOUND[str(dt)[6:]])
+        else:
+            check_attention(spec, dt)
+    check_fused((fse["eval_batch"], 32, 32, 3))
+    torch.cuda.empty_cache()
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
+    log(f"paths O and P done in {time.perf_counter() - t0:.1f} s")
+
     # dq and dk/dv at the classifier's own attention sites, as the call
     # recorded them (its blocks at 32x32, 16x16, 8x8 and the attention pool)
     for spec in sorted({spec for name, spec in clf_c if name == "attention_dq"}, key=str):
@@ -4171,6 +4773,34 @@ def main() -> int:
             name, calls, randn, smi, f"path I's {I_CIN_STEPS} cin256 train_latent steps",
             per_spec=True), launches=launches_ic[name])
 
+    # path O: the fp32 kernels of the KL run's steps (conv3x3 and its dx at
+    # the VAE's 256 px sites, the mid attention's lse, dq and dk/dv at dh 512,
+    # T = S = 1,024) and the VQ run's attention (dh 512 at T = S = 4,096);
+    # path P: the bf16 sampler's kernels at the eval batch, one sampling call
+    # (the counted evaluation ran it twice, the warm call and the capture)
+    def fse_calls(run, names, scale=1):
+        out = {name: Counter() for name in names}
+        for (name, spec), n in fse["specs"][run].items():
+            if name in out and (run != "p" or spec[0] == fse["eval_batch"]):
+                out[name][spec] += n // scale
+        return out
+
+    log(f"kernel times, path O (KL-f8 b{O_KL_BATCH} 256 px, {O_KL_STEPS + 1} "
+        f"train_autoencoder steps, fp32):")
+    time_path("O", fse_calls("o", REPLACES), fse["launches"]["o"],
+              f"path O's {O_KL_STEPS + 1} KL-f8 train_autoencoder steps, b{O_KL_BATCH}",
+              torch.float32)
+    log(f"kernel times, path O VQ-f4 (the attention of {O_VQ_STEPS + 1} steps, b{O_VQ_BATCH}, "
+        f"fp32):")
+    time_path("O_vq", fse_calls("o_vq", ("attention_lse", "attention_dq", "attention_dkv")),
+              fse["launches"]["o_vq"], f"path O's {O_VQ_STEPS + 1} VQ-f4 train_autoencoder "
+              f"steps, b{O_VQ_BATCH}", torch.float32)
+    per_kernel_p = fse_calls("p", ("conv3x3", "token_attention"), scale=2)
+    per_kernel_p["fused_update"] = Counter({((fse["eval_batch"], 32, 32, 3),): STEPS})
+    log(f"kernel times, path P (one {STEPS}-NFE sampling round at b{fse['eval_batch']}, bf16):")
+    time_path("P", per_kernel_p, fse["launches"]["p"],
+              f"one path-P sampling round, b{fse['eval_batch']}")
+
     # the dq and dk/dv kernels at each head dim and dtype they take, one
     # launch at each of BWD_SHAPES' and WIDE_BWD's sites (the ragged ones
     # aside), beside the plain twin (dq, dk and dv in one pass), SDPA's
@@ -4264,10 +4894,10 @@ def main() -> int:
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
-             "i_cin256": launches_ic, **surface["launches"]}
+             "i_cin256": launches_ic, **surface["launches"], **fse["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
-              "i": routes_i, "i_cin256": routes_ic, **surface["routes"]}
+              "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"]}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
@@ -4313,6 +4943,8 @@ def main() -> int:
     log(json.dumps({"walls": walls_by_path, "walls_j_to_n_s": surface["walls"], "card": smi}))
     log(json.dumps({"training": train_walls, "card": smi, "card_vs_cpu": dict(
         h_check, i=i_check), "resume": {"h": h_resume, "i_small": i_resume}}))
+    log(json.dumps({"first_stage_and_eval": {"walls": fse["walls"], "checks": fse["checks"]},
+                    "card": smi}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

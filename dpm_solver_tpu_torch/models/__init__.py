@@ -1,6 +1,8 @@
 from dpm_solver_tpu_torch.models.adm_unet import (ADMClassifier, ADMConfig, ADMUNet,
                                                   AttentionPool2d, layout, super_res_inputs)
 from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig, init_random_
+from dpm_solver_tpu_torch.models.discriminator import NLayerDiscriminator
+from dpm_solver_tpu_torch.models.lpips import LPIPS
 from dpm_solver_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
 from dpm_solver_tpu_torch.models.ncsnv2 import NCSNv2, NCSNv2Config
 from dpm_solver_tpu_torch.models.clip import CLIPModel, CLIPTextModel, CLIPTowerConfig
@@ -32,10 +34,12 @@ __all__ = [
     "FrozenCLIPEmbedder",
     "FrozenCLIPImageEmbedder",
     "FrozenCLIPTextJointEmbedder",
+    "LPIPS",
     "NCSNpp",
     "NCSNppConfig",
     "NCSNv2",
     "NCSNv2Config",
+    "NLayerDiscriminator",
     "SpatialRescaler",
     "SpatialTransformer",
     "VAEConfig",

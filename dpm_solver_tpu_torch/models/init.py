@@ -12,6 +12,10 @@ tests compare the distributions, tensor by tensor):
   `nn.Embed`'s normal(1 / sqrt(features)).
 - The first stages (AutoencoderKL, VQModel), frozen while a UNet trains:
   Flax's defaults, the VQ codebook uniform(-1 / n_embed, 1 / n_embed).
+- LPIPS: Flax's defaults for the VGG trunk, the `lin{k}` heads 1 (the JAX
+  model's constant init); the PatchGAN discriminator: `weights_init`'s
+  N(0, 0.02) conv weights with zero biases, BatchNorm scales N(1, 0.02)
+  and zero biases (running moments 0 and 1), ActNorm the identity.
 - NCSN++ / DDPM++: `ddpm_init(scale)` = variance_scaling(scale, fan_avg,
   uniform) everywhere (`dpm_solver_tpu/models/ncsnpp.py:150-154`), with
   `config.init_scale` (0 -> 1e-10) on each res block's second conv, each
@@ -159,7 +163,7 @@ def _ncsnv2_(model: nn.Module, generator: torch.Generator) -> None:
 
 def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of a DDPMUNet, ADMUNet, NCSNpp, NCSNv2,
-    AutoencoderKL or VQModel from the JAX model's initialisers (module docstring), from
+    AutoencoderKL, VQModel, LPIPS or NLayerDiscriminator from the JAX model's initialisers (module docstring), from
     `generator` (on its device). Returns the model."""
     from dpm_solver_tpu_torch.models.adm_unet import ADMAttention, ADMResBlock, ADMUNet
     from dpm_solver_tpu_torch.models.ddpm_unet import DDPMUNet
@@ -168,8 +172,31 @@ def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     from dpm_solver_tpu_torch.models.transformer import SpatialTransformer
     from dpm_solver_tpu_torch.models.vae import AutoencoderKL, VectorQuantizer, VQModel
 
+    from dpm_solver_tpu_torch.models.discriminator import (ActNorm, BatchNorm,
+                                                          NLayerDiscriminator, bn_scale_init_,
+                                                          gan_conv_init_)
+    from dpm_solver_tpu_torch.models.lpips import LPIPS, LPIPS_CHANNELS
+
     if isinstance(model, NCSNpp):
         _ncsnpp_(model, generator)
+    elif isinstance(model, LPIPS):
+        _defaults_(model.net, generator, set())
+        for k in range(len(LPIPS_CHANNELS)):
+            getattr(model, f"lin{k}").model[1].weight.data.fill_(1.0)
+    elif isinstance(model, NLayerDiscriminator):
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, nn.Conv2d):
+                    gan_conv_init_(mod.weight, generator)
+                    if mod.bias is not None:
+                        mod.bias.zero_()
+                elif isinstance(mod, BatchNorm):
+                    bn_scale_init_(mod.weight, generator)
+                    mod.bias.zero_()
+                    mod.reset_running_stats()
+                elif isinstance(mod, ActNorm):
+                    mod.loc.zero_()
+                    mod.scale.fill_(1.0)
     elif isinstance(model, NCSNv2):
         _ncsnv2_(model, generator)
     elif isinstance(model, (DDPMUNet, AutoencoderKL, VQModel)):
@@ -190,6 +217,6 @@ def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 zero.add(mod.proj_out)
         _defaults_(model, generator, zero)
     else:
-        raise TypeError(f"init_train_ takes DDPMUNet, ADMUNet, NCSNpp, NCSNv2, AutoencoderKL "
-                        f"or VQModel, got {type(model).__name__}")
+        raise TypeError(f"init_train_ takes DDPMUNet, ADMUNet, NCSNpp, NCSNv2, AutoencoderKL, "
+                        f"VQModel, LPIPS or NLayerDiscriminator, got {type(model).__name__}")
     return model

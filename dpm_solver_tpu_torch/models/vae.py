@@ -20,11 +20,16 @@ through `ops.token_attention` with a 512-wide head. Its q, k and v 1x1
 convs run as one (C, 3C) product and the attention reads the three column
 slices of that output in place. The stride-2 downsample conv is `F.conv2d`
 and the 1x1 convs are matmuls, as the JAX model leaves them to XLA.
+
+Adversarial training (`training/autoencoder.py`) takes the forward split
+at the decoder's final conv (`forward_trunk`, then `decoder_epilogue`,
+bitwise equal to `decode`) and the posterior's `kl`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -238,7 +243,11 @@ class VAEDecoder(nn.Module):
             self.norm_out = GroupNorm32(block_in)
             self.conv_out = Conv3x3(block_in, cfg.out_ch, dt)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, return_trunk: bool = False) -> torch.Tensor:
+        """The image; with `return_trunk`, the activations before `conv_out`
+        (adversarial training re-applies `decoder_epilogue` to them as a
+        function of conv_out's weight, so the adaptive GAN weight,
+        contperceptual.py:32-43, costs one conv backward, not a decoder's)."""
         cfg = self.config
         h = self.conv_in(z)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
@@ -251,14 +260,24 @@ class VAEDecoder(nn.Module):
             if i != 0:
                 h = level.upsample(h) if cfg.resamp_with_conv else \
                     h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        h = self.conv_out(swish(self.norm_out(h)))
-        return torch.tanh(h) if cfg.tanh_out else h
+        h = swish(self.norm_out(h))
+        return h if return_trunk else decoder_epilogue(self.conv_out, h, tanh_out=cfg.tanh_out)
+
+
+def decoder_epilogue(conv_out: Conv3x3, h: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
+                     tanh_out: bool = False) -> torch.Tensor:
+    """The decoder's final conv (and tanh) on its trunk `h`, with `weight` in
+    place of conv_out's own when given (the adaptive GAN weight
+    differentiates with respect to it alone). The module's own forward, so
+    the split path is bitwise equal to `decode`."""
+    out = conv_out(h) if weight is None else torch.func.functional_call(
+        conv_out, {"weight": weight}, (h,))
+    return torch.tanh(out) if tanh_out else out
 
 
 class DiagonalGaussian(NamedTuple):
-    """Posterior over latents (distributions.py:24-62; its training-only `kl`
-    and `nll` are not ported yet); moments NHWC with channels = 2*z
-    (mean | logvar)."""
+    """Posterior over latents (distributions.py:24-62); moments NHWC with
+    channels = 2*z (mean | logvar)."""
 
     mean: torch.Tensor
     logvar: torch.Tensor
@@ -278,6 +297,17 @@ class DiagonalGaussian(NamedTuple):
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL(q || N(0, I)) of each sample, (B,)."""
+        return 0.5 * torch.sum(self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """-log q(sample) of each sample, (B,)."""
+        return 0.5 * torch.sum(math.log(2.0 * math.pi) + self.logvar
+                               + (sample - self.mean) ** 2 / torch.exp(self.logvar),
+                               dim=(1, 2, 3))
 
 
 class AutoencoderKL(nn.Module):
@@ -311,6 +341,14 @@ class AutoencoderKL(nn.Module):
         posterior = self.encode(x)
         z = posterior.mode() if noise is None else posterior.sample(noise)
         return self.decode(z), posterior
+
+    def forward_trunk(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        """The training forward split at the decoder's final conv: (the
+        activations before conv_out, posterior); pair with
+        `decoder_epilogue(self.decoder.conv_out, h)`."""
+        posterior = self.encode(x)
+        z = posterior.mode() if noise is None else posterior.sample(noise)
+        return self.decoder(self.post_quant_conv(z), return_trunk=True), posterior
 
 
 class VectorQuantizer(nn.Module):
@@ -378,3 +416,9 @@ class VQModel(nn.Module):
     def forward(self, x: torch.Tensor):
         z_q, loss, idx = self.quantize(self.encode(x))
         return self.decoder(self.post_quant_conv(z_q)), loss, idx
+
+    def forward_trunk(self, x: torch.Tensor):
+        """The training forward split at the decoder's final conv: (the
+        activations before conv_out, codebook loss, indices)."""
+        z_q, loss, idx = self.quantize(self.encode(x))
+        return self.decoder(self.post_quant_conv(z_q), return_trunk=True), loss, idx

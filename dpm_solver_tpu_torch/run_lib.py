@@ -1,17 +1,20 @@
-"""Training orchestration (the reference's run_lib layer), the training part.
+"""Training and evaluation orchestration (the reference's run_lib layer).
 
-Counterpart of `dpm_solver_tpu/run_lib.py`'s `build_model`,
+Counterpart of `dpm_solver_tpu/run_lib.py`: `build_model`,
 `score_net_apply`, `uses_legacy_discrete_loss`, `legacy_loss_fn`,
-`_make_sde`, `train` (score_sde_jax/run_lib.py:51-214) and `train_latent`
-(the LDM p_losses loop): preemption-safe loops that restore the newest meta
-checkpoint or start afresh, a meta checkpoint every
+`_make_sde`, `train` (score_sde_jax/run_lib.py:51-214), `evaluate`
+(:217-595, the checkpoint-polling evaluation), `train_latent` (the LDM
+p_losses loop) and `train_autoencoder` (the first stage's adversarial
+loop). The training loops are preemption-safe: they restore the newest meta
+checkpoint or start afresh, write a meta checkpoint every
 `snapshot_freq_for_preemption` steps and a full one every `snapshot_freq`.
-`evaluate` and the autoencoder loop are not ported yet.
 
 The loops run on `device` (the card by default; "cpu" for the tests). Each
 step's randomness is `StepRng(seed, step)` (training/train.py): a restarted
-run repeats the draws of an uninterrupted one. `compute_dtype` is the
-networks' (parameters, gradients, optimiser state and EMA stay fp32).
+run repeats the draws of an uninterrupted one; an evaluation round's is
+`StepRng(seed, checkpoint)`'s stream r, where the JAX package folds keys.
+`compute_dtype` is the networks' (parameters, gradients, optimiser state
+and EMA stay fp32).
 """
 
 from __future__ import annotations
@@ -26,14 +29,21 @@ import torch
 from torch import nn
 
 from dpm_solver_tpu_torch.configs import Config
-from dpm_solver_tpu_torch.training.checkpoints import CheckpointManager, restore_or_init
-from dpm_solver_tpu_torch.training.train import TrainState, make_optimizer, make_train_state
+from dpm_solver_tpu_torch.training.checkpoints import (CheckpointManager, EvalMeta,
+                                                       delete_eval_meta, load_eval_meta,
+                                                       restore_or_init, save_eval_meta,
+                                                       wait_for_checkpoint)
+from dpm_solver_tpu_torch.training.train import (StepRng, TrainState, make_optimizer,
+                                                 make_train_state)
 from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 log = logging.getLogger("dpm_solver_tpu_torch")
 
 # the streams of the models' initial weights
-_INIT_STREAM, _FIRST_STAGE_STREAM = 0, 1
+_INIT_STREAM, _FIRST_STAGE_STREAM, _DISC_STREAM, _LPIPS_STREAM = 0, 1, 2, 3
+# the streams of an evaluation's loss and bits/dim rounds (its sampling round
+# r takes stream r): the JAX package's fold_in data (run_lib.py:277, :283)
+_EVAL_LOSS_STREAM, _EVAL_BPD_STREAM = 10_000, 20_000
 
 
 def _init_generator(seed: int, stream: int, device) -> torch.Generator:
@@ -135,7 +145,7 @@ def _managers(workdir: str) -> Tuple[CheckpointManager, CheckpointManager]:
             CheckpointManager(os.path.join(workdir, "checkpoints-meta"), max_to_keep=1))
 
 
-def _snapshot(step: int, state: TrainState, ckpts, meta, preempt_freq: int,
+def _snapshot(step: int, state, ckpts, meta, preempt_freq: int,
               freq: int) -> None:
     """The loop's checkpoints after loop index `step` (state.step = step + 1)."""
     if step and step % preempt_freq == 0:
@@ -196,6 +206,103 @@ def train(config: Config, data_iter: Iterator, *, workdir: Optional[str] = None,
         _snapshot(step, state, ckpts, meta, tcfg.snapshot_freq_for_preemption,
                   tcfg.snapshot_freq)
     return state
+
+
+def evaluate(config: Config, *, workdir: Optional[str] = None, sample_fn: Optional[Callable] = None,
+             feature_fn: Optional[Callable] = None, loss_fn: Optional[Callable] = None,
+             bpd_fn: Optional[Callable] = None, bpd_rounds: int = 0, rounds: Optional[int] = None,
+             poll_timeout: Optional[float] = 0.0, device=DEFAULT_DEVICE) -> dict:
+    """Checkpoint-polling evaluation that resumes where it was stopped (ref
+    run_lib.py:217-595): each SAVED checkpoint step in [begin_ckpt,
+    end_ckpt] (keyed by training step, not consecutive ids), restored into
+    a `TrainState` on `device`. Hooks, all optional, each given the state
+    and a torch.Generator on `device`:
+      sample_fn(state, generator) -> (B, H, W, C)  one sampling round;
+      feature_fn(images) -> (features, logits)     FID/IS features; each
+          round's are written to `stats_ckpt{c}_round{r}.npz` (the samples
+          to `samples_ckpt{c}_round{r}.npz` without it), so a resumed run
+          aggregates all rounds (ref statistics_r.npz);
+      loss_fn(state, generator) -> float           the eval loss (enable_loss);
+      bpd_fn(state, generator) -> (B,) bits/dim    likelihood rounds (enable_bpd).
+    Progress is `EvalMeta` in workdir/eval after every round. Returns
+    {checkpoint step: {"rounds", "loss", "bpd", "inception_score", "fid"}}
+    (the keys whose hooks ran)."""
+    from dpm_solver_tpu_torch.eval import fid_from_features, inception_score, load_statistics
+
+    workdir = workdir or config.workdir
+    ecfg, tcfg = config.eval, config.training
+    eval_dir = os.path.join(workdir, "eval")
+    os.makedirs(eval_dir, exist_ok=True)
+    dev = resolve_device(device)
+    ckpts = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    # the optimiser's hyperparameters shape its state: the restore template
+    # must match what training saved
+    model, _ = build_model(config, device=dev)
+    template, _ = make_train_state(model, ema_rate=tcfg.ema_rate,
+                                   tx=make_optimizer(tcfg.lr, tcfg.warmup, tcfg.grad_clip))
+    n_rounds = rounds if rounds is not None else int(np.ceil(ecfg.num_samples / ecfg.batch_size))
+    meta = load_eval_meta(eval_dir)
+    results = {}
+
+    def path(kind: str, ckpt: int, r: int) -> str:
+        return os.path.join(eval_dir, f"{kind}_ckpt{ckpt}_round{r}.npz")
+
+    if not wait_for_checkpoint(ckpts, ecfg.begin_ckpt, poll_seconds=5.0, timeout=poll_timeout):
+        log.info("no checkpoint >= %d available", ecfg.begin_ckpt)
+        return results
+    steps = [s for s in ckpts.all_steps()
+             if ecfg.begin_ckpt <= s <= ecfg.end_ckpt and s >= meta.ckpt_id]
+    for ckpt_id in steps:
+        state = ckpts.restore(template, ckpt_id)
+        rng = StepRng(config.seed, ckpt_id)
+        entry = {"rounds": n_rounds}
+
+        if loss_fn is not None and ecfg.enable_loss:
+            entry["loss"] = float(loss_fn(state, rng.generator(dev, _EVAL_LOSS_STREAM)))
+
+        if bpd_fn is not None and ecfg.enable_bpd:
+            for r in range(meta.bpd_round_id + 1 if meta.ckpt_id == ckpt_id else 0, bpd_rounds):
+                bpd = bpd_fn(state, rng.generator(dev, _EVAL_BPD_STREAM + r))
+                np.savez(path("bpd", ckpt_id, r), bpd=_host(bpd))
+                meta = EvalMeta(ckpt_id=ckpt_id, bpd_round_id=r,
+                                sampling_round_id=meta.sampling_round_id
+                                if meta.ckpt_id == ckpt_id else -1)
+                save_eval_meta(meta, eval_dir)
+            bpds = [np.load(path("bpd", ckpt_id, r))["bpd"] for r in range(bpd_rounds)]
+            if bpds:
+                entry["bpd"] = float(np.mean(np.concatenate(bpds)))
+
+        if sample_fn is not None:
+            for r in range(meta.sampling_round_id + 1 if meta.ckpt_id == ckpt_id else 0, n_rounds):
+                samples = sample_fn(state, rng.generator(dev, r))
+                if feature_fn is not None:
+                    feats, logits = feature_fn(samples)
+                    np.savez(path("stats", ckpt_id, r), feats=_host(feats), logits=_host(logits))
+                else:
+                    np.savez(path("samples", ckpt_id, r), samples=_host(samples))
+                meta = EvalMeta(ckpt_id=ckpt_id, sampling_round_id=r,
+                                bpd_round_id=meta.bpd_round_id if meta.ckpt_id == ckpt_id else -1
+                                ).with_rng(rng.key(r))
+                save_eval_meta(meta, eval_dir)
+            if feature_fn is not None:
+                stats = [np.load(path("stats", ckpt_id, r)) for r in range(n_rounds)]
+                entry["inception_score"] = inception_score(
+                    np.concatenate([s["logits"] for s in stats]))[0]
+                if ecfg.fid_stats_path:
+                    entry["fid"] = fid_from_features(np.concatenate([s["feats"] for s in stats]),
+                                                     load_statistics(ecfg.fid_stats_path))
+
+        results[ckpt_id] = entry
+        meta = EvalMeta(ckpt_id=ckpt_id + 1)
+        save_eval_meta(meta, eval_dir)
+
+    delete_eval_meta(eval_dir)
+    return results
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (or array) as a NumPy array on the host."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def train_latent(preset: str, data_iter: Iterator, *, workdir: str, unet_config=None,
@@ -297,5 +404,83 @@ def train_latent(preset: str, data_iter: Iterator, *, workdir: str, unet_config=
         state, metrics = step_fn(state, images, context, seed)
         if step % log_freq == 0:
             _log_step(step, metrics)
+        _snapshot(step, state, ckpts, meta, snapshot_freq_for_preemption, snapshot_freq)
+    return state
+
+
+def train_autoencoder(data_iter: Iterator, *, workdir: str, kind: str = "kl", vae_config=None,
+                      n_embed: int = 16384, loss_config=None, disc_ndf: int = 64,
+                      disc_n_layers: int = 3, use_actnorm: bool = False, lpips_params=None,
+                      lr: float = 4.5e-6, max_steps: int = 1000, log_freq: int = 50,
+                      snapshot_freq: int = 10_000, snapshot_freq_for_preemption: int = 1_000,
+                      image_freq: int = 0, seed: int = 0, device=DEFAULT_DEVICE):
+    """The first-stage (AutoencoderKL / VQModel) adversarial training loop,
+    fp32 (the JAX package's): the reference's autoencoder training (its
+    PyTorch-Lightning harness, examples/stable-diffusion/main.py, driving
+    `AutoencoderKL.training_step`'s two optimisers with the
+    LPIPSWithDiscriminator / VQLPIPSWithDiscriminator losses). One step runs
+    both optimiser passes (`training/autoencoder.py`); checkpoints as
+    `train`'s; `image_freq` writes input | reconstruction grids under
+    workdir/recon (the ImageLogger callback's role, main.py:289-394).
+
+    data_iter yields (B, H, W, 3) batches in [-1, 1]. kind: 'kl' | 'vq'.
+    loss_config: `training.perceptual.KLLossConfig` / `VQLossConfig`
+    (default: disc_start 0 with the reference's weights). lpips_params: an
+    LPIPS state dict (`models.lpips.lpips_state_dict`'s namings); without
+    one the LPIPS is random (a random-feature perceptual metric: load
+    published weights for the reference's loss). Returns the
+    `AdversarialTrainState`."""
+    from dpm_solver_tpu_torch.models.discriminator import NLayerDiscriminator
+    from dpm_solver_tpu_torch.models.init import init_train_
+    from dpm_solver_tpu_torch.models.lpips import LPIPS
+    from dpm_solver_tpu_torch.models.vae import AutoencoderKL, VAEConfig, VQModel
+    from dpm_solver_tpu_torch.training import perceptual as PL
+    from dpm_solver_tpu_torch.training.autoencoder import (bind_autoencoder,
+                                                           make_adversarial_state,
+                                                           make_kl_train_step, make_vq_train_step)
+    from dpm_solver_tpu_torch.utils.logging import save_image_grid
+
+    if kind not in ("kl", "vq"):
+        raise ValueError(f"kind must be 'kl' or 'vq', got {kind!r}")
+    is_kl = kind == "kl"
+    vae_config = vae_config or (VAEConfig.sd_v1() if is_kl else VAEConfig.vq_cin256())
+    loss_config = loss_config or (PL.KLLossConfig() if is_kl else PL.VQLossConfig())
+    dev = resolve_device(device)
+    model = (AutoencoderKL(vae_config, device=dev) if is_kl
+             else VQModel(vae_config, n_embed=n_embed, device=dev))
+    init_train_(model, _init_generator(seed, _FIRST_STAGE_STREAM, dev))
+    disc = init_train_(NLayerDiscriminator(disc_ndf, disc_n_layers, use_actnorm,
+                                           input_nc=vae_config.in_channels, device=dev),
+                       _init_generator(seed, _DISC_STREAM, dev))
+    lpips = LPIPS(device=dev).eval()
+    if lpips_params is not None:
+        lpips.load_state_dict(lpips_params)
+    elif loss_config.perceptual_weight > 0:
+        log.warning("train_autoencoder: random-init LPIPS (no weights supplied); load "
+                    "published weights for the reference's loss")
+        init_train_(lpips, _init_generator(seed, _LPIPS_STREAM, dev))
+    fns = bind_autoencoder(model, disc, lpips)
+
+    state, tx = make_adversarial_state(model, disc, lr=lr)
+    step_fn = (make_kl_train_step(loss_config, tx=tx, **fns) if is_kl
+               else make_vq_train_step(loss_config, tx=tx, n_embed=n_embed, **fns))
+    ckpts, meta = _managers(workdir)
+    state = restore_or_init(meta, state)
+    start = state.step
+    log.info("autoencoder training (%s, %dpx) from step %d", kind, vae_config.resolution, start)
+
+    for step in range(start, max_steps):
+        images = _tensor(next(data_iter), dev)
+        state, metrics = step_fn(state, images, seed)
+        if step % log_freq == 0:
+            log.info("step %d nll %.5g disc %.5g", step,
+                     float(metrics.get("train/nll_loss", float("nan"))),
+                     float(metrics.get("train/disc_loss", float("nan"))))
+        if image_freq and step % image_freq == 0:
+            with torch.no_grad():
+                recon = model(images)[0]  # the KL posterior's mode
+            pair = torch.cat([images, recon.float()], dim=2)  # input | reconstruction
+            save_image_grid(torch.clamp((pair + 1.0) / 2.0, 0.0, 1.0),
+                            os.path.join(workdir, "recon", f"recon_{step:07d}.png"))
         _snapshot(step, state, ckpts, meta, snapshot_freq_for_preemption, snapshot_freq)
     return state

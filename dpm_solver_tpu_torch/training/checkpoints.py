@@ -9,10 +9,11 @@ that makes evaluation rounds resumable.
 Where the JAX package writes with orbax, the port writes one `torch.save`
 file a step (`<directory>/<step>/state.pt`), first into a temporary
 directory beside it and then renamed into place, so a reader sees a whole
-checkpoint or none. A tree is a `TrainState`, or dictionaries, lists and
-tuples of tensors and Python scalars; tensors are stored from host copies
+checkpoint or none. A tree is a state dataclass (`TrainState`,
+`AdversarialTrainState`: its fields), or dictionaries, lists and tuples of
+tensors and Python scalars; tensors are stored from host copies
 and restored into the template's own tensors in place (so a restored
-`TrainState` updates its module's parameters). `EvalMeta` files are the
+state updates its modules' parameters). `EvalMeta` files are the
 JAX package's JSON, field for field.
 """
 
@@ -28,16 +29,20 @@ from typing import Any, Optional
 
 import torch
 
-from dpm_solver_tpu_torch.training.train import TrainState
-
 _FILE = "state.pt"
 
 
+def _fields(tree: Any) -> Optional[list]:
+    """The field names of a state dataclass (a `TrainState`, an
+    `AdversarialTrainState`), else None."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [f.name for f in dataclasses.fields(tree)]
+    return None
+
+
 def _to_host(tree: Any) -> Any:
-    if isinstance(tree, TrainState):
-        return {"step": tree.step, "params": _to_host(tree.params),
-                "opt_state": _to_host(tree.opt_state), "ema_params": _to_host(tree.ema_params),
-                "ema_rate": tree.ema_rate}
+    if _fields(tree) is not None:
+        return {name: _to_host(getattr(tree, name)) for name in _fields(tree)}
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     if isinstance(tree, dict):
@@ -51,11 +56,10 @@ def _to_host(tree: Any) -> Any:
 def _fill(template: Any, saved: Any, where: str = "") -> Any:
     """`saved` into `template`'s structure: tensors copied into the
     template's in place, everything else replaced."""
-    if isinstance(template, TrainState):
-        template.step = int(saved["step"])
-        for field in ("params", "opt_state", "ema_params"):
-            setattr(template, field, _fill(getattr(template, field), saved[field], field))
-        template.ema_rate = float(saved["ema_rate"])
+    if _fields(template) is not None:
+        for name in _fields(template):
+            setattr(template, name, _fill(getattr(template, name), saved[name],
+                                          f"{where}.{name}" if where else name))
         return template
     if isinstance(template, torch.Tensor):
         if tuple(template.shape) != tuple(saved.shape):

@@ -17,8 +17,9 @@ returns new trees) and returns the gradients' global norm.
   update a learning rate of 0.
 - `clip_by_global_norm(max_norm)`: optax's, unchanged below the norm, else
   each tensor (t / norm) * max_norm, no epsilon.
-- `Adam`: optax's `scale_by_adam` (b1 0.9, b2 0.999, eps 1e-8, the moments'
-  bias corrections at count + 1) then `-lr(count)`.
+- `Adam`: optax's `scale_by_adam` (b1 0.9 and b2 0.999 by default, eps
+  1e-8, the moments' bias corrections at count + 1) then `-lr(count)`; the
+  first-stage trainer's is `adam(lr, b1=0.5, b2=0.9)` with no clip.
 - `Adafactor`: optax 0.2.6's `adafactor(learning_rate=...)` with its
   defaults: `scale_by_factored_rms` (min_dim_size_to_factor 128, decay_rate
   0.8, eps 1e-30), `clip_by_block_rms(1.0)`, `lr(count)`,
@@ -101,14 +102,11 @@ class _Optimizer:
         return _lr(self.schedule, count)
 
     @torch.no_grad()
-    def step(self, params: Params, grads: Params, state: dict) -> torch.Tensor:
+    def step(self, params: Params, grads: Params, state: dict) -> Optional[torch.Tensor]:
         """One update of `params` and `state` in place from `grads` (which
         the clip scales in place); returns the gradients' global norm before
-        the clip."""
-        if self.grad_clip is not None:
-            norm = clip_by_global_norm_(grads, self.grad_clip)
-        else:
-            norm = global_norm(grads.values())
+        the clip, or None where there is no clip."""
+        norm = None if self.grad_clip is None else clip_by_global_norm_(grads, self.grad_clip)
         self._apply(params, grads, state)
         state["count"] += 1
         return norm
@@ -123,8 +121,14 @@ AF_DECAY_RATE, AF_EPS, AF_CLIPPING, AF_MIN_SCALE = 0.8, 1e-30, 1.0, 1e-3
 
 
 class Adam(_Optimizer):
-    """optax.chain(clip_by_global_norm(grad_clip), adam(schedule)).
+    """optax.chain(clip_by_global_norm(grad_clip), adam(schedule, b1, b2)),
+    or optax.adam(schedule, b1, b2) alone with grad_clip=None.
     State: {"count": int, "mu": {name: fp32}, "nu": {name: fp32}}."""
+
+    def __init__(self, schedule: Schedule, grad_clip: Optional[float] = 1.0,
+                 b1: float = ADAM_B1, b2: float = ADAM_B2):
+        super().__init__(schedule, grad_clip)
+        self.b1, self.b2 = b1, b2
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in params.items()},
@@ -136,7 +140,7 @@ class Adam(_Optimizer):
         g = [grads[k] for k in names]
         mu = [state["mu"][k] for k in names]
         nu = [state["nu"][k] for k in names]
-        b1, b2, count = ADAM_B1, ADAM_B2, state["count"] + 1
+        b1, b2, count = self.b1, self.b2, state["count"] + 1
         # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1 - b1)

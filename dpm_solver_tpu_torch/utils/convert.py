@@ -22,7 +22,15 @@ into the port's models with a plain `load_state_dict`:
   params_from_torch`, for `models.NCSNpp` (the reference score_sde layout);
 - `ncsnv2_state_dict_from_flax` and `wideresnet_state_dict_from_flax`: the
   JAX `NCSNv2` and `WideResNetClassifier` params, for `models.NCSNv2` and
-  `models.WideResNetClassifier`, whose modules carry the Flax names.
+  `models.WideResNetClassifier`, whose modules carry the Flax names;
+- `lpips_state_dict_from_flax`, `discriminator_state_dict_from_flax` (with
+  its `batch_stats`) and `inception_state_dict_from_flax`: of
+  `convert_torch_lpips`, `convert_torch_discriminator` and
+  `convert_fid_inception`, for `models.LPIPS`, `models.NLayerDiscriminator`
+  and `eval.inception.FIDInceptionV3` (taming's and pt_inception's keys);
+- `train_state_from_flax` and `adversarial_state_from_flax`: a JAX
+  training state (`TrainState`, first-stage `AdversarialTrainState`) as
+  the port's, over its modules.
 
 They read nested dicts of arrays (numpy, or anything `np.asarray` takes) and
 import nothing of JAX. The DDPM layout rules, the converter's in reverse:
@@ -516,3 +524,122 @@ def train_state_from_flax(flax_state, to_state_dict, model: torch.nn.Module, tx)
     state.opt_state["count"] = int(np.asarray(adam.count))
     state.step = int(np.asarray(flax_state.step))
     return state
+
+
+def adversarial_state_from_flax(flax_state, ae_to_state_dict, ae: torch.nn.Module,
+                                discriminator: torch.nn.Module, tx=None):
+    """A JAX first-stage `AdversarialTrainState` (`dpm_solver_tpu/training/
+    autoencoder.py`: step, gen_params {'ae', 'logvar'}, gen_opt, disc_params,
+    disc_batch_stats, disc_opt, each optimiser optax.adam's state) as the
+    port's `training.autoencoder.AdversarialTrainState` over `ae` and
+    `discriminator`, which take the parameters and statistics.
+
+    `ae_to_state_dict` is the autoencoder's Flax -> torch converter (e.g.
+    `lambda p: autoencoder_kl_state_dict_from_flax(p, cfg)`); Adam's moments,
+    whose trees are the parameters', go through it and through
+    `discriminator_state_dict_from_flax`; the counts and the step carry over.
+    `tx` is the port's Adam the run continues with (default: the trainer's)."""
+    from dpm_solver_tpu_torch.training.autoencoder import make_adversarial_state
+
+    n_layers = discriminator.n_layers
+    ae.load_state_dict(ae_to_state_dict(flax_state.gen_params["ae"]))
+    discriminator.load_state_dict(discriminator_state_dict_from_flax(
+        {"params": flax_state.disc_params, "batch_stats": flax_state.disc_batch_stats},
+        n_layers), strict=False)
+    state, _ = make_adversarial_state(ae, discriminator, tx=tx,
+                                      logvar_init=float(np.asarray(flax_state.gen_params["logvar"])))
+    for opt, tree, to_sd, prefix in (
+            (state.gen_opt, flax_state.gen_opt, ae_to_state_dict, "ae."),
+            (state.disc_opt, flax_state.disc_opt,
+             lambda t: discriminator_state_dict_from_flax({"params": t}, n_layers), "")):
+        adam = _find_adam(tree)
+        if adam is None:
+            raise ValueError("no Adam state (count, mu, nu) in the JAX optimiser state")
+        with torch.no_grad():
+            for moment in ("mu", "nu"):
+                flax_tree = getattr(adam, moment)
+                sd = to_sd(flax_tree["ae"] if prefix else flax_tree)
+                for k, v in opt[moment].items():
+                    v.copy_(torch.as_tensor(np.asarray(flax_tree["logvar"])) if k == "logvar"
+                            else sd[k[len(prefix):]])
+        opt["count"] = int(np.asarray(adam.count))
+    state.step = int(np.asarray(flax_state.step))
+    return state
+
+
+# --------------------------------------------------------------------------- #
+# LPIPS, the PatchGAN discriminator, the FID Inception
+# --------------------------------------------------------------------------- #
+
+
+def lpips_state_dict_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `LPIPS` params -> the state dict of `models.LPIPS` (taming's
+    keys): `vgg/conv{i}` -> `net.slice{s}.{i}`, `lin{k}` (C,) ->
+    `lin{k}.model.1.weight` (1, C, 1, 1)."""
+    from dpm_solver_tpu_torch.models.lpips import _VGG_SLICES
+
+    p = flax_params.get("params", flax_params)
+    w = _Writer()
+    for si, convs in enumerate(_VGG_SLICES):
+        for idx, _ in convs:
+            w.conv(f"net.slice{si + 1}.{idx}", p["vgg"][f"conv{idx}"])
+    for k in range(len(_VGG_SLICES)):
+        w.put(f"lin{k}.model.1.weight", np.asarray(p[f"lin{k}"]).reshape(1, -1, 1, 1))
+    return w.sd
+
+
+def discriminator_state_dict_from_flax(flax_vars: Mapping, n_layers: int = 3
+                                       ) -> Dict[str, torch.Tensor]:
+    """JAX `NLayerDiscriminator` variables ({'params', 'batch_stats'}) -> the
+    state dict of `models.NLayerDiscriminator` (taming's `main.{i}` keys:
+    conv, LeakyReLU, [conv, norm, LeakyReLU] * n_layers, conv). BatchNorm's
+    running moments come from 'batch_stats' where it is given (its
+    `num_batches_tracked` 0); ActNorm's loc and scale become (1, C, 1, 1)."""
+    p, stats = flax_vars["params"], flax_vars.get("batch_stats") or {}
+    w = _Writer()
+
+    def conv(dst, node):
+        w.put(dst + ".weight", np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in node:
+            w.put(dst + ".bias", node["bias"])
+
+    conv("main.0", p["conv0"])
+    i = 2
+    for n in range(1, n_layers + 1):
+        conv(f"main.{i}", p[f"conv{n}"])
+        norm = p[f"norm{n}"]
+        if "loc" in norm:
+            w.put(f"main.{i + 1}.loc", np.asarray(norm["loc"]).reshape(1, -1, 1, 1))
+            w.put(f"main.{i + 1}.scale", np.asarray(norm["scale"]).reshape(1, -1, 1, 1))
+        else:
+            w.affine(f"main.{i + 1}", norm)
+            if f"norm{n}" in stats:
+                w.put(f"main.{i + 1}.running_mean", stats[f"norm{n}"]["mean"])
+                w.put(f"main.{i + 1}.running_var", stats[f"norm{n}"]["var"])
+                w.sd[f"main.{i + 1}.num_batches_tracked"] = torch.tensor(0)
+        i += 3
+    conv(f"main.{i}", p["conv_out"])
+    return w.sd
+
+
+def inception_state_dict_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `FIDInceptionV3` params -> the state dict of
+    `eval.inception.FIDInceptionV3` (pt_inception-2015-12-05's keys: each
+    ConvBN's `conv/kernel` -> `.conv.weight`, `bn_scale`, `bn_bias`,
+    `bn_mean`, `bn_var` -> `.bn.weight`, `.bn.bias`, `.bn.running_mean`,
+    `.bn.running_var`; `fc`)."""
+    leaf_names = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+                  "bn_var": "bn.running_var"}
+    w = _Writer()
+    for path, val in _leaves(flax_params.get("params", flax_params)):
+        mods, leaf = ".".join(path[:-1]), path[-1]
+        if path[0] == "fc":
+            w.put("fc." + ("weight" if leaf == "kernel" else "bias"),
+                  np.asarray(val).T if leaf == "kernel" else val)
+        elif leaf == "kernel":
+            w.put(mods + ".weight", np.asarray(val).transpose(3, 2, 0, 1))
+        else:
+            w.put(f"{mods}.{leaf_names[leaf]}", val)
+            if leaf == "bn_var":
+                w.sd[f"{mods}.bn.num_batches_tracked"] = torch.tensor(0)
+    return w.sd

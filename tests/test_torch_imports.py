@@ -9,8 +9,9 @@
   the launch counters stay at 0 through a whole tiny sampling run, a tiny
   txt2img run, a tiny classifier-guided run (whose backward takes the
   plain twins of the dq, dk/dv and conv3x3-dx kernels), tiny NCSN++
-  runs of the singlestep and adaptive solvers, and a tiny bits/dim and
-  black-box ODE sampler run.
+  runs of the singlestep and adaptive solvers, a tiny bits/dim and
+  black-box ODE sampler run, tiny first-stage training runs (KL and VQ) and
+  a tiny evaluation (a DPM-Solver sampling hook and the FID Inception).
 - The models and the pipeline default to the card: with no card, a
   constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
@@ -32,6 +33,9 @@ from dpm_solver_tpu_torch.models import (ADMClassifier, ADMConfig, ADMUNet, Auto
                                          NCSNpp, NCSNppConfig, SpatialRescaler,
                                          SpatialTransformer, VAEConfig, VQModel,
                                          constant_context_encoder, init_random_)
+from dpm_solver_tpu_torch.eval.inception import FIDInceptionV3
+from dpm_solver_tpu_torch.models.discriminator import NLayerDiscriminator
+from dpm_solver_tpu_torch.models.lpips import LPIPS
 from dpm_solver_tpu_torch.score import get_noise_fn
 from dpm_solver_tpu_torch.sde import VPSDE
 from dpm_solver_tpu_torch.pipelines import (LatentDiffusion, StableDiffusionPipeline,
@@ -207,6 +211,62 @@ def test_cpu_likelihood_and_ode_sampler_launch_nothing():
     assert ops.launch_counts() == NO_LAUNCHES
 
 
+@pytest.mark.parametrize("kind", ["kl", "vq"])
+def test_cpu_first_stage_training_launches_nothing(kind, tmp_path):
+    """First-stage adversarial training: the VAE's forward and backward (its
+    conv3x3, conv3x3-dx and attention forward and backward), LPIPS and the
+    discriminator, both optimiser passes: on the CPU no kernel launches."""
+    from dpm_solver_tpu_torch import run_lib
+    from dpm_solver_tpu_torch.training.perceptual import KLLossConfig, VQLossConfig
+
+    cfg = VAEConfig.tiny(resolution=16) if kind == "kl" else VAEConfig.tiny(
+        resolution=16, double_z=False, z_channels=3, embed_dim=3)
+    rng = np.random.default_rng(0)
+    batches = (rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32) for _ in range(2))
+    ops.reset_launch_counts()
+    state = run_lib.train_autoencoder(
+        batches, workdir=str(tmp_path), kind=kind, vae_config=cfg, n_embed=16,
+        loss_config=(KLLossConfig if kind == "kl" else VQLossConfig)(perceptual_weight=0.5),
+        disc_ndf=8, disc_n_layers=2, max_steps=2, log_freq=10, device="cpu")
+    assert state.step == 2
+    assert all(torch.isfinite(p).all() for p in state.gen_params.values())
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_evaluation_launches_nothing(tmp_path):
+    """`run_lib.evaluate` with a DPM-Solver sampling hook on the EMA
+    parameters and the FID Inception's features: on the CPU no kernel
+    launches."""
+    import dataclasses
+
+    from dpm_solver_tpu_torch import configs, run_lib
+    from dpm_solver_tpu_torch.eval.inception import make_feature_fn, random_feature_params
+    from dpm_solver_tpu_torch.training.checkpoints import CheckpointManager
+    from dpm_solver_tpu_torch.training.train import make_train_state
+
+    cfg = configs.get_config("tiny_test")
+    cfg = dataclasses.replace(cfg, workdir=str(tmp_path))
+    net, init_fn = run_lib.build_model(cfg, device="cpu")
+    init_fn(torch.Generator().manual_seed(0))
+    state, _ = make_train_state(net)
+    CheckpointManager(str(tmp_path / "checkpoints")).save(2, state)
+    ns = P.NoiseScheduleVP.discrete(betas=cfg.diffusion.betas())
+    features = make_feature_fn(random_feature_params(0), device="cpu")
+
+    def sample_fn(st, generator):
+        net.load_state_dict(st.ema_params, strict=False)
+        x = torch.randn(2, 16, 16, 3, generator=generator)
+        with torch.no_grad():
+            return P.DPM_Solver(P.model_wrapper(net.eval(), ns), ns).sample(
+                x, steps=2, order=2, method="multistep").clamp(-1, 1) * 0.5 + 0.5
+
+    ops.reset_launch_counts()
+    res = run_lib.evaluate(cfg, sample_fn=sample_fn, feature_fn=features, rounds=1,
+                           device="cpu")
+    assert list(res) == [2] and np.isfinite(res[2]["inception_score"])
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
 @pytest.mark.parametrize("build", [
     lambda: NCSNpp(NCSNppConfig.tiny()),
     lambda: DDPMUNet(DDPMUNetConfig.tiny(resolution=8)),
@@ -222,9 +282,12 @@ def test_cpu_likelihood_and_ode_sampler_launch_nothing():
     lambda: SpatialRescaler(out_channels=4),
     lambda: load_sd_checkpoint({"model.diffusion_model.x": torch.zeros(1)},
                                unet_config=ADMConfig.tiny()),
+    lambda: LPIPS(),
+    lambda: NLayerDiscriminator(8, 2),
+    lambda: FIDInceptionV3(),
 ], ids=["NCSNpp", "DDPMUNet", "ADMUNet", "ADMClassifier", "AutoencoderKL", "SpatialTransformer",
         "StableDiffusionPipeline", "VQModel", "BERTEmbedder", "ClassEmbedder", "SpatialRescaler",
-        "load_sd_checkpoint"])
+        "load_sd_checkpoint", "LPIPS", "NLayerDiscriminator", "FIDInceptionV3"])
 def test_default_device_is_the_card_and_raises_without_one(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
