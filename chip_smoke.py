@@ -252,11 +252,27 @@ and nothing of JAX. Phases, each fatal on failure:
    A global forward pre-hook records every launch's spec
    (`record_training_specs`, which must account for all); each spec is
    then checked against its plain version in its run's dtype;
+7g. path Q (`data_path`), the data path from disk, host work beside the
+   card's name and the host's nproc: first a probe of the host (g++, the
+   PNG, JPEG and zlib headers and libraries, PIL, cv2, tensorflow, the CPU
+   count); the host-IO libraries built by g++; (a) CIFAR-10's pickles at
+   full size read by `load_cifar10_dir`, `make_dataset` alone (images/s),
+   then `run_lib.train` on cifar10_ddpm b128 bf16 fed by it and on random
+   tensors (each counted by route against the DDPM UNet's launches, a warm
+   step and Q_STEPS - 1 timed); (b) FFHQ-layout 256 px TFRecords: the
+   CRC32C known answer, the C++ index against the Python one, both
+   TFRecord readers with shuffle, flips and dequantization, the first
+   batch equal to a numpy decode to the bit (images/s); (c) a folder of
+   PNGs of 256-512 px through `image_folder_dataset` (generic and
+   `lsun_scoresde`); (d) an LMDB of 256 px PNGs through `lsun_dataset`; (e)
+   path P's first round as a PNG folder through `compute_statistics_of_path`
+   on the card's Inception, its mu and sigma within 1e-6 of their max of the
+   npz route's; all in a temporary directory, removed after;
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
    shares, the ScoreSDE call's network-forward share, the bits/dim call's
-   wall (median of LIK_TIMED_RUNS after the counted one), NFE, ms per NFE
+   wall (the counted call's, and the median with LIK_TIMED_RUNS more), NFE, ms per NFE
    and its network forward and backward shares, and each kernel
    against its plain version, the one PyTorch call that computes the same
    function (where there is one; for LayerNorm->Linear and GEGLU, which no
@@ -288,7 +304,8 @@ Paths H and I print their steps' walls, images/s, peak memory, losses and
 grad norms, the card-vs-CPU step checks and the restart checks as one JSON
 line (`{"training": ...}`) before the kernels' record; paths J-N their
 walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line; paths
-O and P theirs and their checks as `{"first_stage_and_eval": ...}`.
+O and P theirs and their checks as `{"first_stage_and_eval": ...}`; path Q
+its walls, rates, probe and checks as `{"data_path_q": ...}`.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -360,9 +377,10 @@ SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
 # path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
 # loosened to 1e-4 to keep the phase near its time budget (PERF.md section 4:
 # the call is host-bound, so a smaller batch would not be faster)
-# one timed bits/dim call after the counted one (three until paths F and G
-# came: the script's time limit; PERF.md section 4)
-LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 1
+# E is timed on its counted call, with no second call (one until path Q
+# came, three until paths F and G: the script's time limit; PERF.md
+# section 4)
+LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 0
 # the adaptive solver's bound, card against CPU: each side accepts its steps
 # on its own fp32 error estimate (tests/test_solver_parity.py:286)
 ADAPTIVE_BOUND = 5e-3
@@ -453,6 +471,26 @@ N_DB, N_K, N_STEPS, N_SIZE, N_SCALE = 1_000_000, 10, 10, 768, 5.0
 O_KL_BATCH, O_KL_STEPS, O_VQ_BATCH, O_VQ_STEPS, O_CODES = 12, 4, 8, 2, 8192
 O_RESTART_STEPS, O_RESUME_AT, O_CHECK_SIZE, O_LR = 3, 2, 64, 4.5e-6
 P_TRAIN_STEPS, P_ROUNDS, P_CHUNK, P_LOSS_BATCH, P_REF_IMAGES = 3, 2, 250, 128, 2500
+# path Q (phase 7g), the data path from disk (PERF.md section 4): (a) CIFAR-10
+# at its real size (50,000 + 10,000 seeded images in the python-pickle
+# layout) through load_cifar10_dir and make_dataset into run_lib.train on
+# cifar10_ddpm, a warm step and Q_STEPS - 1 timed, beside the same call on
+# random tensors; the loader alone over Q_LOADER_BATCHES batches; (b) FFHQ's
+# raw-CHW TFRecord layout at 256 px, Q_FFHQ_RECORDS of its 70,000 records,
+# each reader timed over Q_READ_BATCHES batches of Q_BATCH after its first;
+# (c) Q_FOLDER_IMAGES PNGs with sides from 256 to 512 in a folder; (d)
+# Q_LMDB_IMAGES 256-px PNG payloads in an LMDB; (e) path P's first round as
+# a PNG folder, the FID's chunks of Q_FID_CHUNK
+Q_STEPS, Q_LOADER_BATCHES, Q_FFHQ_RECORDS, Q_BATCH, Q_READ_BATCHES = 5, 100, 2048, 32, 15
+Q_FOLDER_IMAGES, Q_LMDB_IMAGES, Q_FID_CHUNK = 1024, 1024, 250
+# the readers path Q runs, fixed from the card machine's probe (g++ 13.3 and
+# zlib; no png.h, no jpeglib.h, no libpng or libjpeg; PIL and cv2; no
+# tensorflow): the core library (TFRecords) and the PNG codec (on zlib) build
+# there, the JPEG decoder (jpeglib.h) does not, so every payload here is PNG
+# or raw; a JPEG or WebP reader path is not exercised on the card
+Q_READERS = ("load_cifar10_dir", "make_dataset", "tfrecord_dataset_native", "tfrecord_dataset",
+             "image_folder_dataset", "image_folder_dataset lsun_scoresde", "lsun_dataset",
+             "compute_statistics_of_path folder")
 # fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
 # relative to max|x|: the same kernels on the same inputs
 GRAPH_BOUND = 1e-6
@@ -522,6 +560,41 @@ def card() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_probe() -> dict:
+    """What the host offers path Q (phase 7g), printed first: g++ and its
+    version, whether png.h and jpeglib.h preprocess and libpng, libjpeg and
+    zlib link, whether PIL, cv2 and tensorflow import (each in a child
+    process), and the host's CPU count."""
+    import os
+
+    found = {}
+    gxx = shutil.which("g++")
+    ver = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0] if gxx else None
+    found["g++"] = ver
+    log(f"probe: g++ {ver or 'not found'}")
+    with tempfile.TemporaryDirectory(prefix="probe_") as tmp:
+        for header, lib in (("png.h", "png"), ("jpeglib.h", "jpeg"), ("zlib.h", "z")):
+            src = Path(tmp) / f"{lib}.cpp"
+            # jpeglib.h wants FILE and size_t declared first
+            src.write_text(f"#include <cstdio>\n#include <{header}>\nint main() {{ return 0; }}\n")
+            pre = gxx and subprocess.run([gxx, "-E", str(src)], capture_output=True,
+                                         timeout=60).returncode == 0
+            link = gxx and subprocess.run([gxx, str(src), "-o", str(Path(tmp) / lib), f"-l{lib}"],
+                                          capture_output=True, timeout=120).returncode == 0
+            found[header] = dict(preprocesses=bool(pre), links=bool(link))
+            log(f"probe: {header} preprocesses {bool(pre)}, -l{lib} links {bool(link)}")
+    for mod in ("PIL", "cv2", "tensorflow"):
+        run = subprocess.run([sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
+                             capture_output=True, text=True, timeout=300)
+        found[mod] = run.stdout.strip() if run.returncode == 0 else None
+        log(f"probe: import {mod}: "
+            f"{found[mod] or 'fails (' + (run.stderr.strip().splitlines() or ['?'])[-1] + ')'}")
+    found["cpu_count"] = os.cpu_count()
+    log(f"probe: os.cpu_count() {found['cpu_count']}")
+    return found
 
 
 def cuda_ms(fn) -> float:
@@ -2208,6 +2281,7 @@ def first_stage_and_eval(dev, smi: str) -> dict:
     inception = FIDInceptionV3(device=dev).eval()
     inception.load_state_dict(random_feature_params(TRAIN_SEED))
     spans = {"sample": [], "features": []}
+    first_round = []
     params = dict(net.named_parameters())
 
     def sample_fn(state, generator):
@@ -2219,6 +2293,8 @@ def first_stage_and_eval(dev, smi: str) -> dict:
         out = (solver.sample(x, jit=True, **sample_kw).clamp(-1.0, 1.0) + 1.0) / 2.0
         torch.cuda.synchronize()
         spans["sample"].append(time.perf_counter() - t1)
+        if not first_round:  # path Q's FID folder (phase 7g), quantised as PNG samples are
+            first_round.append((out * 255).clamp(0, 255).to(torch.uint8).cpu().numpy())
         return out
 
     def feature_fn(images):
@@ -2335,7 +2411,327 @@ def first_stage_and_eval(dev, smi: str) -> dict:
     log(f"path P done in {walls['p_s']:.1f} s")
     run_log.removeHandler(handler)
     return dict(launches=launches, routes=routes, walls=walls, specs=specs, checks=checks,
-                eval_batch=b_eval)
+                eval_batch=b_eval, p_samples=first_round[0])
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    out, n = bytes([field << 3 | 2]), len(payload)
+    while True:
+        out += bytes([n & 0x7F | (0x80 if n >> 7 else 0)])
+        n >>= 7
+        if not n:
+            return out + payload
+
+
+def raw_record(img_chw) -> bytes:
+    """A tf.train.Example in FFHQ's raw layout: {'shape': int64[3] (C, H, W),
+    'data': CHW uint8 bytes}."""
+    shape = b"".join(bytes([v]) if v < 128 else bytes([v & 0x7F | 0x80, v >> 7])
+                     for v in img_chw.shape)
+    data = _ld(1, _ld(1, img_chw.tobytes()))
+    return _ld(1, _ld(1, _ld(1, b"data") + _ld(2, data))
+               + _ld(1, _ld(1, b"shape") + _ld(2, _ld(3, _ld(1, shape)))))
+
+
+def write_tfrecord(path: Path, payloads, crc32c) -> None:
+    """TFRecord framing: u64 length, masked CRC32C of it, payload, masked
+    CRC32C of the payload."""
+    import struct
+
+    mask = lambda c: (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF  # noqa: E731
+    with open(path, "wb") as f:
+        for p in payloads:
+            head = struct.pack("<Q", len(p))
+            f.write(head + struct.pack("<I", mask(crc32c(head))))
+            f.write(p + struct.pack("<I", mask(crc32c(p))))
+
+
+def data_path(dev, smi: str, p_samples) -> dict:
+    """Path Q (phase 7g): real-format datasets written to a temporary
+    directory, read through the port's readers (host work: numpy, torch on
+    the CPU and the native host-IO libraries), feeding `run_lib.train` at
+    full width, and the FID folder route on the card's Inception. Returns
+    the launches and routes of the data-fed training run, the walls and
+    rates, and the checks."""
+    import os
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from dpm_solver_tpu_torch import configs as port_configs
+    from dpm_solver_tpu_torch import data as pdata
+    from dpm_solver_tpu_torch import native, ops, run_lib
+    from dpm_solver_tpu_torch.eval import fid as pfid
+    from dpm_solver_tpu_torch.eval.inception import make_feature_fn, random_feature_params
+    from dpm_solver_tpu_torch.native import build as nbuild
+    from dpm_solver_tpu_torch.utils.lmdb import LMDBReader, write_lmdb
+
+    nproc = os.cpu_count()
+    probe = host_probe()
+    rates, walls, checks = {}, {}, {"probe": probe}
+    log(f"path Q: readers run here {list(Q_READERS)}; host nproc {nproc}, card {smi}")
+    tmp = Path(tempfile.mkdtemp(prefix="path_q_"))
+    rng = np.random.default_rng(TRAIN_SEED + 8)
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        for name in ("io", "png", "lmdb_walk"):
+            nbuild.build(name)
+        walls["host_build_s"] = time.perf_counter() - t0
+        log(f"  the host-IO libraries (io, png, lmdb_walk) built by g++ in "
+            f"{walls['host_build_s']:.1f} s")
+
+        # ---- (a) CIFAR-10 at its real size into run_lib.train ------------------
+        cifar = tmp / "cifar-10-batches-py"
+        cifar.mkdir()
+        t0 = time.perf_counter()
+        for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+            with open(cifar / name, "wb") as f:
+                pickle.dump({b"batch_label": name.encode(),
+                             b"labels": rng.integers(0, 10, 10_000).tolist(),
+                             b"data": rng.integers(0, 256, (10_000, 3072), dtype=np.uint8)},
+                            f, protocol=4)
+        walls["a_write_s"] = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in cifar.iterdir())
+        t0 = time.perf_counter()
+        images = pdata.load_cifar10_dir(str(cifar))
+        test = pdata.load_cifar10_dir(str(cifar), train=False)
+        walls["a_load_s"] = time.perf_counter() - t0
+        if images.shape != (50_000, 32, 32, 3) or test.shape != (10_000, 32, 32, 3):
+            fail(f"path Q (a): load_cifar10_dir gave {images.shape}, {test.shape}")
+        log(f"  (a) CIFAR-10: {size / 1e6:.1f} MB of pickles written in {walls['a_write_s']:.2f} s, "
+            f"read by load_cifar10_dir in {walls['a_load_s']:.2f} s")
+        d_cfg = port_configs.get_config("cifar10_ddpm")
+        d_cfg = dataclasses.replace(d_cfg, training=dataclasses.replace(
+            d_cfg.training, continuous=False, log_freq=1, snapshot_freq=10 ** 9,
+            snapshot_freq_for_preemption=10 ** 9))
+        batch = d_cfg.training.batch_size
+        loader = pdata.make_dataset(images, batch_size=batch, random_flip=True,
+                                    centered=d_cfg.data.centered, seed=TRAIN_SEED)
+        first = next(loader)
+        if first.shape != (1, batch, 32, 32, 3) or first.dtype != np.float32 \
+                or not -1.0 <= first.min() < first.max() <= 1.0:
+            fail(f"path Q (a): make_dataset's batch {first.shape} {first.dtype} "
+                 f"[{first.min()}, {first.max()}]")
+        t0 = time.perf_counter()
+        for _ in range(Q_LOADER_BATCHES):
+            next(loader)
+        rates["a_loader_images_per_s"] = Q_LOADER_BATCHES * batch / (time.perf_counter() - t0)
+        log(f"  (a) make_dataset(b{batch}, flips, centred) alone, host nproc {nproc}: "
+            f"{rates['a_loader_images_per_s']:.0f} images/s over {Q_LOADER_BATCHES} batches")
+
+        per_step = train_launches(Counter(conv3x3=47, token_attention=6))
+        torch.set_grad_enabled(True)
+
+        def run(what, batches):
+            """Q_STEPS counted steps of run_lib.train on the card, each step's
+            wall from the host clock after a synchronize at each batch."""
+            stamps = []
+
+            def timed():
+                for b in batches:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+                    yield b
+
+            with step_metrics() as steps_log:
+                ops.reset_launch_counts()
+                run_lib.train(d_cfg, timed(), workdir=str(tmp / what.split()[0]),
+                              max_steps=Q_STEPS, compute_dtype=torch.bfloat16, device=dev)
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                launches, routes = ops.launch_counts(), ops.launch_routes()
+            expected = scaled(per_step, Q_STEPS)
+            if launches != expected:
+                fail(f"path Q (a) {what}: launches {launches} != {expected}")
+            check_routes(f"path Q (a) {what}", launches, routes)
+            if len(steps_log) != Q_STEPS or not all(math.isfinite(v) for m in steps_log
+                                                    for v in m[1:]):
+                fail(f"path Q (a) {what}: the steps' loss and grad norm {steps_log}")
+            ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+            med = statistics.median(ms[1:])
+            log(f"  (a) run_lib.train on cifar10_ddpm, {what}, b{batch} bf16, on {smi}: median "
+                f"step {med:.2f} ms of {Q_STEPS - 1} after a warm one (all "
+                f"{[round(v, 2) for v in ms]}) -> {batch / med * 1e3:.2f} images/s; launches "
+                f"{launches}; loss {[round(m[1], 5) for m in steps_log]}")
+            return med, ms, launches, routes
+
+        data_ms, data_all, launches, routes = run("fed by make_dataset", loader)
+        random = rng.uniform(-1.0, 1.0, (Q_STEPS, batch, 32, 32, 3)).astype(np.float32)
+        random_ms, random_all, _, _ = run("random tensors", iter(random))
+        torch.set_grad_enabled(False)
+        walls.update(a_step_ms=data_ms, a_step_ms_all=data_all, a_random_step_ms=random_ms,
+                     a_random_step_ms_all=random_all)
+        rates.update(a_train_images_per_s=batch / data_ms * 1e3,
+                     a_random_images_per_s=batch / random_ms * 1e3)
+        log(f"  (a) data-fed step {data_ms:.2f} ms vs random tensors {random_ms:.2f} ms "
+            f"({data_ms / random_ms:.3f}x)")
+        del images, test, loader, random
+        shutil.rmtree(cifar, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # ---- (b) FFHQ's raw-CHW TFRecords at 256 px --------------------------------
+        if native.crc32c(b"123456789") != 0xE3069283:
+            fail("path Q (b): the native CRC32C's known answer")
+        t0 = time.perf_counter()
+        src = rng.integers(0, 256, (Q_FFHQ_RECORDS, 3, 256, 256), dtype=np.uint8)
+        rec_path = tmp / "ffhq-r08.tfrecords"
+        write_tfrecord(rec_path, (raw_record(im) for im in src), native.crc32c)
+        walls["b_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        offs, lens = native.tfrecord_index(str(rec_path))
+        walls["b_index_s"] = time.perf_counter() - t0
+        py_offs, py_lens = native._tfrecord_index_py(str(rec_path))
+        if len(offs) != Q_FFHQ_RECORDS or not (np.array_equal(offs, py_offs)
+                                               and np.array_equal(lens, py_lens)):
+            fail("path Q (b): the C++ TFRecord index differs from the Python one")
+        log(f"  (b) FFHQ raw layout: {Q_FFHQ_RECORDS} records, "
+            f"{rec_path.stat().st_size / 1e6:.1f} MB, written in {walls['b_write_s']:.2f} s; "
+            f"the C++ index (CRC32C checked) in {walls['b_index_s'] * 1e3:.1f} ms equals the "
+            f"Python one; CRC32C's known answer ok")
+        seed = TRAIN_SEED + 9
+        for reader in ("tfrecord_dataset_native", "tfrecord_dataset"):
+            it = getattr(pdata, reader)(str(rec_path), resolution=256, batch_size=Q_BATCH,
+                                        uniform_dequantization=True, centered=True,
+                                        random_flip=True, shuffle=True, seed=seed)
+            got = next(it)
+            # the same batch from numpy alone: one default_rng(seed) draws the
+            # permutation, the flips, the dequantization noise
+            want_rng = np.random.default_rng(seed)
+            idx = want_rng.permutation(Q_FFHQ_RECORDS)[:Q_BATCH]
+            want = src[idx].transpose(0, 2, 3, 1).astype(np.float32)
+            want = want / 255.0 if reader == "tfrecord_dataset_native" else want * pdata._U8_SCALE
+            flips = want_rng.random(Q_BATCH) < 0.5
+            want[flips] = want[flips, :, ::-1]
+            noise = (want_rng.random(want.shape).astype(np.float32)
+                     if reader == "tfrecord_dataset_native"
+                     else want_rng.random(want.shape, dtype=np.float32))
+            want = ((noise + want * 255.0) / 256.0) * 2.0 - 1.0
+            if not np.array_equal(got, want):
+                fail(f"path Q (b): {reader}'s first batch differs from the numpy decode "
+                     f"(max |d| {np.abs(got - want).max()})")
+            t0 = time.perf_counter()
+            for _ in range(Q_READ_BATCHES):
+                next(it)
+            rates[f"b_{reader}_images_per_s"] = Q_READ_BATCHES * Q_BATCH / (
+                time.perf_counter() - t0)
+            log(f"  (b) {reader}(256 px, b{Q_BATCH}, shuffle, flips, dequantization), host "
+                f"nproc {nproc}: first batch equal to the numpy decode to the bit; "
+                f"{rates[f'b_{reader}_images_per_s']:.0f} images/s over {Q_READ_BATCHES} "
+                f"batches")
+            del it
+        del src
+        rec_path.unlink()
+
+        # ---- (c) a PNG folder in ImageNet's manner ------------------------------
+        yy, xx = np.mgrid[0:1024, 0:1024].astype(np.float32)
+        texture = np.stack([127 + 90 * np.sin(xx / (9 + 4 * c)) * np.cos(yy / (13 + 3 * c))
+                            for c in range(3)], -1)
+        texture = np.clip(texture + rng.normal(0, 12, texture.shape), 0, 255).astype(np.uint8)
+        folder = tmp / "imagenet_like"
+        folder.mkdir()
+        sides = rng.integers(256, 513, (Q_FOLDER_IMAGES, 2))
+        corners = rng.integers(0, 1024 - 512, (Q_FOLDER_IMAGES, 2))
+
+        def write_one(i):
+            (h, w), (y, x) = sides[i], corners[i]
+            native.write_png_batch(np.ascontiguousarray(texture[y:y + h, x:x + w])[None],
+                                   [str(folder / f"n{i:05d}.png")], threads=1)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(nproc) as pool:
+            list(pool.map(write_one, range(Q_FOLDER_IMAGES)))
+        walls["c_write_s"] = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in folder.iterdir())
+        log(f"  (c) {Q_FOLDER_IMAGES} PNGs, sides 256-512, {size / 1e6:.1f} MB, written by "
+            f"write_png_batch in {walls['c_write_s']:.2f} s")
+        for label, transform, n_batches in (("generic", None, Q_FOLDER_IMAGES // Q_BATCH),
+                                            ("lsun_scoresde", "lsun_scoresde",
+                                             Q_FOLDER_IMAGES // Q_BATCH // 2)):
+            t0 = time.perf_counter()
+            it = pdata.image_folder_dataset(str(folder), resolution=256, batch_size=Q_BATCH,
+                                            shuffle=True, seed=seed, transform=transform)
+            for _ in range(n_batches):
+                b = next(it)
+                if b.shape != (Q_BATCH, 256, 256, 3) or not 0.0 <= b.min() <= b.max() <= 1.0:
+                    fail(f"path Q (c) {label}: a batch {b.shape} [{b.min()}, {b.max()}]")
+            rates[f"c_{label}_images_per_s"] = n_batches * Q_BATCH / (time.perf_counter() - t0)
+            log(f"  (c) image_folder_dataset(256 px, b{Q_BATCH}, {label}), host nproc {nproc}: "
+                f"{rates[f'c_{label}_images_per_s']:.0f} images/s over {n_batches} batches")
+            del it
+        shutil.rmtree(folder, ignore_errors=True)
+
+        # ---- (d) an LMDB in LSUN's layout ---------------------------------------
+        pngs = tmp / "lmdb_payloads"
+        pngs.mkdir()
+        crops = np.stack([texture[y:y + 256, x:x + 256]
+                          for y, x in rng.integers(0, 1024 - 256, (Q_LMDB_IMAGES, 2))])
+        t0 = time.perf_counter()
+        paths = [str(pngs / f"{i:07d}.png") for i in range(Q_LMDB_IMAGES)]
+        native.write_png_batch(crops, paths)
+        env = tmp / "bedroom_train_lmdb"
+        write_lmdb(str(env), ((os.path.basename(p)[:-4].encode(), open(p, "rb").read())
+                              for p in paths))
+        walls["d_write_s"] = time.perf_counter() - t0
+        shutil.rmtree(pngs, ignore_errors=True)
+        with LMDBReader(str(env)) as reader:
+            table = reader.entry_table()
+        if table.shape != (Q_LMDB_IMAGES, 4):
+            fail(f"path Q (d): the native walker's entry table is {table.shape}")
+        t0 = time.perf_counter()
+        it = pdata.lsun_dataset(str(env), resolution=256, batch_size=Q_BATCH, repeat=False,
+                                seed=seed)
+        n_images = 0
+        for b in it:
+            n_images += len(b)
+        rates["d_lsun_images_per_s"] = n_images / (time.perf_counter() - t0)
+        if n_images != Q_LMDB_IMAGES // Q_BATCH * Q_BATCH:
+            fail(f"path Q (d): lsun_dataset gave {n_images} images")
+        log(f"  (d) LMDB of {Q_LMDB_IMAGES} 256-px PNGs ({(env / 'data.mdb').stat().st_size / 1e6:.1f}"
+            f" MB) written in {walls['d_write_s']:.2f} s; lsun_dataset(256 px, b{Q_BATCH}) on the "
+            f"native walker's table, host nproc {nproc}: {rates['d_lsun_images_per_s']:.0f} "
+            f"images/s over one epoch")
+        shutil.rmtree(env, ignore_errors=True)
+        del texture, crops
+
+        # ---- (e) the FID folder route ---------------------------------------------
+        samples = tmp / "p_first_round"
+        samples.mkdir()
+        native.write_png_batch(p_samples, [str(samples / f"{i:05d}.png")
+                                           for i in range(len(p_samples))])
+        npz = tmp / "p_first_round.npz"
+        np.savez(npz, samples=p_samples)
+        t0 = time.perf_counter()
+        n_read = sum(len(b) for b in pfid._folder_batches(str(samples), Q_FID_CHUNK))
+        walls["e_folder_read_s"] = time.perf_counter() - t0
+        feature_fn = make_feature_fn(random_feature_params(TRAIN_SEED), device=dev)
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        mu_f, sigma_f = pfid.compute_statistics_of_path(str(samples), feature_fn,
+                                                        batch_size=Q_FID_CHUNK)
+        walls["e_folder_stats_s"] = time.perf_counter() - t0
+        mu_n, sigma_n = pfid.compute_statistics_of_path(str(npz), feature_fn,
+                                                        batch_size=Q_FID_CHUNK)
+        torch.backends.cudnn.deterministic = False
+        d_mu = float(np.abs(mu_f - mu_n).max() / np.abs(mu_n).max())
+        d_sigma = float(np.abs(sigma_f - sigma_n).max() / np.abs(sigma_n).max())
+        checks.update(e_mu_rel=d_mu, e_sigma_rel=d_sigma)
+        log(f"  (e) path P's first round, {n_read} PNGs {p_samples.shape[1:]}: the folder read "
+            f"(native, chunks of {Q_FID_CHUNK}) {walls['e_folder_read_s'] * 1e3:.1f} ms; "
+            f"compute_statistics_of_path(folder) on {smi} {walls['e_folder_stats_s']:.2f} s; "
+            f"against the npz of the same uint8 samples: mu {d_mu:.3e}, sigma {d_sigma:.3e} of "
+            f"their max (bound 1e-6)")
+        if n_read != len(p_samples) or d_mu > 1e-6 or d_sigma > 1e-6:
+            fail("path Q (e): the folder's statistics differ from the npz's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["q_s"] = time.perf_counter() - t_phase
+    log(f"path Q done in {walls['q_s']:.1f} s")
+    return dict(launches=launches, routes=routes, walls=walls, rates=rates, checks=checks,
+                nproc=nproc)
 
 
 def main() -> int:
@@ -3744,11 +4140,17 @@ def main() -> int:
     torch.nn.grad.conv2d_weight = counted_weight_grad
     try:
         ops.reset_launch_counts()
+        for v in espans.values():
+            v.clear()
         t0 = time.perf_counter()
         bpd_e, z_e, nfe_e = lik_e(e_data, epsilon=e_probe)
         torch.cuda.synchronize()
         first_e = time.perf_counter() - t0
         launches_e = ops.launch_counts()
+        # the counted call's wall and device spans (phase 8 times no other
+        # call unless LIK_TIMED_RUNS says so)
+        e_runs = [(first_e, *(sum(a.elapsed_time(b) for a, b in espans[k]) / 1e3
+                              for k in ("forward", "backward")))]
     finally:
         torch.nn.grad.conv2d_weight = conv2d_weight
     attn_stage = per_stage["token_attention"]
@@ -4449,9 +4851,9 @@ def main() -> int:
               SCORE_BATCH)
     del graphed_d
 
-    # path E: the wall of one bits/dim call after the warm (counted) one, and
-    # the network's forward and backward device spans by CUDA events
-    runs = []
+    # path E: the wall of the counted bits/dim call and of LIK_TIMED_RUNS
+    # more, and the network's forward and backward device spans by CUDA events
+    runs = e_runs
     for _ in range(LIK_TIMED_RUNS):
         for v in espans.values():
             v.clear()
@@ -4609,6 +5011,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  checked in {time.perf_counter() - t1:.1f} s")
     log(f"paths O and P done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7g. path Q: the data path from disk ------------------------------------
+    # (here, once 7f's networks are freed; host work, each number beside the
+    # host's nproc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7g starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    path_q = data_path(dev, smi, fse.pop("p_samples"))
+    torch.cuda.empty_cache()
 
     # dq and dk/dv at the classifier's own attention sites, as the call
     # recorded them (its blocks at 32x32, 16x16, 8x8 and the attention pool)
@@ -4894,10 +5305,12 @@ def main() -> int:
     paths = {"a": launches_a, "b": launches_b, "c": launches_c, "d": launches_d,
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
-             "i_cin256": launches_ic, **surface["launches"], **fse["launches"]}
+             "i_cin256": launches_ic, **surface["launches"], **fse["launches"],
+             "q": path_q["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
-              "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"]}
+              "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"],
+              "q": path_q["routes"]}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
@@ -4945,6 +5358,9 @@ def main() -> int:
         h_check, i=i_check), "resume": {"h": h_resume, "i_small": i_resume}}))
     log(json.dumps({"first_stage_and_eval": {"walls": fse["walls"], "checks": fse["checks"]},
                     "card": smi}))
+    log(json.dumps({"data_path_q": {"walls": path_q["walls"], "rates": path_q["rates"],
+                                    "checks": path_q["checks"]}, "card": smi,
+                    "nproc": path_q["nproc"]}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

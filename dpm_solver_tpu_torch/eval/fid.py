@@ -135,31 +135,58 @@ def kid_from_features(f_gen, f_ref, *, max_block: int = 1024, seed: Optional[int
 def compute_statistics_of_path(path: str, feature_fn: Callable, *, batch_size: int = 50):
     """(mu, sigma) of a sample source (ref evaluate/fid_score.py:231-243):
     an `.npz` of statistics ('mu', 'sigma') or of images ('samples', else
-    its first array; uint8, or values above 1.5, read as 0-255).
-    `feature_fn` maps (B, H, W, 3) float32 tensors in [0, 1] to (features,
-    logits) (`eval.inception.make_feature_fn`). An image folder needs the
-    native PNG reader, which the port does not have yet: it raises."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: reading an image folder needs the native PNG batch reader "
-            "(dpm_solver_tpu/native), not ported yet (ROADMAP.md queue 1, item 7: Slice H); "
-            "pass an .npz of images or of statistics")
-    with np.load(path) as f:
-        if "mu" in f.files and "sigma" in f.files:
-            return f["mu"][:], f["sigma"][:]
-        arr = f["samples" if "samples" in f.files else f.files[0]]
-        scale = arr.dtype == np.uint8 or arr.max() > 1.5
-        arr = np.asarray(arr, np.float32)
-        if scale:
-            arr = arr / 255.0
-    feats = [torch.as_tensor(feature_fn(torch.from_numpy(arr[i:i + batch_size]))[0])
-             .detach().cpu().numpy() for i in range(0, len(arr), batch_size)]
+    its first array; uint8, or values above 1.5, read as 0-255), or a
+    folder of PNG/JPEG files. An all-PNG folder (the reference's 50k-sample
+    FID protocol) goes through the native PNG reader in chunks of
+    `batch_size`; any other folder through PIL. `feature_fn` maps
+    (B, H, W, 3) float32 tensors in [0, 1] to (features, logits)
+    (`eval.inception.make_feature_fn`)."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            if "mu" in f.files and "sigma" in f.files:
+                return f["mu"][:], f["sigma"][:]
+            arr = f["samples" if "samples" in f.files else f.files[0]]
+            scale = arr.dtype == np.uint8 or arr.max() > 1.5
+            arr = np.asarray(arr, np.float32)
+            if scale:
+                arr = arr / 255.0
+        batches = (arr[i:i + batch_size] for i in range(0, len(arr), batch_size))
+    else:
+        batches = _folder_batches(path, batch_size)
+    feats = [torch.as_tensor(feature_fn(torch.from_numpy(b))[0]).detach().cpu().numpy()
+             for b in batches]
     return compute_statistics(np.concatenate(feats))
+
+
+def _folder_batches(path: str, batch_size: int):
+    """float32 [0, 1] (B, H, W, 3) batches of a folder's PNG/JPEG files in
+    sorted order."""
+    import os
+
+    files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                   if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    if not files:
+        raise FileNotFoundError(f"no images under {path}")
+    if all(f.lower().endswith(".png") for f in files):
+        # the native threaded batch decode; the reference reads its 50k-file
+        # FID folders through a torch DataLoader for the same reason
+        # (evaluate/fid_score.py:146-170: ImagePathDataset + workers)
+        from dpm_solver_tpu_torch import native
+
+        for i in range(0, len(files), batch_size):
+            yield native.read_png_batch(files[i:i + batch_size], channels=3) \
+                .astype(np.float32) / 255.0
+        return
+    from PIL import Image
+
+    for i in range(0, len(files), batch_size):
+        yield np.stack([np.asarray(Image.open(f).convert("RGB"), np.float32) / 255.0
+                        for f in files[i:i + batch_size]])
 
 
 def calculate_fid_given_paths(paths, feature_fn: Callable, *, batch_size: int = 50) -> float:
     """The FID between two sample sources (ref fid_score.py:246-262), each an
-    npz of images or of statistics."""
+    image folder, an npz of images or an npz of statistics."""
     m1, s1 = compute_statistics_of_path(paths[0], feature_fn, batch_size=batch_size)
     m2, s2 = compute_statistics_of_path(paths[1], feature_fn, batch_size=batch_size)
     return frechet_distance(m1, s1, m2, s2)

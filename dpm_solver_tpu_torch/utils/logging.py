@@ -6,7 +6,9 @@ multi-format key-value logger (guided_diffusion/logger.py:26-490) and its
 image-grid savers (score_sde utils.py:51-101). The files are the JAX
 package's, byte for byte but the wall-clock `time` field: `metrics.jsonl`
 (one record a `write`), `metrics.csv` (its header rewritten when new keys
-appear). TensorBoard is written only where `tensorflow` imports; PNG only
+appear). TensorBoard is written through PyTorch's own writer
+(`torch.utils.tensorboard`, where the `tensorboard` package imports; the JAX
+package's goes through `tensorflow`, which the port does not use); PNG only
 where PIL imports, else the grid goes to `<path>.npy` as uint8. Spans are
 `torch.profiler.record_function` ranges (the JAX package's
 `jax.profiler.TraceAnnotation`).
@@ -37,11 +39,11 @@ class MetricWriter:
         self._tb = None
         if tensorboard:
             try:
-                import tensorflow as tf
+                from torch.utils.tensorboard import SummaryWriter
             except ImportError:
                 pass
             else:
-                self._tb = tf.summary.create_file_writer(logdir)
+                self._tb = SummaryWriter(logdir)
 
     def _write_csv(self) -> None:
         with open(self._csv_path, "w") as f:
@@ -61,11 +63,9 @@ class MetricWriter:
             kv = " | ".join(f"{k} {v:.6g}" for k, v in sorted(values.items()))
             print(f"step {int(step):>9} | {kv}", flush=True)
         if self._tb is not None:
-            import tensorflow as tf
-
-            with self._tb.as_default():
-                for k, v in values.items():
-                    tf.summary.scalar(k, v, step=step)
+            for k, v in values.items():
+                self._tb.add_scalar(k, v, global_step=int(step))
+            self._tb.flush()
 
     def close(self) -> None:
         self._jsonl.close()

@@ -7,8 +7,9 @@ utils/logging.py) against the JAX package's, on the CPU.
   `frechet_distance_jax` in float64 within 1e-10, the host's scipy form
   within 1e-5 (the eigh form's eps jitter); `compute_statistics_of_path`
   on its two npz forms (statistics; images, uint8 or [0, 1]) against the
-  JAX function with the same extractor, and an image folder refused with a
-  clear error; `calculate_fid_given_paths`.
+  JAX function with the same extractor, and an image folder (all PNG: the
+  native reader; PNG and JPEG: PIL) against the JAX folder route;
+  `calculate_fid_given_paths`.
 - `FIDInceptionV3` from `random_feature_params` (the JAX package's random
   weights, drawn in its leaf order: the same values) and, separately, from
   `inception_state_dict_from_flax` of a JAX init: features and logits
@@ -21,7 +22,9 @@ utils/logging.py) against the JAX package's, on the CPU.
   stopped by its hook after checkpoint 4's first round resumes, in both
   packages, to the same results; with rng-dependent port hooks a resumed
   run ends with the uninterrupted run's IS and FID.
-- `MetricWriter` writes the JAX writer's JSONL (but the clock) and CSV, and
+- `MetricWriter` writes the JAX writer's JSONL (but the clock) and CSV,
+  and through `torch.utils.tensorboard` the TensorBoard scalars the JAX
+  writer writes through tensorflow; and
   `image_grid` / `save_image_grid` the JAX package's grid.
 """
 
@@ -137,9 +140,31 @@ def test_compute_statistics_of_path_npz_forms(form, tmp_path):
               jeval.fid.calculate_fid_given_paths([path, other], fn, batch_size=7), 1e-9)
 
 
-def test_compute_statistics_of_a_folder_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Slice H"):
-        peval.compute_statistics_of_path(str(tmp_path), _extractor)
+@pytest.mark.parametrize("kind", ["png", "mixed"])
+def test_compute_statistics_of_a_folder_matches_jax(kind, tmp_path):
+    """An image folder: all PNG (the native reader, in chunks of batch_size)
+    or PNG and JPEG mixed (PIL), against the JAX function's folder route
+    with the same extractor: the same pixels, so the same statistics."""
+    from PIL import Image
+
+    from dpm_solver_tpu_torch import native
+
+    rng = np.random.default_rng(8)
+    imgs = rng.integers(0, 256, (23, 16, 16, 3), dtype=np.uint8)
+    native.write_png_batch(imgs, [str(tmp_path / f"s{i:03d}.png") for i in range(len(imgs))])
+    if kind == "mixed":
+        for i in range(0, len(imgs), 3):
+            Image.fromarray(imgs[i]).save(tmp_path / f"s{i:03d}.jpg", quality=90)
+            os.remove(tmp_path / f"s{i:03d}.png")
+    want = jeval.fid.compute_statistics_of_path(str(tmp_path), lambda b: _extractor(
+        np.asarray(b)), batch_size=7)
+    got = peval.compute_statistics_of_path(str(tmp_path), lambda b: tuple(
+        torch.from_numpy(a) for a in _extractor(b.numpy())), batch_size=7)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-15)
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError):
+        peval.compute_statistics_of_path(str(tmp_path / "empty"), _extractor)
 
 
 @pytest.fixture(scope="module")
@@ -341,6 +366,35 @@ def test_metric_writer_matches_jax(tmp_path):
         with open(tmp_path / name / "metrics.csv") as f:
             out[name] = (recs, f.read())
     assert out["port"] == out["jax"]
+
+
+def _tensorboard_scalars(logdir):
+    """{tag: [(step, value)]} of a TensorBoard log directory, scalar
+    summaries (PyTorch's writer) or scalar tensors (tf.summary's)."""
+    import tensorflow as tf
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(logdir, size_guidance={"scalars": 0, "tensors": 0}).Reload()
+    out = {t: [(e.step, e.value) for e in acc.Scalars(t)] for t in acc.Tags()["scalars"]}
+    out.update({t: [(e.step, float(tf.make_ndarray(e.tensor_proto))) for e in acc.Tensors(t)]
+                for t in acc.Tags()["tensors"]})
+    return out
+
+
+def test_metric_writer_tensorboard_matches_jax(tmp_path):
+    """TensorBoard through PyTorch's writer (the JAX package's goes through
+    tensorflow): the same scalars at the same steps as the JAX writer's
+    event file, read back by TensorBoard's reader."""
+    pytest.importorskip("torch.utils.tensorboard")
+    pytest.importorskip("tensorflow")
+    for name, mod in (("jax", jlogging), ("port", plogging)):
+        w = mod.MetricWriter(str(tmp_path / name))
+        w.write(0, loss=1.5, lr=0.1)
+        w.write(5, loss=0.25, grad=3.0)
+        w.close()
+    got = _tensorboard_scalars(str(tmp_path / "port"))
+    assert got == _tensorboard_scalars(str(tmp_path / "jax"))
+    assert sorted(got) == ["grad", "loss", "lr"] and got["loss"][1] == (5, 0.25)
 
 
 @pytest.mark.parametrize("b,ncols", [(5, None), (6, 4)])

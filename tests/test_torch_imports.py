@@ -1,17 +1,19 @@
 """The port stands alone, and its kernel wrappers hide no device.
 
 - An AST scan: no file under dpm_solver_tpu_torch/ (the training package,
-  configs.py and run_lib.py among them), and not chip_smoke.py, imports
-  jax, flax, optax, orbax or dpm_solver_tpu (a `sys.modules` check cannot show it:
-  the test process imports jax anyway), nor transformers, regex, ftfy or
-  safetensors: the port depends on PyTorch alone.
+  configs.py, run_lib.py, data.py, native/ and utils/lmdb*.py among them),
+  and not chip_smoke.py, imports jax, flax, optax, orbax or dpm_solver_tpu
+  (a `sys.modules` check cannot show it: the test process imports jax
+  anyway), nor tensorflow (not even inside a function), transformers,
+  regex, ftfy or safetensors: the port depends on PyTorch alone.
 - On the CPU every wrapper takes its plain version and launches nothing:
   the launch counters stay at 0 through a whole tiny sampling run, a tiny
   txt2img run, a tiny classifier-guided run (whose backward takes the
   plain twins of the dq, dk/dv and conv3x3-dx kernels), tiny NCSN++
   runs of the singlestep and adaptive solvers, a tiny bits/dim and
   black-box ODE sampler run, tiny first-stage training runs (KL and VQ) and
-  a tiny evaluation (a DPM-Solver sampling hook and the FID Inception).
+  a tiny evaluation (a DPM-Solver sampling hook and the FID Inception),
+  and a tiny `run_lib.train` fed by `data.make_dataset`.
 - The models and the pipeline default to the card: with no card, a
   constructor without `device=` raises and never falls back to the CPU.
 - The wrappers' input checks, which guard the CUDA launches, refuse what the
@@ -65,10 +67,12 @@ NO_LAUNCHES = {"conv3x3": 0, "token_attention": 0, "fused_update": 0, "ln_linear
                "conv3x3_dx": 0, "fused_bias_act": 0, "fused_bias_act_bwd": 0,
                "attention_out_fused": 0}
 # jax and the JAX package, and the JAX training stack (the port's optimisers
-# and checkpoints are its own); and the packages the port replaces with its own
-# CLIP, tokenizer and checkpoint reading (torch.load), so that it needs PyTorch alone
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dpm_solver_tpu", "transformers",
-             "regex", "ftfy", "safetensors")
+# and checkpoints are its own); tensorflow, whose tf.data the port's readers
+# replace; and the packages the port replaces with its own CLIP, tokenizer
+# and checkpoint reading (torch.load), so that it needs PyTorch alone
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dpm_solver_tpu", "tensorflow",
+             "transformers", "regex", "ftfy", "safetensors")
+SCANNED = sorted(PKG.rglob("*.py")) + [CHIP_SMOKE]
 
 
 def _imported_roots(tree):
@@ -79,11 +83,20 @@ def _imported_roots(tree):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [CHIP_SMOKE],
-                         ids=lambda p: str(p.relative_to(PKG.parent)))
+@pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(PKG.parent)))
 def test_port_never_imports_jax(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
+
+
+def test_the_data_path_is_scanned():
+    """The data path's modules are among the files the scan reads (a
+    function-level `import tensorflow` among them would fail it)."""
+    names = {str(p.relative_to(PKG)) for p in SCANNED if PKG in p.parents}
+    assert {"data.py", "native/__init__.py", "native/build.py", "utils/lmdb.py",
+            "utils/lmdb_native.py", "eval/fid.py"} <= names
+    lazy = ast.parse("def f():\n    import tensorflow as tf\n")
+    assert "tensorflow" in set(_imported_roots(lazy))
 
 
 def test_cpu_run_takes_plain_path_and_launches_nothing():
@@ -264,6 +277,33 @@ def test_cpu_evaluation_launches_nothing(tmp_path):
     res = run_lib.evaluate(cfg, sample_fn=sample_fn, feature_fn=features, rounds=1,
                            device="cpu")
     assert list(res) == [2] and np.isfinite(res[2]["inception_score"])
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_training_fed_by_make_dataset_launches_nothing(tmp_path):
+    """`run_lib.train` on tiny_test fed by `make_dataset`'s [devices,
+    per_device, H, W, C] batches (one device): each reaches the step through
+    `_tensor` and the reshape, and on the CPU no kernel launches."""
+    import dataclasses
+
+    from dpm_solver_tpu_torch import configs, run_lib
+    from dpm_solver_tpu_torch.data import make_dataset
+
+    cfg = configs.get_config("tiny_test")
+    cfg = dataclasses.replace(cfg, workdir=str(tmp_path))
+    images = np.random.default_rng(0).integers(0, 256, (20, 16, 16, 3), dtype=np.uint8)
+    seen = []
+
+    def batches():
+        for b in make_dataset(images, batch_size=cfg.training.batch_size,
+                              centered=cfg.data.centered):
+            seen.append(b.shape)
+            yield b
+
+    ops.reset_launch_counts()
+    state = run_lib.train(cfg, batches(), max_steps=2, device="cpu")
+    assert state.step == 2 and seen[:2] == [(1, 8, 16, 16, 3)] * 2
+    assert all(torch.isfinite(p).all() for p in state.params.values())
     assert ops.launch_counts() == NO_LAUNCHES
 
 
