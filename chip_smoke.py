@@ -268,6 +268,24 @@ and nothing of JAX. Phases, each fatal on failure:
    path P's first round as a PNG folder through `compute_statistics_of_path`
    on the card's Inception, its mu and sigma within 1e-6 of their max of the
    npz route's; all in a temporary directory, removed after;
+7h. path R, the CLI (`dpm_solver_tpu_torch.cli.main`, what `python -m
+   dpm_solver_tpu_torch.cli` runs) on files it writes to a temporary
+   directory (a CompVis sd_v1 checkpoint of seeded random weights, a joint
+   CLIP directory at ViT-L/14's text width, a safety checkpoint): `txt2img`
+   at 512 px, b4, 25 NFE, CFG 7.5, graphed, with the watermark and the
+   safety screen, in bf16 float, `--quant w8a8` and `--quant w8a8_conv`,
+   each call's launches and routes checked (under quant, no `ln_linear` or
+   `geglu_ff` launch), its load, call and sampler walls and the same
+   pipeline's replayed second call timed, `wmdecode` reading
+   "StableDiffusionV1" back from a written PNG, the quant images' relative
+   RMSE against float's; `img2img` and `inpaint` on the checkpoint; `fid`
+   over two output folders; `configs`; `sample --config cifar10_ddpm
+   --trace-dir` with the trace's 10 largest device ops; every int8 product
+   of one SD-1 UNet forward and decode under "w8a8_conv", card against CPU
+   on the same codes bit for bit, timed beside bf16 and the bound, and each
+   quantized call beside its float twin (the calls recorded must number the
+   int8 sites of the UNet and the decoder); the small-width int8 trajectory
+   card against CPU; then the float call's kernel specs held to plain;
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
@@ -305,7 +323,8 @@ grad norms, the card-vs-CPU step checks and the restart checks as one JSON
 line (`{"training": ...}`) before the kernels' record; paths J-N their
 walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line; paths
 O and P theirs and their checks as `{"first_stage_and_eval": ...}`; path Q
-its walls, rates, probe and checks as `{"data_path_q": ...}`.
+its walls, rates, probe and checks as `{"data_path_q": ...}`; path R its
+walls, checks and int8 products as `{"cli_path_r": ...}`.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -375,12 +394,13 @@ WIDE_ATTENTION = [(16, 1024, 1024, 1, 384, False), (16, 1024, 1, 1, 384, False),
                   (4, 256, 256, 4, 192, True)]
 SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
 # path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
-# loosened to 1e-4 to keep the phase near its time budget (PERF.md section 4:
-# the call is host-bound, so a smaller batch would not be faster)
+# loosened to 1e-3 to keep the phase near its time budget (PERF.md section 4:
+# the call is host-bound, so a smaller batch would not be faster; 1e-4 until
+# path R came, whose ~120 s took the script to 1,154 s of its 1,200)
 # E is timed on its counted call, with no second call (one until path Q
 # came, three until paths F and G: the script's time limit; PERF.md
 # section 4)
-LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-4, 1e-5, 0
+LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-3, 1e-5, 0
 # the adaptive solver's bound, card against CPU: each side accepts its steps
 # on its own fp32 error estimate (tests/test_solver_parity.py:286)
 ADAPTIVE_BOUND = 5e-3
@@ -491,6 +511,24 @@ Q_FOLDER_IMAGES, Q_LMDB_IMAGES, Q_FID_CHUNK = 1024, 1024, 250
 Q_READERS = ("load_cifar10_dir", "make_dataset", "tfrecord_dataset_native", "tfrecord_dataset",
              "image_folder_dataset", "image_folder_dataset lsun_scoresde", "lsun_dataset",
              "compute_statistics_of_path folder")
+# path R (phase 7h), SD-1.x txt2img through the CLI (PERF.md section 4): a
+# CompVis checkpoint of the sd_v1 preset (UNet + KL VAE, seeded random
+# weights, fp16 tensors) with a joint CLIP directory at ViT-L/14's text
+# width and a safety checkpoint of R_CONCEPTS + R_SPECIAL 768-wide concept
+# embeddings (thresholds as diffusers' range), written to a temporary
+# directory; `txt2img` at R_SIZE px, b R_BATCH, R_STEPS NFE, CFG R_SCALE, in
+# each of R_MODES; img2img and inpaint at R_EDIT_STEPS on b R_EDIT_BATCH;
+# `sample --config cifar10_ddpm --batch BATCH --trace-dir`; the small-width
+# card-vs-CPU int8 trajectory (tests/test_quant.py:203-214's UNet, weights
+# and sampler: no CFG, R_SMALL_STEPS steps), and the int8 products' rows
+# checked card vs CPU (R_ROWS rows of each product, on the same codes)
+R_SIZE, R_BATCH, R_STEPS, R_SCALE, R_SEED = 512, 4, 25, 7.5, 42
+R_MODES = (None, "w8a8", "w8a8_conv")
+R_EDIT_STEPS, R_EDIT_BATCH, R_CONCEPTS, R_SPECIAL = 10, 2, 17, 3
+R_SMALL_STEPS, R_ROWS, R_GRAPH = 5, 256, 10
+R_PROMPT = "a watercolour painting of a fox in a snowy forest"
+# the int8 bound (one H100 SXM at 700 W, dense int8 tensor cores)
+PEAK_INT8 = 1979e12
 # fp32 trajectories replayed from a CUDA graph vs the eager call on the card,
 # relative to max|x|: the same kernels on the same inputs
 GRAPH_BOUND = 1e-6
@@ -2732,6 +2770,456 @@ def data_path(dev, smi: str, p_samples) -> dict:
     log(f"path Q done in {walls['q_s']:.1f} s")
     return dict(launches=launches, routes=routes, walls=walls, rates=rates, checks=checks,
                 nproc=nproc)
+
+
+def _cli(argv: list) -> str:
+    """`python -m dpm_solver_tpu_torch.cli <argv>` in this process: its
+    standard output (echoed here). A failed subcommand raises."""
+    from dpm_solver_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([str(a) for a in argv])
+    log("  cli " + " ".join(str(a) for a in argv[:2]) + ": " + buf.getvalue().strip()[-500:])
+    return buf.getvalue()
+
+
+def int8_products(dev, smi: str, ckpt: Path) -> dict:
+    """The int8 products of one SD-1 UNet forward (CFG b 2 * R_BATCH, 64x64
+    latents) and one VAE decode (b R_BATCH, R_SIZE px) under "w8a8_conv",
+    recorded by shape (M, K, N), and the calls that made them: each shape's
+    int32 sums on the card against the CPU's (`torch._int_mm` there) on
+    R_ROWS rows of the same codes, bit for bit; each product timed per
+    launch on prequantized codes beside the bf16 product at the shape and
+    the bound (the ops at PEAK_INT8, the bytes at HBM); and each call
+    (`w8a8_matmul` at its input, `w8a8_conv` at its image) with its
+    quantizes beside its float twin (`F.linear`, the conv3x3 kernel) in
+    bf16; the calls recorded must number the int8 sites, else the run
+    fails. Times are the device's alone: R_GRAPH launches captured in one
+    CUDA graph, a replay's time over R_GRAPH (`graph_ms`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models import constant_context_encoder
+    from dpm_solver_tpu_torch.pipelines import load_sd_checkpoint
+
+    global TIMED_BUDGET_MS   # graph_ms times its replays through cuda_ms
+    pq = importlib.import_module("dpm_solver_tpu_torch.ops.quant")
+    c3 = importlib.import_module("dpm_solver_tpu_torch.ops.conv3x3")
+    ldm = load_sd_checkpoint(str(ckpt), quant="w8a8_conv", compute_dtype=torch.bfloat16,
+                             device=dev)
+    shapes = {"unet": Counter(), "vae": Counter()}
+    calls = {"unet": Counter(), "vae": Counter()}
+    where = ["unet"]
+    orig_mm, orig_mat, orig_conv = pq.int8_mm, pq.w8a8_matmul, c3.w8a8_conv
+
+    def rec_mm(a, b_t):
+        shapes[where[0]][(a.shape[0], a.shape[1], b_t.shape[0])] += 1
+        return orig_mm(a, b_t)
+
+    def rec_mat(x, w, bias=None, out_dtype=None):
+        calls[where[0]][("linear", tuple(x.shape), tuple(w.shape), str(x.dtype))] += 1
+        return orig_mat(x, w, bias, out_dtype)
+
+    def rec_conv(x, w, bias=None, out_dtype=None):
+        calls[where[0]][("conv", tuple(x.shape), tuple(w.shape), str(x.dtype))] += 1
+        return orig_conv(x, w, bias, out_dtype)
+
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 12)
+    x = torch.randn(2 * R_BATCH, R_SIZE // 8, R_SIZE // 8, 4, generator=g, device=dev)
+    ctx = constant_context_encoder(768)([R_PROMPT] * R_BATCH + [""] * R_BATCH).to(dev)
+    pq.int8_mm, pq.w8a8_matmul, c3.w8a8_conv = rec_mm, rec_mat, rec_conv
+    try:
+        ldm.unet(x, torch.full((2 * R_BATCH,), 500.0, device=dev), context=ctx)
+        where[0] = "vae"
+        ldm.vae.decode(x[:R_BATCH])
+    finally:
+        pq.int8_mm, pq.w8a8_matmul, c3.w8a8_conv = orig_mm, orig_mat, orig_conv
+    # every int8 site called once: the QuantLinears (a self-attention's
+    # to_q/to_k/to_v make one fused product), GEGLU's two, the int8 convs
+    for part, net in (("unet", ldm.unet), ("vae", ldm.vae.decoder)):
+        mods = list(net.modules())
+        n_self = sum(1 for m in mods if type(m).__name__ == "TransformerBlock")
+        want = dict(
+            linear=sum(isinstance(m, pq.QuantLinear) for m in mods) - 2 * n_self
+            + 2 * sum(type(m).__name__ == "GEGLUFeedForward" for m in mods),
+            conv=sum(type(m).__name__ == "Conv3x3" and m.quant == "w8a8_conv" for m in mods))
+        got = {kind: sum(v for key, v in calls[part].items() if key[0] == kind)
+               for kind in want}
+        if got != want:
+            fail(f"path R: the {part}'s int8 calls recorded {got}, its sites {want}")
+        log(f"  int8 calls a {part} pass: {got} (every site)")
+    del ldm
+    torch.cuda.empty_cache()
+    budget, TIMED_BUDGET_MS = TIMED_BUDGET_MS, 50.0
+    products, modules, worst = {}, {}, 0
+    try:
+        for (m, k, n) in sorted(set(shapes["unet"]) | set(shapes["vae"])):
+            a_d = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g, device=dev)
+            b_d = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g, device=dev)
+            got = pq.int8_mm(a_d, b_d)
+            sel = torch.linspace(0, m - 1, min(R_ROWS, m), device=dev).round().long()
+            # the same codes on the CPU: torch._int_mm there, or an int32 product
+            a, b = a_d[sel].cpu(), b_d.cpu()
+            want = torch._int_mm(a, b.t().contiguous()) if len(sel) > 16 else \
+                a.int() @ b.int().t()
+            bad = int((got[sel].cpu() != want).sum())
+            worst = max(worst, bad)
+            a16, b16 = a_d.to(torch.bfloat16), b_d.to(torch.bfloat16)
+            rec = dict(launches_unet=shapes["unet"][(m, k, n)],
+                       launches_vae=shapes["vae"][(m, k, n)],
+                       int8_ms=graph_ms([lambda: pq.int8_mm(a_d, b_d)], R_GRAPH) / R_GRAPH,
+                       bf16_ms=graph_ms([lambda: torch.mm(a16, b16.t())], R_GRAPH) / R_GRAPH,
+                       bound_ms=1e3 * max(2 * m * k * n / PEAK_INT8,
+                                          (m * k + n * k + 4 * m * n) / HBM),
+                       rows_checked=len(sel), mismatches=bad)
+            products[f"{m}x{k}x{n}"] = rec
+            log(f"  int8 product {m}x{k}x{n} (x{rec['launches_unet']} a UNet forward, "
+                f"x{rec['launches_vae']} a decode) on {smi}: _int_mm {rec['int8_ms']:.4f} ms, "
+                f"bf16 mm {rec['bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; card vs CPU "
+                f"int32 on {len(sel)} rows: {bad} differ")
+            del a_d, b_d, a16, b16, got
+        if worst:
+            fail(f"path R: int8 products on the card differ from the CPU's ({worst} int32 sums)")
+        for key in sorted(set(calls["unet"]) | set(calls["vae"]), key=str):
+            kind, xs, ws, dt = key
+            xin = torch.randn(xs, generator=g, device=dev).to(torch.bfloat16)
+            fan_in = ws[-1] if kind == "linear" else 9 * ws[2]
+            wt = torch.randn(ws, generator=g, device=dev) * fan_in ** -0.5
+            if kind == "linear":
+                quant = lambda: pq.w8a8_matmul(xin, wt, out_dtype=torch.bfloat16)  # noqa: E731
+                w16 = wt.to(torch.bfloat16)
+                flt = lambda: F.linear(xin, w16)  # noqa: E731
+            else:
+                quant = lambda: pq.w8a8_conv(xin, wt)  # noqa: E731
+                w16 = wt.to(torch.bfloat16).contiguous()
+                flt = lambda: ops.conv3x3(xin, w16)  # noqa: E731
+            rec = dict(kind=kind, x=list(xs), w=list(ws), calls_unet=calls["unet"][key],
+                       calls_vae=calls["vae"][key], int8_ms=graph_ms([quant], R_GRAPH) / R_GRAPH,
+                       float_ms=graph_ms([flt], R_GRAPH) / R_GRAPH)
+            modules[f"{kind} {xs} {ws}"] = rec
+            log(f"  {kind} x{list(xs)} w{list(ws)} (x{rec['calls_unet']} a UNet forward, "
+                f"x{rec['calls_vae']} a decode) on {smi}: int8 with its quantizes "
+                f"{rec['int8_ms']:.4f} ms, bf16 {'F.linear' if kind == 'linear' else 'conv3x3'} "
+                f"{rec['float_ms']:.4f} ms")
+            del xin, wt, w16
+    finally:
+        TIMED_BUDGET_MS = budget
+    sums = {f"{part}_{key}": sum(rec[key] * rec[f"launches_{part}"] for rec in products.values())
+            for part in ("unet", "vae") for key in ("int8_ms", "bf16_ms", "bound_ms")}
+    sums.update({f"{part}_calls_{key}": sum(rec[key] * rec[f"calls_{part}"]
+                                            for rec in modules.values())
+                 for part in ("unet", "vae") for key in ("int8_ms", "float_ms")})
+    log(f"  int8 over one SD-1 UNet forward (b{2 * R_BATCH}) and one decode (b{R_BATCH}) on "
+        f"{smi}: " + ", ".join(f"{k} {v:.3f}" for k, v in sums.items()))
+    return dict(products=products, calls=modules, sums=sums)
+
+
+def small_quant_trajectory(dev) -> dict:
+    """The small-width int8 trajectory, card against CPU, fp32: the UNet of
+    tests/test_quant.py:236-262 (one head a block) with the JAX
+    initialisers' zeroed outputs plus 0.02 N(0, 1) on every weight (that
+    file's `_densify`), the tiny VAE, no CFG, R_SMALL_STEPS steps of
+    DPM-Solver++ 2M, in both modes; within 5e-3 of max|x|
+    (tests/test_quant.py:203-214's flip scale), or twice the CPU's own move
+    when x_T moves by one ulp where that is larger (tests/test_torch_quant.py's
+    rule)."""
+    import torch
+
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, VAEConfig,
+                                             constant_context_encoder)
+    from dpm_solver_tpu_torch.models.init import init_train_
+    from dpm_solver_tpu_torch.pipelines import StableDiffusionPipeline, load_sd_checkpoint
+
+    # one head a block (dh 32 and 64: the attention kernel takes no dh 16)
+    ucfg = ADMConfig(image_size=8, in_channels=4, model_channels=32, out_channels=4,
+                     num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     num_heads=1, use_spatial_transformer=True, transformer_depth=1,
+                     context_dim=24, use_linear_in_transformer=True)
+    vcfg = VAEConfig.tiny(resolution=16, attn_resolutions=())
+    g = torch.Generator().manual_seed(TRAIN_SEED + 14)
+    nets = (init_train_(ADMUNet(ucfg, device="cpu"), g),
+            init_train_(AutoencoderKL(vcfg, device="cpu"), g))
+    for net in nets:
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    sd = {f"model.diffusion_model.{k}": v for k, v in nets[0].state_dict().items()}
+    sd.update({f"first_stage_model.{k}": v for k, v in nets[1].state_dict().items()})
+    x_T = torch.randn(2, 8, 8, 4, generator=g)
+    shifted = torch.nextafter(x_T, torch.tensor(float("inf")))
+    out = {}
+    for mode in R_MODES[1:]:
+        z = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            ldm = load_sd_checkpoint(sd, unet_config=ucfg, vae_config=vcfg, quant=mode,
+                                     text_encode=constant_context_encoder(24), device=where)
+            pipe = StableDiffusionPipeline(ldm, device=where)
+            cond = ldm.get_learned_conditioning(["a red cube", "a teapot"])
+            for k, x in ((key, x_T), (key + "_shift", shifted))[:1 if key == "card" else 2]:
+                z[k] = pipe.sampler.sample(R_SMALL_STEPS, 2, (8, 8, 4), cond, x_T=x,
+                                           return_intermediate=False, jit=False)[0].cpu()
+        d, r = rel_err(z["card"], z["cpu"])
+        sens = rel_err(z["cpu_shift"], z["cpu"])[1]
+        bound = max(5e-3, 2 * sens)
+        ok = r <= bound and bool(torch.isfinite(z["card"]).all())
+        log(f"  small-width {mode} trajectory, card vs CPU: max|d| {d:.3e}, /max|x| {r:.3e} "
+            f"(bound {bound:.3e}; the CPU's own move for x_T + 1 ulp {sens:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"path R: the small-width {mode} trajectory disagrees card vs CPU")
+        out[mode] = dict(rel=r, bound=bound, cpu_ulp_move=sens)
+    return out
+
+
+def trace_top_ops(trace_dir: Path, k: int = 10) -> list:
+    """The k device ops (Chrome trace events of category "kernel") with the
+    most device time in a `--trace-dir` trace: [(name, ms, launches)]."""
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    total, count = Counter(), Counter()
+    for ev in events:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            total[ev["name"]] += ev["dur"] / 1e3
+            count[ev["name"]] += 1
+    return [(name[:90], round(ms, 4), count[name]) for name, ms in total.most_common(k)]
+
+
+def cli_path(dev, smi: str) -> dict:
+    """Path R (phase 7h): the CLI (`dpm_solver_tpu_torch.cli.main`, as
+    `python -m dpm_solver_tpu_torch.cli` runs it) on files written to a
+    temporary directory: SD-1 `txt2img` in each of R_MODES with the
+    watermark and the safety screen, `wmdecode`, img2img, inpaint, `fid`,
+    `configs` and a traced `sample`. Returns the launches and routes of each
+    counted run, the kernel specs of the float txt2img call, the walls and
+    the checks."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dpm_solver_tpu_torch import ops, pipelines
+    from dpm_solver_tpu_torch.eval.inception import random_feature_params
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, VAEConfig,
+                                             init_random_)
+    from dpm_solver_tpu_torch.pipelines import stable_diffusion as psd
+
+    walls, checks, launches, routes, specs = {}, {}, {}, {}, Counter()
+    ucfg, vcfg = ADMConfig.sd_v1(), VAEConfig.sd_v1()
+    tmp = Path(tempfile.mkdtemp(prefix="path_r_"))
+    t_phase = time.perf_counter()
+    orig_load, orig_t2i = pipelines.load_sd_checkpoint, psd.StableDiffusionPipeline.txt2img
+    orig_sample = psd.DPMSolverSampler.sample
+    try:
+        # ---- the files: checkpoint, CLIP directory, safety checkpoint, images ----
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 9)
+        unet = init_random_(ADMUNet(ucfg, device=dev), g)
+        vae = init_random_(AutoencoderKL(vcfg, device=dev), g)
+        n_params = (sum(p.numel() for p in unet.parameters()),
+                    sum(p.numel() for p in vae.parameters()))
+        sd = {f"model.diffusion_model.{k}": v.half().cpu() for k, v in unet.state_dict().items()}
+        sd.update({f"first_stage_model.{k}": v.half().cpu() for k, v in vae.state_dict().items()})
+        del unet, vae
+        ckpt = tmp / "sd-v1-random.ckpt"
+        torch.save({"state_dict": sd}, ckpt)
+        del sd
+        clip = write_clip_text_dir(tmp / "clip", TRAIN_SEED + 10, joint=True)
+        rng = np.random.default_rng(TRAIN_SEED + 11)
+        unit = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)   # noqa: E731
+        safety = tmp / "safety_checker.pt"
+        torch.save({"concept_embeds": torch.from_numpy(unit(rng.standard_normal(
+                        (R_CONCEPTS, 768))).astype(np.float32)),
+                    "concept_embeds_weights": torch.from_numpy(rng.uniform(
+                        0.18, 0.23, R_CONCEPTS).astype(np.float32)),
+                    "special_care_embeds": torch.from_numpy(unit(rng.standard_normal(
+                        (R_SPECIAL, 768))).astype(np.float32)),
+                    "special_care_embeds_weights": torch.from_numpy(rng.uniform(
+                        0.18, 0.2, R_SPECIAL).astype(np.float32))}, safety)
+        yy, xx = np.mgrid[0:R_SIZE, 0:R_SIZE]
+        init = np.stack([128 + 90 * np.sin(xx / 23.0) * np.cos(yy / 31.0),
+                         128 + 80 * np.cos(xx / 17.0 + 1.0),
+                         128 + 70 * np.sin((xx + yy) / 41.0)], axis=-1)
+        Image.fromarray(np.clip(init, 0, 255).astype(np.uint8)).save(tmp / "init.png")
+        mask = np.zeros((R_SIZE, R_SIZE), np.uint8)
+        mask[R_SIZE // 4:3 * R_SIZE // 4, R_SIZE // 4:3 * R_SIZE // 4] = 255
+        Image.fromarray(mask).save(tmp / "mask.png")
+        walls["r_files_s"] = time.perf_counter() - t0
+        log(f"path R: a CompVis sd_v1 checkpoint (UNet {n_params[0] / 1e6:.2f}M + KL VAE "
+            f"{n_params[1] / 1e6:.2f}M params, seeded random weights, fp16 tensors, "
+            f"{ckpt.stat().st_size / 2 ** 30:.2f} GiB), a joint CLIP directory (ViT-L/14 text "
+            f"width) and a safety checkpoint ({R_CONCEPTS} + {R_SPECIAL} concepts) written in "
+            f"{walls['r_files_s']:.1f} s")
+
+        # ---- the CLI's own calls, timed from inside (the patches only time and
+        # keep the pipeline; the float call's kernel specs are recorded) ---------
+        stats, kept = {}, {}
+
+        def timed(key, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stats.setdefault(key, []).append(time.perf_counter() - t)
+            return out
+
+        def load(*a, **k):
+            return timed("load_s", lambda: orig_load(*a, **k))
+
+        def txt2img(self, *a, **k):
+            kept["pipe"] = self
+            run = lambda: orig_t2i(self, *a, **k)   # noqa: E731
+            if kept.get("record"):
+                return timed("call_s", lambda: record_kernel_specs(
+                    [self.model.unet, self.model.vae], run, specs))
+            return timed("call_s", run)
+
+        def sample(self, *a, **k):
+            return timed("sampler_s", lambda: orig_sample(self, *a, **k))
+
+        pipelines.load_sd_checkpoint = load
+        psd.StableDiffusionPipeline.txt2img = txt2img
+        psd.DPMSolverSampler.sample = sample
+
+        per_fwd, decode = adm_unet_launches(ucfg), vae_decoder_launches(vcfg)
+        outs = {}
+        for mode in R_MODES:
+            name = mode or "float"
+            fwd, dec = Counter(per_fwd), Counter(decode)
+            if mode:
+                fwd["ln_linear"] = fwd["geglu_ff"] = 0
+            if mode == "w8a8_conv":
+                fwd["conv3x3"] = 0
+                dec["conv3x3"] = 2     # the VAE's conv_in and conv_out stay float
+            once = {n: dec[n] for n in REPLACES}
+            want = {n: 2 * R_STEPS * fwd[n] + once[n] for n in REPLACES}
+            want["fused_update"] = 2 * R_STEPS
+            out = tmp / f"txt2img_{name}"
+            stats.clear()
+            kept["record"] = mode is None
+            gc.collect()
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli(["txt2img", "--ckpt", ckpt, "--prompt", R_PROMPT, "--clip", clip,
+                  "--steps", R_STEPS, "--scale", R_SCALE, "--H", R_SIZE, "--W", R_SIZE,
+                  "--batch", R_BATCH, "--seed", R_SEED, "--outdir", out,
+                  "--safety-ckpt", safety] + (["--quant", mode] if mode else []))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches[f"r_{name}"], routes[f"r_{name}"] = ops.launch_counts(), ops.launch_routes()
+            log(f"  txt2img {name}: launches {launches[f'r_{name}']} (expected {want})")
+            if launches[f"r_{name}"] != want:
+                fail(f"path R txt2img {name}: launches {launches[f'r_{name}']} != {want}")
+            check_routes(f"path R txt2img {name}", launches[f"r_{name}"], routes[f"r_{name}"],
+                         narrow_convs=2)
+            if mode and (routes[f"r_{name}"]["ln_linear"] or routes[f"r_{name}"]["geglu_ff"]):
+                fail(f"path R txt2img {name}: the transformer stack launched ln_linear / geglu_ff")
+            # the same pipeline's second call: the sampler replays its graph
+            pipe = kept.pop("pipe")
+            kept["record"] = False
+            ops.reset_launch_counts()
+            again = pipe.txt2img([R_PROMPT] * R_BATCH, steps=R_STEPS, guidance_scale=R_SCALE,
+                                 height=R_SIZE, width=R_SIZE,
+                                 generator=torch.Generator().manual_seed(R_SEED))
+            torch.cuda.synchronize()
+            if ops.launch_counts() != once:
+                fail(f"path R txt2img {name}: the replayed call launched {ops.launch_counts()}")
+            del pipe
+            imgs = np.load(out / "txt2img.npz")["samples"]
+            if imgs.shape != (R_BATCH, R_SIZE, R_SIZE, 3) or not np.isfinite(imgs).all():
+                fail(f"path R txt2img {name}: images {imgs.shape} are not finite")
+            d_again = float(np.abs(again.cpu().numpy() - np.load(out / "txt2img.npz")["samples"])
+                            .max())
+            outs[name] = imgs
+            text = _cli(["wmdecode", out / "txt2img_00000.png"]).strip().splitlines()[-1]
+            if text != "StableDiffusionV1":
+                fail(f"path R txt2img {name}: wmdecode read {text!r}")
+            walls[f"r_txt2img_{name}"] = dict(
+                cli_s=cli_s, load_s=stats["load_s"][0], call_s=stats["call_s"][0],
+                sampler_s=stats["sampler_s"][0], replay_call_s=stats["call_s"][1],
+                replay_sampler_s=stats["sampler_s"][1],
+                unet_share_replay=stats["sampler_s"][1] / stats["call_s"][1])
+            w = walls[f"r_txt2img_{name}"]
+            log(f"  txt2img {name} on {smi}: the CLI call {cli_s:.2f} s (load "
+                f"{w['load_s']:.2f} s, txt2img {w['call_s']:.2f} s of which the sampler's warm "
+                f"call, capture and replay {w['sampler_s']:.2f} s); the pipeline's second call "
+                f"{w['replay_call_s']:.3f} s, the sampler (25 NFE replayed) "
+                f"{w['replay_sampler_s']:.3f} s = {100 * w['unet_share_replay']:.1f}% of it; "
+                f"watermark read back; images mean {imgs.mean():.4f} std {imgs.std():.4f}; the "
+                f"second call's images (no watermark) vs the CLI's saved ones (watermarked): "
+                f"max|d| {d_again:.3e}")
+        for name in ("w8a8", "w8a8_conv"):
+            a, b = outs[name].astype(np.float64), outs["float"].astype(np.float64)
+            checks[f"txt2img_{name}_rel_rmse_vs_float"] = float(
+                np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+            log(f"  txt2img {name} vs float images: relative RMSE "
+                f"{checks[f'txt2img_{name}_rel_rmse_vs_float']:.4f}")
+
+        # ---- img2img and inpaint on the same checkpoint ----------------------
+        steps_i2i = max(1, int(R_EDIT_STEPS * 0.75))
+        enc = vae_encoder_launches(vcfg)
+        for cmd, steps, extra in (("img2img", steps_i2i, ["--strength", 0.75]),
+                                  ("inpaint", R_EDIT_STEPS, ["--mask", tmp / "mask.png"])):
+            want = {n: 2 * steps * per_fwd[n] + enc[n] + decode[n] for n in REPLACES}
+            want["fused_update"] = 2 * steps
+            out = tmp / cmd
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli([cmd, "--ckpt", ckpt, "--init-img", tmp / "init.png", *extra, "--prompt",
+                  R_PROMPT, "--clip", clip, "--steps", R_EDIT_STEPS, "--batch", R_EDIT_BATCH,
+                  "--outdir", out])
+            torch.cuda.synchronize()
+            walls[f"r_{cmd}_s"] = time.perf_counter() - t0
+            launches[f"r_{cmd}"], routes[f"r_{cmd}"] = ops.launch_counts(), ops.launch_routes()
+            log(f"  {cmd}: launches {launches[f'r_{cmd}']} (expected {want}); "
+                f"{walls[f'r_{cmd}_s']:.2f} s")
+            if launches[f"r_{cmd}"] != want:
+                fail(f"path R {cmd}: launches {launches[f'r_{cmd}']} != {want}")
+            check_routes(f"path R {cmd}", launches[f"r_{cmd}"], routes[f"r_{cmd}"],
+                         narrow_convs=3)
+            imgs = np.load(out / f"{cmd}.npz")["samples"]
+            if imgs.shape != (R_EDIT_BATCH, R_SIZE, R_SIZE, 3) or not np.isfinite(imgs).all():
+                fail(f"path R {cmd}: images {imgs.shape} are not finite")
+        pipelines.load_sd_checkpoint, psd.StableDiffusionPipeline.txt2img = orig_load, orig_t2i
+        psd.DPMSolverSampler.sample = orig_sample
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- fid over two output folders, configs, a traced sample ------------
+        torch.save(random_feature_params(TRAIN_SEED), tmp / "inception.pt")
+        fid = float(_cli(["fid", tmp / "txt2img_float", tmp / "txt2img_w8a8",
+                          "--inception-ckpt", tmp / "inception.pt"]).strip().splitlines()[-1])
+        checks["fid_float_vs_w8a8"] = fid
+        if not np.isfinite(fid):
+            fail(f"path R: fid printed {fid}")
+        names = _cli(["configs"]).split()
+        if "sd_v1" not in names or "cifar10_ddpm" not in names:
+            fail("path R: configs does not list the registry")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _cli(["sample", "--config", "cifar10_ddpm", "--batch", BATCH, "--outdir",
+              tmp / "sample", "--trace-dir", tmp / "trace"])
+        walls["r_sample_trace_s"] = time.perf_counter() - t0
+        launches["r_sample"], routes["r_sample"] = ops.launch_counts(), ops.launch_routes()
+        top = trace_top_ops(tmp / "trace")
+        if not top:
+            fail("path R: the sample trace holds no device op")
+        checks["sample_trace_top_ops"] = top
+        log(f"  sample --trace-dir (cifar10_ddpm b{BATCH}, one warm call traced) on {smi}: "
+            f"the 10 largest device ops (name, ms, launches): {json.dumps(top)}")
+
+        # ---- the int8 products and the small-width card-vs-CPU trajectory ------
+        t0 = time.perf_counter()
+        int8 = int8_products(dev, smi, ckpt)
+        checks["small_quant_trajectory"] = small_quant_trajectory(dev)
+        walls["r_int8_checks_s"] = time.perf_counter() - t0
+    finally:
+        pipelines.load_sd_checkpoint, psd.StableDiffusionPipeline.txt2img = orig_load, orig_t2i
+        psd.DPMSolverSampler.sample = orig_sample
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["r_s"] = time.perf_counter() - t_phase
+    log(f"path R done in {walls['r_s']:.1f} s")
+    return dict(launches=launches, routes=routes, specs=specs, walls=walls, checks=checks,
+                int8=int8)
 
 
 def main() -> int:
@@ -5021,6 +5509,31 @@ def main() -> int:
     path_q = data_path(dev, smi, fse.pop("p_samples"))
     torch.cuda.empty_cache()
 
+    # ---- 7h. path R: SD-1 txt2img (and the rest of the CLI) through the CLI --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7h starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    path_r = cli_path(dev, smi)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    # each kernel at each spec the float txt2img call gave it (bf16: the UNet at
+    # CFG b8 on 64x64 latents, the VAE decode at 512 px), against its plain
+    # version at the phase-3 bounds; the fused update at its solver state
+    t1 = time.perf_counter()
+    log(f"path R's kernels at their {len(path_r['specs'])} specs, bf16, vs plain:")
+    for name, spec in sorted(path_r["specs"], key=str):
+        if name == "conv3x3":
+            check_conv(spec, torch.bfloat16, dx=False)
+        elif name == "token_attention":
+            check_attention(spec, torch.bfloat16)
+        elif name == "ln_linear":
+            check_ln_linear(*spec, torch.bfloat16, bias=False)
+        else:
+            check_geglu(*spec, torch.bfloat16)
+    check_fused((R_BATCH, R_SIZE // 8, R_SIZE // 8, 4))
+    torch.cuda.empty_cache()
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
+
     # dq and dk/dv at the classifier's own attention sites, as the call
     # recorded them (its blocks at 32x32, 16x16, 8x8 and the attention pool)
     for spec in sorted({spec for name, spec in clf_c if name == "attention_dq"}, key=str):
@@ -5306,11 +5819,11 @@ def main() -> int:
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
              "i_cin256": launches_ic, **surface["launches"], **fse["launches"],
-             "q": path_q["launches"]}
+             "q": path_q["launches"], **path_r["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
               "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"],
-              "q": path_q["routes"]}
+              "q": path_q["routes"], **path_r["routes"]}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
@@ -5361,6 +5874,8 @@ def main() -> int:
     log(json.dumps({"data_path_q": {"walls": path_q["walls"], "rates": path_q["rates"],
                                     "checks": path_q["checks"]}, "card": smi,
                     "nproc": path_q["nproc"]}))
+    log(json.dumps({"cli_path_r": {"walls": path_r["walls"], "checks": path_r["checks"],
+                                   "int8": path_r["int8"]}, "card": smi}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -30,8 +30,10 @@ What changes with TensorFlow gone:
   `np.random.default_rng(seed)` draws the permutation, the flips and the
   dequantization noise in its order, and a size change takes PIL's
   BILINEAR, as there.
-`superres_example` and `superres_dataset` (cv2 and the degradation
-pipeline) are not ported here.
+`superres_example` and `superres_dataset` are the JAX functions' twins on
+cv2, PIL and the port's copy of the BSRGAN pipeline (`utils/degradation.py`):
+one `np.random.Generator` draws the order, the crops and the degradations in
+the JAX order, so a seed gives the same batches in both packages.
 """
 
 from __future__ import annotations
@@ -583,6 +585,99 @@ def image_folder_dataset(path: str, *, resolution: int, batch_size: int,
                 batch = _flip_dequantize(np.stack(list(pool.map(load, idx))), rng, random_flip,
                                          False)
                 yield batch * 2.0 - 1.0 if centered else batch
+
+    return prefetch_iterator(gen())
+
+
+# --------------------------------------------------------------------------- #
+# blind super-resolution pairs
+# --------------------------------------------------------------------------- #
+
+
+def superres_example(image_u8, *, size: int, downscale_f: int = 4,
+                     degradation: str = "bsrgan_light", min_crop_f: float = 0.5,
+                     max_crop_f: float = 1.0, center_crop: bool = False, rng=None):
+    """One blind-SR training example from a uint8 HWC image.
+
+    Twin of `ImageNetSR.__getitem__` (examples/stable-diffusion/ldm/data/
+    imagenet.py:272-372): random-side square crop (side = min_side *
+    U[min_crop_f, max_crop_f], random or center), INTER_AREA resize to
+    `size`, then the selected degradation -> {'image', 'LR_image'} both
+    float32 HWC in [-1, 1]. `degradation` is 'bsrgan', 'bsrgan_light', or
+    one of the cv_* / pil_* interpolation names of imagenet.py:313-325.
+    """
+    import cv2
+
+    from dpm_solver_tpu_torch.utils import degradation as D
+
+    rng = rng if isinstance(rng, np.random.Generator) else np.random.default_rng(rng)
+    assert size % downscale_f == 0
+    lr_size = size // downscale_f
+    img = np.asarray(image_u8, np.uint8)
+    h, w = img.shape[:2]
+    side = int(min(h, w) * rng.uniform(min_crop_f, max_crop_f))
+    if center_crop:
+        top, left = (h - side) // 2, (w - side) // 2
+    else:
+        top = int(rng.integers(0, h - side + 1))
+        left = int(rng.integers(0, w - side + 1))
+    img = img[top:top + side, left:left + side]
+    img = cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA)
+
+    if degradation in ("bsrgan", "bsrgan_light"):
+        lr = D.degradation_bsrgan_variant(img, sf=downscale_f, rng=rng,
+                                          light=(degradation == "bsrgan_light"))["image"]
+    elif degradation.startswith("cv_"):
+        code = {"cv_nearest": cv2.INTER_NEAREST, "cv_bilinear": cv2.INTER_LINEAR,
+                "cv_bicubic": cv2.INTER_CUBIC, "cv_area": cv2.INTER_AREA,
+                "cv_lanczos": cv2.INTER_LANCZOS4}[degradation]
+        lr = cv2.resize(img, (lr_size, lr_size), interpolation=code)
+    elif degradation.startswith("pil_"):
+        from PIL import Image
+
+        code = {"pil_nearest": Image.NEAREST, "pil_bilinear": Image.BILINEAR,
+                "pil_bicubic": Image.BICUBIC, "pil_box": Image.BOX,
+                "pil_hamming": Image.HAMMING, "pil_lanczos": Image.LANCZOS}[degradation]
+        lr = np.asarray(Image.fromarray(img).resize((lr_size, lr_size), code), np.uint8)
+    else:
+        raise ValueError(f"unknown degradation {degradation!r}")
+    return {"image": (img / 127.5 - 1.0).astype(np.float32),
+            "LR_image": (lr / 127.5 - 1.0).astype(np.float32)}
+
+
+def superres_dataset(path: str, *, size: int, batch_size: int, downscale_f: int = 4,
+                     degradation: str = "bsrgan_light", min_crop_f: float = 0.5,
+                     max_crop_f: float = 1.0, center_crop: bool = False, seed: int = 0,
+                     repeat: bool = True) -> Iterator:
+    """Image folder (PNG / JPEG, read by PIL) -> iterator of {'image',
+    'LR_image'} numpy batches for SR-LDM training, on the prefetch thread:
+    the BSRGAN pipeline is cv2 / scipy work on the host."""
+    from PIL import Image
+
+    files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                   if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    if not files:
+        raise FileNotFoundError(f"no images under {path}")
+    rng = np.random.default_rng(seed)
+
+    def gen():
+        while True:
+            hqs, lrs = [], []
+            for i in rng.permutation(len(files)):
+                img = Image.open(files[i])
+                if img.mode != "RGB":
+                    img = img.convert("RGB")
+                ex = superres_example(
+                    np.asarray(img, np.uint8), size=size, downscale_f=downscale_f,
+                    degradation=degradation, min_crop_f=min_crop_f, max_crop_f=max_crop_f,
+                    center_crop=center_crop, rng=rng)
+                hqs.append(ex["image"])
+                lrs.append(ex["LR_image"])
+                if len(hqs) == batch_size:
+                    yield {"image": np.stack(hqs), "LR_image": np.stack(lrs)}
+                    hqs, lrs = [], []
+            if not repeat:
+                return
 
     return prefetch_iterator(gen())
 

@@ -75,6 +75,10 @@ class ADMConfig:
     # recomputes its forward in the backward (torch.utils.checkpoint,
     # non-reentrant)
     remat: bool = False
+    # the int8 serving path (ops/quant.py): "w8a8" quantizes the transformer
+    # stack, "w8a8_conv" also the res-block and upsample 3x3 convs; the state
+    # dict and checkpoints are the same either way
+    quant: Optional[str] = None
     # EncoderUNetModel (ADMClassifier) only:
     pool: str = "adaptive"  # adaptive | attention | spatial | spatial_v2
 
@@ -218,12 +222,13 @@ class ADMResample(nn.Module):
     symmetrically as torch does."""
 
     def __init__(self, direction: str, channels: int, out_ch: Optional[int] = None,
-                 with_conv: bool = True, compute_dtype: torch.dtype = torch.float32):
+                 with_conv: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None):
         super().__init__()
         self.direction, self.with_conv = direction, with_conv
         out_ch = out_ch or channels
         if with_conv and direction == "up":
-            self.conv = Conv3x3(channels, out_ch, compute_dtype)
+            self.conv = Conv3x3(channels, out_ch, compute_dtype, quant)
         elif with_conv:
             self.op = Conv2d(channels, out_ch, compute_dtype, stride=2, padding=1)
 
@@ -241,15 +246,16 @@ class ADMResBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, use_scale_shift_norm: bool = False,
                  direction: Optional[str] = None, compute_dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant: Optional[str] = None):
         super().__init__()
         dt = compute_dtype
         self.use_scale_shift_norm, self.direction = use_scale_shift_norm, direction
-        self.in_layers = nn.ModuleList([_adm_norm(in_ch), nn.SiLU(), Conv3x3(in_ch, out_ch, dt)])
+        self.in_layers = nn.ModuleList([_adm_norm(in_ch), nn.SiLU(),
+                                        Conv3x3(in_ch, out_ch, dt, quant)])
         emb_width = 2 * out_ch if use_scale_shift_norm else out_ch
         self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_ch, emb_width, dt)])
         self.out_layers = nn.ModuleList([_adm_norm(out_ch), nn.SiLU(), nn.Dropout(dropout),
-                                         Conv3x3(out_ch, out_ch, dt)])
+                                         Conv3x3(out_ch, out_ch, dt, quant)])
         if in_ch != out_ch:
             # unlike the BigGAN block, ADM keeps an identity skip whenever the
             # channel count is unchanged, even for up/down blocks (unet.py:215-222)
@@ -440,16 +446,16 @@ class _ADMBase(nn.Module):
             if kind == "res":
                 return ADMResBlock(ch, spec["out_ch"], emb_ch, cfg.use_scale_shift_norm,
                                    spec.get("direction"), compute_dtype=dt,
-                                   dropout=cfg.dropout), spec["out_ch"]
+                                   dropout=cfg.dropout, quant=cfg.quant), spec["out_ch"]
             if kind == "attn":
                 return ADMAttention(ch, spec["heads"], cfg.use_new_attention_order, dt), ch
             if kind == "xattn":
                 return SpatialTransformer(ch, spec["heads"], spec["dim_head"], spec["depth"],
                                           cfg.context_dim, spec.get("linear", False), dt,
-                                          device=dev), ch
+                                          device=dev, quant=cfg.quant), ch
             if kind == "resample":
                 return ADMResample(spec["direction"], ch, spec["out_ch"], spec["with_conv"],
-                                   dt), spec["out_ch"]
+                                   dt, cfg.quant), spec["out_ch"]
             raise ValueError(kind)
 
         def seq(layers, ch):

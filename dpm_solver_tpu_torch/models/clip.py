@@ -200,10 +200,13 @@ def _read_config(directory: Path) -> dict:
     return json.loads((local_directory(directory) / "config.json").read_text("utf-8"))
 
 
-def _load_weights(module: nn.Module, directory: Path) -> None:
+def _load_weights(module: nn.Module, directory: Path, prefix: str = "") -> None:
+    """The directory's weights into `module`, every key of it; only the keys
+    under `prefix` are read (the text tower of a joint CLIPModel, as
+    transformers' CLIPTextModel.from_pretrained reads it)."""
     sd = torch.load(directory / "pytorch_model.bin", map_location="cpu", weights_only=True)
     # buffers HF keeps (position ids) have no counterpart here
-    sd = {k: v for k, v in sd.items() if not k.endswith("position_ids")}
+    sd = {k: v for k, v in sd.items() if k.startswith(prefix) and not k.endswith("position_ids")}
     module.load_state_dict(sd, strict=True)
 
 
@@ -223,10 +226,11 @@ class CLIPTextModel(nn.Module):
     def from_pretrained(directory: Union[str, Path], device="cpu") -> "CLIPTextModel":
         directory = Path(directory)
         cfg = _read_config(directory)
+        joint = "text_config" in cfg
         cfg = cfg.get("text_config", cfg)
         with torch.device(device):
             model = CLIPTextModel(CLIPTowerConfig.from_dict(cfg))
-        _load_weights(model, directory)
+        _load_weights(model, directory, "text_model." if joint else "")
         return model.eval().requires_grad_(False)
 
 

@@ -60,6 +60,10 @@ class VAEConfig:
     dropout: float = 0.0
     resamp_with_conv: bool = True
     tanh_out: bool = False
+    # the int8 conv path (ops/quant.py, mode "w8a8_conv"): the res-block and
+    # upsample 3x3 convs run W8A8; conv_in/conv_out (the pixel boundary), the
+    # stride-2 downsample and attention stay float. The state dict is the same.
+    quant: Optional[str] = None
 
     @staticmethod
     def sd_v1() -> "VAEConfig":
@@ -91,13 +95,13 @@ class VAEResBlock(nn.Module):
     """ResnetBlock with temb_channels=0 (model.py:82-141)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, quant: Optional[str] = None):
         super().__init__()
         out_ch = out_ch or in_ch
         self.norm1 = GroupNorm32(in_ch)
-        self.conv1 = Conv3x3(in_ch, out_ch, compute_dtype)
+        self.conv1 = Conv3x3(in_ch, out_ch, compute_dtype, quant)
         self.norm2 = GroupNorm32(out_ch)
-        self.conv2 = Conv3x3(out_ch, out_ch, compute_dtype)
+        self.conv2 = Conv3x3(out_ch, out_ch, compute_dtype, quant)
         if in_ch != out_ch:
             self.nin_shortcut = Conv1x1(in_ch, out_ch, compute_dtype)
 
@@ -151,18 +155,18 @@ class _Downsample(nn.Module):
 
 
 class _Upsample(nn.Module):
-    def __init__(self, channels: int, compute_dtype: torch.dtype):
+    def __init__(self, channels: int, compute_dtype: torch.dtype, quant: Optional[str] = None):
         super().__init__()
-        self.conv = Conv3x3(channels, channels, compute_dtype)
+        self.conv = Conv3x3(channels, channels, compute_dtype, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
 
 
-def _mid(ch: int, dt: torch.dtype) -> nn.Module:
+def _mid(ch: int, dt: torch.dtype, quant: Optional[str] = None) -> nn.Module:
     mid = nn.Module()
-    mid.block_1, mid.attn_1, mid.block_2 = VAEResBlock(ch, ch, dt), VAEAttnBlock(ch, dt), \
-        VAEResBlock(ch, ch, dt)
+    mid.block_1, mid.attn_1, mid.block_2 = VAEResBlock(ch, ch, dt, quant), \
+        VAEAttnBlock(ch, dt), VAEResBlock(ch, ch, dt, quant)
     return mid
 
 
@@ -183,7 +187,7 @@ class VAEEncoder(nn.Module):
                 level = _Level()
                 block_in = cfg.ch * in_mult[i]
                 for _ in range(cfg.num_res_blocks):
-                    level.block.append(VAEResBlock(block_in, cfg.ch * mult, dt))
+                    level.block.append(VAEResBlock(block_in, cfg.ch * mult, dt, cfg.quant))
                     block_in = cfg.ch * mult
                     if res in cfg.attn_resolutions:
                         level.attn.append(VAEAttnBlock(block_in, dt))
@@ -192,7 +196,7 @@ class VAEEncoder(nn.Module):
                         level.downsample = _Downsample(block_in, dt)
                     res //= 2
                 self.down.append(level)
-            self.mid = _mid(block_in, dt)
+            self.mid = _mid(block_in, dt, cfg.quant)
             self.norm_out = GroupNorm32(block_in)
             self.conv_out = Conv3x3(block_in, 2 * cfg.z_channels if cfg.double_z
                                     else cfg.z_channels, dt)
@@ -224,19 +228,20 @@ class VAEDecoder(nn.Module):
         with torch.device(resolve_device(device)):
             block_in = cfg.ch * cfg.ch_mult[-1]
             self.conv_in = Conv3x3(cfg.z_channels, block_in, dt)
-            self.mid = _mid(block_in, dt)
+            self.mid = _mid(block_in, dt, cfg.quant)
             res = cfg.resolution // 2 ** (levels - 1)
             up = []
             for i in reversed(range(levels)):
                 level = _Level()
                 for _ in range(cfg.num_res_blocks + 1):
-                    level.block.append(VAEResBlock(block_in, cfg.ch * cfg.ch_mult[i], dt))
+                    level.block.append(VAEResBlock(block_in, cfg.ch * cfg.ch_mult[i], dt,
+                                                   cfg.quant))
                     block_in = cfg.ch * cfg.ch_mult[i]
                     if res in cfg.attn_resolutions:
                         level.attn.append(VAEAttnBlock(block_in, dt))
                 if i != 0:
                     if cfg.resamp_with_conv:
-                        level.upsample = _Upsample(block_in, dt)
+                        level.upsample = _Upsample(block_in, dt, cfg.quant)
                     res *= 2
                 up.insert(0, level)
             self.up = nn.ModuleList(up)  # up[i] is level i, as in the reference

@@ -30,7 +30,8 @@ differentiable too; their backwards are recompute VJPs of their plain
 twins (`ln_linear_vjp`, `geglu_vjp`), as in the JAX package. `fused_bias_act` and
 `attention_out_fused` are differentiable too, and, as in the JAX package,
 no sampling path calls them. `resample` holds the FIR resampling ops:
-library convs, no kernel.
+library convs, no kernel; `quant` the int8 W8A8 serving path's products
+(`torch._int_mm`, library calls, as the JAX package's are XLA's), no kernel.
 """
 
 from dpm_solver_tpu_torch.ops.attention import (

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dpm_solver_tpu_torch.ops import _build
+from dpm_solver_tpu_torch.ops.quant import check_mode, w8a8_conv, wants_conv_quant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_ROUTE = 2   # dpm_conv3x3_fwd's route code ("narrow", "f32": their own entries)
@@ -359,17 +360,24 @@ class Conv3x3(nn.Module):
     reference state dicts load unchanged. The weight is permuted to
     (3, 3, C, CO) and cast to the compute dtype on every call: at most
     3*3*512*256 values, one small copy beside the conv itself.
+
+    `quant="w8a8_conv"` (the JAX `Conv3x3(quant=)`) computes it with
+    `ops.quant.w8a8_conv` from the fp32 weight instead; the other modes
+    (None, "w8a8") take the kernel.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, quant: Optional[str] = None):
         super().__init__()
+        check_mode(quant)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.quant = compute_dtype, quant
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if wants_conv_quant(self.quant):
+            return w8a8_conv(x.to(dt), self.weight.permute(2, 3, 1, 0), self.bias)
         w = self.weight.permute(2, 3, 1, 0).to(dt).contiguous()
         return conv3x3(x.to(dt).contiguous(), w, self.bias)

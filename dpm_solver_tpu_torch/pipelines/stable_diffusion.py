@@ -24,8 +24,9 @@ solver options, correction) and its CFG closure reads the conditioning from
 tensors the sampler holds, into which each call copies its own; a
 `MaskedBlend` correction (inpainting, DiffEdit) is held the same way, so a
 later call at the same shapes replays with its own prompts, image and mask.
-The first-stage encode and decode run eagerly. `mesh=` is not ported
-(Slice G), nor `quant=` (Slice H).
+The first-stage encode and decode run eagerly. `load_sd_checkpoint(quant=)`
+takes the int8 serving path (`ops/quant.py`) as the JAX function does.
+`mesh=` is not ported (Slice G).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from torch import nn
 
 from dpm_solver_tpu_torch.models.adm_unet import ADMConfig, ADMUNet
 from dpm_solver_tpu_torch.models.vae import AutoencoderKL, VAEConfig, VQModel
+from dpm_solver_tpu_torch.ops.quant import check_mode
 from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
 from dpm_solver_tpu_torch.solver import DPM_Solver
 from dpm_solver_tpu_torch.solver.plan import get_time_steps
@@ -554,11 +556,11 @@ def load_sd_checkpoint(path_or_state_dict, *, preset: str = "sd_v1",
     rdm_768: the reference's LDM config files); explicit configs override
     it. Takes a state dict (tensors or arrays) or a `.ckpt`/`.pt` path read
     by `torch.load`. The networks are built on `device` (the card by
-    default) and compute in `compute_dtype`. `quant=` (the JAX int8 serving
-    path, ops/quant.py) is not ported (ROADMAP Slice H) and raises."""
-    if quant is not None:
-        raise NotImplementedError("quant= (ops/quant.py's int8 path) is not ported to "
-                                  "dpm_solver_tpu_torch yet (ROADMAP Slice H)")
+    default) and compute in `compute_dtype`. `quant` ("w8a8" or
+    "w8a8_conv", off by default) sets both configs' `quant`, the int8
+    serving path (`ops/quant.py`): a config switch only, the state dict is
+    the same."""
+    check_mode(quant)
     sd = (_torch_state_dict(path_or_state_dict) if isinstance(path_or_state_dict, (str, Path))
           else dict(path_or_state_dict))
     if preset not in _LDM_PRESETS:
@@ -566,6 +568,9 @@ def load_sd_checkpoint(path_or_state_dict, *, preset: str = "sd_v1",
     u_default, v_default, beta_kw, scale = _LDM_PRESETS[preset]
     unet_config = unet_config or u_default()
     vae_config = vae_config or v_default()
+    if quant is not None:
+        unet_config = dataclasses.replace(unet_config, quant=quant)
+        vae_config = dataclasses.replace(vae_config, quant=quant)
     dev = resolve_device(device)
 
     prefix = "model.diffusion_model."

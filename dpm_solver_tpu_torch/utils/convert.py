@@ -1,4 +1,10 @@
-"""Flax parameters -> the port's torch state dicts.
+"""Flax parameters -> the port's torch state dicts, and the checkpoint reader.
+
+`load_torch_state_dict` reads a reference torch checkpoint file (a plain
+state dict, a `{"state_dict": ...}` wrapper, or the DDPM runner's list with
+its EMA shadow last) into one flat {name: tensor} dict, as
+`dpm_solver_tpu/utils/convert.py::load_torch_state_dict` does into numpy;
+the port's models take its keys directly (no Flax in between).
 
 The inverses of the JAX package's torch -> Flax converters, so weights made
 by the JAX package (random inits in tests, or converted checkpoints) load
@@ -52,6 +58,34 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+
+
+def load_torch_state_dict(path: str, *, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint file as a flat {name: CPU tensor} dict.
+
+    Handles the reference's list-style checkpoints (runners/diffusion.py:
+    torch.save([model_sd, opt_sd, epoch, step, ema_sd])), plain state dicts
+    and {'state_dict': ...} wrappers. For list checkpoints the EMA shadow
+    (the trailing dict of tensors) is laid over the raw weights by default,
+    as the reference samples from EMA weights when `model.ema` is set
+    (runners/diffusion.py:337-341); `prefer_ema=False` keeps the raw
+    training weights. Read with `torch.load(weights_only=True)`: tensors and
+    plain containers only, no pickled code.
+    """
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, (list, tuple)):
+        dicts = [x for x in obj if isinstance(x, Mapping)
+                 and any(torch.is_tensor(v) for v in x.values())]
+        base = dict(dicts[0]) if dicts else {}
+        if prefer_ema and len(dicts) > 1:
+            # EMA shadows hold parameters only (no buffers): laid over the base
+            base.update(dicts[-1])
+        obj = base
+    if isinstance(obj, Mapping) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v.detach() for k, v in obj.items() if torch.is_tensor(v)}
+
 
 _LEVEL = re.compile(r"^(down|up)_(\d+)_(block|attn)_(\d+)$")
 _RESAMPLE = re.compile(r"^(down|up)_(\d+)_(downsample|upsample)$")

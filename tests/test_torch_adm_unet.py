@@ -111,8 +111,8 @@ PRESETS = ["sd_v1", "sd_v2_1", "cin256", "rdm_768", "imagenet64_iddpm", "imagene
 def test_presets_and_layout_match_jax(preset):
     ours, theirs = getattr(ADMConfig, preset)(), getattr(JaxConfig, preset)()
     assert dataclasses.asdict(ours) == {f: getattr(theirs, f) for f in dataclasses.asdict(ours)}
-    # the JAX-only fields (training remat, int8 quant, classifier pooling) stay at
-    # their defaults in every preset, so the port's config loses nothing
+    # the training remat, int8 quant and classifier pooling fields stay at
+    # their defaults in every preset
     assert (theirs.remat, theirs.quant, theirs.pool) == (False, None, "adaptive")
     assert layout(ours) == jax_layout(theirs)
 

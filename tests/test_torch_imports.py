@@ -1,7 +1,8 @@
 """The port stands alone, and its kernel wrappers hide no device.
 
 - An AST scan: no file under dpm_solver_tpu_torch/ (the training package,
-  configs.py, run_lib.py, data.py, native/ and utils/lmdb*.py among them),
+  configs.py, run_lib.py, data.py, native/, utils/lmdb*.py, the CLI, the
+  int8 path and the host utilities among them),
   and not chip_smoke.py, imports jax, flax, optax, orbax or dpm_solver_tpu
   (a `sys.modules` check cannot show it: the test process imports jax
   anyway), nor tensorflow (not even inside a function), transformers,
@@ -97,6 +98,38 @@ def test_the_data_path_is_scanned():
             "utils/lmdb_native.py", "eval/fid.py"} <= names
     lazy = ast.parse("def f():\n    import tensorflow as tf\n")
     assert "tensorflow" in set(_imported_roots(lazy))
+
+
+def test_the_cli_and_serving_modules_are_scanned():
+    """The CLI, the int8 path and the host utilities are among the files the
+    scan reads: they import torch, numpy, scipy, cv2 and PIL, never the JAX
+    package, whose numpy-only twins (safety, watermark, degradation,
+    ckpt_util) they copy rather than import."""
+    names = {str(p.relative_to(PKG)) for p in SCANNED if PKG in p.parents}
+    assert {"cli.py", "__main__.py", "ops/quant.py", "utils/ckpt_util.py", "utils/safety.py",
+            "utils/watermark.py", "utils/degradation.py"} <= names
+    lazy = ast.parse("def f():\n    from dpm_solver_tpu.utils import watermark\n")
+    assert "dpm_solver_tpu" in set(_imported_roots(lazy))
+
+
+@pytest.mark.parametrize("quant", ["w8a8", "w8a8_conv"])
+def test_cpu_quant_txt2img_launches_nothing(quant):
+    """The int8 serving path on the CPU: the transformer stack's products
+    are int8 library calls and the other wrappers take their plain twins."""
+    ucfg = ADMConfig(image_size=8, in_channels=4, model_channels=32, out_channels=4,
+                     num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     num_heads=2, use_spatial_transformer=True, context_dim=24, quant=quant)
+    g = torch.Generator().manual_seed(0)
+    unet = init_random_(ADMUNet(ucfg, device="cpu"), g).eval()
+    vae = init_random_(AutoencoderKL(VAEConfig.tiny(resolution=16, quant=quant), device="cpu"),
+                       g).eval()
+    pipe = StableDiffusionPipeline(
+        LatentDiffusion(unet, vae, text_encode=constant_context_encoder(24)), device="cpu")
+    ops.reset_launch_counts()
+    img = pipe.txt2img(["a", "b"], steps=2, height=16, width=16,
+                       generator=torch.Generator().manual_seed(1))
+    assert img.shape == (2, 16, 16, 3) and torch.isfinite(img).all()
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_cpu_run_takes_plain_path_and_launches_nothing():

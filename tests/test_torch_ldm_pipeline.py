@@ -403,9 +403,14 @@ def test_load_sd_checkpoint_matches_jax(vq, tmp_path):
 
 
 def test_load_sd_checkpoint_refuses_quant_and_partial_checkpoints():
+    """A quant mode the int8 path does not have is refused (the int8 modes
+    themselves load: tests/test_torch_quant.py), as is a checkpoint that
+    lacks keys."""
     ckpt, (ucfg, vcfg), _ = _checkpoint(False)
-    with pytest.raises(NotImplementedError, match="Slice H"):
-        load_sd_checkpoint(ckpt, unet_config=ucfg, vae_config=vcfg, quant="w8a8", device="cpu")
+    with pytest.raises(ValueError, match="quant mode"):
+        load_sd_checkpoint(ckpt, unet_config=ucfg, vae_config=vcfg, quant="w4a16", device="cpu")
+    ldm = load_sd_checkpoint(ckpt, unet_config=ucfg, vae_config=vcfg, quant="w8a8", device="cpu")
+    assert ldm.unet.config.quant == ldm.vae.config.quant == "w8a8"
     partial = {k: v for k, v in ckpt.items() if "decoder.conv_out" not in k}
     with pytest.raises(KeyError, match="first_stage_model"):
         load_sd_checkpoint(partial, unet_config=ucfg, vae_config=vcfg, device="cpu")

@@ -3,9 +3,9 @@ configs.py, run_lib.py) against the JAX package's, on the CPU.
 
 - The registry holds the JAX package's entries, name for name, and every
   entry's fields equal the JAX entry's: sampling, training, diffusion,
-  data, eval and the rest, and the model config's fields (but the JAX
-  ADMConfig's `quant`, the serving int8 switch of ops/quant.py, not
-  ported); the NCSNv2 / NCSN entries' `NCSNv2Config` too.
+  data, eval and the rest, and the model config's fields (ADMConfig's
+  `quant`, the serving int8 switch of ops/quant.py, included); the NCSNv2
+  / NCSN entries' `NCSNv2Config` too.
 - `build_model` builds every entry (on the meta device, no memory), with
   the JAX model's parameter count at the configurations the paths and the
   benchmarks train (NCSN++ continuous VE, the CIFAR-10 DDPM, the tiny test
@@ -47,7 +47,9 @@ def _one_torch_thread():
 
 
 NAMES = jconfigs.list_configs()
-NOT_PORTED = {"ADMConfig": {"quant"}}
+# config fields of the JAX models that the port does not carry (none since
+# ADMConfig.quant, the int8 serving path, was ported)
+NOT_PORTED = {}
 
 
 def test_registry_holds_the_jax_entries():

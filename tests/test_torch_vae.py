@@ -113,6 +113,6 @@ def test_diagonal_gaussian_matches_jax():
 def test_sd_v1_config_matches_jax_and_counts_83m_parameters():
     ours, theirs = VAEConfig.sd_v1(), JaxVAEConfig.sd_v1()
     assert ours == VAEConfig(**{f: getattr(theirs, f) for f in ours.__dataclass_fields__})
-    assert theirs.quant is None  # the JAX-only int8 option is off
+    assert theirs.quant is None  # the int8 option is off
     n = sum(p.numel() for p in AutoencoderKL(VAEConfig.sd_v1(), device="meta").parameters())
     assert n == 83_653_863  # the SD KL-f8 autoencoder
