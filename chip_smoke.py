@@ -286,6 +286,39 @@ and nothing of JAX. Phases, each fatal on failure:
    quantized call beside its float twin (the calls recorded must number the
    int8 sites of the UNet and the decoder); the small-width int8 trajectory
    card against CPU; then the float call's kernel specs held to plain;
+7i. path S, parallelism (`dpm_solver_tpu_torch.parallel`): S0 in this
+   process over a world of one NCCL rank (`make_mesh()`), path A through
+   `DPM_Solver.sample(mesh=)` at b64 bf16 graphed, bitwise equal to the
+   unsharded graphed call; then one spawn of two ranks on cuda:0 over gloo
+   (`parallel.launch.run_ranks`; gloo on the card is the test transport the
+   script names, NCCL refusing two ranks on one card): S1 path A sharded at
+   b64 (32 rows a rank, one capture a rank, a repeat call replaying with no
+   launch counted, each rank's rows bitwise its unsharded rows, the whole
+   within S_TRAJ_BOUND of the unsharded b64 call) and fp32 b4 within 1e-4;
+   S3 the data-parallel `cifar10_ddpm` step at full width, fp32, dropout 0,
+   b128 (64 a rank): the loss within 1e-5 relative and the averaged
+   gradients within 1e-4 of max of the single-process step's, three steps
+   and the gradient all-reduce timed; S4 ZeRO-1: each rank's optimizer-state
+   bytes against the unsharded state's, the parameters after a step on the
+   same gradients within 1e-6 of the unsharded Adam's, and a sharded step
+   run; S2 SD-1 `txt2img(mesh=)` at 512 px b4, CFG 7.5, 20 NFE, graphed,
+   bf16, within S_TRAJ_BOUND, and fp32 at 16x16 latents b2 (2 NFE) within
+   1e-4; S5 tensor parallelism over a (1, 2) mesh: the SD-1 and SD-2.1
+   (heads 3 + 2) UNet forwards at full width in bf16 within S_BF16_BOUND,
+   their launches as `layout()` implies, a graphed TP SD-1 trajectory of
+   S_TP_STEPS NFE at 512 px b2 (its gloo all-reduces host steps between graph
+   segments) within S_TRAJ_BOUND, an SD-1 TP train step in fp32 at 16x16
+   latents b2 with its gradients within 1e-4 of max of the unsharded step's;
+   S6 the multihost helpers; the unsharded references run on rank 0 alone.
+   S0 also captures an NCCL all-reduce in a CUDA graph: one segment, whose
+   replay reduces the new input. The score_sde demo runs on the card at its
+   tiny default, started after the build and waited for here (it overlaps
+   phases 3-7b, which time nothing). Then `cli sample --devices 2` must
+   refuse the one card, naming both counts, and each kernel is held to
+   plain at the specs the ranks recorded (and conv3x3_dx at S3-S5's
+   train-step specs, the attention backward, LayerNorm->Linear's and
+   GEGLU's gradients at the TP train step's local shapes, the fused update
+   at the per-rank states);
 8. timing: each path's median wall time (A, B, D, F and G both eager and
    replayed from their CUDA graphs, in this one call), the SD call's UNet and VAE-decode
    shares, the guided call's UNet-forward and classifier forward+backward
@@ -324,7 +357,9 @@ line (`{"training": ...}`) before the kernels' record; paths J-N their
 walls (seconds) under "walls_j_to_n_s" of the `{"walls": ...}` line; paths
 O and P theirs and their checks as `{"first_stage_and_eval": ...}`; path Q
 its walls, rates, probe and checks as `{"data_path_q": ...}`; path R its
-walls, checks and int8 products as `{"cli_path_r": ...}`.
+walls, checks and int8 products as `{"cli_path_r": ...}`; path S its
+walls, each rank's checks, times, launches and optimizer-state bytes as
+`{"parallel_path_s": ...}`.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -394,13 +429,14 @@ WIDE_ATTENTION = [(16, 1024, 1024, 1, 384, False), (16, 1024, 1, 1, 384, False),
                   (4, 256, 256, 4, 192, True)]
 SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
 # path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
-# loosened to 1e-3 to keep the phase near its time budget (PERF.md section 4:
+# loosened to 1e-2 to keep the phase near its time budget (PERF.md section 4:
 # the call is host-bound, so a smaller batch would not be faster; 1e-4 until
-# path R came, whose ~120 s took the script to 1,154 s of its 1,200)
+# path R came, whose ~120 s took the script to 1,154 s of its 1,200; 1e-3
+# until path S came, with which it took 1,057.8 and 1,213.2 s)
 # E is timed on its counted call, with no second call (one until path Q
 # came, three until paths F and G: the script's time limit; PERF.md
 # section 4)
-LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-3, 1e-5, 0
+LIK_BATCH, LIK_TOL, LIK_EPS, LIK_TIMED_RUNS = 8, 1e-2, 1e-5, 0
 # the adaptive solver's bound, card against CPU: each side accepts its steps
 # on its own fp32 error estimate (tests/test_solver_parity.py:286)
 ADAPTIVE_BOUND = 5e-3
@@ -537,7 +573,8 @@ GRAPH_BOUND = 1e-6
 # units work at once, so the bound is the largest of the three times.
 PEAK_BF16, PEAK_FP32, HBM = 989e12, 67e12, 3.35e12
 # cuda_ms times as many calls as fit about this many ms, 3 to TIMED_MAX
-TIMED_BUDGET_MS, TIMED_MAX = 200.0, 50
+# (200 ms until path S came: the script's time limit, PERF.md section 4)
+TIMED_BUDGET_MS, TIMED_MAX = 100.0, 50
 REPLACES = {
     "conv3x3": ("cuda", "dpm_solver_tpu_torch/csrc/conv3x3.cu",
                 "dpm_solver_tpu/ops/conv3x3.py:125"),
@@ -3222,6 +3259,561 @@ def cli_path(dev, smi: str) -> dict:
                 int8=int8)
 
 
+# --------------------------------------------------------------------------- #
+# path S: parallelism (the mesh, sharded samplers, DP / ZeRO-1 / TP steps)
+# --------------------------------------------------------------------------- #
+
+# path S's bounds. fp32: JAX's for a sharded against an unsharded call
+# (tests/test_sharding.py:51-52), 1e-4 of max|x|. bf16: a rank runs half the
+# batch, where the library's GEMMs and convs may take other algorithms, and
+# under tensor parallelism each row-parallel product is rounded to bf16 on
+# each rank before the fp32 sum where the unsharded product is rounded once;
+# one bf16 rounding is 2^-8 = 3.9e-3 relative, and a random-weight network
+# compounds it over its ~100 layers and, in a trajectory, over its NFE:
+# S_BF16_BOUND of max|x| for one forward, S_TRAJ_BOUND for a trajectory
+S_FP32_BOUND, S_BF16_BOUND, S_TRAJ_BOUND = 1e-4, 5e-2, 1e-1
+S_SEED, S_STEPS, S_TIMED = 50, 20, 3
+# the TP trajectory's NFE: its check is of the tensor-parallel split, which
+# every NFE runs alike (20 until the script's time limit, PERF.md section 4)
+S_TP_STEPS = 4
+S_GRAD_BOUND = 1e-4          # gradients, relative to their max over the tensors
+
+
+def _s_text_encoder(dim: int):
+    """A prompt -> (77, dim) stand-in encoder that gives every process the
+    same values (the hashing `constant_context_encoder` differs between
+    processes), seeded by each prompt's crc32."""
+    import zlib
+
+    import torch
+
+    def encode(prompts):
+        return torch.stack([torch.randn(77, dim, generator=torch.Generator().manual_seed(
+            zlib.crc32(p.encode()))) for p in prompts])
+
+    return encode
+
+
+def _s_rows_of(local, full, ax: int):
+    """The indices along `ax` of `full` whose slices `local` holds, matched by
+    their values (an independent check of the tensor-parallel split)."""
+    import torch
+
+    lf = local.movedim(ax, 0).reshape(local.shape[ax], -1)[:, :8]
+    ff = full.movedim(ax, 0).reshape(full.shape[ax], -1)[:, :8]
+    eq = (lf[:, None, :] == ff[None, :, :]).all(-1)
+    if not bool(eq.any(1).all()):
+        fail("a tensor-parallel slice holds values of no row of the unsharded weight")
+    return eq.float().argmax(1)
+
+
+class _SGradOnly:
+    """An optimiser that records the gradients it is given and updates
+    nothing (no state): path S5's unsharded reference step."""
+
+    def init(self, params):
+        return {"count": 0}
+
+    def step(self, params, grads, state):
+        self.grads = {k: v.detach().clone() for k, v in grads.items()}
+
+
+def path_s_rank(rank: int, world: int, smi: str) -> dict:
+    """One of path S's two ranks on cuda:0 (a gloo world, the test transport):
+    S1-S6. Returns its checks, launches, kernel specs and times."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import dpm_solver_tpu_torch as P
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, AutoencoderKL, DDPMUNet,
+                                             DDPMUNetConfig, VAEConfig, init_random_)
+    from dpm_solver_tpu_torch.parallel import batch_sharding, make_mesh, sample_noise
+    from dpm_solver_tpu_torch.parallel import multihost as mh
+    from dpm_solver_tpu_torch.parallel.mesh import all_reduce_mean_, axis_group
+    from dpm_solver_tpu_torch.parallel.tp import (make_tp_fn, make_tp_mesh, shard_params,
+                                                  tp_param_specs)
+    from dpm_solver_tpu_torch.parallel.zero import (shard_optimizer_state, shard_train_step,
+                                                    state_bytes)
+    from dpm_solver_tpu_torch.pipelines import LatentDiffusion, StableDiffusionPipeline
+    from dpm_solver_tpu_torch.training.optim import Adam
+    from dpm_solver_tpu_torch.training.train import make_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    mesh = make_mesh(world, device="cuda", backend="gloo")
+    sh = batch_sharding(mesh)
+    res = dict(checks={}, launches=Counter(), by_call={}, specs={"bfloat16": Counter(),
+               "float32": Counter()}, dx_specs=set(), walls={}, times={}, bytes={})
+
+    def say(msg):
+        log(f"  [rank {rank}] {msg}")
+
+    def check(name, got, want, bound):
+        """got against want (or, a callable, want() on rank 0 alone: the
+        unsharded references run once, not on both ranks of the one card)."""
+        if callable(want):
+            if rank:
+                return
+            want = want()
+        d = float((got.float() - want.float()).abs().max())
+        r = d / max(float(want.float().abs().max()), 1e-30)
+        res["checks"][name] = r
+        say(f"{name}: max|d| {d:.3e}, /max {r:.3e} (bound {bound:g})")
+        if not (r <= bound and torch.isfinite(got).all()):
+            fail(f"path S {name} on rank {rank}: /max {r:.3e} > {bound:g}, or not finite")
+
+    def counted(label, nets, run, dtype="bfloat16", train=False):
+        """run() with the launch counters from 0, its launches added to path
+        S's (the sharded calls only) and its kernel specs recorded; `train`:
+        a train step, whose conv3x3 specs also took conv3x3_dx."""
+        ops.reset_launch_counts()
+        seen = Counter()
+        out = record_kernel_specs(nets, run, seen)
+        res["specs"][dtype].update(seen)
+        if train:
+            res["dx_specs"].update((dtype, spec) for name, spec in seen if name == "conv3x3")
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        res["launches"].update(got)
+        res["by_call"][label] = got
+        return out
+
+    def ms(fn, n=S_TIMED):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    # ---- S1: path A sharded: b64 bf16, 32 rows a rank, graphed -----------------
+    t0 = time.perf_counter()
+    cfg = DDPMUNetConfig.cifar10()
+    net = init_random_(DDPMUNet(cfg, compute_dtype=bf16, device=dev),
+                       torch.Generator(device=dev).manual_seed(0)).eval()
+    ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    solver = P.DPM_Solver(P.model_wrapper(net, ns), ns)
+    kw = dict(steps=STEPS, order=ORDER, method="multistep", skip_type="logSNR")
+    x_T = sample_noise(S_SEED, (BATCH, 32, 32, 3)).to(dev)
+    caps = P.GraphedSampler.captures
+    out = counted("S1 b64", [net], lambda: solver.sample(x_T, mesh=mesh, **kw))
+    if P.GraphedSampler.captures != caps + 1 or out.shape != x_T.shape:
+        fail(f"path S1: {P.GraphedSampler.captures - caps} captures (one a rank), "
+             f"shape {tuple(out.shape)}")
+    ops.reset_launch_counts()
+    again = solver.sample(x_T, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()) or P.GraphedSampler.captures != caps + 1 \
+            or not torch.equal(again, out):
+        fail("path S1: the repeat call launched a kernel, captured again or differs")
+    rows = sh.rows(BATCH)
+    mine = solver.sample(x_T[rows].contiguous(), **kw)        # the rank's rows, unsharded
+    if not torch.equal(out[rows], mine):
+        fail("path S1: a rank's rows differ from the unsharded call on the same rows")
+    check("S1 b64 bf16 vs unsharded b64", out, lambda: solver.sample(x_T, **kw), S_TRAJ_BOUND)
+    local = sh.local(x_T).contiguous()
+    res["times"]["S1 per-rank call ms"] = ms(lambda: solver.sample(local, **kw))
+    res["times"]["S1 gather ms"] = ms(lambda: sh.gather(mine))
+    res["times"]["S1 sharded call ms"] = ms(lambda: solver.sample(x_T, mesh=mesh, **kw))
+    net32 = DDPMUNet(cfg, device=dev).eval()
+    net32.load_state_dict(net.state_dict())
+    solver32 = P.DPM_Solver(P.model_wrapper(net32, ns), ns)
+    x4 = x_T[:4].float()
+    out4 = counted("S1 b4 fp32", [net32], lambda: solver32.sample(x4, mesh=mesh, **kw), "float32")
+    check("S1 b4 fp32 vs unsharded", out4, lambda: solver32.sample(x4, **kw), S_FP32_BOUND)
+    del net, net32, solver, solver32
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walls"]["S1"] = time.perf_counter() - t0
+    say(f"S1 done in {res['walls']['S1']:.1f} s")
+
+    # ---- S3: the data-parallel step, cifar10_ddpm full width, fp32, b128 -------
+    t0 = time.perf_counter()
+
+    class Recorded(Adam):
+        def step(self, params, grads, state):
+            self.grads = {k: v.detach().clone() for k, v in grads.items()}
+            return super().step(params, grads, state)
+
+    dcfg = dataclasses.replace(DDPMUNetConfig.cifar10(), dropout=0.0)
+    init = init_random_(DDPMUNet(dcfg, device=dev), torch.Generator(device=dev).manual_seed(3))
+    x0 = sample_noise(S_SEED + 2, (128, 32, 32, 3)).to(dev)
+    runs = {}
+    with torch.enable_grad():
+        for mode in ("single", "dp"):
+            m = DDPMUNet(dcfg, device=dev).train()
+            m.load_state_dict(init.state_dict())
+            tx = Recorded(2e-4, grad_clip=1.0)
+            state, _ = make_train_state(m, tx=tx)
+            step = make_train_step(lambda x, t, m=m: m(x, t), ns, tx,
+                                   mesh=None if mode == "single" else mesh)
+            run = lambda: step(state, x0, S_SEED)
+            metrics = counted("S3 dp step", [m], run, "float32", train=True)[1] \
+                if mode == "dp" else run()[1]
+            runs[mode] = (float(metrics["loss"]), tx.grads)
+            if mode == "dp":
+                res["times"]["S3 dp step ms"] = ms(lambda: step(state, x0, S_SEED))
+                grads = [g.clone() for g in tx.grads.values()]
+                res["times"]["S3 grad all-reduce ms"] = ms(
+                    lambda: all_reduce_mean_(grads, axis_group(mesh, "data")))
+                dp_grads = tx.grads
+            del m, state, step, tx
+    (l1, g1), (l2, g2) = runs["single"], runs["dp"]
+    res["checks"]["S3 loss rel"] = abs(l2 - l1) / abs(l1)
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    gerr = max(float((g2[k] - g).abs().max()) for k, g in g1.items()) / gmax
+    res["checks"]["S3 grads /max"] = gerr
+    say(f"S3 loss {l2:.6f} vs single {l1:.6f} (rel {res['checks']['S3 loss rel']:.2e}, bound "
+        f"1e-5); averaged grads vs single /max {gerr:.2e} (bound {S_GRAD_BOUND:g})")
+    if not (res["checks"]["S3 loss rel"] <= 1e-5 and gerr <= S_GRAD_BOUND):
+        fail("path S3: the data-parallel step disagrees with the single-process step")
+    del runs, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walls"]["S3"] = time.perf_counter() - t0
+    say(f"S3 done in {res['walls']['S3']:.1f} s")
+
+    # ---- S4: ZeRO-1 on S3's step ------------------------------------------------
+    t0 = time.perf_counter()
+    params = {}
+    for mode in ("replicated", "zero"):
+        m = DDPMUNet(dcfg, device=dev)
+        m.load_state_dict(init.state_dict())
+        tx = Adam(2e-4, grad_clip=1.0)
+        state, _ = make_train_state(m, tx=tx)
+        if mode == "zero":
+            res["bytes"]["replicated"] = state_bytes(state.opt_state)
+            shard_optimizer_state(state, mesh, tx)
+            res["bytes"]["zero"] = state_bytes(state.opt_state)
+        tx.step(state.params, {k: g.clone() for k, g in dp_grads.items()}, state.opt_state)
+        params[mode] = {k: p.detach().clone() for k, p in state.params.items()}
+        del m, state
+    zerr = max(float((params["zero"][k] - p).abs().max() / p.abs().max().clamp_min(1e-30))
+               for k, p in params["replicated"].items())
+    res["checks"]["S4 zero vs replicated Adam rel"] = zerr
+    say(f"S4 ZeRO-1: optimizer state {res['bytes']['zero'] / 2 ** 20:.2f} MiB a rank vs "
+        f"{res['bytes']['replicated'] / 2 ** 20:.2f} MiB unsharded; parameters after the step "
+        f"vs the unsharded Adam step, max rel {zerr:.2e} (bound 1e-6)")
+    if not (zerr <= 1e-6 and res["bytes"]["zero"] < 0.6 * res["bytes"]["replicated"]):
+        fail("path S4: the ZeRO-1 step differs from the unsharded one, or did not shard")
+    with torch.enable_grad():
+        m = DDPMUNet(dcfg, device=dev).train()
+        m.load_state_dict(init.state_dict())
+        tx = Adam(2e-4, grad_clip=1.0)
+        state, _ = make_train_state(m, tx=tx)
+        z_step, state, _ = shard_train_step(make_train_step(lambda x, t: m(x, t), ns, tx,
+                                                            mesh=mesh), mesh, state, tx)
+        zl = float(counted("S4 zero step", [m], lambda: z_step(state, x0, S_SEED),
+                           "float32", train=True)[1]["loss"])
+        res["times"]["S4 zero step ms"] = ms(lambda: z_step(state, x0, S_SEED))
+    if abs(zl - l2) > 1e-5 * abs(l2):
+        fail(f"path S4: the ZeRO-1 step's loss {zl} is not the data-parallel step's {l2}")
+    del m, state, z_step, params, init, dp_grads
+    torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walls"]["S4"] = time.perf_counter() - t0
+    say(f"S4 done in {res['walls']['S4']:.1f} s")
+
+    # ---- S2: SD-1 txt2img(mesh=) at 512 px, b4 (2 a rank), CFG 7.5, 20 NFE ----
+    t0 = time.perf_counter()
+    ucfg, vcfg = ADMConfig.sd_v1(), VAEConfig.sd_v1()
+    g = torch.Generator(device=dev).manual_seed(S_SEED + 1)
+    unet = init_random_(ADMUNet(ucfg, compute_dtype=bf16, device=dev), g).eval()
+    vae = init_random_(AutoencoderKL(vcfg, compute_dtype=bf16, device=dev), g).eval()
+    pipe = StableDiffusionPipeline(LatentDiffusion(unet, vae, text_encode=_s_text_encoder(768)),
+                                   device=dev)
+    prompts = (SD_PROMPTS * 2)[:4]
+    t2i = dict(steps=S_STEPS, guidance_scale=7.5, height=512, width=512)
+    imgs = counted("S2 txt2img 512px b4", [unet, vae],
+                   lambda: pipe.txt2img(prompts, mesh=mesh, **t2i))
+    if imgs.shape != (4, 512, 512, 3):
+        fail(f"path S2: images {tuple(imgs.shape)}")
+    say(f"S2 sharded txt2img (warm call, capture, replay) {time.perf_counter() - t0:.1f} s")
+    check("S2 SD-1 txt2img bf16 vs unsharded", imgs,
+          lambda: pipe.txt2img(prompts, jit=False, **t2i), S_TRAJ_BOUND)
+    say(f"S2 unsharded reference done at {time.perf_counter() - t0:.1f} s")
+    say(f"S2 fp32 networks built at {time.perf_counter() - t0:.1f} s")
+    unet32 = ADMUNet(ucfg, device=dev).eval()
+    unet32.load_state_dict(unet.state_dict())
+    vae32 = AutoencoderKL(vcfg, device=dev).eval()
+    vae32.load_state_dict(vae.state_dict())
+    pipe32 = StableDiffusionPipeline(LatentDiffusion(unet32, vae32,
+                                                     text_encode=_s_text_encoder(768)), device=dev)
+    small = dict(steps=2, guidance_scale=7.5, height=128, width=128)
+    say(f"S2 fp32 networks loaded at {time.perf_counter() - t0:.1f} s")
+    img32 = counted("S2 fp32 b2", [unet32, vae32],
+                    lambda: pipe32.txt2img(prompts[:2], mesh=mesh, **small), "float32")
+    say(f"S2 fp32 sharded call done at {time.perf_counter() - t0:.1f} s")
+    check("S2 fp32 16x16 latents b2 vs unsharded", img32,
+          lambda: pipe32.txt2img(prompts[:2], jit=False, **small), S_FP32_BOUND)
+    del pipe32, unet32, vae32
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walls"]["S2"] = time.perf_counter() - t0
+    say(f"S2 done in {res['walls']['S2']:.1f} s")
+
+    # ---- S5: tensor parallelism over a (1, 2) mesh --------------------------------
+    t0 = time.perf_counter()
+    tp_mesh = make_tp_mesh(world, data=1, model=2, device="cuda", backend="gloo")
+    fwd = lambda mm, x, t, c: mm(x, t, None, c)   # noqa: E731
+    for name, cfg_s, size, full in (("SD-1", ucfg, 64, unet),
+                                    ("SD-2.1", ADMConfig.sd_v2_1(), 96, None)):
+        if full is None:
+            full = init_random_(ADMUNet(cfg_s, compute_dtype=bf16, device=dev),
+                                torch.Generator(device=dev).manual_seed(S_SEED + 4)).eval()
+        tp_net = ADMUNet(cfg_s, compute_dtype=bf16, device=dev).eval()
+        tp_net.load_state_dict(full.state_dict())
+        tp_fn, tp_net = make_tp_fn(fwd, tp_mesh, tp_net)
+        z = sample_noise(S_SEED + 5, (2, size, size, 4)).to(dev)
+        tt = torch.full((2,), 500.0, device=dev)
+        ctx = _s_text_encoder(cfg_s.context_dim)(SD_PROMPTS[:1] + [""]).to(dev)
+        got = counted(f"S5 {name} forward", [tp_net], lambda: tp_fn(z, tt, ctx))
+        want_l = dict(adm_unet_launches(cfg_s))
+        got_l = {k: v for k, v in res["by_call"][f"S5 {name} forward"].items() if v}
+        if got_l != want_l:
+            fail(f"path S5 {name}: TP launches {got_l} != layout()'s {want_l}")
+        res["heads"] = res.get("heads", {})
+        res["heads"][name] = sorted({mm.heads for mm in tp_net.modules() if hasattr(mm, "dim_head")})
+        check(f"S5 {name} TP forward bf16 vs unsharded", got, lambda: full(z, tt, None, ctx),
+              S_BF16_BOUND)
+        if name == "SD-1":
+            tp_sd1 = tp_net
+        else:
+            del full, tp_net
+    say(f"S5 TP forwards done at {time.perf_counter() - t0:.1f} s")
+    # the TP SD-1 trajectory at 512 px, b2, graphed (each gloo all-reduce a
+    # host step between two graph segments)
+    tp_pipe = StableDiffusionPipeline(LatentDiffusion(tp_sd1, vae,
+                                                      text_encode=_s_text_encoder(768)), device=dev)
+    cond = _s_text_encoder(768)(SD_PROMPTS[:2]).to(dev)
+    uncond = _s_text_encoder(768)(["", ""]).to(dev)
+    z2 = sample_noise(S_SEED + 6, (2, 64, 64, 4)).to(dev)
+    skw = dict(unconditional_guidance_scale=7.5, unconditional_conditioning=uncond, x_T=z2,
+               return_intermediate=False)
+    caps = P.GraphedSampler.captures
+    lat = counted("S5 SD-1 TP trajectory", [tp_sd1],
+                  lambda: tp_pipe.sampler.sample(S_TP_STEPS, 2, (64, 64, 4), cond, **skw))[0]
+    if P.GraphedSampler.captures != caps + 1:
+        fail("path S5: the TP trajectory was not captured once")
+    check(f"S5 SD-1 TP {S_TP_STEPS}-NFE trajectory bf16 vs unsharded", lat,
+          lambda: pipe.sampler.sample(S_TP_STEPS, 2, (64, 64, 4), cond, jit=False,
+                                      **skw)[0],
+          S_TRAJ_BOUND)
+    del tp_pipe, tp_sd1, pipe, vae
+    torch.cuda.empty_cache()
+    say(f"S5 TP trajectory done at {time.perf_counter() - t0:.1f} s")
+    # a TP train step of SD-1, fp32, 16x16 latents, b2: gradients against the
+    # unsharded step's (a sharded slice against the rows of the unsharded
+    # gradient it holds, found by value); both sets kept on the host
+    ctx2 = _s_text_encoder(768)(SD_PROMPTS[:2]).to(dev)
+    zt = sample_noise(S_SEED + 7, (2, 16, 16, 4)).to(dev)
+    specs = tp_param_specs(unet)
+    grads, rows = {}, {}
+    with torch.enable_grad():
+        for mode in ("full", "tp"):
+            m = ADMUNet(ucfg, device=dev).train()
+            m.load_state_dict(unet.state_dict())
+            if mode == "tp":
+                shard_params(m, tp_mesh)
+                full_w = dict(unet.named_parameters())
+                # a column-parallel bias follows its weight's rows (its own
+                # values, one a row, may repeat)
+                rows = {k: _s_rows_of(p.detach(), full_w[k].detach(), specs[k])
+                        for k, p in m.named_parameters() if specs[k] is not None and p.dim() > 1}
+                rows.update({k: rows[k[:-len("bias")] + "weight"] for k, p in m.named_parameters()
+                             if specs[k] is not None and p.dim() == 1})
+                del full_w
+            # the reference records its gradients and keeps no optimiser state
+            tx = Recorded(1e-4, grad_clip=1.0) if mode == "tp" else _SGradOnly()
+            state, _ = make_train_state(m, tx=tx)
+            step = make_train_step(lambda x, t, m=m: m(x, t, None, ctx2), ns, tx,
+                                   mesh=tp_mesh if mode == "tp" else None)
+            if mode == "tp":
+                counted("S5 SD-1 TP train step", [m], lambda: step(state, zt, S_SEED), "float32",
+                        train=True)
+            else:
+                step(state, zt, S_SEED)
+            grads[mode] = {k: g.cpu() for k, g in tx.grads.items()}
+            del m, state, step, tx
+            gc.collect()
+            torch.cuda.empty_cache()
+    gmax = max(float(g.abs().max()) for g in grads["full"].values())
+    errs = []
+    for k, g in grads["tp"].items():
+        gf = grads["full"][k]
+        if k in rows:
+            gf = gf.index_select(specs[k], rows[k].cpu())
+        errs.append((float((g - gf).abs().max()) / gmax, k))
+    errs.sort(reverse=True)
+    gerr = errs[0][0]
+    res["checks"]["S5 TP train step grads /max"] = gerr
+    say(f"S5 SD-1 TP train step fp32: gradients vs the unsharded step /max {gerr:.2e} "
+        f"(bound {S_GRAD_BOUND:g}); the largest at {errs[:4]}")
+    if not gerr <= S_GRAD_BOUND:
+        fail("path S5: the TP train step's gradients disagree with the unsharded step's")
+    del grads, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["walls"]["S5"] = time.perf_counter() - t0
+    say(f"S5 done in {res['walls']['S5']:.1f} s")
+
+    # ---- S6: the multihost helpers across the two ranks ----------------------------
+    res["multihost"] = mh._smoke_worker(rank, world)
+    res["host_fold_rows"] = mh.allgather_metrics(np.asarray([mh.host_fold(0)], np.int64)).shape
+    res["subset"] = mh.host_subset(list(range(10)))
+    mh.barrier("path-s")
+    res["launches"] = dict(res["launches"])
+    return res
+
+
+def start_demo() -> tuple:
+    """`python -m dpm_solver_tpu_torch.examples.score_sde_demo` at its tiny
+    default on the card, started in the background (its PC sampler's 2,000
+    and its bits/dim's ~1,600 NFE are host-bound eager loops: about two
+    minutes): the process, its output directory and its start."""
+    out = tempfile.mkdtemp(prefix="score_sde_demo_")
+    proc = subprocess.Popen([sys.executable, "-m", "dpm_solver_tpu_torch.examples.score_sde_demo",
+                             "--outdir", out], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_demo(demo: tuple) -> None:
+    """Wait for the demo `start_demo` started; fail unless it exited 0 and
+    wrote its two grids."""
+    proc, out_dir, t0 = demo
+    try:
+        out, err = proc.communicate(timeout=900)
+        files = sorted(p.name for p in Path(out_dir).glob("demo_*.png"))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if proc.returncode != 0 or files != ["demo_dpm.png", "demo_pc.png"]:
+        fail(f"the score_sde demo failed on the card (exit {proc.returncode}, wrote {files}):\n"
+             f"{err[-2000:]}")
+    log(f"score_sde demo on the card: {out.strip().splitlines()[-4:]} (started after the "
+        f"build {time.perf_counter() - t0:.1f} s ago, beside phases 3-7b, which time nothing)")
+
+
+def parallel_path(dev, smi: str) -> dict:
+    """Path S (phase 7i). S0 here, a world of one rank on NCCL; S1-S6 in one
+    spawn of two ranks on cuda:0 over gloo (`path_s_rank`); then `cli sample
+    --devices 2`, which must refuse one card. Returns the ranks' launches
+    and kernel specs, the checks and the times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import dpm_solver_tpu_torch as P
+    from dpm_solver_tpu_torch import ops
+    from dpm_solver_tpu_torch.models import DDPMUNet, DDPMUNetConfig, init_random_
+    from dpm_solver_tpu_torch.parallel import make_mesh
+    from dpm_solver_tpu_torch.parallel.launch import run_ranks
+    from dpm_solver_tpu_torch.parallel.mesh import all_reduce_, axis_group
+    from dpm_solver_tpu_torch.utils.graphs import SegmentedGraph
+
+    t_phase = time.perf_counter()
+    out = dict(walls={}, checks={})
+    # ---- S0: a world of one rank on NCCL: path A through sample(mesh=) ------
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    log(f"path S0: {mesh} on {dist.get_backend()} ({smi})")
+    net = init_random_(DDPMUNet(DDPMUNetConfig.cifar10(), compute_dtype=torch.bfloat16,
+                                device=dev), torch.Generator(device=dev).manual_seed(0)).eval()
+    ns = P.NoiseScheduleVP.discrete(betas=np.linspace(1e-4, 0.02, 1000))
+    solver = P.DPM_Solver(P.model_wrapper(net, ns), ns)
+    kw = dict(steps=STEPS, order=ORDER, method="multistep", skip_type="logSNR")
+    x_T = torch.randn(BATCH, 32, 32, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    specs0 = Counter()
+    ops.reset_launch_counts()
+    got = record_kernel_specs([net], lambda: solver.sample(x_T, mesh=mesh, **kw), specs0)
+    torch.cuda.synchronize()
+    out["launches_s0"] = ops.launch_counts()
+    want = solver.sample(x_T, **kw)
+    if not torch.equal(got, want):
+        fail("path S0: sample(mesh=) over one NCCL rank is not bitwise the unsharded call")
+    log(f"  S0 b{BATCH} bf16 graphed over one NCCL rank: bitwise equal to the unsharded "
+        f"graphed call; launches {out['launches_s0']}")
+    # an NCCL all-reduce is captured in the graph (one segment), where a
+    # gloo one splits it: one rank shows the capture, not the traffic
+    group = axis_group(mesh, "data")
+    v = torch.arange(8.0, device=dev)
+    all_reduce_(v.clone(), group)                # the communicator, made eagerly
+    torch.cuda.synchronize()
+    graph = SegmentedGraph()
+    o = graph.capture(lambda: all_reduce_(v * 2, group) + 1)
+    v.add_(10)
+    graph.replay()
+    torch.cuda.synchronize()
+    out["nccl_graph_segments"] = len(graph._graphs)
+    if out["nccl_graph_segments"] != 1 or not torch.equal(o, v * 2 + 1):
+        fail(f"path S0: an NCCL all-reduce under capture made {len(graph._graphs)} graph "
+             f"segments (want 1), or its replay missed the new input")
+    log("  S0 an NCCL all-reduce captured in a CUDA graph: one segment, its replay right")
+    del graph, o, v
+    dist.destroy_process_group()
+    del net, solver, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["walls"]["S0"] = time.perf_counter() - t0
+
+    # ---- S1-S6: two ranks on cuda:0 over gloo ----------------------------------
+    t0 = time.perf_counter()
+    log(f"path S1-S6: two ranks on cuda:0 over gloo (the test transport), {smi}")
+    try:
+        ranks = run_ranks(path_s_rank, 2, args=(smi,), backend="gloo", timeout=600)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"path S: {e}")
+    out["walls"]["S1-S6 spawn"] = time.perf_counter() - t0
+    out["ranks"] = [dict(checks=r["checks"], walls=r["walls"], times=r["times"],
+                         bytes=r["bytes"], heads=r["heads"], launches=r["launches"],
+                         by_call=r["by_call"], multihost=r["multihost"],
+                         subset=r["subset"]) for r in ranks]
+    if sorted(sum((r["subset"] for r in ranks), [])) != list(range(10)) or \
+            [r["multihost"] for r in ranks] != ["MULTIHOST_OK 0", "MULTIHOST_OK 1"]:
+        fail("path S6: the multihost helpers disagree across the ranks")
+    out["specs"] = {dt: sum((Counter(r["specs"][dt]) for r in ranks), Counter())
+                    for dt in ("bfloat16", "float32")}
+    out["dx_specs"] = set().union(*(r["dx_specs"] for r in ranks))
+    out["launches"] = summed([out["launches_s0"]] + [r["launches"] for r in ranks])
+    for r, rec in enumerate(ranks):
+        log(f"  rank {r}: walls {json.dumps({k: round(v, 1) for k, v in rec['walls'].items()})}"
+            f"; times on {smi}: {json.dumps(rec['times'])}; heads {rec['heads']}")
+    ms_step, ms_ar = (statistics.mean(r["times"][k] for r in ranks)
+                      for k in ("S3 dp step ms", "S3 grad all-reduce ms"))
+    out["allreduce_share"] = ms_ar / ms_step
+    log(f"  S3 on {smi}: a data-parallel step {ms_step:.2f} ms a rank, its gradient "
+        f"all-reduce (gloo, through the host) {ms_ar:.2f} ms ({out['allreduce_share']:.3f})")
+
+    # ---- the CLI refuses more ranks than cards ----------------------------------
+    tmp = Path(tempfile.mkdtemp(prefix="path_s_"))
+    try:
+        try:
+            _cli(["--device", "cuda", "sample", "--config", "cifar10_ddpm", "--batch", 4,
+                  "--devices", 2, "--outdir", tmp / "cli"])
+            fail("cli sample --devices 2 ran on a one-card machine")
+        except SystemExit as e:
+            msg = str(e)
+            if "--devices 2" not in msg or "only 1 visible" not in msg:
+                raise
+            log(f"  cli sample --devices 2 on one card refuses: {msg}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["walls"]["path S"] = time.perf_counter() - t_phase
+    log(f"path S done in {out['walls']['path S']:.1f} s")
+    return out
+
+
+
 def main() -> int:
     # ---- 1. environment ----------------------------------------------------
     t_start = time.perf_counter()
@@ -3270,6 +3862,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
 
     # ---- 2. build ------------------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     t0 = time.perf_counter()
     build_log = io.StringIO()
     with contextlib.redirect_stdout(build_log):
@@ -3295,7 +3888,12 @@ def main() -> int:
                                        fwd_ptxas.items(), ln_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
+    # the score_sde demo (path S's) runs in the background from here, beside
+    # the phases that check and count but time nothing (3-7b)
+    demo = start_demo()
+
     # ---- 3. kernels against their plain versions ---------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, device=dev, generator=g)
     max_abs = {name: 0.0 for name in chain(REPLACES, ("ln_linear_grad", "geglu_ff_grad",
@@ -3844,6 +4442,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. path A: CIFAR-10 -------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     cfg = DDPMUNetConfig.cifar10()
     net_cpu = init_random_(DDPMUNet(cfg, device="cpu"), torch.Generator().manual_seed(0)).eval()
     n_params = sum(p.numel() for p in net_cpu.parameters())
@@ -3922,6 +4521,7 @@ def main() -> int:
     del net32, net_cpu, solver32, sde32
 
     # ---- 5. path B: Stable Diffusion 2.1 txt2img ------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
     t0 = time.perf_counter()
     ucfg, vcfg = ADMConfig.sd_v2_1(), VAEConfig.sd_v1()
     gw = torch.Generator(device=dev).manual_seed(0)
@@ -4017,6 +4617,7 @@ def main() -> int:
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5b. path G: SD-2.1 768 px img2img and inpaint --------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5b")
     # path B's networks (bf16): img2img at strength I2I_STRENGTH and inpaint
     # with seeded rectangular masks, b4, CFG; the VAE encoder runs on the card
     t0 = time.perf_counter()
@@ -4163,6 +4764,7 @@ def main() -> int:
     log(f"  DiffEdit: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5c. path F: class-conditional cin256 -------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5c")
     # the UNet ADMConfig.cin256() and the VQ-f4 first stage VAEConfig.vq_cin256()
     # (8192 codes), built by load_sd_checkpoint from a CompVis-style checkpoint
     # synthesised on the host with seeded random weights; ClassEmbedder(1001,
@@ -4267,6 +4869,7 @@ def main() -> int:
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5d. conditioners and upscale, fp32, card vs CPU ---------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5d")
     t0 = time.perf_counter()
     # FrozenCLIPEmbedder at ViT-L/14's text width, from an HF-format directory
     # written here (synthetic vocab, seeded random weights)
@@ -4339,6 +4942,7 @@ def main() -> int:
     log(f"  conditioners and upscale: {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. path C: classifier-guided ImageNet-256 -----------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
     t0 = time.perf_counter()
     gcfg = ADMConfig.imagenet256_guided()
     ccfg = dataclasses.replace(gcfg, model_channels=128, num_res_blocks=2, out_channels=1000,
@@ -4427,6 +5031,7 @@ def main() -> int:
     log(f"  fp32 trajectory check: {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. path D: ScoreSDE continuous VP, DDPM++ (deep) ----------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     t0 = time.perf_counter()
     dcfg = NCSNppConfig.cifar10_ddpmpp(deep=True)
     dnet = init_random_(NCSNpp(dcfg, compute_dtype=torch.bfloat16, device=dev),
@@ -4537,6 +5142,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7b. path E: ScoreSDE bits/dim on DDPM++ deep --------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7b")
     t0 = time.perf_counter()
     enet = NCSNpp(dcfg, device=dev).eval()   # fp32 compute, path D's weights
     enet.load_state_dict(dnet.state_dict())
@@ -4740,6 +5346,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7c. path H: score-model training (run_lib.train) -------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7c")
     from dpm_solver_tpu_torch import configs as port_configs
     from dpm_solver_tpu_torch import run_lib
     from dpm_solver_tpu_torch.pipelines.stable_diffusion import make_ldm_betas
@@ -5022,6 +5629,7 @@ def main() -> int:
     log(f"path H done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7d. path I: latent-diffusion training (run_lib.train_latent) -------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7d")
     # (cuDNN's own algorithm choice for the timed runs; deterministic again
     # for the restart check at the end)
     torch.backends.cudnn.deterministic = False
@@ -5165,6 +5773,7 @@ def main() -> int:
     log(f"path I done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7e. paths J-N: the rest of the sampling surface ----------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7e")
     t0 = time.perf_counter()
     surface = sampling_surface(dev, smi)
     torch.cuda.empty_cache()
@@ -5189,6 +5798,7 @@ def main() -> int:
     log(f"paths J-N done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. timing -------------------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
     # paths A, B and D both ways in this one call: eager (jit=False, the
     # plain sampler) and replayed from the CUDA graph captured in phases 4,
     # 5 and 7 (jit=True, GraphedSampler), each after a warm call
@@ -5460,6 +6070,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7f. paths O and P: first-stage training and evaluation ------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7f")
     # (here, once the walls above are timed and the earlier paths' networks
     # and CUDA graphs are freed: O's KL-f8 step at b12 takes 62 GiB)
     gc.collect()
@@ -5501,6 +6112,7 @@ def main() -> int:
     log(f"paths O and P done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7g. path Q: the data path from disk ------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7g")
     # (here, once 7f's networks are freed; host work, each number beside the
     # host's nproc)
     gc.collect()
@@ -5510,6 +6122,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7h. path R: SD-1 txt2img (and the rest of the CLI) through the CLI --------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7h")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7h starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
@@ -5534,6 +6147,64 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  checked in {time.perf_counter() - t1:.1f} s")
 
+    # ---- 7i. path S: parallelism -------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7i")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7i starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    path_s = parallel_path(dev, smi)
+    finish_demo(demo)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    # each kernel at each spec path S's sharded calls gave it (a rank's rows,
+    # the tensor-parallel local heads and widths), in the dtype it ran,
+    # against its plain version at the phase-3 bounds (conv3x3 with its dx
+    # where a train step took one: S3, S4 and S5's, fp32); the attention
+    # backward, LayerNorm->Linear's and GEGLU's gradients at the TP train
+    # step's local shapes; the fused update at the per-rank states
+    t1 = time.perf_counter()
+    n_specs = sum(len(v) for v in path_s["specs"].values())
+    log(f"path S's kernels at their {n_specs} specs vs plain:")
+    for dt_name, specs in path_s["specs"].items():
+        dt = getattr(torch, dt_name)
+        for (name, spec) in sorted(specs, key=str):
+            if name == "conv3x3":
+                check_conv(spec, dt, dx=(dt_name, spec) in path_s["dx_specs"])
+            elif name == "token_attention":
+                check_attention(spec, dt)
+                if dt == torch.float32 and spec[1] <= 256:   # the TP train step's sites
+                    check_attention_bwd(spec, dt, BWD_BOUND[dt_name])
+            elif name == "ln_linear":
+                check_ln_linear(*spec, dt, bias=False)
+            else:
+                check_geglu(*spec, dt)
+    for shape in [(BATCH // 2, 32, 32, 3), (2, 32, 32, 3), (2, 64, 64, 4), (1, 16, 16, 4)]:
+        check_fused(shape)
+    for (name, spec) in sorted(path_s["specs"]["float32"], key=str):
+        if name not in ("ln_linear", "geglu_ff") or spec[0] > 512:
+            continue
+        m, d, n = spec
+        fn, plain = (ops.ln_linear, ops.ln_linear_plain) if name == "ln_linear" else \
+            (ops.geglu_ff, ops.geglu_plain)
+        if name == "ln_linear":
+            args = (randn(m, d), 1 + 0.1 * randn(d), 0.1 * randn(d), randn(n, d) * d ** -0.5,
+                    0.1 * randn(n))
+            cot = randn(m, n)
+        else:
+            args = (randn(m, d), randn(2 * n, d) * d ** -0.5, 0.1 * randn(2 * n),
+                    randn(d, n) * n ** -0.5, 0.1 * randn(d))
+            cot = randn(m, d)
+        with torch.enable_grad():
+            ins = [a.clone().requires_grad_(True) for a in args]
+            got = torch.autograd.grad(fn(*ins), ins, cot)
+            ref = [a.clone().requires_grad_(True) for a in args]
+            want = torch.autograd.grad(plain(*ref), ref, cot)
+        for k, (a, b) in enumerate(zip(got, want)):
+            report(f"{name}_grad", (m, d, n, k), torch.float32, a, b, BOUND["float32"])
+    torch.cuda.empty_cache()
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 8, the kernel times")
     # dq and dk/dv at the classifier's own attention sites, as the call
     # recorded them (its blocks at 32x32, 16x16, 8x8 and the attention pool)
     for spec in sorted({spec for name, spec in clf_c if name == "attention_dq"}, key=str):
@@ -5819,7 +6490,7 @@ def main() -> int:
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
              "i_cin256": launches_ic, **surface["launches"], **fse["launches"],
-             "q": path_q["launches"], **path_r["launches"]}
+             "q": path_q["launches"], **path_r["launches"], "s": path_s["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
               "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"],
@@ -5876,6 +6547,9 @@ def main() -> int:
                     "nproc": path_q["nproc"]}))
     log(json.dumps({"cli_path_r": {"walls": path_r["walls"], "checks": path_r["checks"],
                                    "int8": path_r["int8"]}, "card": smi}))
+    log(json.dumps({"parallel_path_s": {"walls": path_s["walls"], "ranks": path_s["ranks"],
+                                        "allreduce_share": path_s["allreduce_share"]},
+                    "card": smi}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -31,9 +31,15 @@ Where it differs from the JAX CLI:
   JAX CLI's for the same seed, and do not depend on the device.
 - The latent-diffusion subcommands compute in bfloat16 on the card (the
   TPU's default matmul precision) and in float32 on the CPU.
-- `sample --devices N` raises for N > 1 (the mesh is Slice G), and
-  `--trace-dir` writes a `torch.profiler` trace of one warm call
-  (`trace.json`, Chrome's format, and `ops.txt`, the ops by device time).
+- `sample --devices N` (N > 1) starts N ranks (`parallel.launch.run_ranks`):
+  on the card one a visible card over NCCL (N above the visible cards
+  raises, naming both counts), under `--device cpu` N gloo processes. Each
+  rank samples its rows of the global batch (`DPM_Solver.sample(mesh=)`)
+  and rank 0 writes the gathered samples, the same as one device's. The PC
+  loop (VE and sub-VP configs) takes no mesh and raises.
+- `--trace-dir` writes a `torch.profiler` trace of one warm call
+  (`trace.json`, Chrome's format, and `ops.txt`, the ops by device time;
+  rank 0's under `--devices`).
 - Checkpoints load by reference keys (`utils.convert.load_torch_state_dict`,
   `torch.load(weights_only=True)`); a score_sde_pytorch `.pth` has its EMA
   shadow list paired with its model's parameters here. Flax `State` files
@@ -250,11 +256,42 @@ def _trace(run, trace_dir: str):
 
 
 def cmd_sample(args):
+    n = args.devices or 1
+    if n == 1:
+        return _sample(args)
+    if args.batch % n:
+        raise SystemExit(f"--batch {args.batch} not divisible by --devices {n}")
+    dev = _device(args)
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--devices {n} but only {torch.cuda.device_count()} visible card(s) "
+                         f"(one rank a card; --device cpu runs {n} gloo processes)")
+    from dpm_solver_tpu_torch.parallel.launch import run_ranks
+
+    run_ranks(_sample_rank, n, args=(args,), backend="nccl" if dev.type == "cuda" else "gloo",
+              threads=1 if dev.type == "cpu" else None)
+
+
+def _sample_rank(rank: int, world: int, args) -> None:
+    """One rank of `sample --devices N`: the mesh over the world, then the
+    sharded call (rank 0 writes)."""
+    from dpm_solver_tpu_torch.parallel.mesh import make_mesh
+
+    _sample(args, make_mesh(world, device=args.device))
+
+
+def _sample(args, mesh=None):
     from dpm_solver_tpu_torch.configs import get_config
     from dpm_solver_tpu_torch.data import inverse_data_transform
     from dpm_solver_tpu_torch.run_lib import _init_generator, build_model
 
-    dev = _device(args)
+    sharding = None
+    if mesh is None:
+        dev = _device(args)
+    else:
+        from dpm_solver_tpu_torch.parallel.mesh import batch_sharding, mesh_device
+
+        dev, sharding = mesh_device(mesh), batch_sharding(mesh)
+    writer = mesh is None or mesh.get_rank() == 0
     config = get_config(args.config)
     scfg = config.sampling
     overrides = {k: getattr(args, k) for k in ("steps", "order", "method")
@@ -265,10 +302,9 @@ def cmd_sample(args):
                 "--steps/--order/--method are DPM-Solver knobs; config "
                 f"{args.config!r} samples through the PC loop (VE/subVP) which ignores them")
         scfg = dataclasses.replace(scfg, **overrides)
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: sharding the batch over several devices (the mesh) is "
-            "not ported to dpm_solver_tpu_torch yet (Slice G)")
+    if mesh is not None and _uses_pc_sampling(config):
+        raise SystemExit(f"--devices shards the DPM-Solver path; config {args.config!r} samples "
+                         "through the PC loop (VE/subVP), which takes no mesh")
     model, init_fn = build_model(config, device=dev)
     if args.ckpt:
         _load_sample_weights(config, model, args.ckpt)
@@ -316,6 +352,10 @@ def cmd_sample(args):
               f"(pc {scfg.predictor}/{scfg.corrector}, nfe={int(nfe)})")
         return
 
+    if sharding is not None:
+        # the model function runs on a rank's rows: so do its per-sample inputs
+        labels = None if labels is None else sharding.local(labels)
+        low_res = None if low_res is None else sharding.local(low_res)
     solver, _ = _build_sampler_from_config(config, model, labels=labels, classifier=classifier,
                                            low_res=low_res)
     mode = args.mode
@@ -335,9 +375,16 @@ def cmd_sample(args):
                 x_T, steps=scfg.steps, t_start=scfg.t_start, t_end=scfg.t_end or 1e-3,
                 order=scfg.order, skip_type=scfg.skip_type, method=scfg.method,
                 lower_order_final=scfg.lower_order_final,
-                return_intermediate=(mode == "sequence"))
+                return_intermediate=(mode == "sequence"), mesh=mesh)
 
-    out = _trace(run, args.trace_dir) if args.trace_dir else run()
+    if args.trace_dir and writer:
+        out = _trace(run, args.trace_dir)
+    else:
+        if args.trace_dir:   # the other ranks keep step with rank 0's warm call
+            run()
+        out = run()
+    if not writer:
+        return
     if mode == "sequence":
         # per-step trajectory snapshots (ref runners/diffusion.py:461-482)
         out, intermediates = out
@@ -755,8 +802,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="override the config's solver method (unipc = predictor-corrector, "
                          "beyond the reference)")
     sp.add_argument("--devices", type=int, default=None,
-                    help="shard the batch over the first N visible devices; only 1 (the "
-                         "default, one device) is ported: N > 1 raises until the mesh lands")
+                    help="shard the batch over N ranks: one a visible card on the card "
+                         "(NCCL), N gloo processes under --device cpu; the batch must divide")
     sp.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler trace of one warm sampling call into this "
                          "directory (trace.json and ops.txt; the warm-up runs outside it)")

@@ -312,14 +312,22 @@ class ADMAttention(nn.Module):
         self.norm = _adm_norm(channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
         self.proj_out = nn.Conv1d(channels, channels, 1)
+        # tensor parallelism's site (parallel/tp.py): qkv column-parallel by
+        # heads, proj_out row-parallel
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
         dt = self.compute_dtype
         tokens = self.norm(x).reshape(b, hh * ww, c).to(dt)
+        if self.tp is not None:
+            tokens = self.tp.copy(tokens)
         qkv = F.linear(tokens, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt))
         h = qkv_attention(qkv, self.num_heads, new_order=self.new_order)
-        h = F.linear(h, self.proj_out.weight[:, :, 0].to(dt), self.proj_out.bias.to(dt))
+        if self.tp is not None:
+            h = self.tp.row_linear(h, self.proj_out.weight[:, :, 0], self.proj_out.bias, dt)
+        else:
+            h = F.linear(h, self.proj_out.weight[:, :, 0].to(dt), self.proj_out.bias.to(dt))
         return x + h.reshape(b, hh, ww, c)
 
 

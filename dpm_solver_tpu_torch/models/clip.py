@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dpm_solver_tpu_torch.models.clip_tokenizer import local_directory
+from dpm_solver_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # the activations of CLIP's configs: OpenAI's (quick_gelu) and OpenCLIP's (gelu)
 _ACT = {"quick_gelu": lambda x: x * torch.sigmoid(1.702 * x), "gelu": F.gelu}
@@ -223,7 +224,10 @@ class CLIPTextModel(nn.Module):
         return self.text_model(ids)
 
     @staticmethod
-    def from_pretrained(directory: Union[str, Path], device="cpu") -> "CLIPTextModel":
+    def from_pretrained(directory: Union[str, Path], device=DEFAULT_DEVICE) -> "CLIPTextModel":
+        """The text tower from a local HF-format directory, built on `device`
+        (the card by default; raises with no card)."""
+        device = resolve_device(device)
         directory = Path(directory)
         cfg = _read_config(directory)
         joint = "text_config" in cfg
@@ -255,7 +259,10 @@ class CLIPModel(nn.Module):
         return self.visual_projection(self.vision_model(pixels)[1])
 
     @staticmethod
-    def from_pretrained(directory: Union[str, Path], device="cpu") -> "CLIPModel":
+    def from_pretrained(directory: Union[str, Path], device=DEFAULT_DEVICE) -> "CLIPModel":
+        """Both towers from a local HF-format directory, built on `device`
+        (the card by default; raises with no card)."""
+        device = resolve_device(device)
         directory = Path(directory)
         cfg = _read_config(directory)
         if "vision_config" not in cfg:

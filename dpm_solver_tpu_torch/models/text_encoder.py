@@ -121,7 +121,9 @@ def constant_context_encoder(context_dim: int, max_length: int = 77,
     prompt to a fixed pseudo-random (max_length, context_dim) block.
 
     The same function as the JAX one: numpy's RandomState seeded from
-    `hash((seed, prompt))`, so within one process both give the same values.
+    `hash((seed, prompt))`, so within one process both give the same values;
+    two processes give different ones (the string hash is per process), so
+    ranks of a mesh each need another encoder.
     Returns fp32 (B, max_length, context_dim) on the CPU; the caller moves it
     (`LatentDiffusion.get_learned_conditioning` moves it to the UNet's device).
     """

@@ -30,6 +30,12 @@ Dtypes are placed by hand: parameters fp32, cast to `compute_dtype` where
 they are used (the q|k|v weight is concatenated in the same cast, on every
 call: the reference's separate to_q/to_k/to_v keys stay the only copy);
 LayerNorm and GroupNorm statistics fp32.
+
+Tensor parallelism (`parallel/tp.py::shard_params`) leaves each module its
+slices of the projections and a `tp` site (None otherwise): the same kernels
+then run on the rank's heads and MLP slice, and the row-parallel products
+(to_out, the feed-forward's out-projection, proj_out) are summed over the
+model group before their bias.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ class CrossAttention(nn.Module):
         self.to_k = proj(context_dim or query_dim, inner)
         self.to_v = proj(context_dim or query_dim, inner)
         self.to_out = nn.ModuleList([proj(inner, query_dim, bias=True)])
+        self.tp = None   # tensor parallelism's site (parallel/tp.py)
 
     def forward(self, x: torch.Tensor, ln: nn.LayerNorm,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -86,9 +93,12 @@ class CrossAttention(nn.Module):
         dt = self.compute_dtype
         inner = self.heads * self.dim_head
         x = x.to(dt)
+        gamma, beta, tp = ln.weight, ln.bias, self.tp
+        if tp is not None:   # replicated inputs of the column-parallel products
+            x, gamma, beta, context = (tp.copy(u) for u in (x, gamma, beta, context))
 
         def project(weight):  # the pre-norm fused into the query-side projection
-            return ln_linear(x, ln.weight, ln.bias, weight.to(dt), eps=ln.eps)
+            return ln_linear(x, gamma, beta, weight.to(dt), eps=ln.eps)
 
         if context is None:
             # self-attention: one (3*inner, d) product, q/k/v read in place
@@ -100,6 +110,8 @@ class CrossAttention(nn.Module):
             k, v = F.linear(ctx, self.to_k.weight.to(dt)), F.linear(ctx, self.to_v.weight.to(dt))
         out = token_attention(q, k, v, num_heads=self.heads, scale=self.dim_head ** -0.5)
         proj = self.to_out[0]
+        if tp is not None:
+            return tp.row_linear(out, proj.weight, proj.bias, dt)
         return F.linear(out, proj.weight.to(dt), proj.bias.to(dt))
 
     def _forward_quant(self, x, ln, context):
@@ -140,6 +152,7 @@ class GEGLUFeedForward(nn.Module):
         self.compute_dtype, self.quant = compute_dtype, quant
         # reference keys: net.0.proj, net.2 (net.1 is the parameter-free dropout)
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Dropout(0.0), nn.Linear(inner, dim)])
+        self.tp = None   # tensor parallelism's site (parallel/tp.py)
 
     def forward(self, x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
         dt = self.compute_dtype
@@ -147,6 +160,12 @@ class GEGLUFeedForward(nn.Module):
         proj, out = self.net[0].proj, self.net[2]
         if wants_dense_quant(self.quant):
             return w8a8_geglu(x.to(dt), proj.weight, proj.bias, out.weight, out.bias)
+        if self.tp is not None:
+            # the rank's slice of the MLP; its out-projection's partial sums
+            # are reduced over the group before the bias, added once
+            part = geglu_ff(self.tp.copy(x).to(dt), proj.weight.to(dt), proj.bias,
+                            out.weight.to(dt), torch.zeros_like(out.bias))
+            return self.tp.reduce(part) + out.bias.to(dt)
         return geglu_ff(x.to(dt), proj.weight.to(dt), proj.bias, out.weight.to(dt), out.bias)
 
 
@@ -198,10 +217,16 @@ class SpatialTransformer(nn.Module):
                 [TransformerBlock(inner, heads, dim_head, context_dim, dt, quant)
                  for _ in range(depth)])
             self.proj_out = proj(inner, in_channels, dt)
+        self.tp = None   # tensor parallelism's site (parallel/tp.py): proj_out row-parallel
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x)).reshape(b, hh * ww, -1)
         for block in self.transformer_blocks:
             h = block(h, context=context)
+        if self.tp is not None:
+            w = self.proj_out.weight
+            out = self.tp.row_linear(h, w.reshape(w.shape[0], -1), self.proj_out.bias,
+                                     self.proj_out.compute_dtype)
+            return x + out.reshape(b, hh, ww, c)
         return x + self.proj_out(h).reshape(b, hh, ww, c)

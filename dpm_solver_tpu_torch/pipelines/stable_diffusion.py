@@ -26,7 +26,10 @@ tensors the sampler holds, into which each call copies its own; a
 later call at the same shapes replays with its own prompts, image and mask.
 The first-stage encode and decode run eagerly. `load_sd_checkpoint(quant=)`
 takes the int8 serving path (`ops/quant.py`) as the JAX function does.
-`mesh=` is not ported (Slice G).
+`sample(mesh=)` and `txt2img(mesh=)` split the global batch over a mesh's
+data axis (`parallel/mesh.py`): each rank samples its rows, with its rows of
+the conditioning (and of a blend's table and mask), and the result is
+gathered on every rank.
 """
 
 from __future__ import annotations
@@ -200,6 +203,31 @@ class MaskedBlend:
         return "blend", _signature(self.table), _signature(self.mask)
 
 
+def _rank_rows(sharding, x_T, conditioning, unconditional_conditioning, correcting_xt_fn):
+    """This rank's rows of a sharded call's per-sample inputs: x_T, each
+    tensor of both conditionings, and a MaskedBlend's table (along its batch
+    dim 1) and a per-sample mask. A tensor whose leading dim is not the
+    batch's cannot be split and raises."""
+    n = x_T.shape[0]
+
+    def rows(t, dim=0):
+        if t.shape[dim] != n:
+            raise ValueError(f"a sharded call splits its per-sample inputs with x_T's {n} rows; "
+                             f"got one of shape {tuple(t.shape)}")
+        return sharding.local(t, dim).contiguous()
+
+    cond = _cond_tree(rows, conditioning)
+    uncond = _cond_tree(rows, unconditional_conditioning)
+    if isinstance(correcting_xt_fn, MaskedBlend):
+        mask = correcting_xt_fn.mask
+        correcting_xt_fn = MaskedBlend(rows(correcting_xt_fn.table, 1),
+                                       rows(mask) if mask.shape[0] == n else mask)
+    elif correcting_xt_fn is not None:
+        raise ValueError("a sharded call takes a MaskedBlend correction (whose table and mask it "
+                         "splits) or none")
+    return rows(x_T), cond, uncond, correcting_xt_fn
+
+
 class DPMSolverSampler:
     """Reference-compatible adapter (sampler.py:8-162): CFG DPM-Solver++ over
     LDM latents, deterministic and stochastic encoding."""
@@ -280,9 +308,17 @@ class DPMSolverSampler:
         `return_intermediate`. `correcting_xt_fn(x, t, step)` runs after each
         step (a `MaskedBlend` replays from the graph with each call's
         table and mask). `jit`: as `DPM_Solver.sample`'s (a CUDA graph on
-        the card). `mesh=` is not ported (Slice G) and raises."""
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported to dpm_solver_tpu_torch yet (Slice G)")
+        the card).
+
+        `mesh`: a DeviceMesh (`parallel.make_mesh`); the batch (which must
+        divide over its data axis) is split over it: each rank samples its
+        rows of x_T with its rows of the conditioning, the unconditional
+        conditioning and a MaskedBlend's table and mask (graphed on the
+        card, one capture a rank), and every rank returns the gathered
+        global x and intermediates."""
+        if mesh is not None and not jit:
+            raise ValueError("mesh= implies a graphed (jit) sampler; jit=False is not supported "
+                             "with a mesh")
         h, w, c = shape
         dev = self.model.device
         if x_T is None:
@@ -293,9 +329,18 @@ class DPMSolverSampler:
         x_T = x_T.to(dev)
         options = dict(steps=S, skip_type=skip_type, method=method, order=order,
                        lower_order_final=lower_order_final, t_start=t_start, t_end=t_end)
+        sharding = None
+        if mesh is not None:
+            from dpm_solver_tpu_torch.parallel.mesh import batch_sharding
+
+            sharding = batch_sharding(mesh)
+            x_T, conditioning, unconditional_conditioning, correcting_xt_fn = _rank_rows(
+                sharding, x_T, conditioning, unconditional_conditioning, correcting_xt_fn)
         solver = self._solver(conditioning, unconditional_conditioning,
                               unconditional_guidance_scale, correcting_xt_fn, **options)
         out = solver.sample(x_T, **options, return_intermediate=return_intermediate, jit=jit)
+        if sharding is not None:
+            out = sharding.gather(out)
         return out if return_intermediate else (out, None)
 
     def stochastic_encode(self, x0: torch.Tensor, encode_ratio: float,
@@ -385,12 +430,18 @@ class StableDiffusionPipeline:
                 guidance_scale: float = 7.5, height: int = 512, width: int = 512,
                 generator: Optional[torch.Generator] = None,
                 x_T: Optional[torch.Tensor] = None, order: int = 2, method: str = "multistep",
-                jit: bool = True) -> torch.Tensor:
+                jit: bool = True, mesh=None) -> torch.Tensor:
         """Images (B, height, width, 3) in [0, 1], fp32. The initial latent
         noise is `x_T`, else a draw from `generator` (a CPU generator seeded
         with 0 when neither is given). `method`: any fixed-grid solver method.
         `jit`: the sampler's (a CUDA graph of the trajectory on the card; the
-        VAE decode runs eagerly)."""
+        VAE decode runs eagerly). `mesh`: shard the prompt batch over the
+        mesh's data axis (the serving scale-out path; the batch must divide
+        over it): each rank encodes the prompts itself, then samples and
+        decodes its rows, and every rank returns the gathered images. The
+        text encoder must give every process the same values, as a real
+        one does (`constant_context_encoder` seeds from the per-process
+        string hash and does not)."""
         b, cond, uncond = self._conditioning(prompts, negative_prompt)
         if x_T is None and generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -399,8 +450,13 @@ class StableDiffusionPipeline:
             steps, b, (height // f, width // f, self.model.vae.config.z_channels), cond,
             unconditional_guidance_scale=guidance_scale, unconditional_conditioning=uncond,
             x_T=x_T, generator=generator, order=order, method=method,
-            return_intermediate=False, jit=jit)
-        return _images(self.model.decode_first_stage(latents))
+            return_intermediate=False, jit=jit, mesh=mesh)
+        if mesh is None:
+            return _images(self.model.decode_first_stage(latents))
+        from dpm_solver_tpu_torch.parallel.mesh import batch_sharding
+
+        sharding = batch_sharding(mesh)
+        return sharding.gather(_images(self.model.decode_first_stage(sharding.local(latents))))
 
     @torch.no_grad()
     def img2img(self, init_image: torch.Tensor, prompts, *, strength: float = 0.75,

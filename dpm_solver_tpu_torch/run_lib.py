@@ -156,14 +156,21 @@ def _snapshot(step: int, state, ckpts, meta, preempt_freq: int,
 
 def train(config: Config, data_iter: Iterator, *, workdir: Optional[str] = None,
           max_steps: Optional[int] = None, compute_dtype: torch.dtype = torch.float32,
-          device=DEFAULT_DEVICE) -> TrainState:
+          device=DEFAULT_DEVICE, mesh=None) -> TrainState:
     """Preemption-safe training (ref run_lib.py:51-214): the continuous SDE
     loss, the legacy discrete SMLD / DDPM loss, or the DDPM eps-MSE with
     antithetic times, by the config. `data_iter` yields (devices,
     per_device, H, W, C) or (B, H, W, C) batches (numpy or torch) in model
-    space."""
+    space. `mesh` (`parallel.make_mesh`, one call a rank): the step is
+    data-parallel over its data axis (`training/train.py`), each rank fed
+    the same global batches; every rank keeps the same state and rank 0
+    alone writes the checkpoints. The model lives on the mesh's device."""
     workdir = workdir or config.workdir
     tcfg = config.training
+    if mesh is not None:
+        from dpm_solver_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     model, init_fn = build_model(config, compute_dtype=compute_dtype, device=dev)
     init_fn(_init_generator(config.seed, _INIT_STREAM, dev))
@@ -183,28 +190,30 @@ def train(config: Config, data_iter: Iterator, *, workdir: Optional[str] = None,
                                 continuous=True)
         loss_fn = sde_loss_fn(sde, score_fn, reduce_mean=tcfg.reduce_mean,
                               likelihood_weighting=tcfg.likelihood_weighting, score_rng=True)
-        step_fn = make_score_train_step(loss_fn, tx)
+        step_fn = make_score_train_step(loss_fn, tx, mesh=mesh)
     elif uses_legacy_discrete_loss(config):
         from dpm_solver_tpu_torch.training.losses import make_score_train_step
 
-        step_fn = make_score_train_step(legacy_loss_fn(config, model, train=True), tx)
+        step_fn = make_score_train_step(legacy_loss_fn(config, model, train=True), tx, mesh=mesh)
     else:
         from dpm_solver_tpu_torch.schedule import NoiseScheduleVP
         from dpm_solver_tpu_torch.training.train import make_train_step
 
         ns = NoiseScheduleVP.discrete(betas=config.diffusion.betas())
         step_fn = make_train_step(score_net_apply(model, config.model_family, train=True),
-                                  ns, tx, dropout_rng=True)
+                                  ns, tx, dropout_rng=True, mesh=mesh)
 
     total = max_steps if max_steps is not None else tcfg.n_iters
+    writer = mesh is None or mesh.get_rank() == 0
     for step in range(start, total):
         batch = _tensor(next(data_iter), dev)
         state, metrics = step_fn(state, batch.reshape((-1,) + tuple(batch.shape[-3:])),
                                  config.seed)
         if step % tcfg.log_freq == 0:
             _log_step(step, metrics)
-        _snapshot(step, state, ckpts, meta, tcfg.snapshot_freq_for_preemption,
-                  tcfg.snapshot_freq)
+        if writer:
+            _snapshot(step, state, ckpts, meta, tcfg.snapshot_freq_for_preemption,
+                      tcfg.snapshot_freq)
     return state
 
 

@@ -41,6 +41,7 @@ from dpm_solver_tpu_torch.solver.plan import (
     build_unipc_plan,
     end_time,
 )
+from dpm_solver_tpu_torch.utils.graphs import SegmentedGraph
 from dpm_solver_tpu_torch.utils.trees import bcast_right
 
 METHODS = ("multistep", "singlestep", "singlestep_fixed", "adaptive", "unipc")
@@ -228,13 +229,15 @@ def _run_plan(model_fn, plan, x, predict_x0, noise, correcting_x0_fn, correcting
 # --------------------------------------------------------------------------- #
 
 
-def graph_key(x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> tuple:
+def graph_key(x: torch.Tensor, noise: Optional[torch.Tensor] = None, *batched) -> tuple:
     """What a captured trajectory is specialised to besides its plan, as the
     JAX cache key (`dpm_solver_tpu/solver/sample.py:512-516`) has it: x's
     shape, dtype and device, and the noise's shape and dtype (None: no
-    noise)."""
+    noise); and the shape, dtype and device of each per-sample tensor the
+    call passes on (`GraphedSampler`'s `batched`)."""
     return (tuple(x.shape), x.dtype, x.device,
-            None if noise is None else (tuple(noise.shape), noise.dtype))
+            None if noise is None else (tuple(noise.shape), noise.dtype),
+            *((tuple(b.shape), b.dtype, b.device) for b in batched))
 
 
 def _clone(out):
@@ -244,27 +247,30 @@ def _clone(out):
 
 
 class GraphedSampler:
-    """`fn(x, noise=None)` captured as one CUDA graph per `graph_key` and
+    """`fn(x, noise=None, *batched)` captured once per `graph_key` and
     replayed: the port's counterpart of
     `dpm_solver_tpu/solver/sample.py::jit_hoisting_constants`, for
     `build_sampler` users (and `DPM_Solver.sample(jit=True)`).
 
     jit_hoisting_constants compiles the sampler once and feeds its closed-over
     arrays (the weights) to the program as arguments. Here the program is
-    the graph of every kernel the call launches; x and the noise are static
-    buffers each call copies into, and the result is copied out. The graph
-    reads every other tensor the closure holds (the weights, the plan's
-    tables, a caller's conditioning) where it lay at capture: a caller that
-    changes one between calls updates it in place (`copy_`), as
-    `pipelines/stable_diffusion.py::DPMSolverSampler` does with each call's
-    conditioning.
+    the graph of every kernel the call launches; x, the noise and the
+    per-sample tensors `batched` (conditioning rows a sharded sampler slices
+    with x, `parallel/mesh.py`) are static buffers each call copies into, and
+    the result is copied out. The graph reads every other tensor the closure
+    holds (the weights, the plan's tables, a caller's conditioning) where it
+    lay at capture: a caller that changes one between calls updates it in
+    place (`copy_`), as `pipelines/stable_diffusion.py::DPMSolverSampler`
+    does with each call's conditioning.
 
     On a CUDA x, the first call of a key runs `fn` once eagerly on a side
     stream (it builds the plan's device tables, compiles and loads the
-    kernels), then captures it; a failed capture raises. A replay launches
-    every captured kernel but runs no Python, so the launch counters of
-    `ops` count the warm call and the capture, never a replay. On a CPU x,
-    `fn` runs eagerly. `GraphedSampler.captures` counts captures.
+    kernels), then captures it (`utils/graphs.py::SegmentedGraph`: one graph,
+    or one a segment where the network's gloo collectives split it, as under
+    tensor parallelism over gloo); a failed capture raises. A replay launches every
+    captured kernel but runs no Python outside the collectives, so the launch
+    counters of `ops` count the warm call and the capture, never a replay.
+    On a CPU x, `fn` runs eagerly. `GraphedSampler.captures` counts captures.
     """
 
     captures = 0
@@ -273,35 +279,38 @@ class GraphedSampler:
         self.fn = fn
         self._graphs = {}
 
-    def __call__(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+    def _call(self, x, noise, batched):
+        if batched:
+            return self.fn(x, noise, *batched)
+        return self.fn(x) if noise is None else self.fn(x, noise)
+
+    def __call__(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None, *batched):
         if x.device.type != "cuda":
-            return self.fn(x) if noise is None else self.fn(x, noise)
-        key = graph_key(x, noise)
+            return self._call(x, noise, batched)
+        key = graph_key(x, noise, *batched)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(x, noise)
-        graph, static_x, static_noise, out = entry
-        static_x.copy_(x)
-        if static_noise is not None:
-            static_noise.copy_(noise)
+            entry = self._graphs[key] = self._capture(x, noise, batched)
+        graph, statics, out = entry
+        for static, value in zip(statics, (x, noise, *batched)):
+            if static is not None:
+                static.copy_(value)
         graph.replay()
         return _clone(out)
 
-    def _capture(self, x, noise):
-        static_x = x.clone()
-        static_noise = None if noise is None else noise.clone()
-        args = (static_x,) if noise is None else (static_x, static_noise)
+    def _capture(self, x, noise, batched):
+        statics = [None if u is None else u.clone() for u in (x, noise, *batched)]
+        args = (statics[0], statics[1], tuple(statics[2:]))
         with torch.cuda.device(x.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                self.fn(*args)
+                self._call(*args)
             torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self.fn(*args)
+            graph = SegmentedGraph()
+            out = graph.capture(self._call, *args)
         GraphedSampler.captures += 1
-        return graph, static_x, static_noise, out
+        return graph, statics, out
 
 
 # --------------------------------------------------------------------------- #
@@ -391,8 +400,13 @@ class DPM_Solver:
     the loop runs eagerly. SDE algorithm types take their noise as a tensor
     (`noise=` of `.sample`). `method="adaptive"` runs `solver/adaptive.py`
     (no plan: its step sizes follow the error estimate, one host read a
-    step), eagerly whatever `jit` says. `mesh=` is not ported yet and
-    raises.
+    step), eagerly whatever `jit` says. `mesh=` (a DeviceMesh,
+    `parallel.make_mesh`) splits the global batch x (and the noise) over
+    the mesh's data axis: each rank replays its rows' trajectory
+    (`parallel.make_sharded_sampler`) and every rank returns the gathered
+    global result. The model function runs on a rank's rows, so any
+    per-sample conditioning it closes over must be that rank's rows
+    (`parallel.batch_sharding(mesh).local`), as the pipelines do.
     """
 
     def __init__(
@@ -418,7 +432,9 @@ class DPM_Solver:
             self.correcting_x0_fn = correcting_x0_fn
         self.correcting_xt_fn = correcting_xt_fn
         self._plans = {}
-        self._graphed = {}   # plan key + return_intermediate -> GraphedSampler
+        # plan key + return_intermediate (+ the mesh) -> GraphedSampler (or
+        # the sharded sampler over it)
+        self._graphed = {}
 
     # -- reference helper surface ------------------------------------------------
 
@@ -472,9 +488,12 @@ class DPM_Solver:
             denoise_to_zero = bool(denoise)
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to dpm_solver_tpu_torch yet (Slice G)")
+        if mesh is not None and not jit:
+            raise ValueError("mesh= implies a graphed (jit) sampler; jit=False is not supported "
+                             "with a mesh (drop mesh= for eager execution)")
+        if mesh is not None and method == "adaptive":
+            raise ValueError("method='adaptive' does not take a mesh (per-rank step-size control "
+                             "would diverge across shards); shard fixed-grid methods")
         # the older JAX API spells it 'dpm_solver' (dpm_solver_jax.py:541)
         solver_type = {"dpm_solver": "dpmsolver"}.get(solver_type, solver_type)
         if method == "adaptive":
@@ -502,6 +521,18 @@ class DPM_Solver:
                 return_intermediate=return_intermediate,
             )
 
+        if mesh is not None:
+            if plan.has_noise and noise is None:
+                # the single-device path's check, before any rank slices
+                raise ValueError("SDE plan requires `noise` of shape (steps, *x.shape), on the "
+                                 "mesh path too")
+            gkey = key + (return_intermediate, mesh)
+            sharded = self._graphed.get(gkey)
+            if sharded is None:
+                from dpm_solver_tpu_torch.parallel.mesh import make_sharded_sampler
+
+                sharded = self._graphed[gkey] = make_sharded_sampler(run, mesh)
+            return sharded(x, noise)
         if not jit or x.device.type != "cuda":
             return run(x, noise)
         graphed = self._graphed.get(key + (return_intermediate,))

@@ -20,6 +20,14 @@ autoencoder's parameters (`ae.<name>`) and `logvar`, `disc_params` and
 `disc_batch_stats` the discriminator's parameters and running moments. The
 posterior noise is drawn from `StepRng(seed, state.step)`, or passed in
 (`noise=`), which the CPU tests use to feed the JAX step's own draws.
+
+With a `mesh` a step is data-parallel over its data axis: it takes the
+global batch, draws the posterior noise for it, runs this rank's rows, and
+averages both passes' gradients over the axis before each optimiser (an
+explicit all-reduce: the passes take `torch.autograd.grad`). As under the
+reference's own DistributedDataParallel training, the adaptive
+discriminator weight and the discriminator's BatchNorm statistics are each
+rank's (GSPMD computes them over the global batch).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from torch import nn
 
 from dpm_solver_tpu_torch.training import perceptual as P
 from dpm_solver_tpu_torch.training.optim import Adam
-from dpm_solver_tpu_torch.training.train import StepRng
+from dpm_solver_tpu_torch.training.train import StepRng, data_parallel
 
 Params = Dict[str, torch.Tensor]
 
@@ -71,16 +79,32 @@ def make_adversarial_state(ae: nn.Module, discriminator: nn.Module, *, lr: float
     return state, tx
 
 
-def _grads(loss: torch.Tensor, params: Params) -> Params:
+def _grads(loss: torch.Tensor, params: Params, group=None) -> Params:
     """d loss / d params, zeros where a parameter does not reach the loss
-    (the VQ model's logvar, as under jax.grad)."""
+    (the VQ model's logvar, as under jax.grad); averaged over `group`."""
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-    return {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)}
+    grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)}
+    if group is not None:
+        from dpm_solver_tpu_torch.parallel.mesh import all_reduce_mean_
+
+        all_reduce_mean_(list(grads.values()), group)
+    return grads
+
+
+def _mean_logs(log: dict, group) -> dict:
+    """The logs' values averaged over `group` (the data-parallel step's)."""
+    if group is None or not log:
+        return log
+    from dpm_solver_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    vals = {k: torch.as_tensor(v).detach().float().clone() for k, v in log.items()}
+    all_reduce_mean_(list(vals.values()), group)
+    return vals
 
 
 def _disc_update(cfg, disc_apply: Callable, tx: Adam, state: AdversarialTrainState,
-                 images: torch.Tensor, recon: torch.Tensor) -> dict:
+                 images: torch.Tensor, recon: torch.Tensor, group=None) -> dict:
     """The optimizer-1 pass shared by the KL and VQ steps; updates the
     discriminator's parameters and statistics in place, returns its log."""
     box = [state.disc_batch_stats]
@@ -93,20 +117,21 @@ def _disc_update(cfg, disc_apply: Callable, tx: Adam, state: AdversarialTrainSta
         return logits
 
     out = P.discriminator_loss(cfg, disc_fn, images, recon, state.step)
-    tx.step(state.disc_params, _grads(out.loss, state.disc_params), state.disc_opt)
+    tx.step(state.disc_params, _grads(out.loss, state.disc_params, group), state.disc_opt)
     with torch.no_grad():
         for k, v in box[0].items():
             state.disc_batch_stats[k].copy_(v)
     return out.log
 
 
-def _finish(state: AdversarialTrainState, glog: dict, dlog: dict):
+def _finish(state: AdversarialTrainState, glog: dict, dlog: dict, group=None):
     state.step += 1
-    return state, {f"train/{k}": v for k, v in {**glog, **dlog}.items()}
+    return state, {f"train/{k}": v for k, v in _mean_logs({**glog, **dlog}, group).items()}
 
 
 def _generator_pass(loss_fn: Callable, epilogue: Callable, last_layer_of: Callable,
-                    disc_apply: Callable, tx: Adam, state: AdversarialTrainState, trunk: Tuple):
+                    disc_apply: Callable, tx: Adam, state: AdversarialTrainState, trunk: Tuple,
+                    group=None):
     """The optimizer-0 pass from the trunk's outputs: the reconstruction, the
     loss (`loss_fn(recon, disc_fn, last_layer_fn, w_last, *trunk[1:])`) and
     the generator's update. Returns (detached reconstruction, log)."""
@@ -119,14 +144,14 @@ def _generator_pass(loss_fn: Callable, epilogue: Callable, last_layer_of: Callab
         return disc_apply(x, stats)[0]  # generator pass: statistics frozen
 
     out = loss_fn(recon, disc_fn, lambda w: epilogue(w, frozen), last_layer_of(), *trunk[1:])
-    tx.step(state.gen_params, _grads(out.loss, state.gen_params), state.gen_opt)
+    tx.step(state.gen_params, _grads(out.loss, state.gen_params, group), state.gen_opt)
     return recon.detach(), out.log
 
 
 def make_kl_train_step(cfg: P.KLLossConfig, *, encode_decode: Callable, epilogue: Callable,
                        last_layer_of: Callable, perceptual_fn: Callable, disc_apply: Callable,
-                       latent_shape: Callable, tx: Adam, sample_posterior: bool = True
-                       ) -> Callable:
+                       latent_shape: Callable, tx: Adam, sample_posterior: bool = True,
+                       mesh=None) -> Callable:
     """step(state, images, seed, *, noise=None) -> (state, logs).
 
     encode_decode(images, noise) -> (the decoder's trunk, posterior), the
@@ -135,13 +160,18 @@ def make_kl_train_step(cfg: P.KLLossConfig, *, encode_decode: Callable, epilogue
     last_layer_of() -> that weight; perceptual_fn(x, y) -> (B, 1, 1, 1);
     disc_apply(x, stats) -> (patch logits, new stats); latent_shape(images)
     -> the posterior's shape. `noise` replaces the step's standard-normal
-    draw of that shape."""
+    draw of that shape. `mesh`: data-parallel (module docstring); images
+    and noise global."""
+    sharding, group = data_parallel(mesh)
 
     def step(state: AdversarialTrainState, images: torch.Tensor, seed: int, *,
              noise: Optional[torch.Tensor] = None):
         if sample_posterior and noise is None:
             noise = torch.randn(latent_shape(images), device=images.device,
                                 generator=StepRng(seed, state.step).generator(images.device))
+        if sharding is not None:
+            images = sharding.local(images)
+            noise = None if noise is None else sharding.local(noise)
         trunk = encode_decode(images, noise if sample_posterior else None)
         logvar = state.gen_params["logvar"]
 
@@ -151,21 +181,27 @@ def make_kl_train_step(cfg: P.KLLossConfig, *, encode_decode: Callable, epilogue
                                        last_layer=w_last)
 
         recon, glog = _generator_pass(loss_fn, epilogue, last_layer_of, disc_apply, tx, state,
-                                      trunk)
-        dlog = _disc_update(cfg, disc_apply, tx, state, images, recon)
-        return _finish(state, glog, dlog)
+                                      trunk, group)
+        dlog = _disc_update(cfg, disc_apply, tx, state, images, recon, group)
+        return _finish(state, glog, dlog, group)
 
+    step.mesh = mesh
     return step
 
 
 def make_vq_train_step(cfg: P.VQLossConfig, *, encode_decode: Callable, epilogue: Callable,
                        last_layer_of: Callable, perceptual_fn: Callable, disc_apply: Callable,
-                       tx: Adam, n_embed: Optional[int] = None) -> Callable:
+                       tx: Adam, n_embed: Optional[int] = None, mesh=None) -> Callable:
     """The VQ twin: encode_decode(images) -> (trunk, codebook loss, indices);
     step(state, images, seed) -> (state, logs) (the VQ forward draws
-    nothing). With n_embed, the logs hold the codebook's perplexity."""
+    nothing). With n_embed, the logs hold the codebook's perplexity (the
+    ranks' mean under a `mesh`, as every log)."""
+    sharding, group = data_parallel(mesh)
 
     def step(state: AdversarialTrainState, images: torch.Tensor, seed: int):
+        if sharding is not None:
+            images = sharding.local(images)
+
         def loss_fn(recon, disc_fn, last_layer_fn, w_last, qloss, idx):
             return P.vq_generator_loss(cfg, perceptual_fn, disc_fn, qloss, images, recon,
                                        state.step, last_layer_fn=last_layer_fn,
@@ -174,10 +210,11 @@ def make_vq_train_step(cfg: P.VQLossConfig, *, encode_decode: Callable, epilogue
                                        n_embed=n_embed)
 
         recon, glog = _generator_pass(loss_fn, epilogue, last_layer_of, disc_apply, tx, state,
-                                      encode_decode(images))
-        dlog = _disc_update(cfg, disc_apply, tx, state, images, recon)
-        return _finish(state, glog, dlog)
+                                      encode_decode(images), group)
+        dlog = _disc_update(cfg, disc_apply, tx, state, images, recon, group)
+        return _finish(state, glog, dlog, group)
 
+    step.mesh = mesh
     return step
 
 

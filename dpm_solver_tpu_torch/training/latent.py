@@ -22,7 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dpm_solver_tpu_torch.training.train import StepRng, TrainState, apply_gradients
+from dpm_solver_tpu_torch.training.train import (StepRng, TrainState, apply_gradients,
+                                                 data_parallel, rank_rows)
 
 # the streams of one step's explicit draws (train.StepRng)
 _T_EPS, _ENCODE, _COND = 0, 2, 3
@@ -31,7 +32,7 @@ _T_EPS, _ENCODE, _COND = 0, 2, 3
 def make_latent_train_step(unet_apply: Callable, tx, betas, *,
                            encode_fn: Optional[Callable] = None, parameterization: str = "eps",
                            cond_dropout: float = 0.0,
-                           uncond_context: Optional[torch.Tensor] = None) -> Callable:
+                           uncond_context: Optional[torch.Tensor] = None, mesh=None) -> Callable:
     """step(state, images, context, seed, *, t=None, eps=None, drop=None)
     -> (state, metrics).
 
@@ -41,7 +42,10 @@ def make_latent_train_step(unet_apply: Callable, tx, betas, *,
     None: the batch holds latents already. parameterization: eps | x0 | v
     (v = sqrt(ab) eps - sqrt(1 - ab) x0). t (B,) int, eps (z0's shape) and
     drop (B,) bool (the samples whose context is replaced) replace the
-    step's own draws."""
+    step's own draws. With a `mesh`, data-parallel over its data axis as
+    `train.make_train_step`'s: the batch and the draws are global and each
+    rank trains on its rows; the frozen encode runs on the global batch on
+    every rank, so that its posterior draw is the single-process one."""
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
     if cond_dropout and uncond_context is None:
@@ -50,6 +54,8 @@ def make_latent_train_step(unet_apply: Callable, tx, betas, *,
     n_t = len(alphas_cumprod)
     sqrt_ab = torch.as_tensor(np.sqrt(alphas_cumprod), dtype=torch.float32)
     sqrt_1mab = torch.as_tensor(np.sqrt(1.0 - alphas_cumprod), dtype=torch.float32)
+
+    sharding, group = data_parallel(mesh)
 
     def step(state: TrainState, images: torch.Tensor, context: Optional[torch.Tensor],
              seed: int, *, t: Optional[torch.Tensor] = None,
@@ -73,14 +79,19 @@ def make_latent_train_step(unet_apply: Callable, tx, betas, *,
                 drop = torch.rand(b, generator=rng.generator(dev, _COND), device=dev) < cond_dropout
             uc = torch.as_tensor(uncond_context, dtype=context.dtype, device=dev)
             context = torch.where(drop.to(dev)[:, None, None], uc.expand(context.shape), context)
+        if context is not None:
+            z0, t, eps, context = rank_rows(sharding, z0, t, eps, context)
+        else:
+            z0, t, eps = rank_rows(sharding, z0, t, eps)
         a = sqrt_ab.to(dev)[t][:, None, None, None]
         s = sqrt_1mab.to(dev)[t][:, None, None, None]
         out = unet_apply(a * z0 + s * eps, t.float(), context)
         target = eps if parameterization == "eps" else z0 if parameterization == "x0" \
             else a * eps - s * z0
         loss = torch.mean(torch.square(out - target), dim=(1, 2, 3)).mean()
-        return state, apply_gradients(state, tx, loss)
+        return state, apply_gradients(state, tx, loss, group)
 
+    step.mesh = mesh
     return step
 
 

@@ -10,10 +10,13 @@ losses.py:65-178):
   * `make_score_train_step`: gradient, optimiser and in-step EMA on the
     port's `TrainState`; `make_eval_loss_step`: the loss on the EMA.
 
-A loss is `loss(x0, rng, **draws)`: `rng` is the step's `StepRng`, whose
-generator gives the draws the keyword arguments do not (t and z; labels and
-noise), and whose dropout seed runs the model call when the loss was built
-with `score_rng` / `model_rng` (the model in train mode).
+A loss is `loss(x0, rng, *, sharding=None, **draws)`: `rng` is the step's
+`StepRng`, whose generator gives the draws the keyword arguments do not (t
+and z; labels and noise), and whose dropout seed runs the model call when the
+loss was built with `score_rng` / `model_rng` (the model in train mode). With
+a `sharding` (the data-parallel step, `make_score_train_step(mesh=)`), x0 and
+the draws are the global batch's and the loss is the mean over this rank's
+rows of them.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from dpm_solver_tpu_torch.sde import VESDE, VPSDE, batch_mul
-from dpm_solver_tpu_torch.training.train import StepRng, TrainState, apply_gradients
+from dpm_solver_tpu_torch.training.train import (StepRng, TrainState, apply_gradients,
+                                                 data_parallel, rank_rows)
 
 
 def _reduce(values: torch.Tensor, reduce_mean: bool) -> torch.Tensor:
@@ -45,12 +49,13 @@ def sde_loss_fn(sde, score_fn: Callable, *, reduce_mean: bool = True,
     under the step's dropout seed when `score_rng`."""
 
     def loss(x0: torch.Tensor, rng: StepRng, *, t: Optional[torch.Tensor] = None,
-             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+             z: Optional[torch.Tensor] = None, sharding=None) -> torch.Tensor:
         gen = rng.generator(x0.device)
         if t is None:
             t = torch.rand(x0.shape[0], generator=gen, device=x0.device) * (sde.T - eps) + eps
         if z is None:
             z = torch.randn(x0.shape, generator=gen, device=x0.device, dtype=x0.dtype)
+        x0, t, z = rank_rows(sharding, x0, t, z)
         mean, std = sde.marginal_prob(x0, t)
         x_t = mean + batch_mul(std, z)
         score = _call(rng, score_rng, x0.device, score_fn, x_t, t)
@@ -74,13 +79,13 @@ def smld_loss_fn(vesde: VESDE, model_fn: Callable, *, reduce_mean: bool = False,
     sigmas_desc = np.asarray(vesde._sigmas())[::-1].copy()
 
     def loss(x0: torch.Tensor, rng: StepRng, *, labels: Optional[torch.Tensor] = None,
-             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+             z: Optional[torch.Tensor] = None, sharding=None) -> torch.Tensor:
         gen = rng.generator(x0.device)
         if labels is None:
             labels = torch.randint(0, vesde.N, (x0.shape[0],), generator=gen, device=x0.device)
         if z is None:
             z = torch.randn(x0.shape, generator=gen, device=x0.device, dtype=x0.dtype)
-        labels = labels.to(x0.device)
+        x0, labels, z = rank_rows(sharding, x0, labels.to(x0.device), z)
         sigmas = torch.as_tensor(sigmas_desc, dtype=x0.dtype, device=x0.device)[labels]
         noise = batch_mul(sigmas, z)
         score = _call(rng, model_rng, x0.device, model_fn, x0 + noise, labels)
@@ -100,13 +105,13 @@ def ddpm_loss_fn(vpsde: VPSDE, model_fn: Callable, *, reduce_mean: bool = True,
     sqrt_ab, sqrt_1mab = np.sqrt(ab), np.sqrt(1.0 - ab)
 
     def loss(x0: torch.Tensor, rng: StepRng, *, labels: Optional[torch.Tensor] = None,
-             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+             z: Optional[torch.Tensor] = None, sharding=None) -> torch.Tensor:
         gen = rng.generator(x0.device)
         if labels is None:
             labels = torch.randint(0, vpsde.N, (x0.shape[0],), generator=gen, device=x0.device)
         if z is None:
             z = torch.randn(x0.shape, generator=gen, device=x0.device, dtype=x0.dtype)
-        labels = labels.to(x0.device)
+        x0, labels, z = rank_rows(sharding, x0, labels.to(x0.device), z)
         table = lambda v: torch.as_tensor(v, dtype=x0.dtype, device=x0.device)[labels]
         x_t = batch_mul(table(sqrt_ab), x0) + batch_mul(table(sqrt_1mab), z)
         out = _call(rng, model_rng, x0.device, model_fn, x_t, labels)
@@ -115,15 +120,20 @@ def ddpm_loss_fn(vpsde: VPSDE, model_fn: Callable, *, reduce_mean: bool = True,
     return loss
 
 
-def make_score_train_step(loss_fn: Callable, tx) -> Callable:
+def make_score_train_step(loss_fn: Callable, tx, *, mesh=None) -> Callable:
     """step(state, x0, seed, **draws) -> (state, metrics): the loss at the
     step's `StepRng(seed, state.step)`, its gradient, the optimiser and the
-    EMA (`train.apply_gradients`)."""
+    EMA (`train.apply_gradients`). With a `mesh`, data-parallel over its data
+    axis as `train.make_train_step`'s: x0 and the draws global."""
+    sharding, group = data_parallel(mesh)
 
     def step(state: TrainState, x0: torch.Tensor, seed: int, **draws):
+        if sharding is not None:
+            draws["sharding"] = sharding
         loss = loss_fn(x0, StepRng(seed, state.step), **draws)
-        return state, apply_gradients(state, tx, loss)
+        return state, apply_gradients(state, tx, loss, group)
 
+    step.mesh = mesh
     return step
 
 

@@ -55,16 +55,35 @@ def _lr(schedule: Schedule, count: int) -> float:
     return float(schedule(count)) if callable(schedule) else float(schedule)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every element's square, fp32."""
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every element's square, fp32.
+    `sharded` tensors are one rank's slices of tensors split over the
+    process `group` (tensor parallelism): their squares are summed over it."""
     tensors = list(tensors)
+    sq = torch.stack(torch._foreach_norm(tensors)).square().sum() if tensors else None
+    if sharded:
+        from dpm_solver_tpu_torch.parallel.mesh import all_reduce_
+
+        part = torch.stack(torch._foreach_norm(list(sharded))).square().sum()
+        part = all_reduce_(part.float().clone(), group)
+        sq = part if sq is None else sq + part
+        return sq.sqrt()
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def clip_by_global_norm_(grads: Params, max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm, in place; returns the norm before clipping."""
+def clip_by_global_norm_(grads: Params, max_norm: float,
+                         sharded: Optional[Mapping[str, object]] = None) -> torch.Tensor:
+    """optax.clip_by_global_norm, in place; returns the norm before clipping.
+    `sharded`: {name: process group} of gradients that are slices of a
+    tensor split over that group (one group), whose squares the norm sums
+    over it."""
     g = list(grads.values())
-    norm = global_norm(g)
+    if sharded:
+        group = next(iter(sharded.values()))
+        norm = global_norm([v for k, v in grads.items() if k not in sharded],
+                           [grads[k] for k in sharded], group)
+    else:
+        norm = global_norm(g)
     # below max_norm unchanged, else (t / norm) * max_norm, with no epsilon: a
     # factor that is 1 where the norm is under the limit keeps this on the card
     keep = norm < max_norm
@@ -90,7 +109,12 @@ def flax_layouts(model: nn.Module) -> Dict[str, tuple]:
 
 
 class _Optimizer:
-    """Clip by global norm, then the rule of a subclass, at `schedule`."""
+    """Clip by global norm, then the rule of a subclass, at `schedule`.
+    `elementwise`: whether the rule updates each element from its own
+    gradient and moments alone (ZeRO-1 then updates parameter slices,
+    `parallel/zero.py`)."""
+
+    elementwise = False
 
     def __init__(self, schedule: Schedule, grad_clip: Optional[float] = 1.0):
         self.schedule, self.grad_clip = schedule, grad_clip
@@ -106,8 +130,15 @@ class _Optimizer:
         """One update of `params` and `state` in place from `grads` (which
         the clip scales in place); returns the gradients' global norm before
         the clip, or None where there is no clip."""
-        norm = None if self.grad_clip is None else clip_by_global_norm_(grads, self.grad_clip)
-        self._apply(params, grads, state)
+        # tensor parallelism's slices (parallel/tp.py) mark their group
+        sharded = {k: p.tp_group for k, p in params.items() if hasattr(p, "tp_group")}
+        norm = None if self.grad_clip is None else \
+            clip_by_global_norm_(grads, self.grad_clip, sharded)
+        zero = state.get("zero")   # a ZeRO-1 sharded state (parallel/zero.py)
+        if zero is None:
+            self._apply(params, grads, state)
+        else:
+            zero.apply(self, params, grads, state)
         state["count"] += 1
         return norm
 
@@ -124,6 +155,8 @@ class Adam(_Optimizer):
     """optax.chain(clip_by_global_norm(grad_clip), adam(schedule, b1, b2)),
     or optax.adam(schedule, b1, b2) alone with grad_clip=None.
     State: {"count": int, "mu": {name: fp32}, "nu": {name: fp32}}."""
+
+    elementwise = True
 
     def __init__(self, schedule: Schedule, grad_clip: Optional[float] = 1.0,
                  b1: float = ADAM_B1, b2: float = ADAM_B2):

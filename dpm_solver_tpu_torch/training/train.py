@@ -22,6 +22,15 @@ Dropout runs on the default generators, seeded from the step's seed for the
 model call (`StepRng.dropout`): `torch.utils.checkpoint` (remat) saves and
 restores exactly those generators, so a block's mask is drawn again on
 recompute.
+
+Data parallelism (`mesh=`, a DeviceMesh from `parallel.make_mesh`): the step
+takes the global batch on every rank, draws t and eps for the global batch
+(the single-process draws), runs the rank's rows, and averages the gradients
+over the mesh's data axis with a bucketed all-reduce before the optimiser
+(`apply_gradients(group=)`), so the global-norm clip sees the global
+gradient, as under XLA. `torch.autograd.grad` never reaches
+DistributedDataParallel's hooks, so the all-reduce is explicit. Dropout masks
+are drawn per rank (GSPMD draws them for the global batch).
 """
 
 from __future__ import annotations
@@ -108,12 +117,21 @@ def ema_update(ema: Params, new: Params, rate: float) -> None:
     torch._foreach_add_(e, [new[k] for k in ema], alpha=1.0 - rate)
 
 
-def apply_gradients(state: TrainState, tx, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+def apply_gradients(state: TrainState, tx, loss: torch.Tensor, group=None
+                    ) -> Dict[str, torch.Tensor]:
     """Differentiate `loss` with respect to the state's parameters, update
     them with `tx`, then the EMA, and advance the step. The metrics: the
-    loss and the gradients' global norm (before clipping), 0-d tensors."""
+    loss and the gradients' global norm (before clipping), 0-d tensors.
+    With a process `group` (the data axis), `loss` is the rank's share of the
+    batch mean: the gradients and the reported loss are averaged over the
+    group first."""
     names = list(state.params)
     grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+    if group is not None:
+        from dpm_solver_tpu_torch.parallel.mesh import all_reduce_mean_
+
+        loss = loss.detach().clone()
+        all_reduce_mean_(list(grads) + [loss], group)
     norm = tx.step(state.params, dict(zip(names, grads)), state.opt_state)
     ema_update(state.ema_params, state.params, state.ema_rate)
     state.step += 1
@@ -128,15 +146,35 @@ def antithetic_times(generator: torch.Generator, batch: int, num_timesteps: int)
     return torch.cat([t_half, num_timesteps - 1 - t_half])[:batch]
 
 
+def data_parallel(mesh, axis: str = "data"):
+    """(batch sharding, process group) of the data axis of `mesh`, or
+    (None, None) without a mesh."""
+    if mesh is None:
+        return None, None
+    from dpm_solver_tpu_torch.parallel.mesh import axis_group, batch_sharding
+
+    return batch_sharding(mesh, axis), axis_group(mesh, axis)
+
+
+def rank_rows(sharding, *tensors):
+    """Each tensor's rows of this rank under `sharding` (unchanged without one)."""
+    if sharding is None:
+        return tensors
+    return tuple(sharding.local(t) for t in tensors)
+
+
 def make_train_step(apply_fn: Callable, ns, tx, *, num_timesteps: int = 1000,
-                    loss_type: str = "simple", dropout_rng: bool = False) -> Callable:
+                    loss_type: str = "simple", dropout_rng: bool = False,
+                    mesh=None) -> Callable:
     """step(state, x0, seed, *, t=None, eps=None) -> (state, metrics).
 
     `apply_fn(x, t_discrete_float)` is the eps-prediction net (a DDPMUNet
     with discrete labels 0..N-1); loss = E[sum_px (eps - eps_hat)^2], the
     reference's. `dropout_rng=True` runs it under the step's dropout seed
     (the net in train mode keeps its dropout live, as the reference trains).
-    t (B,) int and eps (x0's shape) replace the step's own draws."""
+    t (B,) int and eps (x0's shape) replace the step's own draws. With a
+    `mesh` the step is data-parallel over its data axis (module docstring):
+    x0, t and eps are global, each rank runs its rows."""
     if loss_type != "simple":
         raise ValueError(f"unknown loss_type {loss_type!r}")
     # alpha-bar table for discrete t, fp32 as in the JAX step
@@ -150,6 +188,8 @@ def make_train_step(apply_fn: Callable, ns, tx, *, num_timesteps: int = 1000,
                               torch.sqrt(-torch.expm1(2.0 * log_alpha)).to(device))
         return tables[device]
 
+    sharding, group = data_parallel(mesh)
+
     def step(state: TrainState, x0: torch.Tensor, seed: int, *,
              t: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
         rng = StepRng(seed, state.step)
@@ -158,14 +198,15 @@ def make_train_step(apply_fn: Callable, ns, tx, *, num_timesteps: int = 1000,
             t = antithetic_times(gen, x0.shape[0], num_timesteps)
         if eps is None:
             eps = torch.randn(x0.shape, generator=gen, device=x0.device, dtype=x0.dtype)
+        x0, t, eps = rank_rows(sharding, x0, t.to(x0.device), eps)
         sqrt_ab, sqrt_1mab = table(x0.device)
-        t = t.to(x0.device)
         xt = x0 * sqrt_ab[t][:, None, None, None] + eps * sqrt_1mab[t][:, None, None, None]
         with rng.dropout(x0.device) if dropout_rng else contextlib.nullcontext():
             out = apply_fn(xt, t.float())
         loss = torch.mean(torch.sum(torch.square(eps - out), dim=(1, 2, 3)))
-        return state, apply_gradients(state, tx, loss)
+        return state, apply_gradients(state, tx, loss, group)
 
+    step.mesh = mesh
     return step
 
 

@@ -13,7 +13,8 @@
   `wmdecode` reads the payload back from a written PNG.
 - `img2img`, `inpaint`, `clscond`, `knn2img`, `train-ae` and
   `train-latent` once each; `fid` prints `calculate_fid_given_paths`'s
-  value; `--device cuda` without a card and `--devices 2` raise.
+  value; `--device cuda` without a card raises, and so do `--devices 2`
+  with an indivisible batch and with fewer visible cards than ranks.
 The SD-family presets are swapped for tiny geometries in the port's preset
 table (the CLI reaches them by name, as the JAX CLI does).
 """
@@ -392,8 +393,15 @@ def test_device_and_devices_errors(tmp_path, monkeypatch):
         cli.main(["sample", "--config", "tiny_test", "--outdir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--device", "cuda", "fid", "a", "b", "--inception-ckpt", "x"])
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        _run("sample", "--config", "tiny_test", "--batch", 4, "--devices", 2, "--outdir", tmp_path)
+    # --devices N shards the batch over N ranks: the batch must divide, and
+    # on the card N may not pass the visible cards (both counts named)
+    with pytest.raises(SystemExit, match="--batch 3 not divisible by --devices 2"):
+        _run("sample", "--config", "tiny_test", "--batch", 3, "--devices", 2, "--outdir", tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--devices 2 but only 1 visible card"):
+        cli.main(["--device", "cuda", "sample", "--config", "tiny_test", "--batch", "4",
+                  "--devices", "2", "--outdir", str(tmp_path)])
 
 
 def test_module_entry_point():

@@ -112,6 +112,19 @@ def test_the_cli_and_serving_modules_are_scanned():
     assert "dpm_solver_tpu" in set(_imported_roots(lazy))
 
 
+def test_the_parallel_dryrun_and_demo_modules_are_scanned():
+    """The parallel package, the dry runs and the demos are among the files
+    the scan reads: they import torch and torch.distributed, never jax,
+    flax or the JAX package (`__graft_entry__.py` and `examples/` stay the
+    JAX package's own)."""
+    names = {str(p.relative_to(PKG)) for p in SCANNED if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/rng.py",
+            "parallel/multihost.py", "parallel/tp.py", "parallel/zero.py",
+            "parallel/launch.py", "utils/graphs.py", "dryrun.py",
+            "examples/score_sde_demo.py", "examples/latent_imagenet_demo.py",
+            "examples/diffedit_demo.py"} <= names
+
+
 @pytest.mark.parametrize("quant", ["w8a8", "w8a8_conv"])
 def test_cpu_quant_txt2img_launches_nothing(quant):
     """The int8 serving path on the CPU: the transformer stack's products

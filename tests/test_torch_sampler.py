@@ -183,8 +183,11 @@ def test_unsupported_paths_raise():
     # the adaptive solver runs (Slice D), but keeps the JAX entry's refusals
     with pytest.raises(ValueError, match="intermediates"):
         solver.sample(x, method="adaptive", return_intermediate=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        solver.sample(x, mesh=object())
+    # a mesh (parallel.make_mesh) is taken, with the JAX entry's refusals
+    with pytest.raises(ValueError, match="jit"):
+        solver.sample(x, mesh=object(), jit=False)
+    with pytest.raises(ValueError, match="adaptive"):
+        solver.sample(x, mesh=object(), method="adaptive")
     with pytest.raises(ValueError, match="classifier_fn"):
         P.model_wrapper(toy_torch, ns_t, guidance_type="classifier")
     # classifier guidance runs (Slice C): eps - s * sigma_t * grad_x log p,

@@ -132,7 +132,7 @@ def test_clip_text_context_matches_flax(text_dir):
 
 def test_clip_text_pools_at_the_end_token(text_dir):
     """The pooled output is the final-normed state at the first <|endoftext|>."""
-    model = CLIPTextModel.from_pretrained(text_dir)
+    model = CLIPTextModel.from_pretrained(text_dir, device="cpu")
     ids = CLIPTokenizer(text_dir)(PROMPTS[:2])
     with torch.no_grad():
         h, pooled = model(ids)
@@ -170,7 +170,17 @@ def test_clip_loads_only_local_directories(tmp_path):
     with pytest.raises(FileNotFoundError, match="local"):
         FrozenCLIPEmbedder("openai/clip-vit-large-patch14", device="cpu")
     with pytest.raises(FileNotFoundError, match="local"):
-        CLIPTextModel.from_pretrained(tmp_path / "missing")
+        CLIPTextModel.from_pretrained(tmp_path / "missing", device="cpu")
+
+
+def test_clip_from_pretrained_asks_for_the_card_by_default(text_dir, joint_dir, monkeypatch):
+    from dpm_solver_tpu_torch.models.clip import CLIPModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLIPTextModel.from_pretrained(text_dir)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLIPModel.from_pretrained(joint_dir)
 
 
 BERT = dict(n_embed=64, n_layer=2, vocab_size=100, max_seq_len=16, num_heads=2, head_dim=32)
