@@ -271,7 +271,8 @@ and nothing of JAX. Phases, each fatal on failure:
 7h. path R, the CLI (`dpm_solver_tpu_torch.cli.main`, what `python -m
    dpm_solver_tpu_torch.cli` runs) on files it writes to a temporary
    directory (a CompVis sd_v1 checkpoint of seeded random weights, a joint
-   CLIP directory at ViT-L/14's text width, a safety checkpoint): `txt2img`
+   CLIP directory at ViT-L/14's text width, a safety checkpoint; the first
+   two kept for path T1): `txt2img`
    at 512 px, b4, 25 NFE, CFG 7.5, graphed, with the watermark and the
    safety screen, in bf16 float, `--quant w8a8` and `--quant w8a8_conv`,
    each call's launches and routes checked (under quant, no `ln_linear` or
@@ -286,6 +287,29 @@ and nothing of JAX. Phases, each fatal on failure:
    quantized call beside its float twin (the calls recorded must number the
    int8 sites of the UNet and the decoder); the small-width int8 trajectory
    card against CPU; then the float call's kernel specs held to plain;
+7j. path T, the demos' notebooks (`dpm_solver_tpu_torch/examples/*.ipynb`,
+   read as plain JSON): each notebook's code cells run in order in one
+   namespace by `make_notebooks.run_notebook` (the display cell only where
+   IPython imports; the log says whether it ran), the launch counts set to
+   0 just before and read just after. T1, `diffedit_inpaint.ipynb` with
+   `--ckpt` and `--clip` phase 7h's SD-1 checkpoint and CLIP directory:
+   the demo's DiffEdit at 512 px, 20 steps, bf16; T2,
+   `latent_imagenet_diffusion.ipynb` with `--ckpt` a CompVis cin256
+   checkpoint written here (`ADMConfig.cin256()` and VQ-f4 of seeded random
+   weights and a 1001 x 512 class table): 4 classes, 20 steps, CFG 3.0,
+   bf16. Each run's launches exactly as the configs imply (the sampler's
+   first graphed call: a warm call and the capture; DiffEdit's two mask
+   forwards; one encode, one decode), its routes, the files it wrote, its
+   images finite in [0, 1] at the expected shape, T2's class embedder the
+   checkpoint's table; the kernel specs recorded by forward pre-hooks put
+   on the networks at their load, each then held to plain in bf16, the
+   fused update at each run's solver state. T3, `score_sde_demo.ipynb` at
+   its tiny default, runs in a process of its own started after the build,
+   beside phases 3-7b (which time nothing), and is waited for after path S:
+   it must write the demo's two grids and launch each of T3_KERNELS, and
+   each kernel is then held to plain in fp32 at the specs its NCSN++
+   recorded (the conv with its dx, the attention with its lse and
+   backward);
 7i. path S, parallelism (`dpm_solver_tpu_torch.parallel`): S0 in this
    process over a world of one NCCL rank (`make_mesh()`), path A through
    `DPM_Solver.sample(mesh=)` at b64 bf16 graphed, bitwise equal to the
@@ -311,9 +335,8 @@ and nothing of JAX. Phases, each fatal on failure:
    latents b2 with its gradients within 1e-4 of max of the unsharded step's;
    S6 the multihost helpers; the unsharded references run on rank 0 alone.
    S0 also captures an NCCL all-reduce in a CUDA graph: one segment, whose
-   replay reduces the new input. The score_sde demo runs on the card at its
-   tiny default, started after the build and waited for here (it overlaps
-   phases 3-7b, which time nothing). Then `cli sample --devices 2` must
+   replay reduces the new input. Path T3 is waited for here. Then
+   `cli sample --devices 2` must
    refuse the one card, naming both counts, and each kernel is held to
    plain at the specs the ranks recorded (and conv3x3_dx at S3-S5's
    train-step specs, the attention backward, LayerNorm->Linear's and
@@ -359,7 +382,8 @@ O and P theirs and their checks as `{"first_stage_and_eval": ...}`; path Q
 its walls, rates, probe and checks as `{"data_path_q": ...}`; path R its
 walls, checks and int8 products as `{"cli_path_r": ...}`; path S its
 walls, each rank's checks, times, launches and optimizer-state bytes as
-`{"parallel_path_s": ...}`.
+`{"parallel_path_s": ...}`; path T the notebooks' walls and checks as
+`{"notebooks_path_t": ...}`.
 
 After each path's call the redesigned kernels' launches are also checked by
 route (`ops.launch_routes()`): every bf16 attention (forward, lse, dq and
@@ -406,14 +430,16 @@ BATCH, STEPS, ORDER = 64, 10, 3                    # path A
 SD_PROMPTS = ["a photograph of an astronaut riding a horse", "a red teapot on a table",
               "a lighthouse at dusk, oil painting", "a bowl of ramen, studio light"]
 SD_SIZE, SD_STEPS, SD_SCALE = 768, 20, 7.5          # path B
-SD_TIMED_RUNS = 3
+# phase 8's timed calls a path after its warm call (each 3, D's 5, until path T
+# came: the script's time limit, PERF.md section 4)
+SD_TIMED_RUNS = 2
 GUIDED_BATCH, GUIDED_SIZE, GUIDED_STEPS, GUIDED_SCALE = 8, 256, 20, 8.0   # path C
-GUIDED_TIMED_RUNS = 3
+GUIDED_TIMED_RUNS = 2
 SCORE_BATCH, SCORE_STEPS, SCORE_T_END = 256, 10, 1e-3                     # path D
 I2I_STRENGTH = 0.75                                 # path G: img2img, 15 of 20 steps
 CIN_LABELS, CIN_STEPS, CIN_SCALE, CIN_UNCOND = 8, 20, 3.0, 1000           # path F
 CIN_CLASSES, CIN_CONTEXT, CIN_CODES = 1001, 512, 8192
-CIN_TIMED_RUNS = 3
+CIN_TIMED_RUNS = 2
 DIFFEDIT_SIZE, DIFFEDIT_RATIO = 512, 0.5            # DiffEdit at SD-2.1 width, b1
 # the attention forward (and its lse) at the head dims the wide presets give:
 # cin256's single heads of 384 (32x32), 576 (16x16) and 960 (8x8) at CFG b8,
@@ -427,7 +453,7 @@ WIDE_ATTENTION = [(16, 1024, 1024, 1, 384, False), (16, 1024, 1, 1, 384, False),
                   (2, 65, 9, 2, 576, False), (1, 17, 300, 1, 960, False),
                   (4, 256, 256, 4, 96, False), (4, 1024, 77, 4, 96, False),
                   (4, 256, 256, 4, 192, True)]
-SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 5
+SCORE_ADAPTIVE_BATCH, SCORE_TIMED_RUNS = 16, 3
 # path E: the JAX defaults are rtol = atol = eps = 1e-5; the tolerance is
 # loosened to 1e-2 to keep the phase near its time budget (PERF.md section 4:
 # the call is host-bound, so a smaller batch would not be faster; 1e-4 until
@@ -524,7 +550,8 @@ N_DB, N_K, N_STEPS, N_SIZE, N_SCALE = 1_000_000, 10, 10, 768, 5.0
 # Inception in chunks of P_CHUNK images, the eps-MSE loss at P_LOSS_BATCH, the
 # FID's reference statistics from P_REF_IMAGES seeded images (more than the
 # 2,048 features, so that their covariance has full rank)
-O_KL_BATCH, O_KL_STEPS, O_VQ_BATCH, O_VQ_STEPS, O_CODES = 12, 4, 8, 2, 8192
+# (O_KL_STEPS 4 and O_VQ_STEPS 2 until path T came: PERF.md section 4)
+O_KL_BATCH, O_KL_STEPS, O_VQ_BATCH, O_VQ_STEPS, O_CODES = 12, 2, 8, 1, 8192
 O_RESTART_STEPS, O_RESUME_AT, O_CHECK_SIZE, O_LR = 3, 2, 64, 4.5e-6
 P_TRAIN_STEPS, P_ROUNDS, P_CHUNK, P_LOSS_BATCH, P_REF_IMAGES = 3, 2, 250, 128, 2500
 # path Q (phase 7g), the data path from disk (PERF.md section 4): (a) CIFAR-10
@@ -560,7 +587,8 @@ Q_READERS = ("load_cifar10_dir", "make_dataset", "tfrecord_dataset_native", "tfr
 # checked card vs CPU (R_ROWS rows of each product, on the same codes)
 R_SIZE, R_BATCH, R_STEPS, R_SCALE, R_SEED = 512, 4, 25, 7.5, 42
 R_MODES = (None, "w8a8", "w8a8_conv")
-R_EDIT_STEPS, R_EDIT_BATCH, R_CONCEPTS, R_SPECIAL = 10, 2, 17, 3
+# (R_EDIT_STEPS 10 until path T came: PERF.md section 4)
+R_EDIT_STEPS, R_EDIT_BATCH, R_CONCEPTS, R_SPECIAL = 5, 2, 17, 3
 R_SMALL_STEPS, R_ROWS, R_GRAPH = 5, 256, 10
 R_PROMPT = "a watercolour painting of a fox in a snowy forest"
 # the int8 bound (one H100 SXM at 700 W, dense int8 tensor cores)
@@ -573,8 +601,9 @@ GRAPH_BOUND = 1e-6
 # units work at once, so the bound is the largest of the three times.
 PEAK_BF16, PEAK_FP32, HBM = 989e12, 67e12, 3.35e12
 # cuda_ms times as many calls as fit about this many ms, 3 to TIMED_MAX
-# (200 ms until path S came: the script's time limit, PERF.md section 4)
-TIMED_BUDGET_MS, TIMED_MAX = 100.0, 50
+# (200 ms until path S came, 100 until path T: the script's time limit,
+# PERF.md section 4)
+TIMED_BUDGET_MS, TIMED_MAX = 50.0, 50
 REPLACES = {
     "conv3x3": ("cuda", "dpm_solver_tpu_torch/csrc/conv3x3.cu",
                 "dpm_solver_tpu/ops/conv3x3.py:125"),
@@ -1322,10 +1351,22 @@ def record_sd_calls(unet, vae, run, encoder: bool = False) -> tuple:
 def record_kernel_specs(nets, run, specs: Counter):
     """run(), adding to `specs` one per launch of the kernels that the
     modules of `nets` make, keyed by (kernel, spec) as read from the
-    modules' inputs by forward pre-hooks: conv3x3 (b, h, w, c, co);
-    token_attention (b, t, s, heads, dh, q/k/v as column slices of one
-    fused projection); ln_linear (m, d, n); geglu_ff (m, d, inner).
-    Returns run()'s result."""
+    modules' inputs by forward pre-hooks (`spec_hooks`). Returns run()'s
+    result."""
+    handles = spec_hooks(nets, specs)
+    try:
+        return run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def spec_hooks(nets, specs: Counter) -> list:
+    """Forward pre-hooks on the modules of `nets` that add to `specs` one per
+    launch of the kernels they make, keyed by (kernel, spec): conv3x3 (b, h,
+    w, c, co); token_attention (b, t, s, heads, dh, q/k/v as column slices
+    of one fused projection); ln_linear (m, d, n); geglu_ff (m, d, inner).
+    Returns the hooks' handles."""
     from dpm_solver_tpu_torch import ops
     from dpm_solver_tpu_torch.models.adm_unet import ADMAttention
     from dpm_solver_tpu_torch.models.ddpm_unet import AttnBlock
@@ -1359,13 +1400,8 @@ def record_kernel_specs(nets, run, specs: Counter):
 
     kinds = (ops.Conv3x3, CrossAttention, GEGLUFeedForward, ADMAttention, AttnBlock,
              SelfAttention2D, VAEAttnBlock)
-    handles = [m.register_forward_pre_hook(pre, with_kwargs=True)
-               for net in nets for m in net.modules() if isinstance(m, kinds)]
-    try:
-        return run()
-    finally:
-        for h in handles:
-            h.remove()
+    return [m.register_forward_pre_hook(pre, with_kwargs=True)
+            for net in nets for m in net.modules() if isinstance(m, kinds)]
 
 
 @contextlib.contextmanager
@@ -3021,14 +3057,15 @@ def trace_top_ops(trace_dir: Path, k: int = 10) -> list:
     return [(name[:90], round(ms, 4), count[name]) for name, ms in total.most_common(k)]
 
 
-def cli_path(dev, smi: str) -> dict:
+def cli_path(dev, smi: str, tmp: Path) -> dict:
     """Path R (phase 7h): the CLI (`dpm_solver_tpu_torch.cli.main`, as
-    `python -m dpm_solver_tpu_torch.cli` runs it) on files written to a
-    temporary directory: SD-1 `txt2img` in each of R_MODES with the
-    watermark and the safety screen, `wmdecode`, img2img, inpaint, `fid`,
-    `configs` and a traced `sample`. Returns the launches and routes of each
-    counted run, the kernel specs of the float txt2img call, the walls and
-    the checks."""
+    `python -m dpm_solver_tpu_torch.cli` runs it) on files written to the
+    directory `tmp` (left there for path T): SD-1 `txt2img` in each of
+    R_MODES with the watermark and the safety screen, `wmdecode`, img2img,
+    inpaint, `fid`, `configs` and a traced `sample`. Returns the launches
+    and routes of each counted run, the kernel specs of the float txt2img
+    call, the walls, the checks and the checkpoint's and the CLIP
+    directory's paths."""
     import numpy as np
     import torch
     from PIL import Image
@@ -3041,7 +3078,6 @@ def cli_path(dev, smi: str) -> dict:
 
     walls, checks, launches, routes, specs = {}, {}, {}, {}, Counter()
     ucfg, vcfg = ADMConfig.sd_v1(), VAEConfig.sd_v1()
-    tmp = Path(tempfile.mkdtemp(prefix="path_r_"))
     t_phase = time.perf_counter()
     orig_load, orig_t2i = pipelines.load_sd_checkpoint, psd.StableDiffusionPipeline.txt2img
     orig_sample = psd.DPMSolverSampler.sample
@@ -3252,11 +3288,10 @@ def cli_path(dev, smi: str) -> dict:
     finally:
         pipelines.load_sd_checkpoint, psd.StableDiffusionPipeline.txt2img = orig_load, orig_t2i
         psd.DPMSolverSampler.sample = orig_sample
-        shutil.rmtree(tmp, ignore_errors=True)
     walls["r_s"] = time.perf_counter() - t_phase
     log(f"path R done in {walls['r_s']:.1f} s")
     return dict(launches=launches, routes=routes, specs=specs, walls=walls, checks=checks,
-                int8=int8)
+                int8=int8, ckpt=ckpt, clip=clip)
 
 
 # --------------------------------------------------------------------------- #
@@ -3673,22 +3708,55 @@ def path_s_rank(rank: int, world: int, smi: str) -> dict:
     return res
 
 
-def start_demo() -> tuple:
-    """`python -m dpm_solver_tpu_torch.examples.score_sde_demo` at its tiny
-    default on the card, started in the background (its PC sampler's 2,000
-    and its bits/dim's ~1,600 NFE are host-bound eager loops: about two
-    minutes): the process, its output directory and its start."""
-    out = tempfile.mkdtemp(prefix="score_sde_demo_")
-    proc = subprocess.Popen([sys.executable, "-m", "dpm_solver_tpu_torch.examples.score_sde_demo",
-                             "--outdir", out], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+# --------------------------------------------------------------------------- #
+# path T: the demos' notebooks on the card
+# --------------------------------------------------------------------------- #
+
+NOTEBOOKS = ROOT / "dpm_solver_tpu_torch" / "examples"
+# the kernels T3 must launch on the card (its NCSN++ is fp32, and its
+# bits/dim takes the vjp: the backward kernels too)
+T3_KERNELS = ("conv3x3", "conv3x3_dx", "token_attention", "attention_lse", "attention_dq",
+              "attention_dkv", "fused_update")
+# T3: the notebook's code cells in a process of their own (run_notebook), the
+# demo's NCSN++ given spec hooks as it is built; its wall, launches and
+# kernel specs printed as one JSON line last
+T3_RUNNER = """import json, sys, time
+from collections import Counter
+import chip_smoke
+from dpm_solver_tpu_torch import ops
+from dpm_solver_tpu_torch.examples.make_notebooks import run_notebook
+from dpm_solver_tpu_torch.models import NCSNpp
+specs, init = Counter(), NCSNpp.__init__
+def hooked(self, *a, **k):
+    init(self, *a, **k)
+    chip_smoke.spec_hooks([self], specs)
+NCSNpp.__init__ = hooked
+ops.reset_launch_counts()
+t = time.perf_counter()
+ns = run_notebook(sys.argv[1], outdir=sys.argv[2])
+print(json.dumps(dict(wall_s=time.perf_counter() - t, displayed=ns["DISPLAYED"],
+                      launches=ops.launch_counts(), specs=[[k, list(v)] for k, v in specs])))
+"""
+
+
+def start_score_sde_notebook() -> tuple:
+    """T3: the score_sde notebook (`score_sde_demo.ipynb`) at its tiny default
+    on the card, its code cells run by `make_notebooks.run_notebook` in a
+    process started here in the background (its PC sampler's 2,000 and its
+    bits/dim's ~1,600 NFE are host-bound eager loops: about two minutes):
+    the process, its output directory and its start."""
+    out = tempfile.mkdtemp(prefix="score_sde_notebook_")
+    proc = subprocess.Popen([sys.executable, "-c", T3_RUNNER,
+                             str(NOTEBOOKS / "score_sde_demo.ipynb"), out], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, out, time.perf_counter()
 
 
-def finish_demo(demo: tuple) -> None:
-    """Wait for the demo `start_demo` started; fail unless it exited 0 and
-    wrote its two grids."""
-    proc, out_dir, t0 = demo
+def finish_score_sde_notebook(started: tuple, smi: str) -> dict:
+    """Wait for T3; fail unless it exited 0, wrote the demo's two grids and
+    launched each of T3_KERNELS. Returns its wall, launches, kernel specs
+    (a set of (kernel, spec)) and whether its display cell ran."""
+    proc, out_dir, t0 = started
     try:
         out, err = proc.communicate(timeout=900)
         files = sorted(p.name for p in Path(out_dir).glob("demo_*.png"))
@@ -3697,10 +3765,155 @@ def finish_demo(demo: tuple) -> None:
             proc.kill()
         shutil.rmtree(out_dir, ignore_errors=True)
     if proc.returncode != 0 or files != ["demo_dpm.png", "demo_pc.png"]:
-        fail(f"the score_sde demo failed on the card (exit {proc.returncode}, wrote {files}):\n"
-             f"{err[-2000:]}")
-    log(f"score_sde demo on the card: {out.strip().splitlines()[-4:]} (started after the "
-        f"build {time.perf_counter() - t0:.1f} s ago, beside phases 3-7b, which time nothing)")
+        fail(f"the score_sde notebook failed on the card (exit {proc.returncode}, wrote "
+             f"{files}):\n{err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res["specs"] = {(name, tuple(spec)) for name, spec in res["specs"]}
+    missing = [k for k in T3_KERNELS if not res["launches"][k]]
+    log(f"path T3, score_sde_demo.ipynb on {smi}: the notebook's cells {res['wall_s']:.1f} s "
+        f"(beside phases 3-7b, which time nothing; finished {time.perf_counter() - t0:.1f} s "
+        f"after its start), display cell ran: {res['displayed']}; launches {res['launches']}; "
+        f"the demo printed {out.strip().splitlines()[-5:-1]}")
+    if missing:
+        fail(f"path T3: the score_sde notebook launched no {missing}")
+    return res
+
+
+def notebook_path(dev, smi: str, ckpt: Path, clip: Path) -> dict:
+    """Path T1-T2 (phase 7j): the DiffEdit and cin256 notebooks on the card,
+    each notebook's code cells run here by `make_notebooks.run_notebook` with
+    the launch counts set to 0 just before and read just after. T1
+    (`diffedit_inpaint.ipynb`): `--ckpt` phase 7h's SD-1 checkpoint and
+    `--clip` its joint CLIP directory, the demo's defaults (512 px, 20
+    steps). T2 (`latent_imagenet_diffusion.ipynb`): `--ckpt` a CompVis cin256
+    checkpoint written here (seeded random weights, fp16 tensors, a class
+    table beside them), the demo's defaults (4 classes, 20 steps, scale
+    3.0). The demos' networks carry spec hooks (`spec_hooks`) from their
+    load; their outputs are kept. Returns the launches, routes, specs,
+    solver states, walls and checks."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dpm_solver_tpu_torch import ops, pipelines
+    from dpm_solver_tpu_torch.examples.make_notebooks import run_notebook
+    from dpm_solver_tpu_torch.models import (ADMConfig, ADMUNet, VAEConfig, VQModel,
+                                             init_random_)
+
+    launches, routes, specs, walls, checks = {}, {}, {}, {}, {}
+    orig_load = pipelines.load_sd_checkpoint
+    orig_diffedit, orig_cls = pipelines.diffedit, pipelines.class_conditional_sample
+    kept, handles = {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="path_t_"))
+    t_phase = time.perf_counter()
+
+    def load(*a, **k):   # the demos' networks, with spec hooks until the notebook ends
+        ldm = orig_load(*a, **k)
+        handles.extend(spec_hooks([ldm.unet, ldm.vae], specs[kept["run"]]))
+        return ldm
+
+    def diffedit(*a, **k):
+        out = orig_diffedit(*a, **k)
+        kept["out"] = out[0]
+        return out
+
+    def class_conditional_sample(model, embedder, *a, **k):
+        kept["table"] = embedder.embedding.weight.detach().float().cpu()
+        kept["out"] = orig_cls(model, embedder, *a, **k)
+        return kept["out"]
+
+    try:
+        pipelines.load_sd_checkpoint, pipelines.diffedit = load, diffedit
+        pipelines.class_conditional_sample = class_conditional_sample
+        # T2's checkpoint: the cin256 UNet and VQ-f4 (as path F's) and the
+        # conditioner's class table, which the demo must load
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 20)
+        unet = init_random_(ADMUNet(ADMConfig.cin256(), device=dev), g)
+        vq = init_random_(VQModel(VAEConfig.vq_cin256(), n_embed=CIN_CODES, device=dev), g)
+        sd = {f"model.diffusion_model.{k}": v.half().cpu() for k, v in unet.state_dict().items()}
+        sd.update({f"first_stage_model.{k}": v.half().cpu() for k, v in vq.state_dict().items()})
+        table = torch.randn(CIN_CLASSES, CIN_CONTEXT, generator=torch.Generator().manual_seed(21))
+        sd["cond_stage_model.embedding.weight"] = table.half()
+        del unet, vq
+        cin_ckpt = tmp / "cin256-random.ckpt"
+        torch.save({"state_dict": sd}, cin_ckpt)
+        del sd
+        walls["t2_files_s"] = time.perf_counter() - t0
+        gib = cin_ckpt.stat().st_size / 2 ** 30
+        log(f"path T: a CompVis cin256 checkpoint (fp16 tensors, {gib:.2f} GiB, a {CIN_CLASSES} "
+            f"x {CIN_CONTEXT} class table) written in {walls['t2_files_s']:.1f} s")
+
+        sd1, vsd1 = ADMConfig.sd_v1(), VAEConfig.sd_v1()
+        cin, vcin = ADMConfig.cin256(), VAEConfig.vq_cin256()
+        runs = {
+            # (notebook, args, files, UNet config, forwards a step, eager forwards,
+            #  encoder launches, decoder launches, narrow convs, steps, image shape)
+            "t1": ("diffedit_inpaint.ipynb", ["--ckpt", ckpt, "--clip", clip],
+                   ["diffedit_original.png", "diffedit_edited.png", "diffedit_mask.png"],
+                   sd1, 2, vae_encoder_launches(vsd1), vae_decoder_launches(vsd1), 3, 20,
+                   (1, 512, 512, 3)),
+            "t2": ("latent_imagenet_diffusion.ipynb", ["--ckpt", cin_ckpt], ["demo_clscond.png"],
+                   cin, 0, Counter(), vae_decoder_launches(vcin), 2, 20, (4, 256, 256, 3)),
+        }
+        for run, (nb, args, files, ucfg, eager, enc, dec, narrow, steps, shape) in runs.items():
+            # the sampler's first graphed call: a warm call and the capture,
+            # one CFG forward a step each; `eager` forwards outside it (the
+            # DiffEdit mask's two); one encode and one decode
+            per_fwd = adm_unet_launches(ucfg)
+            want = {n: (2 * steps + eager) * per_fwd[n] + enc[n] + dec[n] for n in REPLACES}
+            want["fused_update"] = 2 * steps
+            kept["run"], specs[run] = run, Counter()
+            out = tmp / run
+            gc.collect()
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ns = run_notebook(NOTEBOOKS / nb, args, outdir=out)
+            torch.cuda.synchronize()
+            walls[f"{run}_s"] = time.perf_counter() - t0
+            launches[run], routes[run] = ops.launch_counts(), ops.launch_routes()
+            for h in handles:
+                h.remove()
+            handles.clear()
+            log(f"path {run.upper()}, {nb} on {smi}: the notebook's cells {walls[f'{run}_s']:.1f} "
+                f"s, display cell ran: {ns['DISPLAYED']}; launches {launches[run]} (expected "
+                f"{want})")
+            if launches[run] != want:
+                fail(f"path {run.upper()}: launches {launches[run]} != {want}")
+            check_routes(f"path {run.upper()}", launches[run], routes[run], narrow_convs=narrow)
+            written = sorted(p.name for p in out.glob("*.png"))
+            if sorted(files) != written or not all(Image.open(out / f).size[0] for f in files):
+                fail(f"path {run.upper()}: the notebook wrote {written}, not {sorted(files)}")
+            img = kept.pop("out")
+            if tuple(img.shape) != shape or not torch.isfinite(img).all() \
+                    or img.min() < 0 or img.max() > 1:
+                fail(f"path {run.upper()}: images {tuple(img.shape)} are not finite {shape} in "
+                     f"[0, 1]")
+            checks[f"{run}_images"] = dict(shape=list(shape), mean=float(img.float().mean()),
+                                           std=float(img.float().std()))
+            log(f"  images {shape} finite in [0, 1]: mean {checks[f'{run}_images']['mean']:.4f}, "
+                f"std {checks[f'{run}_images']['std']:.4f}; wrote {written}")
+        # the cin256 demo conditioned on the checkpoint's class table
+        same = torch.equal(kept["table"], table.half().float())
+        checks["t2_class_table_from_checkpoint"] = same
+        log(f"  T2's class embedder is the checkpoint's table: {same}")
+        if not same:
+            fail("path T2: the demo did not load the checkpoint's class embeddings")
+        edited = np.asarray(Image.open(tmp / "t1" / "diffedit_edited.png"))
+        if edited.shape != (512, 512, 3):
+            fail(f"path T1: the edited image is {edited.shape}, not SD-1's 512 px")
+    finally:
+        for h in handles:
+            h.remove()
+        pipelines.load_sd_checkpoint, pipelines.diffedit = orig_load, orig_diffedit
+        pipelines.class_conditional_sample = orig_cls
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["t_s"] = time.perf_counter() - t_phase
+    log(f"path T1-T2 done in {walls['t_s']:.1f} s")
+    return dict(launches=launches, routes=routes, specs=specs, walls=walls, checks=checks,
+                states={"t1": (1, 64, 64, 4), "t2": (4, 64, 64, 3)})
 
 
 def parallel_path(dev, smi: str) -> dict:
@@ -3888,9 +4101,9 @@ def main() -> int:
                                        fwd_ptxas.items(), ln_ptxas.items()):
         log(f"  ptxas {kernel}: {regs} registers, {spill} bytes spilled")
 
-    # the score_sde demo (path S's) runs in the background from here, beside
+    # T3, the score_sde notebook, runs in the background from here, beside
     # the phases that check and count but time nothing (3-7b)
-    demo = start_demo()
+    t3 = start_score_sde_notebook()
 
     # ---- 3. kernels against their plain versions ---------------------------
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
@@ -6126,7 +6339,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7h starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
-    path_r = cli_path(dev, smi)
+    r_dir = Path(tempfile.mkdtemp(prefix="path_r_"))   # its checkpoint and CLIP: path T1's too
+    try:
+        path_r = cli_path(dev, smi, r_dir)
+    except BaseException:
+        shutil.rmtree(r_dir, ignore_errors=True)
+        raise
     torch.set_grad_enabled(False)
     torch.cuda.empty_cache()
     # each kernel at each spec the float txt2img call gave it (bf16: the UNet at
@@ -6147,13 +6365,53 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  checked in {time.perf_counter() - t1:.1f} s")
 
+    # ---- 7j. path T: the DiffEdit and cin256 notebooks on the card ----------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7j")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        path_t = notebook_path(dev, smi, path_r["ckpt"], path_r["clip"])
+    finally:
+        shutil.rmtree(r_dir, ignore_errors=True)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    # each kernel at each spec the notebooks' runs gave it (bf16), against its
+    # plain version at the phase-3 bounds; the fused update at their states
+    t1 = time.perf_counter()
+    for run, seen in path_t["specs"].items():
+        log(f"path {run.upper()}'s kernels at their {len(seen)} specs, bf16, vs plain:")
+        for name, spec in sorted(seen, key=str):
+            if name == "conv3x3":
+                check_conv(spec, torch.bfloat16, dx=False)
+            elif name == "token_attention":
+                check_attention(spec, torch.bfloat16)
+            elif name == "ln_linear":
+                check_ln_linear(*spec, torch.bfloat16, bias=False)
+            else:
+                check_geglu(*spec, torch.bfloat16)
+        check_fused(path_t["states"][run])
+    torch.cuda.empty_cache()
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
+
     # ---- 7i. path S: parallelism -------------------------------------------------
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 7i")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7i starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     path_s = parallel_path(dev, smi)
-    finish_demo(demo)
+    path_t3 = finish_score_sde_notebook(t3, smi)
+    # T3's kernels at the specs its NCSN++ recorded, in fp32 as it ran: the
+    # conv with its dx, the attention forward, its lse and the backward (the
+    # bits/dim's vjp) at BWD_BOUND
+    t1 = time.perf_counter()
+    log(f"path T3's kernels at their {len(path_t3['specs'])} specs, fp32, vs plain:")
+    for name, spec in sorted(path_t3["specs"], key=str):
+        if name == "conv3x3":
+            check_conv(spec, torch.float32, dx=True)
+        else:
+            check_attention(spec, torch.float32)
+            check_attention_bwd(spec, torch.float32, BWD_BOUND["float32"])
+    log(f"  checked in {time.perf_counter() - t1:.1f} s")
     torch.set_grad_enabled(False)
     torch.cuda.empty_cache()
     # each kernel at each spec path S's sharded calls gave it (a rank's rows,
@@ -6490,11 +6748,12 @@ def main() -> int:
              "e": launches_e, "sd1": launches_s1, "f": launches_f, "g": launches_g,
              "h": launches_h, "h_ddpm": launches_hd, "i": launches_i, "i_remat": launches_ir,
              "i_cin256": launches_ic, **surface["launches"], **fse["launches"],
-             "q": path_q["launches"], **path_r["launches"], "s": path_s["launches"]}
+             "q": path_q["launches"], **path_r["launches"], "s": path_s["launches"],
+             **path_t["launches"], "t3": path_t3["launches"]}
     routes = {"a": routes_a, "b": routes_b, "c": routes_c, "d": routes_d, "e": routes_e,
               "sd1": routes_s1, "f": routes_f, "g": routes_g, "h": routes_h,
               "i": routes_i, "i_cin256": routes_ic, **surface["routes"], **fse["routes"],
-              "q": path_q["routes"], **path_r["routes"]}
+              "q": path_q["routes"], **path_r["routes"], **path_t["routes"]}
 
     # the head dims each attention kernel takes, by dtype
     head_dims = {name: {"float32": list(dims), "bfloat16": list(dims)}
@@ -6549,6 +6808,10 @@ def main() -> int:
                                    "int8": path_r["int8"]}, "card": smi}))
     log(json.dumps({"parallel_path_s": {"walls": path_s["walls"], "ranks": path_s["ranks"],
                                         "allreduce_share": path_s["allreduce_share"]},
+                    "card": smi}))
+    log(json.dumps({"notebooks_path_t": {"walls": dict(path_t["walls"], t3_s=path_t3["wall_s"]),
+                                         "checks": path_t["checks"],
+                                         "t3_display_cell_ran": path_t3["displayed"]},
                     "card": smi}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -8,7 +8,9 @@ inversion), then resample with the masked `correcting_xt_fn` blend
 (cells 5-13).
 
 With no --ckpt a tiny random-weight SD-shaped bundle runs the whole flow on a
-synthetic image; pass an SD checkpoint and a CLIP directory for real edits.
+synthetic image (at the UNet's own size: 512 px for SD-1, where the JAX demo
+takes the first stage's 256 px training crop); pass an SD checkpoint and a
+CLIP directory for real edits.
 
 Run: python -m dpm_solver_tpu_torch.examples.diffedit_demo --src "a bowl of apples" \
          --dst "a bowl of oranges" [--init-img img.png] [--device cpu]
@@ -45,7 +47,10 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.ckpt:
         text = FrozenCLIPEmbedder(args.clip, device=dev) if args.clip else None
-        ldm = load_sd_checkpoint(args.ckpt, text_encode=text, device=dev)
+        # bf16 on the card, fp32 on the CPU, as the CLI's latent subcommands
+        ldm = load_sd_checkpoint(args.ckpt, text_encode=text, device=dev,
+                                 compute_dtype=torch.bfloat16 if dev.type == "cuda"
+                                 else torch.float32)
     else:
         print("no --ckpt: tiny random-weight bundle (structure demo only)")
         ldm = tiny_sd_bundle(dev, 16, text_encode=constant_context_encoder(16))
@@ -56,8 +61,9 @@ def main(argv=None):
         arr = np.asarray(Image.open(args.init_img).convert("RGB"), np.float32) / 255.0
         init = arr[None] * 2.0 - 1.0
     else:
-        # a synthetic image at the first stage's resolution
-        r = ldm.vae.config.resolution
+        # a synthetic image at the UNet's own size (SD-1: 64x64 latents, 512 px);
+        # the first stage's config resolution (256 for SD's) is its training crop
+        r = ldm.unet.config.image_size * 2 ** (len(ldm.vae.config.ch_mult) - 1)
         yy, xx = np.mgrid[0:r, 0:r].astype(np.float32) / r
         init = np.stack([np.sin(7 * yy), np.cos(5 * xx), yy * xx], -1)[None] * 0.8
     init = torch.from_numpy(np.ascontiguousarray(init, np.float32)).to(dev)

@@ -8,7 +8,8 @@ save a grid.
 
 With no --ckpt a tiny random-weight bundle runs the whole flow; pass a
 CompVis cin256 checkpoint (and its embed dim and class count) for real
-samples.
+samples: its class embeddings (`cond_stage_model.embedding.weight`) condition
+the samples, where the JAX demo draws a fresh random table.
 
 Run: python -m dpm_solver_tpu_torch.examples.latent_imagenet_demo \
          --classes 25,187,448,992 [--device cpu]
@@ -39,23 +40,37 @@ def main(argv=None):
 
     from dpm_solver_tpu_torch.models import ClassEmbedder
     from dpm_solver_tpu_torch.pipelines import class_conditional_sample, load_sd_checkpoint
+    from dpm_solver_tpu_torch.utils.convert import load_torch_state_dict
     from dpm_solver_tpu_torch.utils.device import resolve_device
     from dpm_solver_tpu_torch.utils.logging import image_grid
 
     dev = resolve_device(args.device)
     labels = np.asarray([int(c) for c in args.classes.split(",")])
+    table = None
     if args.ckpt:
         # the cin256 preset: the VQ-f4 first stage, the 192-channel
         # cross-attention UNet and the 0.0015..0.0195 schedule
         # (configs/latent-diffusion/cin256-v2.yaml)
-        ldm = load_sd_checkpoint(args.ckpt, preset="cin256", device=dev)
+        sd = load_torch_state_dict(args.ckpt)
+        # bf16 on the card, fp32 on the CPU, as the CLI's latent subcommands
+        ldm = load_sd_checkpoint(sd, preset="cin256", device=dev,
+                                 compute_dtype=torch.bfloat16 if dev.type == "cuda"
+                                 else torch.float32)
         embed_dim = args.embed_dim
+        # the trained class embeddings: the conditioner's table in the checkpoint
+        table = sd.get("cond_stage_model.embedding.weight")
+        if table is not None and tuple(table.shape) != (args.num_classes + 1, embed_dim):
+            raise ValueError(f"the checkpoint's class embedding is {tuple(table.shape)}, not "
+                             f"(--num-classes + 1, --embed-dim) = "
+                             f"{(args.num_classes + 1, embed_dim)}")
+        del sd
     else:
         print("no --ckpt: tiny random-weight bundle (structure demo only)")
         embed_dim = 16
         ldm = tiny_sd_bundle(dev, embed_dim)
     # the cin256 convention: class id n_classes is the unconditional token
-    embedder = ClassEmbedder(args.num_classes + 1, embed_dim, device=dev)
+    embedder = ClassEmbedder(args.num_classes + 1, embed_dim, device=dev,
+                             embedding=None if table is None else table.float().numpy())
     with torch.no_grad():
         imgs = class_conditional_sample(ldm, embedder, labels, steps=args.steps,
                                         guidance_scale=args.scale, uncond_label=args.num_classes,

@@ -54,6 +54,9 @@ from dpm_solver_tpu_torch.ops.fused_update import fused_update, fused_update_pla
 from dpm_solver_tpu_torch.ops.geglu import geglu_ff, geglu_plain, geglu_vjp, gelu_exact
 from dpm_solver_tpu_torch.ops.ln_linear import (layer_norm_fp32, ln_linear, ln_linear_plain,
                                                ln_linear_vjp)
+from dpm_solver_tpu_torch.ops.resample import (conv_downsample_2d, downsample_2d,
+                                              mean_downsample_2d, nearest_upsample_2d, upfirdn2d,
+                                              upsample_2d, upsample_conv_2d)
 
 KERNELS = (conv3x3, token_attention, fused_update, ln_linear, geglu_ff, attention_lse,
            attention_dq, attention_dkv, conv3x3_dx, fused_bias_act, fused_bias_act_bwd,
@@ -95,6 +98,8 @@ __all__ = [
     "conv3x3",
     "conv3x3_dx",
     "conv3x3_plain",
+    "conv_downsample_2d",
+    "downsample_2d",
     "fused_bias_act",
     "fused_bias_act_bwd",
     "fused_update",
@@ -109,6 +114,11 @@ __all__ = [
     "ln_linear",
     "ln_linear_plain",
     "ln_linear_vjp",
+    "mean_downsample_2d",
+    "nearest_upsample_2d",
     "reset_launch_counts",
     "token_attention",
+    "upfirdn2d",
+    "upsample_2d",
+    "upsample_conv_2d",
 ]

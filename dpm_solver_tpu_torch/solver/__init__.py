@@ -1,3 +1,4 @@
+from dpm_solver_tpu_torch.solver.adaptive import adaptive_sample
 from dpm_solver_tpu_torch.solver.correctors import make_dynamic_thresholding
 from dpm_solver_tpu_torch.solver.plan import (
     PlanRows,
@@ -22,6 +23,7 @@ __all__ = [
     "GraphedSampler",
     "PlanRows",
     "SamplePlan",
+    "adaptive_sample",
     "build_multistep_plan",
     "build_sampler",
     "build_singlestep_plan",

@@ -307,3 +307,19 @@ def tensor_parallel_rank(rank, world):
             heads={n: m.heads for n, m in model.named_modules() if hasattr(m, "dim_head")},
             state={k: v.numpy() for k, v in full.state_dict().items()} if rank == 0 else None)
     return out
+
+
+def aborting_rank(rank, world, text):
+    """Rank `world - 1` writes `text` to its stderr and aborts (SIGABRT, no
+    Python traceback); the others wait at a barrier for it."""
+    import os
+    import sys
+
+    import torch.distributed as dist
+
+    if rank == world - 1:
+        sys.stderr.write(text + "\n")
+        sys.stderr.flush()
+        os.abort()
+    dist.barrier()
+    return rank

@@ -2,8 +2,9 @@
 
 - An AST scan: no file under dpm_solver_tpu_torch/ (the training package,
   configs.py, run_lib.py, data.py, native/, utils/lmdb*.py, the CLI, the
-  int8 path and the host utilities among them),
-  and not chip_smoke.py, imports jax, flax, optax, orbax or dpm_solver_tpu
+  int8 path, the host utilities and the notebook generator among them),
+  no code cell of its notebooks, and not chip_smoke.py, imports jax, flax,
+  optax, orbax or dpm_solver_tpu
   (a `sys.modules` check cannot show it: the test process imports jax
   anyway), nor tensorflow (not even inside a function), transformers,
   regex, ftfy or safetensors: the port depends on PyTorch alone.
@@ -122,7 +123,25 @@ def test_the_parallel_dryrun_and_demo_modules_are_scanned():
             "parallel/multihost.py", "parallel/tp.py", "parallel/zero.py",
             "parallel/launch.py", "utils/graphs.py", "dryrun.py",
             "examples/score_sde_demo.py", "examples/latent_imagenet_demo.py",
-            "examples/diffedit_demo.py"} <= names
+            "examples/diffedit_demo.py", "examples/make_notebooks.py"} <= names
+
+
+NOTEBOOKS = sorted((PKG / "examples").glob("*.ipynb"))
+
+
+@pytest.mark.parametrize("path", NOTEBOOKS, ids=lambda p: p.name)
+def test_notebook_cells_never_import_jax(path):
+    """The notebooks' code cells, each parsed as the module a kernel runs,
+    import nothing of JAX or the JAX package (the demos they run are
+    scanned above)."""
+    import json
+
+    cells = [c for c in json.loads(path.read_text())["cells"] if c["cell_type"] == "code"]
+    assert len(NOTEBOOKS) == 3 and cells
+    for i, cell in enumerate(cells):
+        tree = ast.parse("".join(cell["source"]), f"{path.name}[{i}]")
+        roots = set(_imported_roots(tree))
+        assert not roots & set(FORBIDDEN), f"{path.name} cell {i} imports {roots & set(FORBIDDEN)}"
 
 
 @pytest.mark.parametrize("quant", ["w8a8", "w8a8_conv"])

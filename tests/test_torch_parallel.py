@@ -277,6 +277,18 @@ def test_run_lib_train_takes_a_mesh(tmp_path, monkeypatch):
                                    atol=3 * lr, err_msg=k)
 
 
+def test_run_ranks_names_a_native_abort_by_its_stderr(tmp_path):
+    """A rank that dies in native code leaves no traceback: the error names
+    the rank and its exit code, and carries what it wrote to its stderr."""
+    text = "the rank's last words before its abort"
+    with pytest.raises(RuntimeError) as e:
+        run_ranks(W.aborting_rank, 2, args=(text,), threads=1, timeout=TIMEOUT,
+                  directory=str(tmp_path))
+    msg = str(e.value)
+    assert "rank 1 of 2" in msg and "exit code -6" in msg and text in msg, msg
+    assert "not written its result" in msg, msg
+
+
 def test_cli_sample_devices_matches_one_device(tmp_path):
     from dpm_solver_tpu_torch import cli
 
